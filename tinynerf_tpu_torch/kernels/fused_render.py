@@ -1,0 +1,216 @@
+"""Fused TinyNeRF render: rays -> depths -> points -> encoding -> MLP ->
+composite, in one CUDA kernel (csrc/fused_render.cu).
+
+Replaces the Pallas TPU kernel tinynerf_tpu/kernels/fused_render.py:211
+(fused_render_rays; body _fused_kernel, in-kernel scans from
+tinynerf_tpu/kernels/scans.py).
+
+What bounds it on an H100: arithmetic. Each sample point costs about
+66k multiply-adds in the MLP (63->128, 128->128, 191->128, 128->128 and
+the 4-wide head) against 24 bytes of ray input per 64 points, so the
+unfused composition is bound instead by the device-memory traffic of
+its (points, 191) activations. The kernel keeps every point, encoding
+and activation of a tile in shared memory and writes only (R, 4) back,
+so it moves ~40 bytes per ray and runs on the CUDA cores' f32 FMA rate.
+A register-tiled 8x8 product per thread is the simple first design;
+tensor cores (wgmma) are the next step for speed.
+
+Layout: the TPU kernel's feature-major, sample-major lanes, roll scans
+and k-major encoding permutation are not carried over. A block holds
+TR rays x S samples as point rows, computes the encoding directly in
+the model's interleaved order, and one thread walks each ray's samples
+front to back for the transmittance.
+
+fused_render_rays_plain is the same computation in torch ops: the CPU
+path of the wrapper and the reference the kernel is checked against on
+the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_in_dims
+from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
+from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
+
+# Points per block: TR = TILE_POINTS // S rays of S samples each.
+TILE_POINTS = 128
+MAX_SMEM_BYTES = 232448  # H100: 227 KB of dynamic shared memory per block
+
+
+def fused_render_rays_plain(
+    params: TinyNeRF,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    num_freqs: int = 10,
+    white_bkgd: bool = True,
+    model_cfg: Optional[TinyNeRFConfig] = None,
+) -> torch.Tensor:
+    """The kernel's semantics in torch ops -> composite RGB (R, 3).
+
+    Analytic linspace depths z = near(1-t) + far t, t = s/(S-1), and
+    uniform deltas (far-near)/(S-1) with the 1e10 terminal, times ||d||.
+    """
+    cfg = model_cfg or params.cfg
+    S = n_samples
+    dev = rays_o.device
+    s = torch.arange(S, dtype=torch.float32, device=dev)
+    t = s / (S - 1)
+    z = near * (1.0 - t) + far * t  # (S,)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z[None, :, None]  # (R, S, 3)
+    enc = positional_encoding(pts.reshape(-1, 3), num_freqs=num_freqs)
+    rgb, sigma = params(enc, cfg)
+    R = rays_o.shape[0]
+    rgb = rgb.reshape(R, S, 3)
+    sigma = sigma.reshape(R, S)
+
+    norm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)  # (R, 1)
+    base = (far - near) / (S - 1)
+    delta = torch.where(s == S - 1, DELTA_INF, base) * norm  # (R, S)
+    one_m = torch.exp(-sigma * delta) + TRANS_EPS
+    alpha = 1.0 - (one_m - TRANS_EPS)
+    trans = torch.cumprod(one_m, dim=-1)
+    trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
+    w = alpha * trans
+    comp = torch.sum(w[..., None] * rgb, dim=-2)
+    if white_bkgd:
+        comp = comp + (1.0 - torch.sum(w, dim=-1, keepdim=True))
+    return comp
+
+
+def pack_weights(params: TinyNeRF, cfg: TinyNeRFConfig) -> torch.Tensor:
+    """All weights as one f32 buffer in the kernel's order: per trunk
+    layer W (in, out) then b, then the head W (hidden, 4) with columns
+    r, g, b, sigma, then its bias. Weights are rounded to bf16 when the
+    compute dtype is bf16; biases stay f32."""
+
+    def w(lin):
+        return lin.weight.detach().to(cfg.compute_dtype).float().t()
+
+    parts = []
+    for lin in params.layers:
+        parts += [w(lin).reshape(-1), lin.bias.detach().float()]
+    head_w = torch.cat([w(params.rgb[0]), w(params.sigma[0])], dim=1)  # (hidden, 4)
+    head_b = torch.cat([params.rgb[0].bias, params.sigma[0].bias]).detach().float()
+    parts += [head_w.reshape(-1), head_b]
+    return torch.cat(parts).contiguous()
+
+
+def _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg) -> int:
+    """Validate what the kernel takes; returns the rays per tile."""
+    for name, x in (("rays_o", rays_o), ("rays_d", rays_d)):
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.dim() != 2 or x.shape[1] != 3:
+            raise ValueError(f"{name} must be (R, 3), got {tuple(x.shape)}")
+    if rays_o.shape != rays_d.shape or rays_o.device != rays_d.device:
+        raise ValueError("rays_o and rays_d must have the same shape and device")
+    p = next(params.parameters())
+    if p.device != rays_o.device:
+        raise ValueError(f"params on {p.device}, rays on {rays_o.device}")
+    if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got {cfg.compute_dtype}")
+    if cfg.in_dim != encoding_dim(num_freqs) or params.layers[0].in_features != cfg.in_dim:
+        raise ValueError(f"in_dim {cfg.in_dim} does not match num_freqs={num_freqs}")
+    if [lin.in_features for lin in params.layers] != layer_in_dims(cfg):
+        raise ValueError("params do not match model_cfg (depth/skip_at/hidden)")
+    if cfg.hidden % 8 or not 0 <= cfg.skip_at < cfg.depth:
+        raise ValueError(
+            f"kernel needs hidden % 8 == 0 and 0 <= skip_at < depth, got {cfg}"
+        )
+    if n_samples < 2:
+        raise ValueError(f"n_samples must be >= 2, got {n_samples}")
+    tile = max(1, TILE_POINTS // n_samples)
+    lib = _lib()
+    threads = lib.tinynerf_fused_render_threads(tile, n_samples, cfg.hidden)
+    smem = lib.tinynerf_fused_render_smem_bytes(tile, n_samples, num_freqs, cfg.hidden)
+    if threads > lib.tinynerf_fused_render_max_threads() or smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"tile of {tile} rays x {n_samples} samples at hidden {cfg.hidden} "
+            f"needs {threads} threads and {smem} B of shared memory: too large"
+        )
+    return tile
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (first use) and load csrc/fused_render.cu, typed for ctypes:
+    every pointer and the stream as c_void_p, or ctypes would cut them
+    to 32 bits."""
+    from tinynerf_tpu_torch.kernels import _build
+
+    lib = _build.load("fused_render")
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.tinynerf_fused_render.argtypes = [p, p, p, p] + [i] * 7 + [f, f, i, i, p]
+    lib.tinynerf_fused_render.restype = i
+    lib.tinynerf_fused_render_smem_bytes.argtypes = [i, i, i, i]
+    lib.tinynerf_fused_render_smem_bytes.restype = i
+    lib.tinynerf_fused_render_threads.argtypes = [i, i, i]
+    lib.tinynerf_fused_render_threads.restype = i
+    lib.tinynerf_fused_render_max_threads.argtypes = []
+    lib.tinynerf_fused_render_max_threads.restype = i
+    lib.tinynerf_cuda_error_string.argtypes = [i]
+    lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fused_render_rays(
+    params: TinyNeRF,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    num_freqs: int = 10,
+    white_bkgd: bool = True,
+    model_cfg: Optional[TinyNeRFConfig] = None,
+) -> torch.Tensor:
+    """Deterministic fused render of a ray batch -> composite RGB (R, 3).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    fused_render_rays_plain. `model_cfg` defaults to params.cfg.
+    """
+    cfg = model_cfg or params.cfg
+    kw = dict(n_samples=n_samples, near=near, far=far, num_freqs=num_freqs,
+              white_bkgd=white_bkgd, model_cfg=cfg)
+    if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
+        return fused_render_rays_plain(params, rays_o, rays_d, **kw)
+    tile = _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg)
+
+    R = rays_o.shape[0]
+    pad = -R % tile
+    dev = rays_o.device
+    o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)]).contiguous()
+    d = torch.cat([rays_d, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(pad, 3)])
+    d = d.contiguous()
+    wts = pack_weights(params, cfg)
+    out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().tinynerf_fused_render(
+        o.data_ptr(), d.data_ptr(), wts.data_ptr(), out.data_ptr(),
+        R + pad, tile, n_samples, num_freqs, cfg.hidden, cfg.depth, cfg.skip_at,
+        float(near), float(far), int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
+    )
+    if err != 0:
+        msg = _lib().tinynerf_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused_render kernel launch failed: CUDA error {err} ({msg})")
+    fused_render_rays.launches += 1
+    comp = out[:R, :3]
+    if white_bkgd:
+        comp = comp + (1.0 - out[:R, 3:4])
+    return comp
+
+
+fused_render_rays.launches = 0  # kernel launches since the last reset

@@ -15,6 +15,24 @@ Phases, each printed with its result and time:
                 from it with `tinynerf_tpu_torch.make_gif`; count again.
   5. timing   - steady-state time of one 100x100 image and of one
                 8192-ray batch through each kernel and its plain version.
+  6. build    - the train kernel fused_train.cu (its nvcc runs beside
+                phase 1's), with ptxas's register and spill counts.
+  7. kernel   - K2 against its plain version at the train path's shapes
+                (2048 rays of a synthetic view, 64 samples, hidden 128,
+                L=10, deterministic depths), f32 and bf16; two launches
+                with one seed are bit-identical, another seed differs.
+  8. jitter   - K2's own depth draws (the probe entry point): every z in
+                its bin, uniform in the bin (mean, variance, deciles),
+                adjacent ray tiles uncorrelated, seed replay, and no
+                dependence on the tile size.
+  9. train    - `tinynerf_tpu_torch.train` in process, 1000 steps of 2048
+                rays at full width, bf16, tail holdout 4: fused (K2 must
+                launch 1000 times, K1 must render) and eager; each run's
+                train PSNR must rise >= 3 dB and the held-out PSNRs agree
+                within 1.5 dB; then the fused run resumes to 1200 steps.
+ 10. timing   - one 2048-ray K2 call against its plain version (f32,
+                bf16), and steps/s and rays/s of the train loop, fused
+                against eager.
 
 Exits non-zero without printing a result when there is no CUDA device,
 when the package is missing, or when any phase fails. The line before
@@ -25,17 +43,23 @@ Artifacts go to outputs/chip_smoke/.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 OUT_DIR = os.path.join("outputs", "chip_smoke")
 N_RAYS = 8192
 N_SAMPLES = 64
+N_RAYS_TRAIN = 2048  # rays per train step (the reference recipe)
+TRAIN_ITERS = 1000
+TIMED_STEPS = 50
 # Per-ray max-channel error gates. bf16: the JAX package's own render
 # parity gates (bench.py:707-718); the tail gate counts rays whose last
 # sample's density sits at the ReLU boundary, where the 1e10 terminal
@@ -71,6 +95,14 @@ def within(err: dict, dtype: torch.dtype) -> bool:
     )
 
 
+def card_line() -> str:
+    """The card's name and power limit, exactly as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
     """Mean milliseconds per call, by CUDA events, after a warm-up."""
     for _ in range(3):
@@ -84,12 +116,19 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def run() -> dict:
+def timed_build(name: str):
+    from tinynerf_tpu_torch.kernels import _build
+
+    t0 = time.time()
+    lib = _build.build(name)
+    return lib, time.time() - t0
+
+
+def run(build_render) -> dict:
     from tinynerf_tpu_torch import main as main_mod
     from tinynerf_tpu_torch import make_gif as gif_mod
     from tinynerf_tpu_torch.config import Config
     from tinynerf_tpu_torch.data import ensure_data
-    from tinynerf_tpu_torch.kernels import _build
     from tinynerf_tpu_torch.kernels.fused_render import fused_render_rays, fused_render_rays_plain
     from tinynerf_tpu_torch.models.tinynerf import TinyNeRF
     from tinynerf_tpu_torch.ops.camera import spiral_poses
@@ -103,16 +142,12 @@ def run() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)  # name, power limit: exactly as nvidia-smi prints them
 
     # 1. build
-    t0 = time.time()
-    lib = _build.build("fused_render")
-    print(f"[build] fused_render.cu -> {lib.name} in {time.time() - t0:.2f}s", flush=True)
+    lib, secs = build_render.result()
+    print(f"[build] fused_render.cu -> {lib.name} in {secs:.2f}s", flush=True)
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
     # 2. kernel against its plain version, at the main path's shapes
@@ -213,11 +248,217 @@ def run() -> dict:
     }
 
 
+def leaf_errors(got, want) -> dict:
+    """Worst per-leaf errors of a gradient list against its reference."""
+    return {
+        "max_abs": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+        "max_rel_to_leaf": max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                               for g, w in zip(got, want)),
+        "min_cosine": min(float((g * w).sum() / (g.norm() * w.norm()).clamp_min(1e-30))
+                          for g, w in zip(got, want)),
+    }
+
+
+def logged_psnrs(path: str) -> list:
+    with open(path) as f:
+        return [r["psnr"] for r in map(json.loads, f) if "psnr" in r]
+
+
+def run_train(build_train) -> dict:
+    from tinynerf_tpu_torch import train as train_mod
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.data import ensure_data
+    from tinynerf_tpu_torch.kernels.fused_render import fused_render_rays
+    from tinynerf_tpu_torch.kernels.fused_train import (
+        depth_grid, fused_loss_grads, fused_loss_grads_plain, jitter_probe, make_fused_grad_fn,
+    )
+    from tinynerf_tpu_torch.models.tinynerf import TinyNeRF
+    from tinynerf_tpu_torch.ops.rays import get_rays, get_rays_for_poses
+    from tinynerf_tpu_torch.training import init_train_state, make_train_block
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+
+    # 6. build
+    lib, secs = build_train.result()
+    print(f"[build] fused_train.cu -> {lib.name} in {secs:.2f}s (nvcc beside fused_render.cu)",
+          flush=True)
+    print(lib.with_suffix(".log").read_text().strip(), flush=True)
+
+    # 7. K2 against its plain version at the train path's shapes
+    t0 = time.time()
+    data_path = os.path.join(OUT_DIR, "absent.npz")  # phase 3's synthetic scene
+    d = ensure_data(data_path, device=dev)
+    images = torch.from_numpy(d["images"]).to(dev)
+    poses = torch.from_numpy(d["poses"]).to(dev)
+    focal = float(d["focal"])
+    n_images, H, W, _ = images.shape
+    rays_o, rays_d = get_rays(H, W, focal, poses[0])
+    idx = torch.randperm(H * W, generator=torch.Generator().manual_seed(0))[:N_RAYS_TRAIN].to(dev)
+    ro, rd = rays_o[idx].contiguous(), rays_d[idx].contiguous()
+    tgt = images[0].reshape(-1, 3)[idx].contiguous()
+    kw = dict(n_samples=N_SAMPLES, near=2.0, far=6.0, num_freqs=10)
+    errs, models = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = Config(bf16=dtype == torch.bfloat16).model_cfg()
+        models[dtype] = model = TinyNeRF(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+        loss, grads = fused_loss_grads(model, ro, rd, tgt, 0, randomized=False, **kw)
+        torch.cuda.synchronize()
+        want_loss, want = fused_loss_grads_plain(model, ro, rd, tgt, 0, randomized=False, **kw)
+        check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads),
+              "K2 loss and gradients finite")
+        rel = abs(float(loss) - float(want_loss)) / float(want_loss)
+        errs[dtype] = err = {"loss": float(loss), "loss_rel": rel, **leaf_errors(grads, want)}
+        print(f"[kernel] fused_train {str(dtype)[6:]}: {json.dumps(err)}", flush=True)
+        if dtype == torch.float32:
+            check(rel < 1e-5 and err["max_rel_to_leaf"] <= 2e-4,
+                  "fused_train f32: loss rel < 1e-5, per-leaf |err| <= 2e-4 max|leaf|")
+        else:
+            check(rel < 1e-3 and err["min_cosine"] > 0.98,
+                  "fused_train bf16: loss rel < 1e-3, per-leaf cosine > 0.98")
+    model = models[torch.bfloat16]
+    runs = []
+    for seed in (11, 11, 12):
+        loss, grads = fused_loss_grads(model, ro, rd, tgt, seed, randomized=True, **kw)
+        runs.append((float(loss), [g.clone() for g in grads]))
+    same = runs[0][0] == runs[1][0] and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    differ = runs[0][0] != runs[2][0] and not torch.equal(runs[0][1][0], runs[2][1][0])
+    print(f"[kernel] fused_train jittered: seed 11 twice bit-identical {same}, "
+          f"seed 12 differs {differ} (losses {runs[0][0]}, {runs[1][0]}, {runs[2][0]})", flush=True)
+    check(same and differ, "K2 deterministic per seed, different across seeds")
+    print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 8. jitter statistics of K2's own depth draws
+    t0 = time.time()
+    R, S = 16384, N_SAMPLES
+    z = jitter_probe(123, R, S, 2.0, 6.0, tile=1, device=dev)
+    h = 4.0 / (S - 1)
+    grid = depth_grid(S, 2.0, 6.0, dev)
+    s = torch.arange(S, device=dev)
+    lower = torch.where(s == 0, grid, grid - 0.5 * h)
+    upper = torch.where(s == S - 1, grid, grid + 0.5 * h)
+    u = ((z - lower) / (upper - lower)).double()
+    n = u.numel()
+    deciles = (torch.histc(u.float(), bins=10, min=0.0, max=1.0) / n).tolist()
+    corr = float(torch.corrcoef(torch.stack([u[:-1].reshape(-1), u[1:].reshape(-1)]))[0, 1])
+    stats = {
+        "in_bin": bool(((z >= lower) & (z <= upper)).all()),
+        "mean": float(u.mean()), "var": float(u.var()), "deciles": deciles,
+        "adjacent_tile_corr": corr,
+        "replay": bool(torch.equal(z, jitter_probe(123, R, S, 2.0, 6.0, tile=1, device=dev))),
+        "new_seed_changed": float((z != jitter_probe(124, R, S, 2.0, 6.0, tile=1, device=dev))
+                                  .float().mean()),
+        "tile_independent": bool(torch.equal(z, jitter_probe(123, R, S, 2.0, 6.0, tile=16,
+                                                             device=dev))),
+    }
+    print(f"[jitter] {R}x{S} draws: {json.dumps(stats)}", flush=True)
+    # Gates at 6 standard errors of each statistic for n uniform draws.
+    check(stats["in_bin"], "every z in its bin")
+    check(abs(stats["mean"] - 0.5) < 6 / (12 * n) ** 0.5, "mean of u")
+    check(abs(stats["var"] - 1 / 12) < 6 * (1 / 180 / n) ** 0.5, "variance of u")
+    check(max(abs(q - 0.1) for q in deciles) < 6 * (0.09 / n) ** 0.5, "deciles of u")
+    check(abs(corr) < 6 / n ** 0.5, "adjacent ray tiles uncorrelated")
+    check(stats["replay"] and stats["new_seed_changed"] > 0.99 and stats["tile_independent"],
+          "seed replay, new seed, tile independence")
+    print(f"[jitter] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 9. the train path: python -m tinynerf_tpu_torch.train, in process
+    t0 = time.time()
+    runs = {}
+    for fused in (True, False):
+        name = "fused" if fused else "eager"
+        cfg = Config(data_path=data_path, out_dir=os.path.join(OUT_DIR, f"train_{name}"),
+                     iters=TRAIN_ITERS, holdout=4, resume=False,
+                     ckpt_path=os.path.join(OUT_DIR, f"train_{name}.npz"),
+                     metrics_path=os.path.join(OUT_DIR, f"train_{name}.jsonl"),
+                     fused_train=fused)
+        if os.path.exists(cfg.metrics_path):
+            os.unlink(cfg.metrics_path)
+        fused_loss_grads.launches = 0
+        fused_render_rays.launches = 0
+        res = train_mod.main(cfg)
+        k2, k1 = fused_loss_grads.launches, fused_render_rays.launches
+        psnrs = logged_psnrs(cfg.metrics_path)
+        rise = sum(psnrs[-5:]) / 5 - psnrs[0]
+        runs[name] = {"cfg": cfg, "k2": k2, "k1": k1, "rise": rise,
+                      "heldout": res["eval"]["psnr_mean"], "rays_per_sec": res["rays_per_sec"]}
+        print(f"[train] {name}: K2 launches {k2}, K1 launches {k1}, train PSNR "
+              f"{psnrs[0]:.2f} -> {sum(psnrs[-5:]) / 5:.2f} dB (rise {rise:.2f}), held-out "
+              f"{res['eval']['psnr_mean']:.2f} dB, {res['rays_per_sec']:,.0f} rays/s", flush=True)
+        check(rise >= 3.0, f"{name} train PSNR rises >= 3 dB")
+    check(runs["fused"]["k2"] == TRAIN_ITERS, "fused run launched K2 once per step")
+    check(runs["fused"]["k1"] > 0, "fused run rendered through K1")
+    check(runs["eager"]["k2"] == 0, "eager run did not launch K2")
+    gap = abs(runs["fused"]["heldout"] - runs["eager"]["heldout"])
+    print(f"[train] held-out PSNR fused vs eager: {gap:.3f} dB apart", flush=True)
+    check(gap <= 1.5, "fused and eager held-out PSNR within 1.5 dB")
+    resume_cfg = Config(**{**runs["fused"]["cfg"].__dict__, "iters": TRAIN_ITERS + 200,
+                           "resume": True})
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_mod.main(resume_cfg)
+    print(out.getvalue().strip(), flush=True)
+    check(f"from step {TRAIN_ITERS}" in out.getvalue() and "[resume]" in out.getvalue(),
+          f"resume prints [resume] ... from step {TRAIN_ITERS}")
+    print(f"[train] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 10. timing: plain, kernel, kernel, plain
+    t0 = time.time()
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        m = models[dtype]
+        fns = {
+            "kernel": lambda m=m: fused_loss_grads(m, ro, rd, tgt, 3, **kw),
+            "plain": lambda m=m: fused_loss_grads_plain(m, ro, rd, tgt, 3, **kw),
+        }
+        for name in ("plain", "kernel", "kernel", "plain"):
+            times.setdefault((str(dtype)[6:], name), []).append(cuda_ms(fns[name]))
+    ms = {k: min(v) for k, v in times.items()}
+    settings = Config().train_settings()
+    train_poses = poses[: n_images - 4]
+    rays_o_all, rays_d_all = get_rays_for_poses(H, W, focal, train_poses)
+    pixels = images[: n_images - 4].reshape(len(train_poses), H * W, 3)
+    step_s = {}
+    for name in ("eager", "fused", "fused", "eager"):
+        grad_fn = make_fused_grad_fn(settings) if name == "fused" else None
+        model, opt = init_train_state(torch.Generator().manual_seed(0), settings, device=dev)
+        block = make_train_block(settings, TIMED_STEPS, grad_fn=grad_fn)
+        block(model, opt, 0, 0, rays_o_all, rays_d_all, pixels)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.time()
+        block(model, opt, 0, TIMED_STEPS, rays_o_all, rays_d_all, pixels)
+        torch.cuda.synchronize()
+        step_s.setdefault(name, []).append(TIMED_STEPS / (time.time() - t1))
+    sps = {k: max(v) for k, v in step_s.items()}
+    print(f"[timing] {card}: {N_RAYS_TRAIN}-ray K2 call f32 kernel {ms['float32', 'kernel']:.4f} "
+          f"ms, plain {ms['float32', 'plain']:.4f} ms; bf16 kernel {ms['bfloat16', 'kernel']:.4f} "
+          f"ms, plain {ms['bfloat16', 'plain']:.4f} ms "
+          f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
+    print(f"[timing] {card}: train loop, {TIMED_STEPS} steps of {N_RAYS_TRAIN} rays, bf16: fused "
+          f"{sps['fused']:.2f} steps/s ({sps['fused'] * N_RAYS_TRAIN:,.0f} rays/s), eager "
+          f"{sps['eager']:.2f} steps/s ({sps['eager'] * N_RAYS_TRAIN:,.0f} rays/s) "
+          f"(all runs {json.dumps(step_s)})", flush=True)
+    print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
+
+    return {
+        "name": "fused_loss_grads",
+        "route": "cuda",
+        "source": "tinynerf_tpu_torch/csrc/fused_train.cu",
+        "replaces": "tinynerf_tpu/kernels/fused_train.py:263",
+        "launches": runs["fused"]["k2"],
+        "max_abs_err": errs[torch.bfloat16]["max_abs"],
+        "ms": ms["bfloat16", "kernel"],
+        "plain_ms": ms["bfloat16", "plain"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    kernels = [run()]
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, together
+        builds = {n: pool.submit(timed_build, n) for n in ("fused_render", "fused_train")}
+        kernels = [run(builds["fused_render"]), run_train(builds["fused_train"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,39 +1,59 @@
-"""Render configuration: the render-relevant fields of
-tinynerf_tpu/config.py:23-48, 137-171, with the same names, defaults and
-meaning, plus the device to run on.
+"""Render and training configuration: the TinyNeRF fields of
+tinynerf_tpu/config.py:26-48, 102, 137-160, 211-236, with the same
+names, defaults and meaning, plus the device to run on.
 
-One divergence: `fused` defaults to True here, because the fused CUDA
-kernel (kernels/fused_render.py) is the port's render route;
-`--no-fused` selects the eager composition of ops/ and models/, the
-counterpart of the JAX package's default XLA path.
+One divergence each for the two kernels: `fused` and `fused_train`
+default to True here, because the hand-written CUDA kernels are the
+port's render and train routes (kernels/fused_render.py,
+kernels/fused_train.py). `--no-fused` and `--no-fused-train` select the
+eager torch composition of ops/ and models/ (with autograd for
+training), the counterparts of the JAX package's default XLA paths.
+
+Fields that only the other model families, the parallel paths or the
+flagship training levers use are not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import encoding_dim
+from tinynerf_tpu_torch.training import TrainSettings
 
 
 @dataclass
 class Config:
+    iters: int = 20000  # total training steps
+    n_rand: int = 2048  # random rays per step
     n_samples: int = 64  # samples along each ray
+    lr: float = 5e-4
     near: float = 2.0
     far: float = 6.0
+    log_every: int = 50
+    preview_every: int = 500
+    ckpt_every: int = 1000
+    ckpt_path: str = "checkpoints/tinynerf_latest.npz"
     out_dir: str = "outputs"
+    resume: bool = True
+    preview_pose: Optional[int] = None  # None -> the pose after the last trained one
     hidden: int = 128
     depth: int = 4
     skip_at: int = 2
     num_freqs: int = 10
     seed: int = 0
     chunk: int = 8192  # rays per render chunk
+    sigma_noise_std: float = 0.0  # train-time N(0, std) noise on raw density pre-ReLU
     data_path: str = "data/tiny_nerf_data.npz"
     allow_synthetic: bool = True  # fall back to the procedural scene offline
     bf16: bool = True  # bfloat16 matmul inputs (f32 params and accumulation)
     fused: bool = True  # render through the fused CUDA kernel
+    fused_train: bool = True  # train through the fused CUDA fwd+bwd kernel
+    metrics_path: Optional[str] = None  # JSONL metrics log
+    holdout: int = 0  # trailing poses excluded from training, scored at the end
     device: str = "cuda"
 
     def model_cfg(self) -> TinyNeRFConfig:
@@ -43,4 +63,17 @@ class Config:
             depth=self.depth,
             skip_at=self.skip_at,
             compute_dtype=torch.bfloat16 if self.bf16 else torch.float32,
+        )
+
+    def train_settings(self) -> TrainSettings:
+        return TrainSettings(
+            n_rand=self.n_rand,
+            n_samples=self.n_samples,
+            near=self.near,
+            far=self.far,
+            num_freqs=self.num_freqs,
+            lr=self.lr,
+            white_bkgd=True,
+            sigma_noise_std=self.sigma_noise_std,
+            model_cfg=self.model_cfg(),
         )

@@ -1,0 +1,354 @@
+"""Fused TinyNeRF training step: jittered depths -> encoding -> MLP ->
+composite -> MSE -> backward to the parameter gradients, in one CUDA
+kernel launch per step (csrc/fused_train.cu).
+
+Replaces the Pallas TPU kernel tinynerf_tpu/kernels/fused_train.py:263
+(fused_loss_grads; body _fused_train_kernel, wrapper make_fused_grad_fn,
+per-ray scans from tinynerf_tpu/kernels/scans.py).
+
+What bounds it on an H100: arithmetic, as for the render kernel, with
+three products per layer instead of one (forward, weight gradient,
+upstream gradient). The unfused step is bound instead by moving every
+(points, 191) activation through device memory forward and back. The
+kernel keeps a tile's encoding and every layer's activations in shared
+memory, so only rays, targets, weights and one row of gradient partials
+per block touch device memory. The partial rows are summed by a second
+small kernel in a fixed order: no float atomics, so a step is
+bit-identical from launch to launch.
+
+The TPU kernel's lane layout (feature-major points, pltpu.repeat/roll
+scans, the k-major encoding permutation and its inverse on the
+gradients) is not carried over: the kernel computes the encoding in the
+model's own order and writes each gradient in nn.Linear's (out, in)
+layout, in model.parameters() order.
+
+fused_loss_grads_plain is the same function in torch ops with
+torch.autograd.grad: the CPU path of the wrapper, the tests' subject,
+and the reference the kernel is checked against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Optional, Tuple
+
+import torch
+
+from tinynerf_tpu_torch.kernels.fused_render import MAX_SMEM_BYTES, pack_weights
+from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_in_dims
+from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
+from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
+from tinynerf_tpu_torch.utils.metrics import mse2psnr
+
+# Points per tile: TR = TILE_POINTS // S rays of S samples (one ray at S=64).
+TILE_POINTS = 64
+
+
+def tile_rays(n_samples: int) -> int:
+    """Rays per kernel tile; the batch must be a multiple of it."""
+    return max(1, TILE_POINTS // n_samples)
+
+
+def depth_grid(n_samples: int, near: float, far: float, device) -> torch.Tensor:
+    """The kernel's un-jittered depths near + s*h, h = (far-near)/(S-1)
+    (not the renderer's near*(1-t) + far*t)."""
+    h = (far - near) / (n_samples - 1)
+    s = torch.arange(n_samples, dtype=torch.float32, device=device)
+    return near + h * s
+
+
+def fused_loss_grads_plain(
+    model: TinyNeRF,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    target: torch.Tensor,
+    seed,
+    *,
+    sigma_noise: Optional[torch.Tensor] = None,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    randomized: bool = True,
+    num_freqs: int = 10,
+    white_bkgd: bool = True,
+    model_cfg: Optional[TinyNeRFConfig] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The kernel's semantics in torch ops -> (loss, grads aligned to
+    model.parameters()).
+
+    randomized=False: the depth grid near + s*h. randomized=True: the
+    same stratified bins (first and last half-bins clamped), with u drawn
+    by a torch.Generator seeded with `seed` on the rays' device: the same
+    bins as the kernel's Philox draws, a different stream. sigma_noise
+    (R, S) is added to the raw density before the ReLU. Deltas are
+    z_next - z with the 1e10 terminal, times ||d||.
+    """
+    cfg = model_cfg or model.cfg
+    R, S = rays_o.shape[0], n_samples
+    dev = rays_o.device
+    grid = depth_grid(S, near, far, dev)
+    if randomized:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        u = torch.rand((R, S), generator=gen, dtype=torch.float32, device=dev)
+        h = (far - near) / (S - 1)
+        s = torch.arange(S, device=dev)
+        lower = torch.where(s == 0, grid, grid - 0.5 * h)
+        upper = torch.where(s == S - 1, grid, grid + 0.5 * h)
+        z = lower + (upper - lower) * u
+    else:
+        z = grid.expand(R, S)
+    norm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+    gap = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], DELTA_INF)], dim=-1)
+    delta = gap * norm
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    enc = positional_encoding(pts.reshape(-1, 3), num_freqs=num_freqs)
+    noise = None if sigma_noise is None else sigma_noise.reshape(-1, 1).float()
+    params = list(model.parameters())
+    with torch.enable_grad():
+        rgb, sigma = model(enc, cfg, sigma_noise=noise)
+        rgb = rgb.reshape(R, S, 3)
+        sigma = sigma.reshape(R, S)
+        one_m = torch.exp(-sigma * delta) + TRANS_EPS
+        alpha = 1.0 - (one_m - TRANS_EPS)
+        trans = torch.cumprod(one_m, dim=-1)
+        trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
+        w = alpha * trans
+        comp = torch.sum(w[..., None] * rgb, dim=-2)
+        if white_bkgd:
+            comp = comp + (1.0 - torch.sum(w, dim=-1, keepdim=True))
+        loss = torch.mean((comp - target.float()) ** 2)
+        grads = torch.autograd.grad(loss, params)
+    return loss.detach(), list(grads)
+
+
+def pack_backward_weights(model: TinyNeRF, cfg: TinyNeRFConfig) -> torch.Tensor:
+    """Trunk layers 1..depth-1, each W[:, :hidden] in nn.Linear's own
+    (out, in) layout (the rows the upstream gradient needs; the skip
+    layer's encoding rows get no gradient), rounded to compute_dtype."""
+    parts = [
+        lin.weight.detach()[:, : cfg.hidden].to(cfg.compute_dtype).float().reshape(-1)
+        for lin in list(model.layers)[1:]
+    ]
+    if not parts:
+        return torch.zeros(cfg.hidden * cfg.hidden, device=model.layers[0].weight.device)
+    return torch.cat(parts).contiguous()
+
+
+def grad_layout(cfg: TinyNeRFConfig) -> dict:
+    """Parameter name -> index tensor (the parameter's shape) into the
+    kernel's gradient layout, which is pack_weights' layout: per trunk
+    layer W (in, hidden) then b, then the head W (hidden, 4) with columns
+    r, g, b, sigma, then its 4 biases."""
+    h = cfg.hidden
+    out, off = {}, 0
+    for i, n_in in enumerate(layer_in_dims(cfg)):
+        out[f"layers.{i}.weight"] = off + torch.arange(n_in * h).reshape(n_in, h).t()
+        out[f"layers.{i}.bias"] = off + n_in * h + torch.arange(h)
+        off += (n_in + 1) * h
+    head = off + torch.arange(h * 4).reshape(h, 4).t()  # (4, hidden)
+    out["rgb.0.weight"], out["sigma.0.weight"] = head[:3], head[3:]
+    out["rgb.0.bias"] = off + 4 * h + torch.arange(3)
+    out["sigma.0.bias"] = off + 4 * h + torch.tensor([3])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_index(names: tuple, cfg: TinyNeRFConfig, device: torch.device) -> torch.Tensor:
+    """dst (n_grad + 1,) int32: kernel-layout index -> position in the
+    flat output (the parameters in `names` order, the loss last)."""
+    layout = grad_layout(cfg)
+    if sorted(names) != sorted(layout):
+        raise ValueError(f"unexpected parameters {names}")
+    src = torch.cat([layout[n].reshape(-1) for n in names])
+    n = src.numel()
+    dst = torch.empty(n + 1, dtype=torch.int64)
+    dst[src] = torch.arange(n)
+    dst[n] = n
+    return dst.to(torch.int32).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (first use) and load csrc/fused_train.cu, typed for ctypes:
+    every pointer and the stream as c_void_p."""
+    from tinynerf_tpu_torch.kernels import _build
+
+    lib = _build.load("fused_train")
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.tinynerf_fused_train.argtypes = [p] * 10 + [i] * 7 + [f] * 3 + [i] * 6 + [p]
+    lib.tinynerf_fused_train.restype = i
+    lib.tinynerf_fused_train_jitter.argtypes = [p, p, i, i, i, f, f, i, p]
+    lib.tinynerf_fused_train_jitter.restype = i
+    lib.tinynerf_fused_train_smem_bytes.argtypes = [i] * 5
+    lib.tinynerf_fused_train_smem_bytes.restype = i
+    lib.tinynerf_fused_train_threads.argtypes = []
+    lib.tinynerf_fused_train_threads.restype = i
+    lib.tinynerf_cuda_error_string.argtypes = [i]
+    lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        msg = _lib().tinynerf_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _seed_tensor(seed, device: torch.device) -> torch.Tensor:
+    """The int32 seed as one device int (a device tensor stays on the
+    device: no host sync)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.device != device or seed.numel() != 1:
+            raise ValueError(f"seed tensor must hold one value on {device}")
+        return seed.reshape(1).to(torch.int32).contiguous()
+    return torch.tensor([int(seed)], dtype=torch.int32, device=device)
+
+
+def _check_launch(model, tensors, n_samples, num_freqs, cfg) -> None:
+    dev = tensors["rays_o"].device
+    for name, x in tensors.items():
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, got {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    R = tensors["rays_o"].shape[0]
+    for name in ("rays_o", "rays_d", "target"):
+        if tuple(tensors[name].shape) != (R, 3):
+            raise ValueError(f"{name} must be ({R}, 3), got {tuple(tensors[name].shape)}")
+    if "sigma_noise" in tensors and tuple(tensors["sigma_noise"].shape) != (R, n_samples):
+        raise ValueError(f"sigma_noise must be ({R}, {n_samples})")
+    if next(model.parameters()).device != dev:
+        raise ValueError(f"model on {next(model.parameters()).device}, rays on {dev}")
+    if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got {cfg.compute_dtype}")
+    if cfg.in_dim != encoding_dim(num_freqs) or [l.in_features for l in model.layers] != layer_in_dims(cfg):
+        raise ValueError(f"model does not match model_cfg {cfg} at num_freqs={num_freqs}")
+    if cfg.hidden % 8 or not 0 <= cfg.skip_at < cfg.depth:
+        raise ValueError(f"kernel needs hidden % 8 == 0 and 0 <= skip_at < depth, got {cfg}")
+    smem = _lib().tinynerf_fused_train_smem_bytes(
+        tile_rays(n_samples), n_samples, num_freqs, cfg.hidden, cfg.depth)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"a tile of {tile_rays(n_samples)} rays x {n_samples} samples at hidden "
+            f"{cfg.hidden}, depth {cfg.depth} needs {smem} B of shared memory: too large"
+        )
+
+
+def fused_loss_grads(
+    model: TinyNeRF,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    target: torch.Tensor,
+    seed,
+    *,
+    sigma_noise: Optional[torch.Tensor] = None,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    randomized: bool = True,
+    num_freqs: int = 10,
+    white_bkgd: bool = True,
+    model_cfg: Optional[TinyNeRFConfig] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """One training step's (mse_loss, grads aligned to model.parameters()).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    fused_loss_grads_plain. `seed` is an int or a one-element int tensor
+    on the rays' device (the jitter's Philox key). The batch must be a
+    multiple of tile_rays(n_samples), else ValueError.
+    """
+    cfg = model_cfg or model.cfg
+    R = rays_o.shape[0]
+    tr = tile_rays(n_samples)
+    if R == 0 or R % tr:
+        raise ValueError(f"n_rand={R} must be a positive multiple of the ray tile {tr}")
+    if n_samples < 2:
+        raise ValueError(f"n_samples must be >= 2, got {n_samples}")
+    kw = dict(sigma_noise=sigma_noise, n_samples=n_samples, near=near, far=far,
+              randomized=randomized, num_freqs=num_freqs, white_bkgd=white_bkgd, model_cfg=cfg)
+    if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
+        return fused_loss_grads_plain(model, rays_o, rays_d, target, seed, **kw)
+    tensors = {"rays_o": rays_o, "rays_d": rays_d, "target": target}
+    if sigma_noise is not None:
+        tensors["sigma_noise"] = sigma_noise
+    _check_launch(model, tensors, n_samples, num_freqs, cfg)
+
+    dev = rays_o.device
+    seed_t = _seed_tensor(seed, dev)
+    w_fwd = pack_weights(model, cfg)
+    w_bwd = pack_backward_weights(model, cfg)
+    n_grad = w_fwd.numel()
+    n_blocks = min(R // tr, torch.cuda.get_device_properties(dev).multi_processor_count)
+    partials = torch.empty(n_blocks, n_grad + 1, dtype=torch.float32, device=dev)
+    out = torch.empty(n_grad + 1, dtype=torch.float32, device=dev)
+    names = tuple(n for n, _ in model.named_parameters())
+    dst = _scatter_index(names, cfg, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().tinynerf_fused_train(
+        rays_o.data_ptr(), rays_d.data_ptr(), target.data_ptr(),
+        None if sigma_noise is None else sigma_noise.data_ptr(), seed_t.data_ptr(),
+        w_fwd.data_ptr(), w_bwd.data_ptr(), partials.data_ptr(), dst.data_ptr(), out.data_ptr(),
+        R, tr, n_samples, num_freqs, cfg.hidden, cfg.depth, cfg.skip_at,
+        float(near), (far - near) / (n_samples - 1), 1.0 / (R * 3),
+        int(randomized), int(white_bkgd), int(cfg.compute_dtype == torch.bfloat16),
+        n_blocks, n_grad, dev.index, stream,
+    )
+    _raise_on(err, "fused_train kernel")
+    fused_loss_grads.launches += 1
+    grads, off = [], 0
+    for p in model.parameters():
+        grads.append(out[off:off + p.numel()].view(p.shape))
+        off += p.numel()
+    return out[n_grad], grads
+
+
+fused_loss_grads.launches = 0  # kernel launches since the last reset
+
+
+def jitter_probe(seed, n_rays: int, n_samples: int, near: float, far: float,
+                 tile: int, device) -> torch.Tensor:
+    """The depths (n_rays, n_samples) that the kernel's own sample_depth
+    draws for `seed`, computed in blocks of `tile` rays. For the jitter
+    statistics checks only (chip_smoke.py, the card tests)."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or n_rays % tile:
+        raise ValueError("jitter_probe needs a CUDA device and n_rays % tile == 0")
+    z = torch.empty(n_rays, n_samples, dtype=torch.float32, device=dev)
+    seed_t = _seed_tensor(seed, dev)
+    err = _lib().tinynerf_fused_train_jitter(
+        z.data_ptr(), seed_t.data_ptr(), n_rays, tile, n_samples, float(near),
+        (far - near) / (n_samples - 1), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "jitter probe")
+    return z
+
+
+def make_fused_grad_fn(s, randomized: bool = True):
+    """(model, ro, rd, target, generator, noise_scale=1.0) -> (loss,
+    metrics), writing each parameter's .grad: the drop-in for
+    training.loss_fn + backward. The generator draws the sigma-noise
+    (R, S) only when s.sigma_noise_std > 0, then the int32 kernel seed
+    (on the generator's device: no host sync)."""
+    noise_std = s.sigma_noise_std
+
+    def grad_fn(model, ro, rd, target, generator, noise_scale=1.0):
+        gdev = generator.device
+        noise = None
+        if noise_std > 0.0:
+            noise = noise_scale * noise_std * torch.randn(
+                (ro.shape[0], s.n_samples), generator=generator, dtype=torch.float32, device=gdev
+            ).to(ro.device)
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, dtype=torch.int32,
+                             device=gdev).to(ro.device)
+        loss, grads = fused_loss_grads(
+            model, ro, rd, target, seed, sigma_noise=noise, n_samples=s.n_samples,
+            near=s.near, far=s.far, randomized=randomized, num_freqs=s.num_freqs,
+            white_bkgd=s.white_bkgd, model_cfg=s.model_cfg,
+        )
+        for p, g in zip(model.parameters(), grads):
+            p.grad = g
+        return loss, {"loss": loss, "psnr": mse2psnr(loss)}
+
+    return grad_fn

@@ -90,9 +90,16 @@ class TinyNeRF(nn.Module):
                 u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
                 p.copy_((u * 2.0 - 1.0) * bound)
 
-    def forward(self, x: torch.Tensor, cfg: Optional[TinyNeRFConfig] = None):
+    def forward(
+        self,
+        x: torch.Tensor,
+        cfg: Optional[TinyNeRFConfig] = None,
+        sigma_noise: Optional[torch.Tensor] = None,
+    ):
         """Skip: concat [h, x] after the ReLU of layer (skip_at - 1).
-        `cfg` overrides the module's own compute_dtype/skip_at."""
+        `cfg` overrides the module's own compute_dtype/skip_at.
+        sigma_noise (N, 1) is train-time noise added to the raw density
+        before the ReLU (tinynerf_tpu/models/tinynerf.py:75-98)."""
         cfg = cfg or self.cfg
         dt = cfg.compute_dtype
         h = x
@@ -101,8 +108,10 @@ class TinyNeRF(nn.Module):
             if i == cfg.skip_at - 1:
                 h = torch.cat([h, x.to(h.dtype)], dim=-1)
         rgb = torch.sigmoid(dense(h, self.rgb[0], dt))
-        sigma = torch.relu(dense(h, self.sigma[0], dt))
-        return rgb, sigma
+        sigma_raw = dense(h, self.sigma[0], dt)
+        if sigma_noise is not None:
+            sigma_raw = sigma_raw + sigma_noise.to(sigma_raw.dtype)
+        return rgb, torch.relu(sigma_raw)
 
 
 def count_params(model: nn.Module) -> int:
@@ -129,7 +138,13 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def params_to_jax(model: nn.Module) -> Dict[str, Any]:
     """Inverse of params_from_jax: a JAX-layout tree of numpy arrays."""
-    sd = {k: v.detach().cpu().float().numpy() for k, v in model.state_dict().items()}
+    return state_to_jax(model.state_dict())
+
+
+def state_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A TinyNeRF state_dict-shaped mapping (parameters, or per-parameter
+    optimizer moments) -> a JAX-layout tree of numpy arrays."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state.items()}
 
     def lin(prefix):
         return {"b": sd[f"{prefix}.bias"].copy(), "w": sd[f"{prefix}.weight"].T.copy()}

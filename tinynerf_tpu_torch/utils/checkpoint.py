@@ -8,10 +8,17 @@ flatten order is
   layers[0].b, layers[0].w, ..., layers[D-1].w, rgb.b, rgb.w, sigma.b, sigma.w
 with every w stored (in, out).
 
-The port reads the parameters only (render consumers never need the
-optimizer state) and writes params-only checkpoints that the JAX
-package's restore_params accepts. Writes are atomic (temp file +
-rename).
+Training checkpoints (save_checkpoint / restore_checkpoint, port of
+:32-111) also carry optax.adam's state in the JAX layout, 1 + 2 *
+n_params leaves:
+  opt_0                       count, an int32 scalar
+  opt_1 .. opt_{n}            mu, in the params' flatten order, w as (in, out)
+  opt_{n+1} .. opt_{2n}       nu, likewise
+which map to torch.optim.Adam's per-parameter state "step", "exp_avg"
+and "exp_avg_sq" (weights transposed). A checkpoint written by either
+package resumes in the other. Render consumers read the parameters only
+(restore_params) and accept params-only checkpoints (save_params).
+Writes are atomic (temp file + rename).
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, params_from_jax, params_to_jax
+import torch
+
+from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, params_from_jax, params_to_jax, state_to_jax
 
 
 def param_struct(depth: int) -> str:
@@ -32,6 +41,16 @@ def param_struct(depth: int) -> str:
     return (
         f"PyTreeDef({{'layers': [{layers}], 'rgb': {{'b': *, 'w': *}}, "
         "'sigma': {'b': *, 'w': *}})"
+    )
+
+
+def opt_struct(depth: int) -> str:
+    """The JAX treedef string of optax.adam's state for a TinyNeRF of
+    `depth` layers: (ScaleByAdamState(count, mu, nu), EmptyState())."""
+    inner = param_struct(depth)[len("PyTreeDef("):-1]
+    return (
+        f"PyTreeDef((CustomNode(namedtuple[ScaleByAdamState], [*, {inner}, {inner}]), "
+        "CustomNode(namedtuple[EmptyState], [])))"
     )
 
 
@@ -55,22 +74,7 @@ def _unflatten(leaves: list, depth: int) -> Dict[str, Any]:
     }
 
 
-def save_params(path: str, model: TinyNeRF, step: int, meta: Optional[Dict[str, Any]] = None) -> None:
-    """Atomically write a params-only checkpoint (empty optimizer state)."""
-    leaves = _flatten(params_to_jax(model))
-    payload = {f"param_{i}": x for i, x in enumerate(leaves)}
-    payload["step"] = np.asarray(step, dtype=np.int64)
-    payload["meta"] = np.asarray(
-        json.dumps(
-            {
-                "meta": meta or {},
-                "param_struct": param_struct(len(model.layers)),
-                "opt_struct": "PyTreeDef({})",
-                "n_params": len(leaves),
-                "n_opt": 0,
-            }
-        )
-    )
+def _write(path: str, payload: Dict[str, np.ndarray]) -> None:
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
@@ -82,6 +86,51 @@ def save_params(path: str, model: TinyNeRF, step: int, meta: Optional[Dict[str, 
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+
+
+def _payload(model: TinyNeRF, opt_leaves: list, o_struct: str, step: int, meta) -> dict:
+    leaves = _flatten(params_to_jax(model))
+    payload = {f"param_{i}": x for i, x in enumerate(leaves)}
+    payload.update({f"opt_{i}": x for i, x in enumerate(opt_leaves)})
+    payload["step"] = np.asarray(step, dtype=np.int64)
+    payload["meta"] = np.asarray(
+        json.dumps(
+            {
+                "meta": meta or {},
+                "param_struct": param_struct(len(model.layers)),
+                "opt_struct": o_struct,
+                "n_params": len(leaves),
+                "n_opt": len(opt_leaves),
+            }
+        )
+    )
+    return payload
+
+
+def save_params(path: str, model: TinyNeRF, step: int, meta: Optional[Dict[str, Any]] = None) -> None:
+    """Atomically write a params-only checkpoint (empty optimizer state)."""
+    _write(path, _payload(model, [], "PyTreeDef({})", step, meta))
+
+
+def save_checkpoint(
+    path: str,
+    model: TinyNeRF,
+    optimizer: torch.optim.Adam,
+    step: int,
+    meta: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Atomically write params, Adam state (JAX layout), step and meta.
+    Before the first update the state is count 0 and zero moments."""
+    named = dict(model.named_parameters())
+    states = [optimizer.state.get(p, {}) for p in named.values()]
+    count = int(states[0]["step"]) if states[0] else 0
+    mu, nu = {}, {}
+    for (name, p), st in zip(named.items(), states):
+        mu[name] = st["exp_avg"] if st else torch.zeros_like(p)
+        nu[name] = st["exp_avg_sq"] if st else torch.zeros_like(p)
+    opt_leaves = [np.asarray(count, dtype=np.int32)]
+    opt_leaves += _flatten(state_to_jax(mu)) + _flatten(state_to_jax(nu))
+    _write(path, _payload(model, opt_leaves, opt_struct(len(model.layers)), step, meta))
 
 
 def read_meta(path: str) -> Dict[str, Any]:
@@ -115,3 +164,39 @@ def restore_params(path: str, model: TinyNeRF) -> Tuple[int, Dict[str, Any]]:
             )
     model.load_state_dict(state)
     return step, info["meta"]
+
+
+def restore_checkpoint(
+    path: str, model: TinyNeRF, optimizer: torch.optim.Adam
+) -> Tuple[int, Dict[str, Any]]:
+    """Load params and Adam state into `model` and `optimizer` in place.
+
+    Returns (step, meta). Raises ValueError when the stored optimizer
+    state is not optax.adam's for this model (a params-only checkpoint,
+    another optimizer chain) or a shape does not match."""
+    depth = len(model.layers)
+    with np.load(path, allow_pickle=False) as z:
+        info = json.loads(str(z["meta"]))
+        n_p = info["n_params"]
+        if info["opt_struct"] != opt_struct(depth) or info["n_opt"] != 1 + 2 * n_p:
+            raise ValueError(
+                "checkpoint optimizer-state structure mismatch: "
+                f"stored {info['opt_struct']} vs optax.adam's {opt_struct(depth)}"
+            )
+        opt = [np.asarray(z[f"opt_{i}"]) for i in range(info["n_opt"])]
+    step, meta = restore_params(path, model)
+    count = int(opt[0])
+    mu = params_from_jax(_unflatten(opt[1:1 + n_p], depth))
+    nu = params_from_jax(_unflatten(opt[1 + n_p:], depth))
+    optimizer.state.clear()
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
+            "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
+        }
+    return step, meta
+
+
+def latest_exists(path: str) -> bool:
+    return os.path.exists(path)

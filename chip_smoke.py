@@ -33,6 +33,27 @@ Phases, each printed with its result and time:
  10. timing   - one 2048-ray K2 call against its plain version (f32,
                 bf16), and steps/s and rays/s of the train loop, fused
                 against eager.
+ 11. build    - the full-NeRF kernels fused_nerf.cu (K3 and K5, one
+                library; its nvcc runs beside the other two), with
+                ptxas's register and spill counts.
+ 12. kernel   - K3 against its plain version at the flagship width
+                (hidden 256, depth 8, skip 4, L=10, L_dir=4, rgb_hidden
+                64) on 4096 rays of a synthetic pose, f32 and bf16:
+                (a) analytic depths, S=64, weights out; (b) the depth
+                union S=192 of the plain coarse pass plus 128 fine samples.
+ 13. kernel   - K5 against its plain version at hidden 128 on a 512-sample
+                union (the --n-fine 448 recipe), block 64, f32 and bf16;
+                K5 against K3 on the flagship's S=192 union (f32).
+ 14. serving  - flagship NeRF checkpoint: `tinynerf_tpu_torch.eval` on 2
+                views (K3 twice per chunk; the image against --no-fused)
+                and an 8-frame `make_gif`; then `eval --n-fine 448` on a
+                hidden-128 checkpoint (the fine pass through K5).
+ 15. timing   - one 4096-ray flagship hierarchical chunk fused against
+                eager and each K3 launch against its plain version; one
+                4096-ray K5 call at S=512 against its plain version; one
+                100x100 flagship image fused against eager.
+
+Weights are random from a seed throughout.
 
 Exits non-zero without printing a result when there is no CUDA device,
 when the package is missing, or when any phase fails. The line before
@@ -76,8 +97,10 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def ray_errors(a: torch.Tensor, b: torch.Tensor) -> dict:
-    e = (a.float() - b.float()).abs().reshape(-1, 3).max(dim=1).values
+def ray_errors(a: torch.Tensor, b: torch.Tensor, width: int = 3) -> dict:
+    """Stats of the per-ray max error over the last `width` values (3 for
+    rgb; S for an (R, S) weights array)."""
+    e = (a.float() - b.float()).abs().reshape(-1, width).max(dim=1).values
     return {
         "max": e.max().item(),
         "p999": torch.quantile(e, 0.999).item(),
@@ -452,13 +475,241 @@ def run_train(build_train) -> dict:
     }
 
 
+NERF_CHUNK = 4096  # rays per hierarchical render chunk (min(chunk, 4096))
+K5_GATE = 2.5e-5  # K5 vs K3 on one z, f32: see phase 13
+
+
+def run_nerf(build_nerf) -> list:
+    from tinynerf_tpu_torch import eval as eval_mod
+    from tinynerf_tpu_torch import make_gif as gif_mod
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.data import ensure_data
+    from tinynerf_tpu_torch.kernels.fused_nerf import (
+        fused_nerf_render_rays, fused_nerf_render_rays_plain, fused_render_rays_hierarchical,
+        union_depths,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_render_rays_streamed, fused_nerf_render_rays_streamed_plain,
+    )
+    from tinynerf_tpu_torch.models.nerf import NeRF, render_rays_hierarchical
+    from tinynerf_tpu_torch.ops.camera import spiral_poses
+    from tinynerf_tpu_torch.ops.rays import get_rays
+    from tinynerf_tpu_torch.render import make_hierarchical_image_renderer
+    from tinynerf_tpu_torch.utils.checkpoint import save_params
+    from tinynerf_tpu_torch.utils.model_io import load_model_and_renderer
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    k3, k5 = fused_nerf_render_rays, fused_nerf_render_rays_streamed
+
+    # 11. build
+    lib, secs = build_nerf.result()
+    log = lib.with_suffix(".log").read_text()
+    print(f"[build] fused_nerf.cu (K3, K5) -> {lib.name} in {secs:.2f}s (nvcc beside the other "
+          "two)", flush=True)
+    print("\n".join(line for line in log.splitlines()
+                    if "registers" in line or "spill" in line or "stack frame" in line), flush=True)
+
+    # 12. K3 against its plain version at the flagship width
+    t0 = time.time()
+    data_path = os.path.join(OUT_DIR, "absent.npz")  # phase 3's synthetic scene
+    d = ensure_data(data_path, device=dev)
+    poses = torch.from_numpy(d["poses"]).to(dev)
+    focal = float(d["focal"])
+    hw = d["images"].shape[1:3]
+    rays_o, rays_d = get_rays(*hw, focal, poses[0])
+    ro, rd = rays_o[:NERF_CHUNK].contiguous(), rays_d[:NERF_CHUNK].contiguous()
+
+    def nerf(dtype, hidden=256):
+        """The flagship (the README's Quick start recipe) at `hidden`: depth 8, skip 4,
+        L=10, L_dir=4, rgb_hidden 64 are the Config defaults."""
+        cfg = Config(model="nerf", hidden=hidden, bf16=dtype == torch.bfloat16).nerf_cfg()
+        return NeRF(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+
+    errs, models, unions = {}, {}, {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            models[dtype] = model = nerf(dtype)
+            mlp, cfg = model.coarse, model.cfg
+            got, got_w = k3(mlp, ro, rd, n_samples=64, cfg=cfg, return_weights=True)
+            torch.cuda.synchronize()
+            want, want_w = fused_nerf_render_rays_plain(mlp, ro, rd, n_samples=64, cfg=cfg,
+                                                        return_weights=True)
+            check(bool(torch.isfinite(got).all() and torch.isfinite(got_w).all()), "K3 (a) finite")
+            errs["a", dtype] = err = ray_errors(got, want)
+            err_w = ray_errors(got_w, want_w, width=64)
+            print(f"[kernel] K3 {name} (a) S=64 analytic z: rgb {json.dumps(err)}; weights "
+                  f"{json.dumps(err_w)}", flush=True)
+            check(within(err, dtype) and within(err_w, dtype), f"K3 {name} (a) within {GATES[dtype]}")
+            unions[dtype] = z = union_depths(want_w, 128, 2.0, 6.0)
+            got = k3(model.fine, ro, rd, z, cfg=cfg)
+            torch.cuda.synchronize()
+            want = fused_nerf_render_rays_plain(model.fine, ro, rd, z, cfg=cfg)
+            check(got.shape == (NERF_CHUNK, 3) and bool(torch.isfinite(got).all()), "K3 (b) finite")
+            errs["b", dtype] = err = ray_errors(got, want)
+            print(f"[kernel] K3 {name} (b) S=192 union: {json.dumps(err)}", flush=True)
+            check(within(err, dtype), f"K3 {name} (b) within {GATES[dtype]}")
+    print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 13. K5 against its plain version (hidden 128, S=512), and against K3
+    t0 = time.time()
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            models[128, dtype] = model = nerf(dtype, hidden=128)
+            _, w = fused_nerf_render_rays_plain(model.coarse, ro, rd, n_samples=64, cfg=model.cfg,
+                                                return_weights=True)
+            unions[128, dtype] = z = union_depths(w, 448, 2.0, 6.0)
+            got = k5(model.fine, ro, rd, z, cfg=model.cfg, sample_block=64)
+            torch.cuda.synchronize()
+            want = fused_nerf_render_rays_streamed_plain(model.fine, ro, rd, z, cfg=model.cfg,
+                                                         sample_block=64)
+            check(got.shape == (NERF_CHUNK, 3) and bool(torch.isfinite(got).all()), "K5 finite")
+            errs["k5", dtype] = err = ray_errors(got, want)
+            print(f"[kernel] K5 {name} S=512 block 64 vs plain: {json.dumps(err)}", flush=True)
+            check(within(err, dtype), f"K5 {name} within {GATES[dtype]}")
+        # Same z, same MLP code: the per-point values are equal and only the
+        # order of <= 192 transmittance factors and colour terms differs
+        # (<= 192 * 2^-24 relative each), so <= ~2.3e-5 on a colour in [0, 1].
+        model = models[torch.float32]
+        mono = k3(model.fine, ro, rd, unions[torch.float32], cfg=model.cfg)
+        stream = k5(model.fine, ro, rd, unions[torch.float32], cfg=model.cfg, sample_block=64)
+        k5_vs_k3 = float((mono - stream).abs().max())
+        print(f"[kernel] K5 vs K3 f32 on the flagship S=192 union, block 64: max abs "
+              f"{k5_vs_k3:.3e} (gate {K5_GATE})", flush=True)
+        check(k5_vs_k3 < K5_GATE, "K5 equals K3 on the same z to f32 rounding")
+    print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 14. serving: eval and make_gif on a flagship checkpoint, eval --n-fine 448
+    t0 = time.time()
+    ckpts = {}
+    for hidden, key in ((256, torch.bfloat16), (128, (128, torch.bfloat16))):
+        c = models[key].cfg
+        ckpts[hidden] = os.path.join(OUT_DIR, f"nerf_h{hidden}.npz")
+        save_params(ckpts[hidden], models[key], step=0, meta={"model": "nerf", "cfg": {
+            "hidden": c.hidden, "depth": c.depth, "skip_at": c.skip_at, "num_freqs": c.num_freqs,
+            "num_freqs_dir": c.num_freqs_dir, "rgb_hidden": c.rgb_hidden, "n_fine": 128,
+            "proposal": "coarse"}})
+    ckpt, ckpt128 = ckpts[256], ckpts[128]
+    n_chunks = -(-hw[0] * hw[1] // NERF_CHUNK)
+    k3.launches = k5.launches = 0
+    res = eval_mod.main(eval_mod.EvalConfig(ckpt_path=ckpt, data_path=data_path, views=2,
+                                            out_dir=os.path.join(OUT_DIR, "eval_nerf")))
+    launches = {"eval": (k3.launches, k5.launches)}
+    k3.launches = k5.launches = 0
+    frames = gif_mod.main(gif_mod.GifConfig(ckpt_path=ckpt, data_path=data_path, n_frames=8,
+                                            out_path=os.path.join(OUT_DIR, "nerf_views.gif")))
+    launches["make_gif"] = (k3.launches, k5.launches)
+    k3.launches = k5.launches = 0
+    res448 = eval_mod.main(eval_mod.EvalConfig(ckpt_path=ckpt128, data_path=data_path, views=1,
+                                               n_fine=448,
+                                               out_dir=os.path.join(OUT_DIR, "eval_nerf448")))
+    launches["eval_n_fine_448"] = (k3.launches, k5.launches)
+    print(f"[serving] (K3, K5) launches {json.dumps(launches)}; {n_chunks} chunks per image; "
+          f"flagship PSNR {res['psnr_mean']:.3f} dB, n-fine 448 PSNR {res448['psnr_mean']:.3f} dB "
+          "(random weights)", flush=True)
+    # eval renders each view twice (metrics, then the saved image).
+    check(launches["eval"] == (2 * n_chunks * 4, 0), "eval: K3 twice per chunk, no K5")
+    check(launches["make_gif"] == (2 * n_chunks * 8, 0), "make_gif: K3 twice per chunk")
+    check(launches["eval_n_fine_448"] == (n_chunks * 2, n_chunks * 2),
+          "eval --n-fine 448: coarse on K3, fine on K5, once per chunk each")
+    check(frames.shape == (8, *hw, 3) and frames.dtype.name == "uint8", f"gif frames {frames.shape}")
+    for path, n_fine in ((ckpt, None), (ckpt128, 448)):
+        imgs = {}
+        for fused in (True, False):
+            model, renderer, _ = load_model_and_renderer(path, H=hw[0], W=hw[1], focal=focal,
+                                                         fused=fused, n_fine=n_fine, device=dev)
+            imgs[fused] = renderer(model, poses[0])
+        check(bool(torch.isfinite(imgs[True]).all()), "served image finite")
+        err = ray_errors(imgs[True], imgs[False])
+        print(f"[serving] {os.path.basename(path)} n_fine={n_fine}: fused vs --no-fused image "
+              f"{json.dumps(err)}", flush=True)
+        check(within(err, torch.bfloat16), "served image agrees with the eager render")
+    eager = make_hierarchical_image_renderer(H=hw[0], W=hw[1], focal=focal, n_fine=128,
+                                             nerf_cfg=models[torch.bfloat16].cfg)
+    first = spiral_poses(poses[0], n_frames=8, radius=0.3)[0]
+    want = (torch.clamp(eager(models[torch.bfloat16], first), 0, 1) * 255).to(torch.uint8).cpu()
+    diff = (torch.from_numpy(frames[0]).int() - want.int()).abs().reshape(-1, 3).max(dim=1).values
+    frac = (diff > round(FLIP_ERR * 255)).float().mean().item()
+    print(f"[serving] gif frame 0 vs eager: max {diff.max().item()} levels, fraction > "
+          f"{round(FLIP_ERR * 255)} levels {frac}", flush=True)
+    check(frac < GATES[torch.bfloat16]["flip"], "gif frame agrees with the eager render")
+    print(f"[serving] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 15. timing: plain, kernel, kernel, plain (bf16)
+    t0 = time.time()
+    model, m128 = models[torch.bfloat16], models[128, torch.bfloat16]
+    cfg, z, z512 = model.cfg, unions[torch.bfloat16], unions[128, torch.bfloat16]
+    hier = dict(n_coarse=64, n_fine=128, cfg=cfg)
+    image = {fused: make_hierarchical_image_renderer(H=hw[0], W=hw[1], focal=focal, n_fine=128,
+                                                     nerf_cfg=cfg, use_fused=fused)
+             for fused in (True, False)}
+    cases = {
+        "chunk": {"kernel": lambda: fused_render_rays_hierarchical(model, ro, rd, **hier),
+                  "plain": lambda: render_rays_hierarchical(model, ro, rd, **hier)},
+        "k3_coarse": {
+            "kernel": lambda: k3(model.coarse, ro, rd, cfg=cfg, return_weights=True),
+            "plain": lambda: fused_nerf_render_rays_plain(model.coarse, ro, rd, cfg=cfg,
+                                                          return_weights=True)},
+        "k3_fine": {"kernel": lambda: k3(model.fine, ro, rd, z, cfg=cfg),
+                    "plain": lambda: fused_nerf_render_rays_plain(model.fine, ro, rd, z, cfg=cfg)},
+        "k5": {"kernel": lambda: k5(m128.fine, ro, rd, z512, cfg=m128.cfg, sample_block=64),
+               "plain": lambda: fused_nerf_render_rays_streamed_plain(
+                   m128.fine, ro, rd, z512, cfg=m128.cfg, sample_block=64)},
+        "image": {"kernel": lambda: image[True](model, poses[0]),
+                  "plain": lambda: image[False](model, poses[0])},
+    }
+    times = {}
+    with torch.no_grad():
+        for what, fns in cases.items():
+            for name in ("plain", "kernel", "kernel", "plain"):
+                times.setdefault((what, name), []).append(cuda_ms(fns[name], iters=5))
+    ms = {k: min(v) for k, v in times.items()}
+    print(f"[timing] {card}: bf16, {NERF_CHUNK} rays; flagship hierarchical chunk fused "
+          f"{ms['chunk', 'kernel']:.4f} ms, eager {ms['chunk', 'plain']:.4f} ms; K3 coarse (S=64, "
+          f"weights) {ms['k3_coarse', 'kernel']:.4f} ms, plain {ms['k3_coarse', 'plain']:.4f} ms; "
+          f"K3 fine (S=192) {ms['k3_fine', 'kernel']:.4f} ms, plain {ms['k3_fine', 'plain']:.4f} ms; "
+          f"K5 (hidden 128, S=512) {ms['k5', 'kernel']:.4f} ms, plain {ms['k5', 'plain']:.4f} ms; "
+          f"{hw[0]}x{hw[1]} flagship image fused {ms['image', 'kernel']:.4f} ms, eager "
+          f"{ms['image', 'plain']:.4f} ms "
+          f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
+    print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
+
+    bf16 = torch.bfloat16
+    return [
+        {
+            "name": "fused_nerf_render_rays",
+            "route": "cuda",
+            "source": "tinynerf_tpu_torch/csrc/fused_nerf.cu",
+            "replaces": "tinynerf_tpu/kernels/fused_nerf.py:183",
+            "launches": launches["eval"][0] + launches["make_gif"][0],
+            "max_abs_err": max(errs["a", bf16]["max"], errs["b", bf16]["max"]),
+            "ms": ms["k3_fine", "kernel"],
+            "plain_ms": ms["k3_fine", "plain"],
+        },
+        {
+            "name": "fused_nerf_render_rays_streamed",
+            "route": "cuda",
+            "source": "tinynerf_tpu_torch/csrc/fused_nerf.cu",
+            "replaces": "tinynerf_tpu/kernels/fused_nerf_stream.py:451",
+            "launches": launches["eval_n_fine_448"][1],
+            "max_abs_err": errs["k5", bf16]["max"],
+            "ms": ms["k5", "kernel"],
+            "plain_ms": ms["k5", "plain"],
+        },
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, together
-        builds = {n: pool.submit(timed_build, n) for n in ("fused_render", "fused_train")}
-        kernels = [run(builds["fused_render"]), run_train(builds["fused_train"])]
+    sources = ("fused_render", "fused_train", "fused_nerf")
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc per source, together
+        builds = {n: pool.submit(timed_build, n) for n in sources}
+        kernels = [run(builds["fused_render"]), run_train(builds["fused_train"]),
+                   *run_nerf(builds["fused_nerf"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

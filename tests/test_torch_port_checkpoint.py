@@ -71,7 +71,7 @@ def test_restore_rejects_a_different_model(tmp_path):
 
 
 @pytest.mark.parametrize("meta,item", [
-    ({"model": "nerf", "cfg": META["cfg"]}, "item 9"),
+    ({"model": "nerf", "cfg": {**META["cfg"], "proposal": "occupancy"}}, "item 11"),
     ({"model": "grid", "cfg": META["cfg"]}, "item 12"),
     ({"model": "tinynerf", "cfg": {**META["cfg"], "ndc": True}}, "item 10"),
 ])

@@ -1,5 +1,6 @@
-"""The fused render (K1) and train (K2) kernels against their plain
-versions, and K2's jitter statistics, on a CUDA device.
+"""The fused render (K1), train (K2), NeRF (K3) and streamed NeRF (K5)
+kernels against their plain versions, and K2's jitter statistics, on a
+CUDA device.
 
 Skips without one. This file imports neither jax nor the JAX package, so
 it also runs on a GPU machine that has no JAX (without the suite's
@@ -132,3 +133,149 @@ def test_jitter_probe_bins_and_uniformity(cuda_device):
     assert float((counts / n - 0.1).abs().max()) < 6 * (0.09 / n) ** 0.5
     corr = torch.corrcoef(torch.stack([u[:-1].reshape(-1), u[1:].reshape(-1)]))[0, 1]
     assert abs(float(corr)) < 6 / n ** 0.5
+
+
+def _nerf_case(hidden, num_freqs, dir_freqs, use_viewdirs, dtype, device, seed=5):
+    from tinynerf_tpu_torch.models.nerf import NeRFMLP, NeRFConfig
+
+    depth, skip_at, rgb_hidden = (8, 4, 64) if hidden >= 128 else (3, 2, 16)
+    cfg = NeRFConfig(num_freqs=num_freqs, num_freqs_dir=dir_freqs, hidden=hidden, depth=depth,
+                     skip_at=skip_at, rgb_hidden=rgb_hidden, use_viewdirs=use_viewdirs,
+                     compute_dtype=dtype)
+    return NeRFMLP(cfg, generator=torch.Generator().manual_seed(seed), device=device), cfg
+
+
+def _sorted_z(n, S, seed, device):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(np.sort(rng.uniform(2.0, 6.0, (n, S)).astype(np.float32), axis=1)).to(device)
+
+
+def _within_render_gates(got, want, dtype):
+    """Per-ray max error: f32 p99.9 < 5e-4; bf16 p99.9 < 3e-2, mean < 1e-3;
+    both: fraction above 3e-2 (last-sample flips) < 2.5e-3."""
+    err = (got - want).abs().reshape(got.shape[0], -1).max(dim=1).values
+    p999 = 5e-4 if dtype == torch.float32 else 3e-2
+    assert float(torch.quantile(err, 0.999)) < p999
+    if dtype == torch.bfloat16:
+        assert float(err.mean()) < 1e-3
+    assert float((err > 3e-2).float().mean()) < 2.5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,viewdirs,S,given_z", [
+    (256, 10, 4, True, 64, False),   # the flagship's coarse pass
+    (256, 10, 4, True, 192, True),   # the flagship's fine pass
+    (32, 4, 2, True, 16, False),
+    (128, 10, 4, False, 24, True),
+    (32, 4, 2, True, 7, True),       # S odd: a tile of 64 rays, partial chunks
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nerf_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs, dir_freqs, viewdirs, S,
+                                           given_z, dtype):
+    from tinynerf_tpu_torch.kernels.fused_nerf import fused_nerf_render_rays, fused_nerf_render_rays_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mlp, cfg = _nerf_case(hidden, num_freqs, dir_freqs, viewdirs, dtype, cuda_device)
+    ro, rd = _rays(1001, 8, cuda_device)
+    z = _sorted_z(1001, S, 9, cuda_device) if given_z else None
+    kw = dict(n_samples=S, cfg=cfg, return_weights=True)
+    before = fused_nerf_render_rays.launches
+    with torch.no_grad():
+        got, got_w = fused_nerf_render_rays(mlp, ro, rd, z, **kw)
+        torch.cuda.synchronize()
+        want, want_w = fused_nerf_render_rays_plain(mlp, ro, rd, z, **kw)
+    assert fused_nerf_render_rays.launches == before + 1
+    assert got.shape == (1001, 3) and got_w.shape == (1001, S)
+    assert bool(torch.isfinite(got).all() and torch.isfinite(got_w).all())
+    _within_render_gates(got, want, dtype)
+    _within_render_gates(got_w, want_w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,S,sample_block", [
+    (128, 10, 4, 512, 64),   # the --n-fine 448 recipe's fine pass
+    (32, 4, 2, 24, 8),
+    (32, 4, 2, 16, 16),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs, dir_freqs, S,
+                                               sample_block, dtype):
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_render_rays_streamed,
+        fused_nerf_render_rays_streamed_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mlp, cfg = _nerf_case(hidden, num_freqs, dir_freqs, True, dtype, cuda_device)
+    ro, rd = _rays(777, 10, cuda_device)
+    z = _sorted_z(777, S, 11, cuda_device)
+    kw = dict(cfg=cfg, sample_block=sample_block)
+    before = fused_nerf_render_rays_streamed.launches
+    with torch.no_grad():
+        got = fused_nerf_render_rays_streamed(mlp, ro, rd, z, **kw)
+        torch.cuda.synchronize()
+        want = fused_nerf_render_rays_streamed_plain(mlp, ro, rd, z, **kw)
+    assert fused_nerf_render_rays_streamed.launches == before + 1
+    assert got.shape == (777, 3) and bool(torch.isfinite(got).all())
+    _within_render_gates(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_block", [8, 64, 192])
+def test_streamed_kernel_equals_monolithic_kernel_on_card(cuda_device, sample_block):
+    """On the same z both kernels run the same MLP code, so the per-point
+    values are equal and only the order of the transmittance products
+    and colour sums differs: <= 192 * 2^-24 relative on each, so at most
+    ~2.3e-5 on a colour in [0, 1] plus its background term."""
+    from tinynerf_tpu_torch.kernels.fused_nerf import fused_nerf_render_rays
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_render_rays_streamed
+
+    mlp, cfg = _nerf_case(256, 10, 4, True, torch.float32, cuda_device)
+    ro, rd = _rays(600, 12, cuda_device)
+    z = _sorted_z(600, 192, 13, cuda_device)
+    with torch.no_grad():
+        mono = fused_nerf_render_rays(mlp, ro, rd, z, cfg=cfg)
+        stream = fused_nerf_render_rays_streamed(mlp, ro, rd, z, cfg=cfg, sample_block=sample_block)
+    assert float((mono - stream).abs().max()) < 2.5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_block,want_k5", [(None, 0), (8, 1)])
+def test_hierarchical_pipeline_on_card(cuda_device, sample_block, want_k5):
+    """The fused pipeline against the eager render on the card, f32: the
+    coarse pass always on K3, the fine pass on K3 or, with a forced block,
+    on K5; the resampled depths inherit the kernels' rounding (1e-3, the
+    JAX package's pipeline tolerance)."""
+    from tinynerf_tpu_torch.kernels.fused_nerf import fused_nerf_render_rays, fused_render_rays_hierarchical
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_render_rays_streamed
+    from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, render_rays_hierarchical
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=32, depth=3, skip_at=2, rgb_hidden=16,
+                     compute_dtype=torch.float32)
+    model = NeRF(cfg, generator=torch.Generator().manual_seed(3), device=cuda_device)
+    ro, rd = _rays(300, 14, cuda_device)
+    k3, k5 = fused_nerf_render_rays.launches, fused_nerf_render_rays_streamed.launches
+    with torch.no_grad():
+        got = fused_render_rays_hierarchical(model, ro, rd, n_coarse=16, n_fine=8, cfg=cfg,
+                                             sample_block=sample_block)
+        want = render_rays_hierarchical(model, ro, rd, n_coarse=16, n_fine=8, cfg=cfg)
+    assert fused_nerf_render_rays.launches - k3 == 2 - want_k5
+    assert fused_nerf_render_rays_streamed.launches - k5 == want_k5
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_refused_launch_raises(cuda_device):
+    """A launch the card refuses (here: shared memory for hidden 1024) comes
+    back as a CUDA error code, and the wrapper's check turns it into an
+    exception; nothing runs."""
+    from tinynerf_tpu_torch.kernels.fused_nerf import _lib, raise_on_error
+
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    err = _lib().tinynerf_fused_nerf(None, None, None, None, None, None, 128, 1, 64, 10, 4, 1,
+                                     1024, 8, 4, 64, 2.0, 6.0, 0, cuda_device.index, stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        raise_on_error(err, "fused_nerf")

@@ -9,7 +9,10 @@ kernels/fused_train.py). `--no-fused` and `--no-fused-train` select the
 eager torch composition of ops/ and models/ (with autograd for
 training), the counterparts of the JAX package's default XLA paths.
 
-Fields that only the other model families, the parallel paths or the
+The full NeRF's fields (model, n_fine, proposal, nerf_depth,
+nerf_skip_at, num_freqs_dir, rgb_hidden) and nerf_cfg() follow
+tinynerf_tpu/config.py:51-63, 173-184; training the NeRF is not ported
+yet. Fields that only the grid family, the parallel paths or the
 flagship training levers use are not ported yet (ROADMAP.md, queue 1).
 """
 
@@ -20,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from tinynerf_tpu_torch.models.nerf import NeRFConfig
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import encoding_dim
 from tinynerf_tpu_torch.training import TrainSettings
@@ -46,6 +50,13 @@ class Config:
     num_freqs: int = 10
     seed: int = 0
     chunk: int = 8192  # rays per render chunk
+    model: str = "tinynerf"  # "tinynerf" | "nerf" (viewdirs + coarse/fine)
+    n_fine: int = 64  # fine samples per ray (nerf model only)
+    proposal: str = "coarse"  # nerf proposal: "coarse" MLP | "occupancy" grid (not ported)
+    nerf_depth: int = 8
+    nerf_skip_at: int = 4
+    num_freqs_dir: int = 4
+    rgb_hidden: int = 64
     sigma_noise_std: float = 0.0  # train-time N(0, std) noise on raw density pre-ReLU
     data_path: str = "data/tiny_nerf_data.npz"
     allow_synthetic: bool = True  # fall back to the procedural scene offline
@@ -62,6 +73,17 @@ class Config:
             hidden=self.hidden,
             depth=self.depth,
             skip_at=self.skip_at,
+            compute_dtype=torch.bfloat16 if self.bf16 else torch.float32,
+        )
+
+    def nerf_cfg(self) -> NeRFConfig:
+        return NeRFConfig(
+            num_freqs=self.num_freqs,
+            num_freqs_dir=self.num_freqs_dir,
+            hidden=self.hidden,
+            depth=self.nerf_depth,
+            skip_at=self.nerf_skip_at,
+            rgb_hidden=self.rgb_hidden,
             compute_dtype=torch.bfloat16 if self.bf16 else torch.float32,
         )
 

@@ -1,0 +1,387 @@
+// Fused full-NeRF MLP render on Hopper (sm_90a): rays -> depths ->
+// points -> Fourier encoding -> trunk with skip -> sigma head -> view-
+// direction branch -> rgb head -> alpha composite. Two entry points
+// share one kernel:
+//
+//   tinynerf_fused_nerf           K3, replaces the Pallas TPU kernel
+//       tinynerf_tpu/kernels/fused_nerf.py:183 (fused_nerf_render_rays,
+//       body _nerf_kernel). Depths analytic (linspace) or given (R, S);
+//       optional per-sample weights out (R, S).
+//   tinynerf_fused_nerf_streamed  K5, replaces
+//       tinynerf_tpu/kernels/fused_nerf_stream.py:451
+//       (fused_nerf_render_rays_streamed, body _streamed_render_kernel).
+//       Given sorted depths and precomputed deltas (R, S); walks sample
+//       blocks in order carrying (T_run, C, A) per ray.
+//
+// The Python wrappers are tinynerf_tpu_torch/kernels/fused_nerf.py and
+// tinynerf_tpu_torch/kernels/fused_nerf_stream.py.
+//
+// What bounds it on an H100: arithmetic. At the flagship width (hidden
+// 256, depth 8, skip at 4, L=10, L_dir=4, rgb_hidden 64) a point costs
+// 509,568 multiply-adds against a few bytes of depth input, while the
+// unfused composition moves every (points, 319) activation through
+// device memory. The kernel keeps a chunk's encoding and activations in
+// shared memory, writes only (R, 4) (and the (R, S) weights when asked)
+// and runs its products on the CUDA cores' f32 FMAs (tensor cores are
+// later work).
+//
+// Shared memory at hidden 256 is what shapes the design. A block takes
+// TR rays; their points are processed in chunks of PT = 128 point rows
+//
+//   X[p][0, hidden)               hidden activations h (then rgb_in's out)
+//   X[p][hidden, hidden + E)      encoding [x, sin 2^k x, cos 2^k x]
+//
+// so the skip concat [h, enc] is columns [0, hidden + E). After the
+// trunk, the (dead) encoding columns are overwritten with the ray's
+// direction encoding, so rgb_in's input [h, d_enc] is columns
+// [0, hidden + Dd). 128 rows x 319 floats is 163 KB: a whole sample row
+// of one ray (192 points at the flagship's fine pass) would not fit, so
+// the chunk, not the ray, is the unit of the MLP, and per-point
+// (rgb, sigma) go to a small head buffer that the composite reads.
+// Each dense layer is a register-tiled product: a thread owns an 8-row x
+// 8-column block (2*hidden threads, 512 at hidden 256) and holds the
+// whole sum in registers, so the output can be written over its input
+// after a barrier; one buffer serves every layer. The point group is the
+// fast thread index, so the block reads each weight row about once per
+// chunk (weights stay in L2: 2 MB per MLP in f32). Row strides are odd,
+// so the rows a warp reads at one column fall in distinct banks.
+//
+// Composite: one thread per ray walks its samples in order. K3 is one
+// segment of all S samples; K5 is segments of `sample_block` samples,
+// each composited as soon as its heads are ready, with the transmittance
+// carried as T_run * (block-local exclusive prefix), as _streamed_render_
+// kernel does. With equal inputs both give the same per-point MLP values
+// (same code, same order) and composites equal to f32 rounding.
+//
+// Numerics: depths, points, deltas and the composite are f32 with
+// uncontracted (_rn) products where the reference rounds; sin/cos are
+// the accurate libdevice versions because arguments reach 2^9 * x (never
+// build with --use_fast_math). With bf16 set, every MLP input (encoding,
+// direction encoding, hidden activations, rgb_in output) is rounded to
+// bf16 where it is written and the wrapper rounds the weights; products
+// are exact in f32 and the sums accumulate in f32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTilePoints = 128;  // PT: point rows of one MLP chunk
+constexpr int kCols = 8;          // NT: columns of a thread's block
+constexpr int kTrunkRows = 8;     // MT of the trunk products
+constexpr int kMaxThreads = 512;
+constexpr float kDeltaInf = 1e10f;
+constexpr float kTransEps = 1e-10f;
+
+__device__ __forceinline__ float to_compute(float x, bool bf16) {
+  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+struct Args {
+  const float* rays_o;   // (R, 3)
+  const float* rays_d;   // (R, 3)
+  const float* z;        // (R, S), or null: analytic linspace depths
+  const float* delta;    // (R, S) deltas times ||d||, or null: from z
+  const float* weights;  // packed, see kernels/fused_nerf.py::pack_nerf_weights
+  float* out;            // (R, 4): composite rgb (no background), acc
+  float* w_out;          // (R, S) per-sample weights, or null
+  int S, seg, tile_rays, num_freqs, dir_freqs, use_viewdirs;
+  int hidden, depth, skip_at, rgb_hidden, bf16;
+  float near, far;
+};
+
+__host__ __device__ inline int enc_dim(int L) { return 3 + 6 * L; }
+__host__ __device__ inline int dir_dim(int Ld, int use) { return use ? 3 + 6 * Ld : 0; }
+
+// Row stride of X: hidden + the wider of the two encodings, made odd.
+__host__ __device__ inline int row_stride(int hidden, int L, int Ld, int use) {
+  const int e = enc_dim(L), dd = dir_dim(Ld, use);
+  const int ld = hidden + (e > dd ? e : dd);
+  return ld | 1;
+}
+
+// X[p][0, n_out) = to_compute(relu(X[p][in_col, in_col + n_in) @ W + b))
+// for the kTilePoints rows. W is (n_in, n_out) row-major. Item = (point
+// group pg, column group): rows pg + n_pg*i, columns col0 + j; blockDim.x
+// must be (kTilePoints / MT) * (n_out / kCols).
+template <int MT>
+__device__ void dense_relu(float* X, int ld, int in_col, int n_in, int n_out,
+                           const float* __restrict__ W, const float* __restrict__ b,
+                           bool bf16) {
+  constexpr int n_pg = kTilePoints / MT;
+  const int pg = threadIdx.x % n_pg;
+  const int col0 = (threadIdx.x / n_pg) * kCols;
+
+  float acc[MT][kCols];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+
+  const float* xin = X + pg * ld + in_col;
+  const float* wrow = W + col0;
+#pragma unroll 2
+  for (int k = 0; k < n_in; ++k, wrow += n_out) {
+    const float4 w0 = __ldg(reinterpret_cast<const float4*>(wrow));
+    const float4 w1 = __ldg(reinterpret_cast<const float4*>(wrow) + 1);
+    const float w[kCols] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float x = xin[i * n_pg * ld + k];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
+    }
+  }
+  __syncthreads();  // every read of the input columns is done
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float* row = X + (pg + n_pg * i) * ld + col0;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      row[j] = to_compute(fmaxf(acc[i][j] + __ldg(b + col0 + j), 0.f), bf16);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float ray_norm(const float* d) {
+  return sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
+                         __fmul_rn(d[2], d[2])));
+}
+
+// Depth of sample s of global ray g.
+__device__ __forceinline__ float depth_at(const Args& a, int g, int s) {
+  if (a.z != nullptr) return a.z[(size_t)g * a.S + s];
+  const float t = (float)s / (float)(a.S - 1);
+  return __fadd_rn(__fmul_rn(a.near, 1.f - t), __fmul_rn(a.far, t));
+}
+
+// delta_s = (z_{s+1} - z_s) * ||d||, 1e10 * ||d|| for the last sample.
+__device__ __forceinline__ float delta_at(const Args& a, int g, int s, float norm) {
+  if (a.delta != nullptr) return a.delta[(size_t)g * a.S + s];
+  const float dz = s == a.S - 1 ? kDeltaInf : __fsub_rn(depth_at(a, g, s + 1), depth_at(a, g, s));
+  return __fmul_rn(dz, norm);
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int TR = a.tile_rays, SEG = a.seg, H = a.hidden;
+  const int E = enc_dim(a.num_freqs), Dd = dir_dim(a.dir_freqs, a.use_viewdirs);
+  const int ld = row_stride(H, a.num_freqs, a.dir_freqs, a.use_viewdirs);
+  const bool bf16 = a.bf16 != 0;
+  float* X = smem;                             // (PT, ld)
+  float* pts = X + kTilePoints * ld;           // (PT, 3)
+  float* heads = pts + kTilePoints * 3;        // (TR * SEG, 4): r, g, b, sigma
+  float* denc = heads + TR * SEG * 4;          // (TR, Dd)
+  const int ray0 = blockIdx.x * TR;
+
+  // Packed weights: trunk (W, b)..., sigma (W hidden, b, 3 pad), rgb_in
+  // (W (H + Dd, rgb_hidden), b), rgb (W (rgb_hidden, 3), b).
+  const float* w_sigma = a.weights;
+  for (int i = 0; i < a.depth; ++i) {
+    const int n_in = i == 0 ? E : (i == a.skip_at ? H + E : H);
+    w_sigma += (n_in + 1) * H;
+  }
+  const float* w_rgb_in = w_sigma + H + 4;
+  const float* w_rgb = w_rgb_in + (H + Dd + 1) * a.rgb_hidden;
+
+  // Direction encoding of d/||d||, once per ray.
+  for (int idx = tid; idx < TR * Dd; idx += nt) {
+    const int r = idx / Dd, j = idx % Dd;
+    const float* d = a.rays_d + (size_t)(ray0 + r) * 3;
+    const float norm = ray_norm(d);
+    float v;
+    if (j < 3) {
+      v = d[j] / norm;
+    } else {
+      const int q = j - 3, k = q / 6, c = q % 3;
+      float sn, cs;
+      sincosf(ldexpf(d[c] / norm, k), &sn, &cs);
+      v = (q % 6) < 3 ? sn : cs;
+    }
+    denc[idx] = to_compute(v, bf16);
+  }
+
+  // Per-ray carry, held by thread r < TR across the sample segments.
+  float T_run = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, acc = 0.f;
+  const int n_pts = TR * SEG;  // points of one segment
+  for (int s0 = 0; s0 < a.S; s0 += SEG) {
+    for (int c0 = 0; c0 < n_pts; c0 += kTilePoints) {
+      // Points (rows past the segment's last point encode the origin).
+      for (int p = tid; p < kTilePoints; p += nt) {
+        const int q = c0 + p;
+        float v[3] = {0.f, 0.f, 0.f};
+        if (q < n_pts) {
+          const int g = ray0 + q / SEG;
+          const float z = depth_at(a, g, s0 + q % SEG);
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            v[c] = __fadd_rn(a.rays_o[(size_t)g * 3 + c], __fmul_rn(a.rays_d[(size_t)g * 3 + c], z));
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          pts[p * 3 + c] = v[c];
+          X[p * ld + H + c] = to_compute(v[c], bf16);
+        }
+      }
+      __syncthreads();
+      // Encoding in the model's interleaved order: column 3 + 6k + c is
+      // sin(2^k x_c), column 3 + 6k + 3 + c is cos(2^k x_c).
+      for (int idx = tid; idx < kTilePoints * 3 * a.num_freqs; idx += nt) {
+        const int p = idx % kTilePoints, q = idx / kTilePoints;
+        const int k = q / 3, c = q % 3;
+        float sn, cs;
+        sincosf(ldexpf(pts[p * 3 + c], k), &sn, &cs);
+        float* row = X + p * ld + H + 3 + 6 * k + c;
+        row[0] = to_compute(sn, bf16);
+        row[3] = to_compute(cs, bf16);
+      }
+      __syncthreads();
+
+      // Trunk: layer 0 reads the encoding, the skip layer [h, enc].
+      const float* wp = a.weights;
+      for (int i = 0; i < a.depth; ++i) {
+        const int in_col = i == 0 ? H : 0;
+        const int n_in = i == 0 ? E : (i == a.skip_at ? H + E : H);
+        dense_relu<kTrunkRows>(X, ld, in_col, n_in, H, wp, wp + n_in * H, bf16);
+        wp += (n_in + 1) * H;
+      }
+
+      // sigma = relu(h @ w + b) from the trunk; then the direction
+      // encoding goes over the dead encoding columns.
+      for (int p = tid; p < kTilePoints; p += nt) {
+        const float* row = X + p * ld;
+        float s = 0.f;
+        for (int k = 0; k < H; ++k) s = fmaf(row[k], __ldg(w_sigma + k), s);
+        const int q = c0 + p;
+        if (q < n_pts) heads[q * 4 + 3] = fmaxf(s + __ldg(w_sigma + H), 0.f);
+      }
+      for (int idx = tid; idx < kTilePoints * Dd; idx += nt) {
+        const int p = idx / Dd, j = idx % Dd;
+        const int q = c0 + p;
+        const int r = q < n_pts ? q / SEG : 0;
+        X[p * ld + H + j] = denc[r * Dd + j];
+      }
+      __syncthreads();
+
+      // rgb_in: [h, d_enc] -> rgb_hidden, with as many rows per thread as
+      // keep every thread busy (8 * rgb_hidden / hidden).
+      const float* b_in = w_rgb_in + (H + Dd) * a.rgb_hidden;
+      switch (8 * a.rgb_hidden / H) {
+        case 1: dense_relu<1>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+        case 2: dense_relu<2>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+        case 4: dense_relu<4>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+        default: dense_relu<8>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+      }
+
+      // rgb = sigmoid(g1 @ W + b).
+      const float* b_rgb = w_rgb + a.rgb_hidden * 3;
+      for (int idx = tid; idx < kTilePoints * 3; idx += nt) {
+        const int p = idx / 3, c = idx % 3;
+        const float* row = X + p * ld;
+        float s = 0.f;
+        for (int k = 0; k < a.rgb_hidden; ++k) s = fmaf(row[k], __ldg(w_rgb + k * 3 + c), s);
+        const int q = c0 + p;
+        if (q < n_pts) heads[q * 4 + c] = 1.f / (1.f + expf(-(s + __ldg(b_rgb + c))));
+      }
+      __syncthreads();
+    }
+
+    // Composite of the segment: thread r walks ray r's samples in order,
+    // trans = T_run * (segment-local exclusive product of one_m).
+    if (tid < TR) {
+      const int g = ray0 + tid;
+      const float norm = ray_norm(a.rays_d + (size_t)g * 3);
+      float tl = 1.f;
+      for (int sl = 0; sl < SEG; ++sl) {
+        const int s = s0 + sl;
+        const float* hd = heads + (tid * SEG + sl) * 4;
+        const float one_m = expf(-__fmul_rn(hd[3], delta_at(a, g, s, norm))) + kTransEps;
+        const float alpha = 1.f - (one_m - kTransEps);
+        const float w = __fmul_rn(alpha, __fmul_rn(T_run, tl));
+        cr = fmaf(w, hd[0], cr);
+        cg = fmaf(w, hd[1], cg);
+        cb = fmaf(w, hd[2], cb);
+        acc += w;
+        if (a.w_out != nullptr) a.w_out[(size_t)g * a.S + s] = w;
+        tl = __fmul_rn(tl, one_m);
+      }
+      T_run = __fmul_rn(T_run, tl);
+    }
+    __syncthreads();  // the head buffer is refilled by the next segment
+  }
+  if (tid < TR)
+    reinterpret_cast<float4*>(a.out)[ray0 + tid] = make_float4(cr, cg, cb, acc);
+}
+
+int smem_bytes(int tile_rays, int seg, int num_freqs, int dir_freqs, int use_viewdirs,
+               int hidden) {
+  const int ld = row_stride(hidden, num_freqs, dir_freqs, use_viewdirs);
+  const int floats = kTilePoints * (ld + 3) + tile_rays * seg * 4 +
+                     tile_rays * dir_dim(dir_freqs, use_viewdirs);
+  return floats * (int)sizeof(float);
+}
+
+int launch(const Args& a, int n_rays, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = smem_bytes(a.tile_rays, a.seg, a.num_freqs, a.dir_freqs, a.use_viewdirs,
+                              a.hidden);
+  err = cudaFuncSetAttribute(fused_nerf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_nerf_kernel<<<n_rays / a.tile_rays, 2 * a.hidden, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory of one block, in bytes, for tile_rays rays and segments
+// of `seg` samples (seg = S for K3, the sample block for K5).
+int tinynerf_fused_nerf_smem_bytes(int tile_rays, int seg, int num_freqs, int dir_freqs,
+                                   int use_viewdirs, int hidden) {
+  return smem_bytes(tile_rays, seg, num_freqs, dir_freqs, use_viewdirs, hidden);
+}
+
+// Threads of one block: one per 8x8 block of the (128, hidden) chunk.
+int tinynerf_fused_nerf_threads(int hidden) { return 2 * hidden; }
+
+int tinynerf_fused_nerf_max_threads() { return kMaxThreads; }
+
+int tinynerf_fused_nerf_tile_points() { return kTilePoints; }
+
+// K3. z (R, S) or null for the analytic linspace; w_out (R, S) or null.
+// n_rays must be a multiple of tile_rays. Returns the CUDA error code of
+// the attribute call or of the launch (0 = ok).
+int tinynerf_fused_nerf(const float* rays_o, const float* rays_d, const float* z,
+                        const float* weights, float* out, float* w_out, int n_rays,
+                        int tile_rays, int n_samples, int num_freqs, int dir_freqs,
+                        int use_viewdirs, int hidden, int depth, int skip_at, int rgb_hidden,
+                        float near, float far, int bf16, int device, void* stream) {
+  const Args a{rays_o, rays_d, z, nullptr, weights, out, w_out, n_samples, n_samples,
+               tile_rays, num_freqs, dir_freqs, use_viewdirs, hidden, depth, skip_at,
+               rgb_hidden, bf16, near, far};
+  return launch(a, n_rays, device, stream);
+}
+
+// K5. z and delta (R, S); S must be a multiple of sample_block and n_rays
+// of tile_rays. Returns the CUDA error code (0 = ok).
+int tinynerf_fused_nerf_streamed(const float* rays_o, const float* rays_d, const float* z,
+                                 const float* delta, const float* weights, float* out,
+                                 int n_rays, int tile_rays, int n_samples, int sample_block,
+                                 int num_freqs, int dir_freqs, int use_viewdirs, int hidden,
+                                 int depth, int skip_at, int rgb_hidden, int bf16, int device,
+                                 void* stream) {
+  const Args a{rays_o, rays_d, z, delta, weights, out, nullptr, n_samples, sample_block,
+               tile_rays, num_freqs, dir_freqs, use_viewdirs, hidden, depth, skip_at,
+               rgb_hidden, bf16, 0.f, 0.f};
+  return launch(a, n_rays, device, stream);
+}
+
+const char* tinynerf_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -5,10 +5,11 @@ dataset views from a checkpoint, report per-view and aggregate PSNR and
 SSIM into <out_dir>/metrics.json, and optionally save the renders and
 per-view error maps. --holdout-views scores exactly the poses the
 checkpoint recorded as held out; --ema scores the `<ckpt>.ema.npz`
-Polyak twin where one exists. Depth and acc maps (--save-depth) are not
-ported yet.
+Polyak twin where one exists; --n-fine overrides a full NeRF's
+fine-sample budget. Depth and acc maps (--save-depth) are not ported
+yet.
 
-    python -m tinynerf_tpu_torch.eval --ckpt-path <ckpt.npz> [--views 8] [--no-fused]
+    python -m tinynerf_tpu_torch.eval --ckpt-path <ckpt.npz> [--views 8] [--n-fine N] [--no-fused]
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,6 +39,9 @@ class EvalConfig:
     holdout_views: bool = False  # the poses the checkpoint recorded as held out
     ema: bool = False  # score the `<ckpt-path>.ema.npz` Polyak twin
     n_samples: int = 64
+    # None = the checkpoint's fine-sample count (full NeRF); an int,
+    # 0 included, overrides it.
+    n_fine: Optional[int] = None
     near: float = 2.0
     far: float = 6.0
     chunk: int = 8192
@@ -70,7 +75,7 @@ def main(cfg: EvalConfig = EvalConfig()) -> dict:
             )
     model, renderer, meta = load_model_and_renderer(
         ckpt_path, H=H, W=W, focal=focal, n_samples=cfg.n_samples, near=cfg.near,
-        far=cfg.far, chunk=cfg.chunk, fused=cfg.fused, device=device,
+        far=cfg.far, chunk=cfg.chunk, fused=cfg.fused, n_fine=cfg.n_fine, device=device,
     )
     print(
         f"[ckpt] {ckpt_path} (model {meta['model']}, step {meta['step']}"

@@ -1,0 +1,339 @@
+"""Fused full-NeRF MLP render pass (K3) and the fused hierarchical
+pipeline, on one CUDA kernel (csrc/fused_nerf.cu).
+
+fused_nerf_render_rays replaces the Pallas TPU kernel
+tinynerf_tpu/kernels/fused_nerf.py:183 (body _nerf_kernel):
+points (from analytic linspace depths or given (R, S) depths) ->
+encoding -> trunk with skip -> sigma head -> view-direction branch ->
+rgb head -> alpha composite, optionally with the (R, S) per-sample
+weights that hierarchical resampling reads.
+
+fused_render_rays_hierarchical is the deterministic coarse -> resample
+-> fine pipeline of tinynerf_tpu/kernels/fused_nerf.py:280-362: the
+coarse pass through K3 with weights out, sample_pdf and the sort in
+torch, then the fine pass through K3, or through the streamed K5
+(kernels/fused_nerf_stream.py) when hidden * S_union > 128 * 384, the
+JAX package's routing rule.
+
+What bounds it on an H100, and the kernel's layout: see the header of
+csrc/fused_nerf.cu. The TPU kernel's encoding row permutations
+(_encode_permutation, _dir_permutation) are not carried over: the
+kernel computes both encodings in the model's interleaved order.
+
+fused_nerf_render_rays_plain is the same computation in torch ops: the
+CPU path of the wrapper and the reference the kernel is checked against
+on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP, nerf_layer_in_dims, run_mlp, view_encoding
+from tinynerf_tpu_torch.ops.sampling import sample_pdf
+from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
+
+MAX_SMEM_BYTES = 232448  # H100: 227 KB of dynamic shared memory per block
+# The fine pass streams (K5) above this many hidden units x union samples
+# (tinynerf_tpu/kernels/fused_nerf.py:326).
+STREAM_ABOVE = 128 * 384
+
+
+def composite_one_m(rgb: torch.Tensor, sigma: torch.Tensor, delta: torch.Tensor,
+                    t_in: Optional[torch.Tensor] = None):
+    """The kernels' composite: one_m = exp(-sigma delta) + 1e-10,
+    alpha = 1 - (one_m - 1e-10), trans = t_in * (exclusive product of
+    one_m along the samples), t_in (R,) the entry transmittance (1 when
+    None) -> (comp_raw (R, 3), acc (R,), weights (R, S), inclusive
+    product of one_m over the samples (R,))."""
+    one_m = torch.exp(-sigma * delta) + TRANS_EPS
+    alpha = 1.0 - (one_m - TRANS_EPS)
+    incl = torch.cumprod(one_m, dim=-1)
+    trans = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=-1)
+    if t_in is not None:
+        trans = t_in[:, None] * trans
+    w = alpha * trans
+    return torch.sum(w[..., None] * rgb, dim=-2), torch.sum(w, dim=-1), w, incl[:, -1]
+
+
+def deltas(z: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
+    """(z_{s+1} - z_s) * ||d||, with DELTA_INF * ||d|| for the last sample."""
+    dz = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], DELTA_INF)], dim=-1)
+    return dz * torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+
+
+def linspace_depths(n_samples: int, near: float, far: float, device) -> torch.Tensor:
+    """The kernel's analytic depths z_s = near (1 - t) + far t, t = s/(S-1)."""
+    t = torch.arange(n_samples, dtype=torch.float32, device=device) / (n_samples - 1)
+    return near * (1.0 - t) + far * t
+
+
+def fused_nerf_render_rays_plain(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    z_vals: Optional[torch.Tensor] = None,
+    *,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    white_bkgd: bool = True,
+    cfg: Optional[NeRFConfig] = None,
+    return_weights: bool = False,
+):
+    """K3's semantics in torch ops -> comp_rgb (R, 3) (+ weights (R, S))."""
+    cfg = cfg or mlp.cfg
+    R = rays_o.shape[0]
+    if z_vals is None:
+        z_vals = linspace_depths(n_samples, near, far, rays_o.device).expand(R, n_samples)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    rgb, sigma = run_mlp(mlp, pts, view_encoding(rays_d, cfg), cfg)
+    comp, acc, w, _ = composite_one_m(rgb, sigma, deltas(z_vals, rays_d))
+    if white_bkgd:
+        comp = comp + (1.0 - acc[:, None])
+    return (comp, w) if return_weights else comp
+
+
+def pack_nerf_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
+    """One MLP's weights as one f32 buffer in the kernel's order: per
+    trunk layer W (in, out) then b; sigma W (hidden) then b and 3 zeros
+    (16-byte alignment for what follows); rgb_in W (hidden + dir_dim,
+    rgb_hidden) then b; rgb W (rgb_hidden, 3) then b. Weights are
+    rounded to bf16 when the compute dtype is bf16; biases stay f32.
+    The rows stay in the model's interleaved encoding order."""
+
+    def w(lin):
+        return lin.weight.detach().to(cfg.compute_dtype).float().t().reshape(-1)
+
+    def b(lin):
+        return lin.bias.detach().float()
+
+    parts = []
+    for lin in mlp.layers:
+        parts += [w(lin), b(lin)]
+    parts += [w(mlp.sigma), b(mlp.sigma), b(mlp.sigma).new_zeros(3)]
+    parts += [w(mlp.rgb_in), b(mlp.rgb_in), w(mlp.rgb), b(mlp.rgb)]
+    return torch.cat(parts).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (first use) and load csrc/fused_nerf.cu, typed for ctypes:
+    every pointer and the stream as c_void_p, or ctypes would cut them
+    to 32 bits."""
+    from tinynerf_tpu_torch.kernels import _build
+
+    lib = _build.load("fused_nerf")
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.tinynerf_fused_nerf.argtypes = [p] * 6 + [i] * 10 + [f, f, i, i, p]
+    lib.tinynerf_fused_nerf.restype = i
+    lib.tinynerf_fused_nerf_streamed.argtypes = [p] * 6 + [i] * 13 + [p]
+    lib.tinynerf_fused_nerf_streamed.restype = i
+    lib.tinynerf_fused_nerf_smem_bytes.argtypes = [i] * 6
+    lib.tinynerf_fused_nerf_smem_bytes.restype = i
+    for name in ("threads", "max_threads", "tile_points"):
+        fn = getattr(lib, f"tinynerf_fused_nerf_{name}")
+        fn.argtypes = [i] if name == "threads" else []
+        fn.restype = i
+    lib.tinynerf_cuda_error_string.argtypes = [i]
+    lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_on_error(err: int, what: str) -> None:
+    if err != 0:
+        msg = _lib().tinynerf_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int) -> int:
+    """Validate what the kernel takes; returns the rays per block: the
+    fewest that fill whole 128-point chunks with segments of `seg`
+    samples, within the block's threads and shared memory."""
+    for name, x in (("rays_o", rays_o), ("rays_d", rays_d)):
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.dim() != 2 or x.shape[1] != 3:
+            raise ValueError(f"{name} must be (R, 3), got {tuple(x.shape)}")
+    if rays_o.shape != rays_d.shape or rays_o.device != rays_d.device:
+        raise ValueError("rays_o and rays_d must have the same shape and device")
+    if z is not None:
+        if z.device != rays_o.device or z.dtype != torch.float32:
+            raise TypeError(f"z_vals must be float32 on {rays_o.device}, got {z.dtype} on {z.device}")
+        if z.dim() != 2 or z.shape[0] != rays_o.shape[0]:
+            raise ValueError(f"z_vals must be (R, S), got {tuple(z.shape)}")
+    p = next(mlp.parameters())
+    if p.device != rays_o.device:
+        raise ValueError(f"params on {p.device}, rays on {rays_o.device}")
+    if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got {cfg.compute_dtype}")
+    if ([lin.in_features for lin in mlp.layers] != nerf_layer_in_dims(cfg)
+            or mlp.layers[0].out_features != cfg.hidden
+            or mlp.rgb_in.in_features != cfg.hidden + cfg.dir_dim
+            or mlp.rgb_in.out_features != cfg.rgb_hidden):
+        raise ValueError("params do not match cfg (num_freqs/depth/skip_at/hidden/viewdirs)")
+    rows = 8 * cfg.rgb_hidden // cfg.hidden if cfg.hidden else 0
+    if (cfg.hidden % 8 or cfg.rgb_hidden % 8 or (8 * cfg.rgb_hidden) % cfg.hidden
+            or rows not in (1, 2, 4, 8) or not 0 <= cfg.skip_at < cfg.depth):
+        raise ValueError(
+            "kernel needs hidden and rgb_hidden multiples of 8, 8*rgb_hidden/hidden in "
+            f"{{1, 2, 4, 8}} and 0 <= skip_at < depth, got {cfg}"
+        )
+    lib = _lib()
+    threads = lib.tinynerf_fused_nerf_threads(cfg.hidden)
+    if threads > lib.tinynerf_fused_nerf_max_threads():
+        raise ValueError(f"hidden {cfg.hidden} needs {threads} threads: too many")
+    tile = lib.tinynerf_fused_nerf_tile_points() // math.gcd(lib.tinynerf_fused_nerf_tile_points(), seg)
+    tile = min(tile, threads)
+
+    def smem(t):
+        return lib.tinynerf_fused_nerf_smem_bytes(
+            t, seg, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden)
+
+    while tile > 1 and smem(tile) > MAX_SMEM_BYTES:
+        tile //= 2
+    if smem(tile) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"segments of {seg} samples at hidden {cfg.hidden} need {smem(tile)} B of "
+            "shared memory: too large"
+        )
+    return tile
+
+
+def pad_rays(rays_o, rays_d, pad: int):
+    """Pad with origin 0 and unit-z directions (finite norms), contiguous."""
+    unit_z = torch.tensor([[0.0, 0.0, 1.0]], device=rays_d.device)
+    return (torch.cat([rays_o, rays_o.new_zeros(pad, 3)]).contiguous(),
+            torch.cat([rays_d, unit_z.expand(pad, 3)]).contiguous())
+
+
+def fused_nerf_render_rays(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    z_vals: Optional[torch.Tensor] = None,
+    *,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    white_bkgd: bool = True,
+    cfg: Optional[NeRFConfig] = None,
+    return_weights: bool = False,
+):
+    """One fused NeRF-MLP render pass -> comp_rgb (R, 3), plus the
+    weights (R, S) when return_weights. z_vals (R, S) gives the depths;
+    None uses the linspace of n_samples.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    fused_nerf_render_rays_plain. `cfg` defaults to mlp.cfg."""
+    cfg = cfg or mlp.cfg
+    kw = dict(n_samples=n_samples, near=near, far=far, white_bkgd=white_bkgd, cfg=cfg,
+              return_weights=return_weights)
+    if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
+        return fused_nerf_render_rays_plain(mlp, rays_o, rays_d, z_vals, **kw)
+    S = z_vals.shape[1] if z_vals is not None else n_samples
+    if S < 2:
+        raise ValueError(f"the kernel needs at least 2 samples per ray, got {S}")
+    tile = check_launch(mlp, cfg, rays_o, rays_d, z_vals, S)
+
+    R = rays_o.shape[0]
+    pad = -R % tile
+    dev = rays_o.device
+    o, d = pad_rays(rays_o, rays_d, pad)
+    z = None
+    if z_vals is not None:
+        z = torch.cat([z_vals, z_vals.new_zeros(pad, S)]).contiguous()
+    wts = pack_nerf_weights(mlp, cfg)
+    out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
+    w_out = torch.empty(R + pad, S, dtype=torch.float32, device=dev) if return_weights else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().tinynerf_fused_nerf(
+        o.data_ptr(), d.data_ptr(), None if z is None else z.data_ptr(), wts.data_ptr(),
+        out.data_ptr(), None if w_out is None else w_out.data_ptr(),
+        R + pad, tile, S, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
+        cfg.depth, cfg.skip_at, cfg.rgb_hidden, float(near), float(far),
+        int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
+    )
+    raise_on_error(err, "fused_nerf")
+    fused_nerf_render_rays.launches += 1
+    comp = out[:R, :3]
+    if white_bkgd:
+        comp = comp + (1.0 - out[:R, 3:4])
+    return (comp, w_out[:R]) if return_weights else comp
+
+
+fused_nerf_render_rays.launches = 0  # kernel launches since the last reset
+
+
+def default_sample_block(s_union: int, cap: int) -> int:
+    """The hierarchical pipeline's block: the largest divisor of the union
+    that is <= cap and a multiple of 8 (or the union itself)
+    (tinynerf_tpu/kernels/fused_nerf.py:332-337)."""
+    return next(
+        b for b in range(min(cap, s_union), 0, -1)
+        if s_union % b == 0 and (b % 8 == 0 or b == s_union)
+    )
+
+
+def union_depths(weights: torch.Tensor, n_fine: int, near: float, far: float) -> torch.Tensor:
+    """The fine pass's depths: the coarse linspace and n_fine inverse-CDF
+    samples of the coarse weights (R, n_coarse) over its interior bins,
+    sorted -> (R, n_coarse + n_fine)."""
+    R, n_coarse = weights.shape
+    t = torch.linspace(0.0, 1.0, n_coarse, dtype=torch.float32, device=weights.device)
+    z_c = (near * (1.0 - t) + far * t).expand(R, n_coarse)
+    z_mids = 0.5 * (z_c[:, 1:] + z_c[:, :-1])
+    z_f = sample_pdf(z_mids, weights[:, 1:-1], n_fine, randomized=False)
+    return torch.sort(torch.cat([z_c, z_f], dim=-1), dim=-1).values
+
+
+def fused_render_rays_hierarchical(
+    params: NeRF,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    *,
+    n_coarse: int = 64,
+    n_fine: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    white_bkgd: bool = True,
+    cfg: Optional[NeRFConfig] = None,
+    sample_block: Optional[int] = None,
+):
+    """Deterministic coarse -> resample -> fine pipeline ->
+    (comp_coarse (R, 3), comp_fine (R, 3)); matches
+    models/nerf.render_rays_hierarchical(randomized=False). Large unions
+    (hidden * S_union > 128 * 384) or an explicit `sample_block` route
+    the fine pass through the streamed K5."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        DEFAULT_SAMPLE_BLOCK,
+        fused_nerf_render_rays_streamed,
+    )
+
+    cfg = cfg or params.cfg
+    comp_c, weights = fused_nerf_render_rays(
+        params.coarse, rays_o, rays_d, n_samples=n_coarse, near=near, far=far,
+        white_bkgd=white_bkgd, cfg=cfg, return_weights=True,
+    )
+    z_union = union_depths(weights, n_fine, near, far)
+    s_union = n_coarse + n_fine
+    if sample_block is not None or cfg.hidden * s_union > STREAM_ABOVE:
+        if sample_block is None:
+            sample_block = default_sample_block(s_union, DEFAULT_SAMPLE_BLOCK)
+        comp_f = fused_nerf_render_rays_streamed(
+            params.fine, rays_o, rays_d, z_union, white_bkgd=white_bkgd, cfg=cfg,
+            sample_block=sample_block,
+        )
+    else:
+        comp_f = fused_nerf_render_rays(
+            params.fine, rays_o, rays_d, z_union, near=near, far=far, white_bkgd=white_bkgd,
+            cfg=cfg,
+        )
+    return comp_c, comp_f

@@ -1,0 +1,145 @@
+"""Sample-block-streamed fused NeRF render pass (K5).
+
+fused_nerf_render_rays_streamed replaces the Pallas TPU kernel
+tinynerf_tpu/kernels/fused_nerf_stream.py:451 (body
+_streamed_render_kernel): a forward render over a given sorted (R, S)
+depth union that walks sample blocks of `sample_block` in order,
+carrying (T_run, C, A) per ray: within a block the local exclusive
+product of one_m, scaled by T_run, weights the samples; then
+T_run <- T_run * (last local prefix * last one_m). Its state is
+O(sample_block), not O(S), so the fine pass of a large union (the
+`--n-fine 448` recipe: hidden 128, S = 512) runs in one launch.
+
+The kernel is the second C entry point of csrc/fused_nerf.cu: it shares
+K3's chunked MLP and encodings and adds the carried block walk. The
+deltas are precomputed here, as the JAX wrapper does (:488-496).
+
+fused_nerf_render_rays_streamed_plain is the same block walk in torch
+ops: the CPU path of the wrapper and the reference the kernel is
+checked against on the card. The streamed fwd+bwd (K6,
+fused_nerf_pass_grads_streamed) belongs to the NeRF training slice.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Optional
+
+import torch
+
+from tinynerf_tpu_torch.kernels.fused_nerf import (
+    _lib,
+    check_launch,
+    composite_one_m,
+    deltas,
+    pack_nerf_weights,
+    pad_rays,
+    raise_on_error,
+)
+from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
+
+DEFAULT_SAMPLE_BLOCK = 64
+
+
+def pick_sample_block(S: int, cap: int = DEFAULT_SAMPLE_BLOCK) -> int:
+    """Largest divisor of S that is <= cap (the streamed kernels need
+    sample_block | S; e.g. S=192 -> 64). Warns when S has no divisor in
+    [8, cap]: the walk then takes S/b tiny blocks
+    (tinynerf_tpu/kernels/fused_nerf_stream.py:71-92)."""
+    for b in range(min(cap, S), 0, -1):
+        if S % b == 0:
+            if b < 8 and S > 8:
+                warnings.warn(
+                    f"pick_sample_block: S={S} has no divisor in [8, {cap}];"
+                    f" streaming in blocks of {b} ({S // b} inner blocks) will"
+                    " be slow — prefer a composite sample count (e.g. a"
+                    " multiple of 64)"
+                )
+            return b
+    return S
+
+
+def _check_block(S: int, sample_block: int) -> int:
+    sample_block = min(sample_block, S)
+    if sample_block < 1 or S % sample_block:
+        raise ValueError(f"S={S} must be a multiple of sample_block={sample_block}")
+    return sample_block
+
+
+def fused_nerf_render_rays_streamed_plain(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    z_vals: torch.Tensor,
+    *,
+    white_bkgd: bool = True,
+    cfg: Optional[NeRFConfig] = None,
+    sample_block: int = DEFAULT_SAMPLE_BLOCK,
+) -> torch.Tensor:
+    """K5's block walk in torch ops -> comp_rgb (R, 3)."""
+    cfg = cfg or mlp.cfg
+    R, S = z_vals.shape
+    sb = _check_block(S, sample_block)
+    d_enc_ray = view_encoding(rays_d, cfg)
+    delta = deltas(z_vals, rays_d)
+    T_run = torch.ones(R, dtype=torch.float32, device=rays_o.device)
+    C = torch.zeros(R, 3, dtype=torch.float32, device=rays_o.device)
+    A = torch.zeros(R, dtype=torch.float32, device=rays_o.device)
+    for s0 in range(0, S, sb):
+        z = z_vals[:, s0:s0 + sb]
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+        rgb, sigma = run_mlp(mlp, pts, d_enc_ray, cfg)
+        # trans = T_run * (block-local exclusive product of one_m).
+        c, a, _, blk = composite_one_m(rgb, sigma, delta[:, s0:s0 + sb], t_in=T_run)
+        C = C + c
+        A = A + a
+        T_run = T_run * blk
+    return C + (1.0 - A[:, None]) if white_bkgd else C
+
+
+def fused_nerf_render_rays_streamed(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    z_vals: torch.Tensor,
+    *,
+    white_bkgd: bool = True,
+    cfg: Optional[NeRFConfig] = None,
+    sample_block: int = DEFAULT_SAMPLE_BLOCK,
+) -> torch.Tensor:
+    """Streamed forward render over a given sorted depth union ->
+    comp_rgb (R, 3). Raises when S is not a multiple of sample_block.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    fused_nerf_render_rays_streamed_plain. `cfg` defaults to mlp.cfg."""
+    cfg = cfg or mlp.cfg
+    R, S = z_vals.shape
+    sb = _check_block(S, sample_block)
+    if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
+        return fused_nerf_render_rays_streamed_plain(
+            mlp, rays_o, rays_d, z_vals, white_bkgd=white_bkgd, cfg=cfg, sample_block=sb)
+    tile = check_launch(mlp, cfg, rays_o, rays_d, z_vals, sb)
+
+    pad = -R % tile
+    dev = rays_o.device
+    o, d = pad_rays(rays_o, rays_d, pad)
+    z = torch.cat([z_vals, z_vals.new_ones(pad, S)]).contiguous()
+    delta = deltas(z, d).contiguous()
+    wts = pack_nerf_weights(mlp, cfg)
+    out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().tinynerf_fused_nerf_streamed(
+        o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), wts.data_ptr(),
+        out.data_ptr(), R + pad, tile, S, sb, cfg.num_freqs, cfg.num_freqs_dir,
+        int(cfg.use_viewdirs), cfg.hidden, cfg.depth, cfg.skip_at, cfg.rgb_hidden,
+        int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
+    )
+    raise_on_error(err, "fused_nerf_streamed")
+    fused_nerf_render_rays_streamed.launches += 1
+    comp = out[:R, :3]
+    if white_bkgd:
+        comp = comp + (1.0 - out[:R, 3:4])
+    return comp
+
+
+fused_nerf_render_rays_streamed.launches = 0  # kernel launches since the last reset

@@ -1,7 +1,8 @@
 """Novel-view spiral GIF renderer.
 
 Port of tinynerf_tpu/make_gif.py:32-90 (colour only): load a
-checkpoint (rebuilding the model from its stored cfg), build a
+TinyNeRF or full-NeRF checkpoint (rebuilding the model from its stored
+cfg), build a
 60-frame spiral path around pose 0 (radius 0.3), render every frame
 and write <out_path> at fps=15, loop=0. Frames are quantized to uint8
 on the device before the copy to the host.

@@ -1,6 +1,7 @@
 """Full-image rendering: the encode->MLP->composite chain over ray chunks.
 
-Port of tinynerf_tpu/render.py:30-184, 393-430. Rays for a pose are
+Port of tinynerf_tpu/render.py:30-184, 201-272, 393-430 (TinyNeRF and
+the full NeRF's hierarchical renderer). Rays for a pose are
 processed in fixed-size chunks (default 8192) with un-jittered
 stratified samples; chunking never changes the result (rays are
 independent). PyTorch runs eagerly, so the chunk loop is a Python loop;
@@ -16,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from tinynerf_tpu_torch.models.nerf import NeRFConfig, render_rays_hierarchical
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import positional_encoding
 from tinynerf_tpu_torch.ops.rays import get_rays
@@ -135,6 +137,52 @@ def make_image_renderer(
         n_samples=n_samples, near=near, far=far, num_freqs=num_freqs,
         white_bkgd=white_bkgd, model_cfg=model_cfg, use_fused=use_fused,
     )
-    if not frames:
-        return fn
+    return _frames(fn) if frames else fn
+
+
+def _frames(fn):
+    """`(params, pose) -> image` -> `(params, poses (F, 4, 4)) -> (F, H, W, 3)`."""
     return lambda params, poses: torch.stack([fn(params, p) for p in poses])
+
+
+def make_hierarchical_image_renderer(
+    *,
+    H: int,
+    W: int,
+    focal: float,
+    chunk: int = 4096,
+    n_coarse: int = 64,
+    n_fine: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    white_bkgd: bool = True,
+    nerf_cfg=None,
+    use_fused: bool = False,
+    frames: bool = False,
+):
+    """`(params, pose) -> (H, W, 3)` renderer for the full NeRF: the fine
+    composite of the deterministic coarse -> resample -> fine pipeline is
+    the image (port of tinynerf_tpu/render.py:201-272, colour only).
+    use_fused routes both passes through the fused kernels
+    (kernels/fused_nerf.py); otherwise the eager
+    models/nerf.render_rays_hierarchical runs. frames=True returns the
+    batched `(params, poses (F, 4, 4)) -> (F, H, W, 3)` variant."""
+    nerf_cfg = nerf_cfg or NeRFConfig()
+    kw = dict(n_coarse=n_coarse, n_fine=n_fine, near=near, far=far, white_bkgd=white_bkgd,
+              cfg=nerf_cfg)
+
+    @torch.no_grad()
+    def fn(params, pose):
+        device = next(params.parameters()).device
+        pose = torch.as_tensor(pose, dtype=torch.float32).to(device)
+
+        def one_chunk(ro, rd):
+            if use_fused:
+                from tinynerf_tpu_torch.kernels.fused_nerf import fused_render_rays_hierarchical
+
+                return fused_render_rays_hierarchical(params, ro, rd, **kw)[1]
+            return render_rays_hierarchical(params, ro, rd, **kw)[1]
+
+        return chunked_over_rays(one_chunk, H, W, float(focal), pose, chunk)
+
+    return _frames(fn) if frames else fn

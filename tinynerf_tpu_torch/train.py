@@ -47,6 +47,11 @@ def _boundaries(start: int, end: int, *cadences: int):
 
 
 def main(cfg: Config = Config()) -> dict:
+    if cfg.model != "tinynerf":
+        raise NotImplementedError(
+            f"training --model {cfg.model} is not ported yet (ROADMAP.md, queue 1: "
+            "'nerf' is item 9, 'grid' item 12)"
+        )
     t_start = time.time()
     device = torch.device(cfg.device)
     os.makedirs(cfg.out_dir, exist_ok=True)

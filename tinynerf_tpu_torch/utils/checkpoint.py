@@ -2,23 +2,26 @@
 
 Port of tinynerf_tpu/utils/checkpoint.py:32-65, 114-147. A checkpoint
 is one .npz holding every parameter leaf as `param_{i}` in JAX flatten
-order, `step`, and a `meta` JSON blob with `param_struct` (the printed
-tree structure), `n_params` and the caller's metadata. For TinyNeRF the
-flatten order is
+order (dict keys sorted, lists in order), `step`, and a `meta` JSON blob
+with `param_struct` (the printed tree structure), `n_params` and the
+caller's metadata. Every w is stored (in, out). For TinyNeRF the flatten
+order is
   layers[0].b, layers[0].w, ..., layers[D-1].w, rgb.b, rgb.w, sigma.b, sigma.w
-with every w stored (in, out).
+and for the full NeRF ({'coarse', 'fine'}) each MLP in turn gives its
+2 * depth + 6 leaves
+  layers[0].b, ..., layers[D-1].w, rgb.b, rgb.w, rgb_in.b, rgb_in.w, sigma.b, sigma.w
 
 Training checkpoints (save_checkpoint / restore_checkpoint, port of
-:32-111) also carry optax.adam's state in the JAX layout, 1 + 2 *
-n_params leaves:
+:32-111; TinyNeRF) also carry optax.adam's state in the JAX layout,
+1 + 2 * n_params leaves:
   opt_0                       count, an int32 scalar
   opt_1 .. opt_{n}            mu, in the params' flatten order, w as (in, out)
   opt_{n+1} .. opt_{2n}       nu, likewise
 which map to torch.optim.Adam's per-parameter state "step", "exp_avg"
 and "exp_avg_sq" (weights transposed). A checkpoint written by either
 package resumes in the other. Render consumers read the parameters only
-(restore_params) and accept params-only checkpoints (save_params).
-Writes are atomic (temp file + rename).
+(restore_params) and accept params-only checkpoints (save_params) of
+either model family. Writes are atomic (temp file + rename).
 """
 
 from __future__ import annotations
@@ -31,17 +34,29 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 import torch
+from torch import nn
 
+from tinynerf_tpu_torch.models.nerf import NeRF, nerf_params_from_jax, nerf_params_to_jax
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, params_from_jax, params_to_jax, state_to_jax
+
+
+def _struct(tree) -> str:
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"'{k}': {_struct(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, list):
+        return "[" + ", ".join(_struct(x) for x in tree) + "]"
+    return "*"
+
+
+def tree_struct(tree) -> str:
+    """The JAX treedef string of a tree of dicts, lists and leaves."""
+    return f"PyTreeDef({_struct(tree)})"
 
 
 def param_struct(depth: int) -> str:
     """The JAX treedef string of a TinyNeRF params tree of `depth` layers."""
-    layers = ", ".join(["{'b': *, 'w': *}"] * depth)
-    return (
-        f"PyTreeDef({{'layers': [{layers}], 'rgb': {{'b': *, 'w': *}}, "
-        "'sigma': {'b': *, 'w': *}})"
-    )
+    lin = {"b": None, "w": None}
+    return tree_struct({"layers": [lin] * depth, "rgb": lin, "sigma": lin})
 
 
 def opt_struct(depth: int) -> str:
@@ -55,23 +70,35 @@ def opt_struct(depth: int) -> str:
 
 
 def _flatten(tree) -> list:
-    leaves = []
-    for layer in tree["layers"]:
-        leaves += [layer["b"], layer["w"]]
-    for head in ("rgb", "sigma"):
-        leaves += [tree[head]["b"], tree[head]["w"]]
-    return leaves
+    """Leaves in JAX flatten order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flatten(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _flatten(t)]
+    return [tree]
 
 
-def _unflatten(leaves: list, depth: int) -> Dict[str, Any]:
-    def lin(i):
-        return {"b": leaves[i], "w": leaves[i + 1]}
+def _unflatten(leaves: list, template):
+    """Inverse of _flatten: `leaves` into the structure of `template`."""
+    it = iter(leaves)
 
-    return {
-        "layers": [lin(2 * i) for i in range(depth)],
-        "rgb": lin(2 * depth),
-        "sigma": lin(2 * depth + 2),
-    }
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [build(x) for x in t]
+        return next(it)
+
+    return build(template)
+
+
+def _to_jax(model: nn.Module):
+    """The model's parameters as a JAX-layout tree (TinyNeRF or NeRF)."""
+    return nerf_params_to_jax(model) if isinstance(model, NeRF) else params_to_jax(model)
+
+
+def _from_jax(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
+    return nerf_params_from_jax(tree) if isinstance(model, NeRF) else params_from_jax(tree)
 
 
 def _write(path: str, payload: Dict[str, np.ndarray]) -> None:
@@ -88,8 +115,9 @@ def _write(path: str, payload: Dict[str, np.ndarray]) -> None:
         raise
 
 
-def _payload(model: TinyNeRF, opt_leaves: list, o_struct: str, step: int, meta) -> dict:
-    leaves = _flatten(params_to_jax(model))
+def _payload(model: nn.Module, opt_leaves: list, o_struct: str, step: int, meta) -> dict:
+    tree = _to_jax(model)
+    leaves = _flatten(tree)
     payload = {f"param_{i}": x for i, x in enumerate(leaves)}
     payload.update({f"opt_{i}": x for i, x in enumerate(opt_leaves)})
     payload["step"] = np.asarray(step, dtype=np.int64)
@@ -97,7 +125,7 @@ def _payload(model: TinyNeRF, opt_leaves: list, o_struct: str, step: int, meta) 
         json.dumps(
             {
                 "meta": meta or {},
-                "param_struct": param_struct(len(model.layers)),
+                "param_struct": tree_struct(tree),
                 "opt_struct": o_struct,
                 "n_params": len(leaves),
                 "n_opt": len(opt_leaves),
@@ -107,8 +135,9 @@ def _payload(model: TinyNeRF, opt_leaves: list, o_struct: str, step: int, meta) 
     return payload
 
 
-def save_params(path: str, model: TinyNeRF, step: int, meta: Optional[Dict[str, Any]] = None) -> None:
-    """Atomically write a params-only checkpoint (empty optimizer state)."""
+def save_params(path: str, model: nn.Module, step: int, meta: Optional[Dict[str, Any]] = None) -> None:
+    """Atomically write a params-only checkpoint (empty optimizer state)
+    of a TinyNeRF or a NeRF."""
     _write(path, _payload(model, [], "PyTreeDef({})", step, meta))
 
 
@@ -139,23 +168,25 @@ def read_meta(path: str) -> Dict[str, Any]:
         return json.loads(str(z["meta"]))
 
 
-def restore_params(path: str, model: TinyNeRF) -> Tuple[int, Dict[str, Any]]:
-    """Load a checkpoint's parameters into `model` in place.
+def restore_params(path: str, model: nn.Module) -> Tuple[int, Dict[str, Any]]:
+    """Load a checkpoint's parameters into `model` (TinyNeRF or NeRF) in
+    place.
 
     Returns (step, meta). Raises ValueError when the stored structure or
     a leaf's shape does not match the model."""
-    depth = len(model.layers)
+    template = _to_jax(model)
+    struct, n_params = tree_struct(template), len(_flatten(template))
     want = model.state_dict()
     with np.load(path, allow_pickle=False) as z:
         info = json.loads(str(z["meta"]))
-        if info["param_struct"] != param_struct(depth) or info["n_params"] != 2 * depth + 4:
+        if info["param_struct"] != struct or info["n_params"] != n_params:
             raise ValueError(
                 "checkpoint param structure mismatch: "
-                f"stored {info['param_struct']} vs model {param_struct(depth)}"
+                f"stored {info['param_struct']} vs model {struct}"
             )
-        leaves = [np.asarray(z[f"param_{i}"]) for i in range(info["n_params"])]
+        leaves = [np.asarray(z[f"param_{i}"]) for i in range(n_params)]
         step = int(z["step"])
-    state = params_from_jax(_unflatten(leaves, depth))
+    state = _from_jax(model, _unflatten(leaves, template))
     for k, v in state.items():
         if tuple(v.shape) != tuple(want[k].shape):
             raise ValueError(
@@ -186,8 +217,9 @@ def restore_checkpoint(
         opt = [np.asarray(z[f"opt_{i}"]) for i in range(info["n_opt"])]
     step, meta = restore_params(path, model)
     count = int(opt[0])
-    mu = params_from_jax(_unflatten(opt[1:1 + n_p], depth))
-    nu = params_from_jax(_unflatten(opt[1 + n_p:], depth))
+    template = params_to_jax(model)
+    mu = params_from_jax(_unflatten(opt[1:1 + n_p], template))
+    nu = params_from_jax(_unflatten(opt[1 + n_p:], template))
     optimizer.state.clear()
     for name, p in model.named_parameters():
         optimizer.state[p] = {

@@ -1,18 +1,22 @@
 """Checkpoint-driven model reconstruction for the render drivers.
 
-Port of the TinyNeRF branch of tinynerf_tpu/utils/model_io.py:18-152:
-rebuild the model from the checkpoint's stored cfg (with the
-reference's defaults), load its parameters and build a matching image
-renderer. The other model families are not ported yet.
+Port of the TinyNeRF and NeRF (coarse proposal) branches of
+tinynerf_tpu/utils/model_io.py:18-152: rebuild the model from the
+checkpoint's stored cfg (with the reference's defaults), load its
+parameters and build a matching image renderer. The occupancy proposal
+and the grid family are not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import encoding_dim
-from tinynerf_tpu_torch.render import make_image_renderer
+from tinynerf_tpu_torch.render import make_hierarchical_image_renderer, make_image_renderer
 from tinynerf_tpu_torch.utils import checkpoint as ckpt_lib
 
 
@@ -28,35 +32,61 @@ def load_model_and_renderer(
     chunk: int = 8192,
     fused: bool = True,
     frames: bool = False,
+    n_fine: Optional[int] = None,
     device="cuda",
 ):
     """-> (model, renderer, meta); renderer is (model, pose) -> image, or
-    with frames=True (model, poses (F,4,4)) -> (F,H,W,3)."""
+    with frames=True (model, poses (F,4,4)) -> (F,H,W,3).
+
+    n_fine (None = the checkpoint's fine-sample count) overrides the
+    full NeRF's fine-sample budget; an explicit 0 means zero fine
+    samples. The NeRF renders in chunks of min(chunk, 4096) rays."""
     meta = ckpt_lib.read_meta(ckpt_path)["meta"]
     mcfg = meta.get("cfg", {"hidden": 128, "depth": 4, "skip_at": 2, "num_freqs": 10})
     model_kind = meta.get("model", "tinynerf")
-    if model_kind != "tinynerf":
+    if model_kind not in ("tinynerf", "nerf"):
         raise NotImplementedError(
-            f"model {model_kind!r} is not ported yet (ROADMAP.md, queue 1: "
-            "'nerf' is item 9, 'grid' item 12)"
+            f"model {model_kind!r} is not ported yet (ROADMAP.md, queue 1, item 12)"
         )
     if mcfg.get("ndc", False):
         raise NotImplementedError("NDC checkpoints are not ported yet (ROADMAP.md, queue 1, item 10)")
     num_freqs = mcfg.get("num_freqs", 10)
-    model_cfg = TinyNeRFConfig(
-        in_dim=encoding_dim(num_freqs),
-        hidden=mcfg["hidden"],
-        depth=mcfg["depth"],
-        skip_at=mcfg["skip_at"],
-    )
     # The fixed-seed init is a template only: restore_params overwrites it.
-    model = TinyNeRF(model_cfg, generator=torch.Generator().manual_seed(0), device=device)
+    template = torch.Generator().manual_seed(0)
+    if model_kind == "nerf":
+        if mcfg.get("proposal", "coarse") == "occupancy":
+            raise NotImplementedError(
+                "occupancy-proposal NeRF checkpoints are not ported yet "
+                "(ROADMAP.md, queue 1, item 11)"
+            )
+        ncfg = NeRFConfig(
+            num_freqs=num_freqs,
+            num_freqs_dir=mcfg.get("num_freqs_dir", 4),
+            hidden=mcfg["hidden"],
+            depth=mcfg["depth"],
+            skip_at=mcfg["skip_at"],
+            rgb_hidden=mcfg.get("rgb_hidden", 64),
+        )
+        model = NeRF(ncfg, generator=template, device=device)
+        renderer = make_hierarchical_image_renderer(
+            H=H, W=W, focal=focal, chunk=min(chunk, 4096), n_coarse=n_samples,
+            n_fine=n_fine if n_fine is not None else mcfg.get("n_fine", 64),
+            near=near, far=far, nerf_cfg=ncfg, use_fused=fused, frames=frames,
+        )
+    else:
+        model_cfg = TinyNeRFConfig(
+            in_dim=encoding_dim(num_freqs),
+            hidden=mcfg["hidden"],
+            depth=mcfg["depth"],
+            skip_at=mcfg["skip_at"],
+        )
+        model = TinyNeRF(model_cfg, generator=template, device=device)
+        renderer = make_image_renderer(
+            H=H, W=W, focal=focal, chunk=chunk, n_samples=n_samples, near=near,
+            far=far, num_freqs=num_freqs, model_cfg=model_cfg, use_fused=fused,
+            frames=frames,
+        )
     step, _ = ckpt_lib.restore_params(ckpt_path, model)
-    renderer = make_image_renderer(
-        H=H, W=W, focal=focal, chunk=chunk, n_samples=n_samples, near=near,
-        far=far, num_freqs=num_freqs, model_cfg=model_cfg, use_fused=fused,
-        frames=frames,
-    )
     meta["step"] = step
     meta["model"] = model_kind
     return model, renderer, meta

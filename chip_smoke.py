@@ -67,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -90,6 +91,33 @@ GATES = {
     torch.bfloat16: {"p999": 3e-2, "mean": 1e-3, "flip": 2.5e-3},
 }
 FLIP_ERR = 3e-2
+
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# the rate for the kernels' bf16 inputs and the device memory's rate.
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+
+def macs_per_point(module: torch.nn.Module) -> int:
+    """Multiply-adds of one point through every nn.Linear of `module`."""
+    return sum(m.in_features * m.out_features for m in module.modules()
+               if isinstance(m, torch.nn.Linear))
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
+                 ms: float, plain_ms: float, flops: float, nbytes: float) -> dict:
+    """One kernel's record for the {"kernels": [...]} line. bound_ms is the
+    least time the card could take for the work timed in `ms`: the larger
+    of its operations over the bf16 peak and of its bytes (each input read
+    once, each output written once) over the memory rate. No single
+    PyTorch call computes a fused MLP pass (+ composite, + backward), so
+    library_ms is null."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
 
 
 def check(cond: bool, what: str) -> None:
@@ -259,16 +287,13 @@ def run(build_render) -> dict:
           f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
     print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
 
-    return {
-        "name": "fused_render_rays",
-        "route": "cuda",
-        "source": "tinynerf_tpu_torch/csrc/fused_render.cu",
-        "replaces": "tinynerf_tpu/kernels/fused_render.py:211",
-        "launches": launches,
-        "max_abs_err": errs[torch.bfloat16]["max"],
-        "ms": ms["batch", "kernel"],
-        "plain_ms": ms["batch", "plain"],
-    }
+    n_par = sum(p.numel() for p in model.parameters())
+    return kernel_entry(
+        "fused_render_rays", "tinynerf_tpu_torch/csrc/fused_render.cu",
+        "tinynerf_tpu/kernels/fused_render.py:211", launches, errs[torch.bfloat16]["max"],
+        ms["batch", "kernel"], ms["batch", "plain"],
+        flops=2 * N_RAYS * N_SAMPLES * macs_per_point(model),
+        nbytes=4 * (N_RAYS * (3 + 3 + 3) + n_par))
 
 
 def leaf_errors(got, want) -> dict:
@@ -463,16 +488,14 @@ def run_train(build_train) -> dict:
           f"(all runs {json.dumps(step_s)})", flush=True)
     print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
 
-    return {
-        "name": "fused_loss_grads",
-        "route": "cuda",
-        "source": "tinynerf_tpu_torch/csrc/fused_train.cu",
-        "replaces": "tinynerf_tpu/kernels/fused_train.py:263",
-        "launches": runs["fused"]["k2"],
-        "max_abs_err": errs[torch.bfloat16]["max_abs"],
-        "ms": ms["bfloat16", "kernel"],
-        "plain_ms": ms["bfloat16", "plain"],
-    }
+    n_par = sum(p.numel() for p in models[torch.bfloat16].parameters())
+    return kernel_entry(
+        "fused_loss_grads", "tinynerf_tpu_torch/csrc/fused_train.cu",
+        "tinynerf_tpu/kernels/fused_train.py:263", runs["fused"]["k2"],
+        errs[torch.bfloat16]["max_abs"], ms["bfloat16", "kernel"], ms["bfloat16", "plain"],
+        # forward, weight-gradient and upstream products
+        flops=3 * 2 * N_RAYS_TRAIN * N_SAMPLES * macs_per_point(models[torch.bfloat16]),
+        nbytes=4 * (N_RAYS_TRAIN * 9 + 2 * n_par + 1))
 
 
 NERF_CHUNK = 4096  # rays per hierarchical render chunk (min(chunk, 4096))
@@ -677,27 +700,376 @@ def run_nerf(build_nerf) -> list:
     print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
 
     bf16 = torch.bfloat16
+    mlp_par = sum(p.numel() for p in model.fine.parameters())
+    mlp128_par = sum(p.numel() for p in m128.fine.parameters())
+    s_fine, s512 = z.shape[1], z512.shape[1]
     return [
-        {
-            "name": "fused_nerf_render_rays",
-            "route": "cuda",
-            "source": "tinynerf_tpu_torch/csrc/fused_nerf.cu",
-            "replaces": "tinynerf_tpu/kernels/fused_nerf.py:183",
-            "launches": launches["eval"][0] + launches["make_gif"][0],
-            "max_abs_err": max(errs["a", bf16]["max"], errs["b", bf16]["max"]),
-            "ms": ms["k3_fine", "kernel"],
-            "plain_ms": ms["k3_fine", "plain"],
-        },
-        {
-            "name": "fused_nerf_render_rays_streamed",
-            "route": "cuda",
-            "source": "tinynerf_tpu_torch/csrc/fused_nerf.cu",
-            "replaces": "tinynerf_tpu/kernels/fused_nerf_stream.py:451",
-            "launches": launches["eval_n_fine_448"][1],
-            "max_abs_err": errs["k5", bf16]["max"],
-            "ms": ms["k5", "kernel"],
-            "plain_ms": ms["k5", "plain"],
-        },
+        kernel_entry(
+            "fused_nerf_render_rays", "tinynerf_tpu_torch/csrc/fused_nerf.cu",
+            "tinynerf_tpu/kernels/fused_nerf.py:183",
+            launches["eval"][0] + launches["make_gif"][0],
+            max(errs["a", bf16]["max"], errs["b", bf16]["max"]),
+            ms["k3_fine", "kernel"], ms["k3_fine", "plain"],
+            flops=2 * NERF_CHUNK * s_fine * macs_per_point(model.fine),
+            nbytes=4 * (NERF_CHUNK * (6 + s_fine + 3) + mlp_par)),
+        kernel_entry(
+            "fused_nerf_render_rays_streamed", "tinynerf_tpu_torch/csrc/fused_nerf.cu",
+            "tinynerf_tpu/kernels/fused_nerf_stream.py:451", launches["eval_n_fine_448"][1],
+            errs["k5", bf16]["max"], ms["k5", "kernel"], ms["k5", "plain"],
+            flops=2 * NERF_CHUNK * s512 * macs_per_point(m128.fine),
+            nbytes=4 * (NERF_CHUNK * (6 + s512 + 3) + mlp128_par)),
+    ]
+
+
+NERF_TRAIN_ITERS = 500  # hidden 128: both passes through K4
+FLAGSHIP_ITERS = 20  # hidden 256, n_fine 128: coarse K4, fine K6
+
+
+def run_nerf_train(build_nerf_train) -> list:
+    import copy
+
+    from tinynerf_tpu_torch import eval as eval_mod
+    from tinynerf_tpu_torch import train as train_mod
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.data import ensure_data
+    from tinynerf_tpu_torch.kernels.fused_nerf import (
+        fused_nerf_render_rays, fused_nerf_render_rays_plain, union_depths,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed, fused_nerf_pass_grads_streamed_plain,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads, fused_nerf_pass_grads_plain, make_fused_nerf_grad_fn,
+    )
+    from tinynerf_tpu_torch.kernels.fused_train import depth_grid
+    from tinynerf_tpu_torch.models.nerf import NeRF, make_hierarchical_loss, render_rays_hierarchical
+    from tinynerf_tpu_torch.ops.rays import get_rays, get_rays_for_poses
+    from tinynerf_tpu_torch.training import make_optimizer, make_train_step
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    k4, k6 = fused_nerf_pass_grads, fused_nerf_pass_grads_streamed
+
+    # 16. build
+    lib, secs = build_nerf_train.result()
+    log = lib.with_suffix(".log").read_text()
+    print(f"[build] fused_nerf_train.cu (K4, K6) -> {lib.name} in {secs:.2f}s (nvcc beside the "
+          "other three)", flush=True)
+    print("\n".join(line for line in log.splitlines()
+                    if "registers" in line or "spill" in line or "stack frame" in line), flush=True)
+
+    # 17. K4 against its plain version: the flagship coarse pass and a
+    #     hidden-128 fine pass, on 2048 rays of a synthetic view.
+    t0 = time.time()
+    data_path = os.path.join(OUT_DIR, "absent.npz")  # phase 3's synthetic scene
+    d = ensure_data(data_path, device=dev)
+    images = torch.from_numpy(d["images"]).to(dev)
+    poses = torch.from_numpy(d["poses"]).to(dev)
+    focal = float(d["focal"])
+    n_images, H, W, _ = images.shape
+    rays_o, rays_d = get_rays(H, W, focal, poses[0])
+    idx = torch.randperm(H * W, generator=torch.Generator().manual_seed(0))[:N_RAYS_TRAIN].to(dev)
+    ro, rd = rays_o[idx].contiguous(), rays_d[idx].contiguous()
+    tgt = images[0].reshape(-1, 3)[idx].contiguous()
+    noise = torch.randn(N_RAYS_TRAIN, 64, generator=torch.Generator(device=dev).manual_seed(4),
+                        device=dev)
+
+    def nerf(dtype, hidden=256):
+        """The flagship recipe (README's Quick start) at `hidden`."""
+        cfg = Config(model="nerf", hidden=hidden, bf16=dtype == torch.bfloat16).nerf_cfg()
+        return NeRF(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+
+    def reference(fn, mlp, *args, dtype, **kw):
+        """The plain version's (loss, grads, slack). bf16: as it is, slack
+        None. f32: on a float64 copy of the MLP (float64 sums; the points,
+        the encoding and the deltas stay f32), with slack = each leaf's
+        max |f32 plain - float64 plain|: the error the straightforward f32
+        evaluation itself makes, which the kernel may match. At a 64-sample
+        pass f32 evaluation moves a tiny early-layer leaf by ~5e-4 of its
+        max; at a 192-sample union the f32 plain version's rounding of the
+        density gradient's cancellation moves the sigma head's leaves by
+        ~3e-4 (the kernel's recurrence stays within 1e-5 there)."""
+        if dtype == torch.bfloat16:
+            out = fn(mlp, *args, **kw)
+            return out[0], out[1], None
+        out32 = fn(mlp, *args, **kw)
+        out = fn(copy.deepcopy(mlp).double(), *args, **kw)
+        want = [g.float() for g in out[1]]
+        slack = [float((a - b).abs().max()) for a, b in zip(out32[1], want)]
+        return out[0].float(), want, slack
+
+    def grad_gates(what, dtype, mlp, loss, grads, ref):
+        want_loss, want, slack = ref
+        rel = abs(float(loss) - float(want_loss)) / float(want_loss)
+        err = {"loss": float(loss), "loss_rel": rel, **leaf_errors(grads, want)}
+        names = [n for n, _ in mlp.named_parameters()]
+        leaf = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for g, w in zip(grads, want)]
+        err["worst_leaf"] = names[max(range(len(leaf)), key=leaf.__getitem__)]
+        check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads),
+              f"{what}: loss and gradients finite")
+        if dtype == torch.float32:
+            over = [(g - w).abs().max().item() - (3e-4 * w.abs().max().item() + sl)
+                    for g, w, sl in zip(grads, want, slack)]
+            err["f32_plain_max_rel_to_leaf"] = max(
+                sl / max(float(w.abs().max()), 1e-30) for w, sl in zip(want, slack))
+            print(f"[kernel] {what} f32: {json.dumps(err)}", flush=True)
+            check(rel < 1e-5 and max(over) <= 0.0,
+                  f"{what} f32: loss rel < 1e-5; per leaf |err| <= 3e-4 max|leaf| + the f32 "
+                  "plain version's own |err|, both against float64 sums")
+        else:
+            print(f"[kernel] {what} bf16: {json.dumps(err)}", flush=True)
+            check(rel < 1e-3 and err["min_cosine"] > 0.98,
+                  f"{what} bf16: loss rel < 1e-3, per-leaf cosine > 0.98")
+        return err
+
+    errs, models, unions = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        models[dtype] = m = nerf(dtype)
+        for sn in (None, noise):
+            what = "K4 (a) flagship coarse S=64" + (" + sigma-noise" if sn is not None else "")
+            kw = dict(n_samples=64, randomized=False, emit_sampling=True, sigma_noise=sn)
+            loss, grads, w, zs = k4(m.coarse, ro, rd, tgt, 0, **kw)
+            torch.cuda.synchronize()
+            ref = reference(fused_nerf_pass_grads_plain, m.coarse, ro, rd, tgt, 0, dtype=dtype,
+                            **kw)
+            _, _, want_w, want_z = fused_nerf_pass_grads_plain(m.coarse, ro, rd, tgt, 0, **kw)
+            errs["a", dtype, sn is None] = grad_gates(what, dtype, m.coarse, loss, grads, ref)
+            err_w = ray_errors(w, want_w, width=64)
+            print(f"[kernel] {what} {str(dtype)[6:]}: weights {json.dumps(err_w)}", flush=True)
+            check(torch.equal(zs, want_z) and within(err_w, dtype), f"{what}: weights and z")
+        with torch.no_grad():
+            _, w = fused_nerf_render_rays_plain(m.coarse, ro, rd, n_samples=64, return_weights=True)
+        unions[dtype] = union_depths(w, 128, 2.0, 6.0)
+        models[128, dtype] = m = nerf(dtype, hidden=128)
+        with torch.no_grad():
+            _, w = fused_nerf_render_rays_plain(m.coarse, ro, rd, n_samples=64, return_weights=True)
+        unions[128, dtype] = z = union_depths(w, 64, 2.0, 6.0)
+        unions[512, dtype] = union_depths(w, 448, 2.0, 6.0)
+        loss, grads = k4(m.fine, ro, rd, tgt, 0, z, randomized=False)
+        torch.cuda.synchronize()
+        ref = reference(fused_nerf_pass_grads_plain, m.fine, ro, rd, tgt, 0, z, randomized=False,
+                        dtype=dtype)
+        errs["b", dtype] = grad_gates("K4 (b) hidden-128 fine pass, S=128 union", dtype, m.fine,
+                                      loss, grads, ref)
+    m = models[torch.bfloat16]
+    runs = []
+    for seed in (11, 11, 12):
+        loss, grads, _, zs = k4(m.coarse, ro, rd, tgt, seed, n_samples=64, emit_sampling=True)
+        runs.append((float(loss), [g.clone() for g in grads], zs.clone()))
+    same = (runs[0][0] == runs[1][0] and torch.equal(runs[0][2], runs[1][2])
+            and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])))
+    differ = runs[0][0] != runs[2][0] and not torch.equal(runs[0][2], runs[2][2])
+    print(f"[kernel] K4 jittered: seed 11 twice bit-identical {same}, seed 12 differs {differ}",
+          flush=True)
+    check(same and differ, "K4 deterministic per seed, different across seeds")
+    print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 18. jitter statistics of the depths K4 draws and emits
+    t0 = time.time()
+    R, S = 16384, 64
+    tiny = NeRF(Config(model="nerf", hidden=32, num_freqs=4, num_freqs_dir=2, nerf_depth=3,
+                       nerf_skip_at=2, rgb_hidden=16).nerf_cfg(),
+                generator=torch.Generator().manual_seed(0), device=dev)
+    o0 = torch.zeros(R, 3, device=dev)
+    d0 = torch.tensor([[0.0, 0.0, -1.0]], device=dev).expand(R, 3).contiguous()
+    t0_ = torch.full((R, 3), 0.5, device=dev)
+
+    def draws(seed):
+        return k4(tiny.coarse, o0, d0, t0_, seed, n_samples=S, emit_sampling=True)[3]
+
+    z = draws(123)
+    h = 4.0 / (S - 1)
+    grid = depth_grid(S, 2.0, 6.0, dev)
+    s_idx = torch.arange(S, device=dev)
+    lower = torch.where(s_idx == 0, grid, grid - 0.5 * h)
+    upper = torch.where(s_idx == S - 1, grid, grid + 0.5 * h)
+    u = ((z - lower) / (upper - lower)).double()
+    n = u.numel()
+    deciles = (torch.histc(u.float(), bins=10, min=0.0, max=1.0) / n).tolist()
+    corr = float(torch.corrcoef(torch.stack([u[:-1].reshape(-1), u[1:].reshape(-1)]))[0, 1])
+    stats = {
+        "in_bin": bool(((z >= lower) & (z <= upper)).all()),
+        "mean": float(u.mean()), "var": float(u.var()), "deciles": deciles,
+        "adjacent_tile_corr": corr, "replay": bool(torch.equal(z, draws(123))),
+        "new_seed_changed": float((z != draws(124)).float().mean()),
+    }
+    print(f"[jitter] K4 {R}x{S} draws: {json.dumps(stats)}", flush=True)
+    # Gates at 6 standard errors of each statistic for n uniform draws.
+    check(stats["in_bin"], "every z in its bin")
+    check(abs(stats["mean"] - 0.5) < 6 / (12 * n) ** 0.5, "mean of u")
+    check(abs(stats["var"] - 1 / 12) < 6 * (1 / 180 / n) ** 0.5, "variance of u")
+    check(max(abs(q - 0.1) for q in deciles) < 6 * (0.09 / n) ** 0.5, "deciles of u")
+    check(abs(corr) < 6 / n ** 0.5, "adjacent ray tiles uncorrelated")
+    check(stats["replay"] and stats["new_seed_changed"] > 0.99, "seed replay, new seed")
+    print(f"[jitter] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 19. K6 against its plain version and against K4; the whole fused step
+    t0 = time.time()
+    for dtype in (torch.float32, torch.bfloat16):
+        for key, mlp, label in ((dtype, models[dtype].fine, "flagship fine, S=192 union"),
+                                (512, models[128, dtype].fine, "hidden 128, S=512 union")):
+            z = unions[key] if key == dtype else unions[512, dtype]
+            loss, grads = k6(mlp, ro, rd, tgt, z, sample_block=64)
+            torch.cuda.synchronize()
+            ref = reference(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, tgt, z,
+                            sample_block=64, dtype=dtype)
+            errs["k6", key == dtype, dtype] = grad_gates(f"K6 {label}, block 64", dtype, mlp,
+                                                         loss, grads, ref)
+    # Same union, same MLP code, the same transmittance and density
+    # recurrences: only the order of the gradient partials differs. The JAX
+    # package's gates for the pair (tests/test_fused_nerf_stream.py:117-128).
+    m, z = models[torch.float32], unions[torch.float32]
+    l4, g4 = k4(m.fine, ro, rd, tgt, 0, z, randomized=False)
+    l6, g6 = k6(m.fine, ro, rd, tgt, z, sample_block=64)
+    k6_vs_k4 = {"loss_rel": abs(float(l6) - float(l4)) / float(l4), **leaf_errors(g6, g4)}
+    print(f"[kernel] K6 vs K4 f32 on the flagship S=192 union: {json.dumps(k6_vs_k4)}", flush=True)
+    check(k6_vs_k4["loss_rel"] <= 1e-6 and k6_vs_k4["max_rel_to_leaf"] <= 1e-5,
+          "K6 equals K4 on one union: loss rel <= 1e-6, per-leaf <= 1e-5 max|leaf|")
+    # The whole step against autograd of the eager hierarchical loss, bf16
+    # (the training dtype): at the flagship's L=10 the 2^9 x encoding bands
+    # turn the last-bit difference of the coarse depths (the kernel's
+    # near + s*h grid, the eager linspace) into f32 gradient differences,
+    # so the step is held to bench.py's bf16 gates.
+    m = models[torch.bfloat16]
+    settings = Config(model="nerf", hidden=256, n_fine=128).train_settings()
+    grad_fn = make_fused_nerf_grad_fn(settings, m.cfg, n_fine=128, randomized=False)
+    k4.launches = k6.launches = 0
+    loss_f, metrics = grad_fn(m, ro, rd, tgt, torch.Generator(device=dev))
+    step_launches = (k4.launches, k6.launches)
+    got = [p.grad.clone() for p in m.parameters()]
+    comp_c, comp_f = render_rays_hierarchical(m, ro, rd, n_coarse=64, n_fine=128, cfg=m.cfg)
+    ref = torch.mean((comp_c - tgt) ** 2) + torch.mean((comp_f - tgt) ** 2)
+    want = torch.autograd.grad(ref, list(m.parameters()))
+    ref = ref.detach()
+    step_err = {"loss_rel": abs(float(metrics["loss_coarse"]) + float(loss_f) - float(ref))
+                / float(ref), "launches": step_launches, **leaf_errors(got, want)}
+    print(f"[kernel] flagship fused step vs eager autograd, bf16: {json.dumps(step_err)}",
+          flush=True)
+    check(step_launches == (1, 1), "the flagship step runs K4 (coarse) and K6 (fine) once")
+    check(step_err["loss_rel"] < 1e-3 and step_err["min_cosine"] > 0.98,
+          "fused step vs eager: loss rel < 1e-3, per-leaf cosine > 0.98")
+    print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 20. the train path: python -m tinynerf_tpu_torch.train --model nerf
+    t0 = time.time()
+    runs = {}
+    for fused in (True, False):
+        name = "fused" if fused else "eager"
+        cfg = Config(model="nerf", data_path=data_path, iters=NERF_TRAIN_ITERS, holdout=4,
+                     resume=False, out_dir=os.path.join(OUT_DIR, f"nerf_{name}"),
+                     ckpt_path=os.path.join(OUT_DIR, f"nerf_{name}.npz"),
+                     metrics_path=os.path.join(OUT_DIR, f"nerf_{name}.jsonl"), fused_train=fused)
+        if os.path.exists(cfg.metrics_path):
+            os.unlink(cfg.metrics_path)
+        k4.launches = k6.launches = fused_nerf_render_rays.launches = 0
+        res = train_mod.main(cfg)
+        psnrs = logged_psnrs(cfg.metrics_path)
+        runs[name] = {"k4": k4.launches, "k6": k6.launches, "k3": fused_nerf_render_rays.launches,
+                      "rise": psnrs[-1] - psnrs[0], "heldout": res["eval"]["psnr_mean"],
+                      "rays_per_sec": res["rays_per_sec"]}
+        print(f"[train] nerf hidden 128 {name}: (K4, K6, K3) launches ({k4.launches}, "
+              f"{k6.launches}, {fused_nerf_render_rays.launches}), train PSNR {psnrs[0]:.2f} -> "
+              f"{psnrs[-1]:.2f} dB, held-out {res['eval']['psnr_mean']:.2f} dB, "
+              f"{res['rays_per_sec']:,.0f} rays/s", flush=True)
+        check(runs[name]["rise"] >= 2.0, f"{name} nerf train PSNR rises >= 2 dB")
+    check(runs["fused"]["k4"] == 2 * NERF_TRAIN_ITERS and runs["fused"]["k6"] == 0,
+          "fused nerf run: K4 twice per step (coarse and fine), no K6")
+    check(runs["eager"]["k4"] == 0 and runs["fused"]["k3"] > 0, "eager run: no K4; K3 renders")
+    gap = abs(runs["fused"]["heldout"] - runs["eager"]["heldout"])
+    print(f"[train] nerf held-out PSNR fused vs eager: {gap:.3f} dB apart", flush=True)
+    check(gap <= 1.5, "fused and eager held-out PSNR within 1.5 dB")
+    flag = Config(model="nerf", hidden=256, n_fine=128, data_path=data_path, iters=FLAGSHIP_ITERS,
+                  holdout=4, resume=False, log_every=10, out_dir=os.path.join(OUT_DIR, "flagship"),
+                  ckpt_path=os.path.join(OUT_DIR, "flagship.npz"),
+                  metrics_path=os.path.join(OUT_DIR, "flagship.jsonl"))
+    if os.path.exists(flag.metrics_path):
+        os.unlink(flag.metrics_path)
+    k4.launches = k6.launches = 0
+    res = train_mod.main(flag)
+    flag_launches = (k4.launches, k6.launches)
+    losses = [r["loss"] for r in map(json.loads, open(flag.metrics_path)) if "loss" in r]
+    runs["flagship"] = {"rays_per_sec": res["rays_per_sec"]}
+    print(f"[train] flagship {FLAGSHIP_ITERS} steps: (K4, K6) launches {flag_launches}, losses "
+          f"{losses}, {res['rays_per_sec']:,.0f} rays/s", flush=True)
+    check(flag_launches == (FLAGSHIP_ITERS, FLAGSHIP_ITERS),
+          "flagship: K4 (coarse) and K6 (fine) once per step")
+    check(all(math.isfinite(x) for x in losses), "flagship losses finite")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_mod.main(Config(**{**flag.__dict__, "iters": FLAGSHIP_ITERS + 5, "resume": True}))
+    print(out.getvalue().strip(), flush=True)
+    check(f"from step {FLAGSHIP_ITERS}" in out.getvalue() and "[resume]" in out.getvalue(),
+          f"resume prints [resume] ... from step {FLAGSHIP_ITERS}")
+    fused_nerf_render_rays.launches = 0
+    ev = eval_mod.main(eval_mod.EvalConfig(ckpt_path=flag.ckpt_path, data_path=data_path, views=2,
+                                           out_dir=os.path.join(OUT_DIR, "eval_flagship")))
+    print(f"[train] eval of the flagship checkpoint: K3 launches {fused_nerf_render_rays.launches}, "
+          f"PSNR {ev['psnr_mean']:.3f} dB", flush=True)
+    check(fused_nerf_render_rays.launches > 0 and math.isfinite(ev["psnr_mean"]),
+          "eval serves the trained flagship checkpoint through K3")
+    print(f"[train] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 21. timing: plain, kernel, kernel, plain (bf16, flagship)
+    t0 = time.time()
+    m, z = models[torch.bfloat16], unions[torch.bfloat16]
+    cases = {
+        "k4": {"kernel": lambda: k4(m.coarse, ro, rd, tgt, 3, n_samples=64, emit_sampling=True),
+               "plain": lambda: fused_nerf_pass_grads_plain(m.coarse, ro, rd, tgt, 3, n_samples=64,
+                                                            emit_sampling=True)},
+        "k6": {"kernel": lambda: k6(m.fine, ro, rd, tgt, z, sample_block=64),
+               "plain": lambda: fused_nerf_pass_grads_streamed_plain(m.fine, ro, rd, tgt, z,
+                                                                    sample_block=64)},
+    }
+    train_poses = poses[: n_images - 4]
+    rays_o_all, rays_d_all = get_rays_for_poses(H, W, focal, train_poses)
+    pixels = images[: n_images - 4].reshape(len(train_poses), H * W, 3)
+    step_fns = {
+        "kernel": make_train_step(settings, grad_fn=make_fused_nerf_grad_fn(settings, m.cfg,
+                                                                            n_fine=128)),
+        "plain": make_train_step(settings, loss=make_hierarchical_loss(m.cfg, n_fine=128)),
+    }
+    step_model = copy.deepcopy(m)
+    step_opt = make_optimizer(step_model.parameters(), settings.lr)
+    counter = iter(range(10**6))
+    cases["step"] = {k: (lambda f=f: f(step_model, step_opt, 0, next(counter), rays_o_all,
+                                       rays_d_all, pixels)) for k, f in step_fns.items()}
+    times = {}
+    for what, fns in cases.items():
+        for name in ("plain", "kernel", "kernel", "plain"):
+            times.setdefault((what, name), []).append(cuda_ms(fns[name], iters=3))
+    ms = {k: min(v) for k, v in times.items()}
+    print(f"[timing] {card}: bf16, {N_RAYS_TRAIN} rays; flagship K4 coarse (S=64, weights and z "
+          f"out) {ms['k4', 'kernel']:.4f} ms, plain {ms['k4', 'plain']:.4f} ms; K6 fine (S=192, "
+          f"block 64) {ms['k6', 'kernel']:.4f} ms, plain {ms['k6', 'plain']:.4f} ms; flagship train "
+          f"step fused {ms['step', 'kernel']:.4f} ms, eager {ms['step', 'plain']:.4f} ms "
+          f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
+    print(f"[timing] {card}: nerf hidden 128 train loop, {NERF_TRAIN_ITERS} steps of "
+          f"{N_RAYS_TRAIN} rays: fused {runs['fused']['rays_per_sec'] / N_RAYS_TRAIN:.2f} steps/s "
+          f"({runs['fused']['rays_per_sec']:,.0f} rays/s), eager "
+          f"{runs['eager']['rays_per_sec'] / N_RAYS_TRAIN:.2f} steps/s "
+          f"({runs['eager']['rays_per_sec']:,.0f} rays/s); flagship fused "
+          f"{runs['flagship']['rays_per_sec'] / N_RAYS_TRAIN:.2f} steps/s", flush=True)
+    print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
+
+    bf16 = torch.bfloat16
+    mlp_par = sum(p.numel() for p in m.coarse.parameters())
+    s_fine = z.shape[1]
+    pass_bytes = 4 * (N_RAYS_TRAIN * 9 + 2 * mlp_par + 1)  # rays, target, weights in; grads out
+    return [
+        kernel_entry(
+            "fused_nerf_pass_grads", "tinynerf_tpu_torch/csrc/fused_nerf_train.cu",
+            "tinynerf_tpu/kernels/fused_nerf_train.py:344", runs["fused"]["k4"],
+            errs["a", bf16, True]["max_abs"], ms["k4", "kernel"], ms["k4", "plain"],
+            # forward, weight-gradient and upstream products
+            flops=3 * 2 * N_RAYS_TRAIN * 64 * macs_per_point(m.coarse),
+            nbytes=pass_bytes + 4 * 2 * N_RAYS_TRAIN * 64),  # + weights and z out
+        kernel_entry(
+            "fused_nerf_pass_grads_streamed", "tinynerf_tpu_torch/csrc/fused_nerf_train.cu",
+            "tinynerf_tpu/kernels/fused_nerf_stream.py:548", flag_launches[1],
+            errs["k6", True, bf16]["max_abs"], ms["k6", "kernel"], ms["k6", "plain"],
+            flops=3 * 2 * N_RAYS_TRAIN * s_fine * macs_per_point(m.fine),
+            nbytes=pass_bytes + 4 * N_RAYS_TRAIN * s_fine),  # + z in
     ]
 
 
@@ -705,11 +1077,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sources = ("fused_render", "fused_train", "fused_nerf")
+    sources = ("fused_render", "fused_train", "fused_nerf", "fused_nerf_train")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc per source, together
         builds = {n: pool.submit(timed_build, n) for n in sources}
         kernels = [run(builds["fused_render"]), run_train(builds["fused_train"]),
-                   *run_nerf(builds["fused_nerf"])]
+                   *run_nerf(builds["fused_nerf"]), *run_nerf_train(builds["fused_nerf_train"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""The fused render (K1), train (K2), NeRF (K3) and streamed NeRF (K5)
-kernels against their plain versions, and K2's jitter statistics, on a
-CUDA device.
+"""The fused render (K1), train (K2), NeRF (K3), streamed NeRF (K5),
+NeRF train (K4) and streamed NeRF train (K6) kernels against their plain
+versions, and K2's and K4's jitter, on a CUDA device.
 
 Skips without one. This file imports neither jax nor the JAX package, so
 it also runs on a GPU machine that has no JAX (without the suite's
@@ -279,3 +279,191 @@ def test_refused_launch_raises(cuda_device):
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         raise_on_error(err, "fused_nerf")
+
+
+def _plain(fn, mlp, *args, dtype, **kw):
+    """The plain version's (loss, grads, slack). bf16: as it is. f32: with
+    float64 sums (a float64 copy of the MLP: the points, the encoding and
+    the deltas stay f32), slack = each leaf's max |f32 plain - float64
+    plain|, the error the straightforward f32 evaluation itself makes
+    (chip_smoke.py phase 17 gives its size)."""
+    import copy
+
+    if dtype == torch.bfloat16:
+        out = fn(mlp, *args, **kw)
+        return out[0], out[1], None
+    out32 = fn(mlp, *args, **kw)
+    out = fn(copy.deepcopy(mlp).double(), *args, **kw)
+    want = [g.float() for g in out[1]]
+    return out[0].float(), want, [float((a - b).abs().max()) for a, b in zip(out32[1], want)]
+
+
+def _leaf_check(loss, grads, ref, dtype):
+    """f32: loss rel. error < 1e-5 and every leaf within 3e-4 of its max
+    (the JAX package's kernel tolerance, tests/test_fused_nerf_train.py)
+    plus the f32 plain version's own error, against float64 sums; bf16:
+    loss rel. error < 1e-3 and worst leaf cosine > 0.98 (bench.py)."""
+    want_loss, want, slack = ref
+    rel = abs(float(loss) - float(want_loss)) / float(want_loss)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    if dtype == torch.float32:
+        assert rel < 1e-5
+        for g, w, sl in zip(grads, want, slack):
+            assert float((g - w).abs().max()) <= 3e-4 * float(w.abs().max()) + sl + 1e-8
+    else:
+        assert rel < 1e-3
+        assert min(_cosine(g, w) for g, w in zip(grads, want)) > 0.98
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,viewdirs,S,given_z,noise", [
+    (256, 10, 4, True, 64, False, False),   # the flagship's coarse pass
+    (128, 10, 4, True, 128, True, False),   # hidden 128: the fine pass on a 128-sample union
+    (32, 4, 2, True, 16, False, True),
+    (64, 10, 4, False, 24, True, False),
+    (32, 4, 2, True, 7, True, False),       # S odd: a tile of 128 rays
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nerf_train_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs, dir_freqs,
+                                                 viewdirs, S, given_z, noise, dtype):
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads,
+        fused_nerf_pass_grads_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mlp, cfg = _nerf_case(hidden, num_freqs, dir_freqs, viewdirs, dtype, cuda_device)
+    n = 300  # not a multiple of any tile: padding rays
+    ro, rd = _rays(n, 15, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(16).rand(n, 3).astype(np.float32)).to(cuda_device)
+    z = _sorted_z(n, S, 17, cuda_device) if given_z else None
+    sigma_noise = None
+    if noise:
+        g = torch.Generator(device=cuda_device).manual_seed(4)
+        sigma_noise = torch.randn(n, S, generator=g, device=cuda_device)
+    kw = dict(n_samples=S, randomized=False, sigma_noise=sigma_noise, emit_sampling=True, cfg=cfg)
+    before = fused_nerf_pass_grads.launches
+    loss, grads, w, zs = fused_nerf_pass_grads(mlp, ro, rd, target, 0, z, **kw)
+    torch.cuda.synchronize()
+    _, _, want_w, want_z = fused_nerf_pass_grads_plain(mlp, ro, rd, target, 0, z, **kw)
+    ref = _plain(fused_nerf_pass_grads_plain, mlp, ro, rd, target, 0, z, dtype=dtype, **kw)
+    assert fused_nerf_pass_grads.launches == before + 1
+    assert w.shape == (n, S) and torch.equal(zs, want_z)
+    _leaf_check(loss, grads, ref, dtype)
+    _within_render_gates(w, want_w, dtype)
+
+
+@pytest.mark.cuda
+def test_nerf_train_kernel_jitter_is_seeded_and_binned(cuda_device):
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import fused_nerf_pass_grads
+    from tinynerf_tpu_torch.kernels.fused_train import depth_grid
+
+    mlp, cfg = _nerf_case(32, 4, 2, True, torch.bfloat16, cuda_device)
+    n, S = 512, 64
+    ro, rd = _rays(n, 18, cuda_device)
+    target = torch.full((n, 3), 0.5, device=cuda_device)
+    runs = [fused_nerf_pass_grads(mlp, ro, rd, target, seed, n_samples=S, emit_sampling=True,
+                                  cfg=cfg) for seed in (7, 7, 8)]
+    (l0, g0, _, z0), (l1, g1, _, z1), (l2, g2, _, z2) = [
+        (float(r[0]), [g.clone() for g in r[1]], r[2], r[3].clone()) for r in runs]
+    assert l0 == l1 and torch.equal(z0, z1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert l0 != l2 and (z0 != z2).float().mean() > 0.99
+    grid = depth_grid(S, 2.0, 6.0, cuda_device)
+    h = 4.0 / (S - 1)
+    s = torch.arange(S, device=cuda_device)
+    lower = torch.where(s == 0, grid, grid - 0.5 * h)
+    upper = torch.where(s == S - 1, grid, grid + 0.5 * h)
+    assert bool(((z0 >= lower) & (z0 <= upper)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,S,sample_block,noise", [
+    (256, 10, 4, 192, 64, False),  # the flagship's fine pass
+    (128, 10, 4, 512, 64, False),  # the --n-fine 448 recipe's fine pass
+    (32, 4, 2, 24, 8, True),
+    (32, 4, 2, 16, 16, False),     # one block
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_train_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs, dir_freqs, S,
+                                                     sample_block, noise, dtype):
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed,
+        fused_nerf_pass_grads_streamed_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mlp, cfg = _nerf_case(hidden, num_freqs, dir_freqs, True, dtype, cuda_device)
+    n = 257
+    ro, rd = _rays(n, 19, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(20).rand(n, 3).astype(np.float32)).to(cuda_device)
+    z = _sorted_z(n, S, 21, cuda_device)
+    sigma_noise = None
+    if noise:
+        g = torch.Generator(device=cuda_device).manual_seed(5)
+        sigma_noise = torch.randn(n, S, generator=g, device=cuda_device)
+    kw = dict(cfg=cfg, sample_block=sample_block, sigma_noise=sigma_noise)
+    before = fused_nerf_pass_grads_streamed.launches
+    loss, grads = fused_nerf_pass_grads_streamed(mlp, ro, rd, target, z, **kw)
+    torch.cuda.synchronize()
+    ref = _plain(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, target, z, dtype=dtype, **kw)
+    assert fused_nerf_pass_grads_streamed.launches == before + 1
+    _leaf_check(loss, grads, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_block", [8, 64])
+def test_streamed_train_kernel_equals_monolithic_on_card(cuda_device, sample_block):
+    """Same union, same MLP code: the losses agree to 1e-6 relative and
+    the gradients to 1e-5 of each leaf's max, the JAX package's gates
+    for the same pair (tests/test_fused_nerf_stream.py:117-128)."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import fused_nerf_pass_grads
+
+    mlp, cfg = _nerf_case(128, 10, 4, True, torch.float32, cuda_device)
+    n = 256
+    ro, rd = _rays(n, 22, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(23).rand(n, 3).astype(np.float32)).to(cuda_device)
+    z = _sorted_z(n, 192, 24, cuda_device)
+    l_mono, g_mono = fused_nerf_pass_grads(mlp, ro, rd, target, 0, z, randomized=False, cfg=cfg)
+    l_str, g_str = fused_nerf_pass_grads_streamed(mlp, ro, rd, target, z, cfg=cfg,
+                                                  sample_block=sample_block)
+    assert abs(float(l_str) - float(l_mono)) <= 1e-6 * float(l_mono)
+    for a, b in zip(g_str, g_mono):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_block,want_k6", [(None, 0), (8, 1)])
+def test_hierarchical_grad_fn_on_card(cuda_device, sample_block, want_k6):
+    """The fused step against autograd of the eager hierarchical loss,
+    deterministic depths, f32: the coarse pass on K4, the fine pass on K4
+    or, with a forced block, on K6; the JAX package's gradient gate for
+    the same pipeline (3e-4 of each leaf's max)."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads,
+        make_fused_nerf_grad_fn,
+    )
+    from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, render_rays_hierarchical
+    from tinynerf_tpu_torch.training import TrainSettings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=32, depth=3, skip_at=2, rgb_hidden=16,
+                     compute_dtype=torch.float32)
+    model = NeRF(cfg, generator=torch.Generator().manual_seed(3), device=cuda_device)
+    n = 128
+    ro, rd = _rays(n, 25, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(26).rand(n, 3).astype(np.float32)).to(cuda_device)
+    s = TrainSettings(n_rand=n, n_samples=16, num_freqs=4)
+    comp_c, comp_f = render_rays_hierarchical(model, ro, rd, n_coarse=16, n_fine=8, cfg=cfg)
+    ref = torch.mean((comp_c - target) ** 2) + torch.mean((comp_f - target) ** 2)
+    want = torch.autograd.grad(ref, list(model.parameters()))
+    ref = ref.detach()
+    k4, k6 = fused_nerf_pass_grads.launches, fused_nerf_pass_grads_streamed.launches
+    grad_fn = make_fused_nerf_grad_fn(s, cfg, n_fine=8, randomized=False, sample_block=sample_block)
+    loss_f, metrics = grad_fn(model, ro, rd, target, torch.Generator(device=cuda_device))
+    assert fused_nerf_pass_grads.launches - k4 == 2 - want_k6
+    assert fused_nerf_pass_grads_streamed.launches - k6 == want_k6
+    assert abs(float(metrics["loss_coarse"]) + float(loss_f) - float(ref)) < 1e-6
+    for p, w in zip(model.parameters(), want):
+        assert float((p.grad - w).abs().max()) <= 3e-4 * float(w.abs().max()) + 1e-8

@@ -185,9 +185,11 @@ def test_render_rays_hierarchical_matches_jax():
 
 
 def test_render_rays_hierarchical_training_options_raise():
+    """The randomized render needs its generator; the aux channels are
+    not ported yet."""
     _, _, model, tcfg = pair(0)
     ro, rd = (torch.from_numpy(a) for a in rays(4, 0))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="requires a generator"):
         render_rays_hierarchical(model, ro, rd, cfg=tcfg, randomized=True)
     with pytest.raises(NotImplementedError, match="item 10"):
         render_rays_hierarchical(model, ro, rd, cfg=tcfg, return_aux=True)
@@ -295,8 +297,15 @@ def test_model_io_n_fine_override(jax_nerf_ckpt, monkeypatch):
 
 
 def test_train_refuses_nerf_model(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train.main(Config(model="nerf", device="cpu", out_dir=str(tmp_path)))
+    """The NeRF trains (tests/test_torch_port_nerf_train_drivers.py); what
+    it refuses is the occupancy proposal (queue 1, item 11), and the grid
+    family stays refused (item 12)."""
+    with pytest.raises(NotImplementedError, match="item 11"):
+        train.main(Config(model="nerf", proposal="occupancy", device="cpu", out_dir=str(tmp_path)))
+    with pytest.raises(ValueError, match="requires --model nerf"):
+        train.main(Config(proposal="occupancy", device="cpu", out_dir=str(tmp_path)))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        train.main(Config(model="grid", device="cpu", out_dir=str(tmp_path)))
 
 
 def test_eval_driver_n_fine_and_make_gif(tiny_npz, jax_nerf_ckpt, tmp_path):

@@ -11,9 +11,11 @@ training), the counterparts of the JAX package's default XLA paths.
 
 The full NeRF's fields (model, n_fine, proposal, nerf_depth,
 nerf_skip_at, num_freqs_dir, rgb_hidden) and nerf_cfg() follow
-tinynerf_tpu/config.py:51-63, 173-184; training the NeRF is not ported
-yet. Fields that only the grid family, the parallel paths or the
-flagship training levers use are not ported yet (ROADMAP.md, queue 1).
+tinynerf_tpu/config.py:51-63, 173-184; train_settings() serves both
+models (train.py hands n_fine and nerf_cfg() to the NeRF's loss and
+fused grad_fn). Fields that only the grid family, the occupancy
+proposal, the parallel paths or the flagship training levers use are
+not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ class Config:
     allow_synthetic: bool = True  # fall back to the procedural scene offline
     bf16: bool = True  # bfloat16 matmul inputs (f32 params and accumulation)
     fused: bool = True  # render through the fused CUDA kernel
-    fused_train: bool = True  # train through the fused CUDA fwd+bwd kernel
+    fused_train: bool = True  # train through the fused CUDA fwd+bwd kernels
     metrics_path: Optional[str] = None  # JSONL metrics log
     holdout: int = 0  # trailing poses excluded from training, scored at the end
     device: str = "cuda"

@@ -14,7 +14,9 @@
 //       blocks in order carrying (T_run, C, A) per ray.
 //
 // The Python wrappers are tinynerf_tpu_torch/kernels/fused_nerf.py and
-// tinynerf_tpu_torch/kernels/fused_nerf_stream.py.
+// tinynerf_tpu_torch/kernels/fused_nerf_stream.py. The chunked MLP
+// forward (dense_relu, both encodings) is in nerf_mlp.cuh, shared with
+// the train kernel K4/K6 (fused_nerf_train.cu).
 //
 // What bounds it on an H100: arithmetic. At the flagship width (hidden
 // 256, depth 8, skip at 4, L=10, L_dir=4, rgb_hidden 64) a point costs
@@ -61,21 +63,12 @@
 // bf16 where it is written and the wrapper rounds the weights; products
 // are exact in f32 and the sums accumulate in f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "nerf_mlp.cuh"
 
 namespace {
 
-constexpr int kTilePoints = 128;  // PT: point rows of one MLP chunk
-constexpr int kCols = 8;          // NT: columns of a thread's block
-constexpr int kTrunkRows = 8;     // MT of the trunk products
+constexpr int kTrunkRows = 8;  // MT of the trunk products
 constexpr int kMaxThreads = 512;
-constexpr float kDeltaInf = 1e10f;
-constexpr float kTransEps = 1e-10f;
-
-__device__ __forceinline__ float to_compute(float x, bool bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
 
 struct Args {
   const float* rays_o;   // (R, 3)
@@ -89,64 +82,6 @@ struct Args {
   int hidden, depth, skip_at, rgb_hidden, bf16;
   float near, far;
 };
-
-__host__ __device__ inline int enc_dim(int L) { return 3 + 6 * L; }
-__host__ __device__ inline int dir_dim(int Ld, int use) { return use ? 3 + 6 * Ld : 0; }
-
-// Row stride of X: hidden + the wider of the two encodings, made odd.
-__host__ __device__ inline int row_stride(int hidden, int L, int Ld, int use) {
-  const int e = enc_dim(L), dd = dir_dim(Ld, use);
-  const int ld = hidden + (e > dd ? e : dd);
-  return ld | 1;
-}
-
-// X[p][0, n_out) = to_compute(relu(X[p][in_col, in_col + n_in) @ W + b))
-// for the kTilePoints rows. W is (n_in, n_out) row-major. Item = (point
-// group pg, column group): rows pg + n_pg*i, columns col0 + j; blockDim.x
-// must be (kTilePoints / MT) * (n_out / kCols).
-template <int MT>
-__device__ void dense_relu(float* X, int ld, int in_col, int n_in, int n_out,
-                           const float* __restrict__ W, const float* __restrict__ b,
-                           bool bf16) {
-  constexpr int n_pg = kTilePoints / MT;
-  const int pg = threadIdx.x % n_pg;
-  const int col0 = (threadIdx.x / n_pg) * kCols;
-
-  float acc[MT][kCols];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-
-  const float* xin = X + pg * ld + in_col;
-  const float* wrow = W + col0;
-#pragma unroll 2
-  for (int k = 0; k < n_in; ++k, wrow += n_out) {
-    const float4 w0 = __ldg(reinterpret_cast<const float4*>(wrow));
-    const float4 w1 = __ldg(reinterpret_cast<const float4*>(wrow) + 1);
-    const float w[kCols] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const float x = xin[i * n_pg * ld + k];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
-    }
-  }
-  __syncthreads();  // every read of the input columns is done
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    float* row = X + (pg + n_pg * i) * ld + col0;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      row[j] = to_compute(fmaxf(acc[i][j] + __ldg(b + col0 + j), 0.f), bf16);
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float ray_norm(const float* d) {
-  return sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
-                         __fmul_rn(d[2], d[2])));
-}
 
 // Depth of sample s of global ray g.
 __device__ __forceinline__ float depth_at(const Args& a, int g, int s) {
@@ -189,17 +124,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
   for (int idx = tid; idx < TR * Dd; idx += nt) {
     const int r = idx / Dd, j = idx % Dd;
     const float* d = a.rays_d + (size_t)(ray0 + r) * 3;
-    const float norm = ray_norm(d);
-    float v;
-    if (j < 3) {
-      v = d[j] / norm;
-    } else {
-      const int q = j - 3, k = q / 6, c = q % 3;
-      float sn, cs;
-      sincosf(ldexpf(d[c] / norm, k), &sn, &cs);
-      v = (q % 6) < 3 ? sn : cs;
-    }
-    denc[idx] = to_compute(v, bf16);
+    denc[idx] = to_compute(dir_enc_value(d, ray_norm(d), j), bf16);
   }
 
   // Per-ray carry, held by thread r < TR across the sample segments.
@@ -227,15 +152,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
       __syncthreads();
       // Encoding in the model's interleaved order: column 3 + 6k + c is
       // sin(2^k x_c), column 3 + 6k + 3 + c is cos(2^k x_c).
-      for (int idx = tid; idx < kTilePoints * 3 * a.num_freqs; idx += nt) {
-        const int p = idx % kTilePoints, q = idx / kTilePoints;
-        const int k = q / 3, c = q % 3;
-        float sn, cs;
-        sincosf(ldexpf(pts[p * 3 + c], k), &sn, &cs);
-        float* row = X + p * ld + H + 3 + 6 * k + c;
-        row[0] = to_compute(sn, bf16);
-        row[3] = to_compute(cs, bf16);
-      }
+      encode_bands<kTilePoints>(X, ld, H, pts, a.num_freqs, bf16);
       __syncthreads();
 
       // Trunk: layer 0 reads the encoding, the skip layer [h, enc].
@@ -243,7 +160,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
       for (int i = 0; i < a.depth; ++i) {
         const int in_col = i == 0 ? H : 0;
         const int n_in = i == 0 ? E : (i == a.skip_at ? H + E : H);
-        dense_relu<kTrunkRows>(X, ld, in_col, n_in, H, wp, wp + n_in * H, bf16);
+        dense_relu<kTilePoints, kTrunkRows>(X, ld, in_col, n_in, H, wp, wp + n_in * H, bf16);
         wp += (n_in + 1) * H;
       }
 
@@ -268,10 +185,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
       // keep every thread busy (8 * rgb_hidden / hidden).
       const float* b_in = w_rgb_in + (H + Dd) * a.rgb_hidden;
       switch (8 * a.rgb_hidden / H) {
-        case 1: dense_relu<1>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-        case 2: dense_relu<2>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-        case 4: dense_relu<4>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-        default: dense_relu<8>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+        case 1: dense_relu<kTilePoints, 1>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+        case 2: dense_relu<kTilePoints, 2>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+        case 4: dense_relu<kTilePoints, 4>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+        default: dense_relu<kTilePoints, 8>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
       }
 
       // rgb = sigmoid(g1 @ W + b).

@@ -45,14 +45,15 @@
 // gradients. Depths and points use uncontracted (_rn) arithmetic and
 // the accurate sincosf (never build with --use_fast_math).
 //
-// Jitter: Philox4_32_10 (curand_kernel.h) keyed by the int32 seed, with
-// subsequence = global ray index and offset = sample, so z depends on
-// (seed, ray, sample) alone, not on the tile or the block that drew it.
-// u = (bits & 0xFFFFFF) * 2^-24 lies in [0, 1).
+// Jitter: sample_depth, Philox keyed by (seed, ray, sample); it, the
+// weight-gradient blocks and the fixed-order reduction are in
+// train_common.cuh, shared with the NeRF train kernel K4/K6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
+
+#include "train_common.cuh"
 
 namespace {
 
@@ -72,28 +73,6 @@ constexpr int kRayScalars = 5;  // g_comp r, g, b; g_acc; squared residual
 __device__ __forceinline__ float to_compute(float x, bool bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
-
-// Depth of sample s of global ray `ray`: the reference's stratified bins
-// (first and last half-bins clamped), or the grid itself.
-__device__ __forceinline__ float sample_depth(unsigned int seed, int ray, int s, int S,
-                                              float near, float h_bin, bool randomized) {
-  const float grid = __fadd_rn(near, __fmul_rn(h_bin, (float)s));
-  if (!randomized) return grid;
-  curandStatePhilox4_32_10_t st;
-  curand_init((unsigned long long)seed, (unsigned long long)ray, (unsigned long long)s, &st);
-  const unsigned int bits = curand(&st);
-  const float u = (float)(bits & 0xFFFFFFu) * (1.0f / 16777216.0f);
-  const float half = 0.5f * h_bin;
-  const float lower = s == 0 ? grid : __fsub_rn(grid, half);
-  const float upper = s == S - 1 ? grid : __fadd_rn(grid, half);
-  return __fadd_rn(lower, __fmul_rn(__fsub_rn(upper, lower), u));
-}
-
-struct Seg {  // columns [0, n) of a row-per-point buffer with row stride ld
-  const float* ptr;
-  int ld;
-  int n;
-};
 
 __device__ __forceinline__ int layer_in(int i, int in_dim, int hidden, int skip_at) {
   return i == 0 ? in_dim : (i == skip_at ? hidden + in_dim : hidden);
@@ -166,58 +145,6 @@ __device__ __forceinline__ void point_product_item(
       out[p * ld_out + o] = v;
     }
   }
-}
-
-// One thread block of a weight gradient, item = (k group, o group):
-// part[(row0 + k) * n_out + o] (+)= sum over points p < P of
-// in[p][k] * g[p][o], for k = kb + n_kb*jk < s.n and o = og + n_og*jo.
-// Strided k and o keep a warp's shared-memory reads conflict-free and
-// its device-memory writes contiguous over o.
-__device__ __forceinline__ void weight_grad_item(int item, Seg s, int row0, const float* g,
-                                                 int ld_g, int n_out, int P,
-                                                 float* __restrict__ part, bool first) {
-  const int n_og = n_out / kCols;
-  const int n_kb = (s.n + kCols - 1) / kCols;
-  const int kb = item / n_og;
-  const int og = item % n_og;
-  bool valid[kCols];
-#pragma unroll
-  for (int jk = 0; jk < kCols; ++jk) valid[jk] = kb + n_kb * jk < s.n;
-  float acc[kCols][kCols];
-#pragma unroll
-  for (int jk = 0; jk < kCols; ++jk)
-#pragma unroll
-    for (int jo = 0; jo < kCols; ++jo) acc[jk][jo] = 0.f;
-
-#pragma unroll 2
-  for (int p = 0; p < P; ++p) {
-    const float* xr = s.ptr + p * s.ld + kb;
-    const float* gr = g + p * ld_g + og;
-    float x[kCols], gv[kCols];
-#pragma unroll
-    for (int jk = 0; jk < kCols; ++jk) x[jk] = valid[jk] ? xr[n_kb * jk] : 0.f;
-#pragma unroll
-    for (int jo = 0; jo < kCols; ++jo) gv[jo] = gr[n_og * jo];
-#pragma unroll
-    for (int jk = 0; jk < kCols; ++jk)
-#pragma unroll
-      for (int jo = 0; jo < kCols; ++jo) acc[jk][jo] = fmaf(x[jk], gv[jo], acc[jk][jo]);
-  }
-  // Read every earlier partial before the first store: interleaved
-  // read-add-store through one pointer would serialize 64 L2 round trips.
-  float* dst = part + (size_t)(row0 + kb) * n_out + og;
-  if (!first) {
-#pragma unroll
-    for (int jk = 0; jk < kCols; ++jk)
-#pragma unroll
-      for (int jo = 0; jo < kCols; ++jo)
-        if (valid[jk]) acc[jk][jo] += dst[(size_t)n_kb * jk * n_out + n_og * jo];
-  }
-#pragma unroll
-  for (int jk = 0; jk < kCols; ++jk)
-#pragma unroll
-    for (int jo = 0; jo < kCols; ++jo)
-      if (valid[jk]) dst[(size_t)n_kb * jk * n_out + n_og * jo] = acc[jk][jo];
 }
 
 struct Params {
@@ -515,17 +442,6 @@ __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm) {
     }
   }
   if (tid == 0) part[n_grad] = block_loss;
-}
-
-// out[dst[j]] = sum over blocks b, in order, of partials[b][j].
-__global__ void reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
-                                       int row, const int* __restrict__ dst,
-                                       float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= row) return;
-  float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[(size_t)b * row + j];
-  out[dst[j]] = s;
 }
 
 // Probe: z[ray][s] as K2's own sample_depth draws it, one block per tile

@@ -1,0 +1,132 @@
+// Device code shared by the full-NeRF kernels: the render kernel K3/K5
+// (fused_nerf.cu) and the train kernel K4/K6 (fused_nerf_train.cu) run
+// the same chunked MLP forward, so the two compute equal per-point values
+// from equal inputs.
+//
+// A chunk is kTilePoints point rows of one shared buffer X with an odd
+// row stride ld (the rows a warp reads at one column fall in distinct
+// banks):
+//   X[p][0, hidden)               hidden activations h (then rgb_in's out)
+//   X[p][hidden, hidden + E)      encoding [x, sin 2^k x, cos 2^k x]
+// so the skip concat [h, enc] is columns [0, hidden + E). After the
+// trunk the (dead) encoding columns take the ray's direction encoding,
+// and rgb_in's input [h, d_enc] is columns [0, hidden + Dd).
+//
+// Numerics: sin/cos are the accurate libdevice versions because their
+// arguments reach 2^9 * x (never build with --use_fast_math). With bf16
+// set, every MLP input is rounded to bf16 where it is written; products
+// are exact in f32 and the sums accumulate in f32.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTilePoints = 128;  // point rows of one forward chunk
+constexpr int kCols = 8;          // columns of a thread's register block
+constexpr float kDeltaInf = 1e10f;
+constexpr float kTransEps = 1e-10f;
+
+__device__ __forceinline__ float to_compute(float x, bool bf16) {
+  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+__host__ __device__ inline int enc_dim(int L) { return 3 + 6 * L; }
+__host__ __device__ inline int dir_dim(int Ld, int use) { return use ? 3 + 6 * Ld : 0; }
+
+// Row stride of X: hidden + the wider of the two encodings, made odd.
+__host__ __device__ inline int row_stride(int hidden, int L, int Ld, int use) {
+  const int e = enc_dim(L), dd = dir_dim(Ld, use);
+  const int ld = hidden + (e > dd ? e : dd);
+  return ld | 1;
+}
+
+// X[p][0, n_out) = to_compute(relu(X[p][in_col, in_col + n_in) @ W + b))
+// for the PT rows. W is (n_in, n_out) row-major. Item = (point group pg,
+// column group): rows pg + n_pg*i, columns col0 + j; blockDim.x must be
+// (PT / MT) * (n_out / kCols). The point group is the fast thread index,
+// so the block reads each weight row about once per chunk. Each thread
+// holds its whole block in registers, so the output is written over the
+// input after a barrier. kStore also writes the output rows to `store`
+// (row stride n_out) in device memory.
+template <int PT, int MT, bool kStore = false>
+__device__ void dense_relu(float* X, int ld, int in_col, int n_in, int n_out,
+                           const float* __restrict__ W, const float* __restrict__ b, bool bf16,
+                           float* __restrict__ store = nullptr) {
+  constexpr int n_pg = PT / MT;
+  const int pg = threadIdx.x % n_pg;
+  const int col0 = (threadIdx.x / n_pg) * kCols;
+
+  float acc[MT][kCols];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+
+  const float* xin = X + pg * ld + in_col;
+  const float* wrow = W + col0;
+#pragma unroll 2
+  for (int k = 0; k < n_in; ++k, wrow += n_out) {
+    const float4 w0 = __ldg(reinterpret_cast<const float4*>(wrow));
+    const float4 w1 = __ldg(reinterpret_cast<const float4*>(wrow) + 1);
+    const float w[kCols] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float x = xin[i * n_pg * ld + k];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
+    }
+  }
+  __syncthreads();  // every read of the input columns is done
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float* row = X + (pg + n_pg * i) * ld + col0;
+    float v[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      v[j] = to_compute(fmaxf(acc[i][j] + __ldg(b + col0 + j), 0.f), bf16);
+      row[j] = v[j];
+    }
+    if (kStore) {
+      float4* dst = reinterpret_cast<float4*>(store + (size_t)(pg + n_pg * i) * n_out + col0);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float ray_norm(const float* d) {
+  return sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
+                         __fmul_rn(d[2], d[2])));
+}
+
+// Column j of the direction encoding of d / norm, in the model's order.
+__device__ __forceinline__ float dir_enc_value(const float* d, float norm, int j) {
+  if (j < 3) return d[j] / norm;
+  const int q = j - 3, k = q / 6, c = q % 3;
+  float sn, cs;
+  sincosf(ldexpf(d[c] / norm, k), &sn, &cs);
+  return (q % 6) < 3 ? sn : cs;
+}
+
+// The encoding's bands in the model's interleaved order for the PT rows
+// of pts (PT, 3): column col + 3 + 6k + c is sin(2^k x_c), column
+// col + 3 + 6k + 3 + c is cos(2^k x_c). No barrier.
+template <int PT>
+__device__ __forceinline__ void encode_bands(float* X, int ld, int col, const float* pts,
+                                             int num_freqs, bool bf16) {
+  for (int idx = threadIdx.x; idx < PT * 3 * num_freqs; idx += blockDim.x) {
+    const int p = idx % PT, q = idx / PT;
+    const int k = q / 3, c = q % 3;
+    float sn, cs;
+    sincosf(ldexpf(pts[p * 3 + c], k), &sn, &cs);
+    float* row = X + p * ld + col + 3 + 6 * k + c;
+    row[0] = to_compute(sn, bf16);
+    row[3] = to_compute(cs, bf16);
+  }
+}
+
+}  // namespace

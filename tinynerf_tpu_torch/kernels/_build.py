@@ -2,8 +2,9 @@
 
 Each source is compiled on first use into a shared library with a
 plain C interface, under build/tinynerf_tpu_torch/ at the repository
-root. The library's name carries a hash of the source and the flags, so
-an edited source builds anew and a stale library is never loaded. The
+root. The library's name carries a hash of the source, the shared
+headers (csrc/*.cuh) and the flags, so an edited source or header
+builds anew and a stale library is never loaded. The
 compiler's output (ptxas register and shared-memory counts) is kept
 beside the library as a .log file.
 
@@ -45,8 +46,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path: its name hashes the source, every shared
+    header (csrc/*.cuh) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

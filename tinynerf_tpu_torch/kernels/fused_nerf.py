@@ -151,10 +151,9 @@ def raise_on_error(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
 
 
-def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int) -> int:
-    """Validate what the kernel takes; returns the rays per block: the
-    fewest that fill whole 128-point chunks with segments of `seg`
-    samples, within the block's threads and shared memory."""
+def check_inputs(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z) -> None:
+    """Validate the rays, the depths and the MLP against what the NeRF
+    kernels (K3-K6) take."""
     for name, x in (("rays_o", rays_o), ("rays_d", rays_d)):
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -186,6 +185,13 @@ def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int) -> 
             "kernel needs hidden and rgb_hidden multiples of 8, 8*rgb_hidden/hidden in "
             f"{{1, 2, 4, 8}} and 0 <= skip_at < depth, got {cfg}"
         )
+
+
+def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int) -> int:
+    """Validate what the kernel takes; returns the rays per block: the
+    fewest that fill whole 128-point chunks with segments of `seg`
+    samples, within the block's threads and shared memory."""
+    check_inputs(mlp, cfg, rays_o, rays_d, z)
     lib = _lib()
     threads = lib.tinynerf_fused_nerf_threads(cfg.hidden)
     if threads > lib.tinynerf_fused_nerf_max_threads():

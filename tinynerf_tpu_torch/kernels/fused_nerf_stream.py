@@ -16,8 +16,20 @@ deltas are precomputed here, as the JAX wrapper does (:488-496).
 
 fused_nerf_render_rays_streamed_plain is the same block walk in torch
 ops: the CPU path of the wrapper and the reference the kernel is
-checked against on the card. The streamed fwd+bwd (K6,
-fused_nerf_pass_grads_streamed) belongs to the NeRF training slice.
+checked against on the card.
+
+fused_nerf_pass_grads_streamed (K6) replaces the Pallas TPU kernel
+tinynerf_tpu/kernels/fused_nerf_stream.py:548 (body _streamed_kernel):
+the fused fwd+bwd of the fine pass over a given sorted union, streamed
+over sample blocks. Its forward walk carries (T_run, C, A) and stashes
+each block's entry T; its reverse walk rematerialises each block's
+forward, rebuilds the transmittance from the stashed T and carries the
+density gradient's recurrence across blocks, so its state is
+O(sample_block). It is the
+second C entry point of csrc/fused_nerf_train.cu (K4's kernel, segments
+of sample_block samples); the deltas are precomputed here, as the JAX
+wrapper does (:593-603). fused_nerf_pass_grads_streamed_plain is the
+same block walk through autograd.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     pad_rays,
     raise_on_error,
 )
+from tinynerf_tpu_torch.kernels.fused_nerf_train import check_train_launch, launch_pass, pass_grads_plain
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
 
 DEFAULT_SAMPLE_BLOCK = 64
@@ -143,3 +156,62 @@ def fused_nerf_render_rays_streamed(
 
 
 fused_nerf_render_rays_streamed.launches = 0  # kernel launches since the last reset
+
+
+def fused_nerf_pass_grads_streamed_plain(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    target: torch.Tensor,
+    z_vals: torch.Tensor,
+    *,
+    sigma_noise: Optional[torch.Tensor] = None,
+    white_bkgd: bool = True,
+    cfg: Optional[NeRFConfig] = None,
+    sample_block: int = DEFAULT_SAMPLE_BLOCK,
+):
+    """K6's block walk in torch ops, the entry transmittance carried from
+    block to block through autograd -> (loss, grads aligned to
+    mlp.parameters())."""
+    cfg = cfg or mlp.cfg
+    sb = _check_block(z_vals.shape[1], sample_block)
+    loss, grads, _ = pass_grads_plain(mlp, rays_o, rays_d, target, z_vals, sigma_noise,
+                                      white_bkgd, cfg, sb)
+    return loss, grads
+
+
+def fused_nerf_pass_grads_streamed(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    target: torch.Tensor,
+    z_vals: torch.Tensor,
+    *,
+    sigma_noise: Optional[torch.Tensor] = None,
+    white_bkgd: bool = True,
+    cfg: Optional[NeRFConfig] = None,
+    sample_block: int = DEFAULT_SAMPLE_BLOCK,
+):
+    """One streamed fused fwd+bwd NeRF-MLP pass over a given sorted depth
+    union z_vals (R, S) -> (loss, grads aligned to mlp.parameters()).
+    sigma_noise (R, S) is the pre-ReLU density noise; both walks read the
+    same buffer, so the rematerialised forward equals the first. Raises
+    when S is not a multiple of sample_block.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    fused_nerf_pass_grads_streamed_plain. `cfg` defaults to mlp.cfg."""
+    cfg = cfg or mlp.cfg
+    R, S = z_vals.shape
+    sb = _check_block(S, sample_block)
+    kw = dict(sigma_noise=sigma_noise, white_bkgd=white_bkgd)
+    if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
+        return fused_nerf_pass_grads_streamed_plain(mlp, rays_o, rays_d, target, z_vals, cfg=cfg,
+                                                    sample_block=sb, **kw)
+    tile = check_train_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
+    res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=True, seg=sb, z=z_vals,
+                      **kw)
+    fused_nerf_pass_grads_streamed.launches += 1
+    return res
+
+
+fused_nerf_pass_grads_streamed.launches = 0  # kernel launches since the last reset

@@ -1,0 +1,439 @@
+"""Fused full-NeRF training pass (K4) and the hierarchical fused gradient
+function, on one CUDA kernel (csrc/fused_nerf_train.cu).
+
+fused_nerf_pass_grads replaces the Pallas TPU kernel
+tinynerf_tpu/kernels/fused_nerf_train.py:344 (body _nerf_train_kernel):
+one NeRF-MLP pass, forward + composite + MSE + backward to the parameter
+gradients. The coarse pass draws its stratified jitter in the kernel
+(Philox keyed by (seed, ray, sample), K2's draw) and emits the per-sample
+weights and the depths it used; the fine pass takes a given depth union.
+The streamed twin K6 (kernels/fused_nerf_stream.py) is the kernel's
+second entry point.
+
+make_fused_nerf_grad_fn is the hierarchical step of
+tinynerf_tpu/kernels/fused_nerf_train.py:464-573: the coarse pass
+through K4, sample_pdf and the sorted union in torch, the fine pass
+through K4 or, by the JAX package's routing rule, the streamed K6.
+
+The kernel writes its gradients in pack_nerf_weights' layout; a second
+small kernel sums the per-block partials in a fixed order and scatters
+them to model.parameters() order through scatter_index (the port of
+kernel_grads_to_pytree, :305-341; the port's kernels use the model's own
+encoding order, so there is no row permutation to invert).
+
+What bounds it on an H100, and the kernel's layout: see the header of
+csrc/fused_nerf_train.cu.
+
+fused_nerf_pass_grads_plain is the same function in torch ops with
+torch.autograd.grad: the CPU path of the wrapper, the tests' subject,
+and the reference the kernel is checked against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import List, Optional
+
+import torch
+
+from tinynerf_tpu_torch.kernels.fused_nerf import (
+    MAX_SMEM_BYTES,
+    check_inputs,
+    composite_one_m,
+    deltas,
+    pack_nerf_weights,
+    pad_rays,
+)
+from tinynerf_tpu_torch.kernels.fused_train import _seed_tensor, stratified_depths
+from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP, nerf_layer_in_dims, run_mlp, view_encoding
+from tinynerf_tpu_torch.ops.sampling import sample_pdf
+from tinynerf_tpu_torch.utils.metrics import mse2psnr
+
+# The routing rule's ray tile (tinynerf_tpu/kernels/fused_nerf_train.py:57).
+DEFAULT_TILE_R = 128
+# The fine pass streams (K6) when the monolithic TPU kernel's activation
+# scratch, depth x hidden x tile_r x S_union in the compute dtype, would
+# pass 60 MB: a budget of the TPU's VMEM (fused_nerf_train.py:490-518),
+# not of this kernel, kept so that one configuration takes the same
+# kernels in both packages.
+STREAM_ACT_BYTES = 60 * 1024 * 1024
+
+
+def pass_grads_plain(mlp: NeRFMLP, rays_o, rays_d, target, z, sigma_noise, white_bkgd: bool,
+                     cfg: NeRFConfig, sample_block: int):
+    """One pass over the depths z (R, S) in torch ops, composited in blocks
+    of `sample_block` samples with the entry transmittance carried ->
+    (loss, grads aligned to mlp.parameters(), weights (R, S)), the
+    gradients by torch.autograd.grad. One block of S is K4's composite."""
+    R, S = z.shape
+    d_enc_ray = view_encoding(rays_d, cfg)
+    delta = deltas(z, rays_d)
+    params = list(mlp.parameters())
+    with torch.enable_grad():
+        T_run = torch.ones(R, dtype=z.dtype, device=rays_o.device)
+        C, A, ws = 0.0, 0.0, []
+        for s0 in range(0, S, sample_block):
+            zb = z[:, s0:s0 + sample_block]
+            pts = rays_o[:, None, :] + rays_d[:, None, :] * zb[..., None]
+            noise = None
+            if sigma_noise is not None:
+                noise = sigma_noise[:, s0:s0 + sample_block].reshape(-1, 1).float()
+            rgb, sigma = run_mlp(mlp, pts, d_enc_ray, cfg, sigma_noise=noise)
+            c, a, w, blk = composite_one_m(rgb, sigma, delta[:, s0:s0 + sample_block], t_in=T_run)
+            C, A, T_run = C + c, A + a, T_run * blk
+            ws.append(w)
+        comp = C + (1.0 - A[:, None]) if white_bkgd else C
+        loss = torch.mean((comp - target.to(comp.dtype)) ** 2)
+        grads = torch.autograd.grad(loss, params)
+    return loss.detach(), list(grads), torch.cat(ws, dim=1).detach()
+
+
+def fused_nerf_pass_grads_plain(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    target: torch.Tensor,
+    seed,
+    z_vals: Optional[torch.Tensor] = None,
+    *,
+    sigma_noise: Optional[torch.Tensor] = None,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    randomized: bool = True,
+    white_bkgd: bool = True,
+    emit_sampling: bool = False,
+    cfg: Optional[NeRFConfig] = None,
+):
+    """K4's semantics in torch ops -> (loss, grads aligned to
+    mlp.parameters()), plus (weights (R, S), z (R, S)) with emit_sampling.
+
+    z_vals None: the grid near + s*h, with randomized=True one uniform
+    draw in each bin from a torch.Generator seeded with `seed` (the
+    kernel's bins, another stream than its Philox draws). sigma_noise
+    (R, S) is added to the raw density before the ReLU. A float64 copy
+    of the MLP gives the same function with float64 sums: the points, the
+    encoding and the deltas stay float32 and the matmul inputs are still
+    rounded to compute_dtype."""
+    cfg = cfg or mlp.cfg
+    z = z_vals
+    if z is None:
+        z = stratified_depths(seed, rays_o.shape[0], n_samples, near, far, randomized,
+                              rays_o.device)
+    loss, grads, w = pass_grads_plain(mlp, rays_o, rays_d, target, z, sigma_noise, white_bkgd,
+                                      cfg, z.shape[1])
+    return (loss, grads, w, z) if emit_sampling else (loss, grads)
+
+
+def pack_backward_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
+    """The upstream products' weights, rounded to compute_dtype: trunk
+    layers 1..depth-1 then rgb_in, each weight[:, :hidden] in nn.Linear's
+    own (out, in) layout (the rows the upstream gradient needs: the skip
+    layer's encoding rows and rgb_in's direction rows get no gradient)."""
+    h = cfg.hidden
+    parts = [lin.weight.detach()[:, :h] for lin in list(mlp.layers)[1:]]
+    parts.append(mlp.rgb_in.weight.detach()[:, :h])
+    return torch.cat([p.to(cfg.compute_dtype).float().reshape(-1) for p in parts]).contiguous()
+
+
+def grad_layout(cfg: NeRFConfig) -> dict:
+    """Parameter name -> index tensor (the parameter's shape) into the
+    kernel's gradient layout, which is pack_nerf_weights' layout: per
+    trunk layer W (in, hidden) then b; sigma W (hidden), b, 3 padding
+    entries; rgb_in W (hidden + dir_dim, rgb_hidden), b; rgb W
+    (rgb_hidden, 3), b."""
+    h, rh = cfg.hidden, cfg.rgb_hidden
+    out, off = {}, 0
+
+    def linear(name, n_in, n_out, pad=0):
+        nonlocal off
+        out[f"{name}.weight"] = off + torch.arange(n_in * n_out).reshape(n_in, n_out).t()
+        out[f"{name}.bias"] = off + n_in * n_out + torch.arange(n_out)
+        off += (n_in + 1) * n_out + pad
+
+    for i, n_in in enumerate(nerf_layer_in_dims(cfg)):
+        linear(f"layers.{i}", n_in, h)
+    linear("sigma", h, 1, pad=3)
+    linear("rgb_in", h + cfg.dir_dim, rh)
+    linear("rgb", rh, 3)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def scatter_index(names: tuple, cfg: NeRFConfig, device: torch.device) -> torch.Tensor:
+    """dst (n_grad + 1,) int32: kernel-layout index -> position in the
+    flat output (the parameters in `names` order, the loss last; -1 for
+    the layout's padding entries)."""
+    layout = grad_layout(cfg)
+    if sorted(names) != sorted(layout):
+        raise ValueError(f"unexpected parameters {names}")
+    src = torch.cat([layout[n].reshape(-1) for n in names])
+    n = src.numel()
+    n_grad = sum(lin.numel() for lin in layout.values()) + 3
+    dst = torch.full((n_grad + 1,), -1, dtype=torch.int64)
+    dst[src] = torch.arange(n)
+    dst[n_grad] = n
+    return dst.to(torch.int32).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (first use) and load csrc/fused_nerf_train.cu, typed for
+    ctypes: every pointer and the stream as c_void_p."""
+    from tinynerf_tpu_torch.kernels import _build
+
+    lib = _build.load("fused_nerf_train")
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    lib.tinynerf_fused_nerf_train.argtypes = [p] * 15 + [i] * 11 + [f] * 3 + [i] * 6 + [p]
+    lib.tinynerf_fused_nerf_train.restype = i
+    lib.tinynerf_fused_nerf_train_streamed.argtypes = [p] * 12 + [i] * 12 + [f] + [i] * 5 + [p]
+    lib.tinynerf_fused_nerf_train_streamed.restype = i
+    lib.tinynerf_fused_nerf_train_smem_bytes.argtypes = [i] * 7
+    lib.tinynerf_fused_nerf_train_smem_bytes.restype = i
+    lib.tinynerf_fused_nerf_train_workspace_floats.argtypes = [i] * 6
+    lib.tinynerf_fused_nerf_train_workspace_floats.restype = ctypes.c_longlong
+    lib.tinynerf_fused_nerf_train_max_threads.argtypes = []
+    lib.tinynerf_fused_nerf_train_max_threads.restype = i
+    lib.tinynerf_cuda_error_string.argtypes = [i]
+    lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        msg = _lib().tinynerf_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def check_train_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z, sigma_noise,
+                       S: int, seg: int) -> int:
+    """Validate what the train kernel takes for a pass of S samples in
+    segments of `seg`; returns the rays per tile: the fewest that fill
+    whole 128-point chunks."""
+    check_inputs(mlp, cfg, rays_o, rays_d, z)
+    R = rays_o.shape[0]
+    if target.device != rays_o.device or target.dtype != torch.float32 or tuple(target.shape) != (R, 3):
+        raise ValueError(f"target must be float32 ({R}, 3) on {rays_o.device}")
+    if sigma_noise is not None and (sigma_noise.device != rays_o.device
+                                    or sigma_noise.dtype != torch.float32
+                                    or tuple(sigma_noise.shape) != (R, S)):
+        raise ValueError(f"sigma_noise must be float32 ({R}, {S}) on {rays_o.device}")
+    lib = _lib()
+    if 2 * cfg.hidden > lib.tinynerf_fused_nerf_train_max_threads():
+        raise ValueError(f"hidden {cfg.hidden} needs {2 * cfg.hidden} threads: too many")
+    tile = 128 // math.gcd(128, seg)
+    smem = lib.tinynerf_fused_nerf_train_smem_bytes(
+        tile, seg, S, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"segments of {seg} samples ({tile} rays a tile) at hidden {cfg.hidden} need "
+            f"{smem} B of shared memory: too large"
+        )
+    return tile
+
+
+def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int, S: int, *,
+                streamed: bool, seg: int, z=None, sigma_noise=None, seed=None,
+                near: float = 2.0, far: float = 6.0, randomized: bool = False,
+                white_bkgd: bool = True, emit_sampling: bool = False):
+    """Pad the rays to whole tiles and launch K4 (seg == S: depths given
+    or drawn in the kernel) or the streamed K6 (z given, segments of
+    `seg` samples) -> (loss, grads aligned to mlp.parameters()[, weights,
+    z])."""
+    R = rays_o.shape[0]
+    pad = -R % tile
+    dev = rays_o.device
+    o, d = pad_rays(rays_o, rays_d, pad)
+    tgt = torch.cat([target, target.new_zeros(pad, 3)]).contiguous()
+    delta = None
+    if z is not None:
+        # Given depths (padded with ones, as K5 pads) come with their
+        # deltas from torch, the plain versions' deltas, for K4 and K6 alike.
+        z = torch.cat([z, z.new_ones(pad, S)]).contiguous()
+        delta = deltas(z, d).contiguous()
+    noise = None
+    if sigma_noise is not None:
+        noise = torch.cat([sigma_noise, sigma_noise.new_zeros(pad, S)]).contiguous()
+    w_fwd = pack_nerf_weights(mlp, cfg)
+    w_bwd = pack_backward_weights(mlp, cfg)
+    n_grad = w_fwd.numel()
+    n_tiles = (R + pad) // tile
+    n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+    lib = _lib()
+    ws_floats = lib.tinynerf_fused_nerf_train_workspace_floats(
+        tile, seg, cfg.num_freqs, cfg.hidden, cfg.depth, cfg.rgb_hidden)
+    ws = torch.empty(n_blocks, ws_floats, dtype=torch.float32, device=dev)
+    partials = torch.empty(n_blocks, n_grad + 1, dtype=torch.float32, device=dev)
+    n_params = sum(p.numel() for p in mlp.parameters())
+    out = torch.empty(n_params + 1, dtype=torch.float32, device=dev)
+    dst = scatter_index(tuple(n for n, _ in mlp.named_parameters()), cfg, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    geom = (cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden, cfg.depth,
+            cfg.skip_at, cfg.rgb_hidden)
+    bf16 = int(cfg.compute_dtype == torch.bfloat16)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    if streamed:
+        err = lib.tinynerf_fused_nerf_train_streamed(
+            o.data_ptr(), d.data_ptr(), tgt.data_ptr(), z.data_ptr(), delta.data_ptr(),
+            ptr(noise), w_fwd.data_ptr(), w_bwd.data_ptr(), ws.data_ptr(), partials.data_ptr(),
+            dst.data_ptr(), out.data_ptr(), R + pad, R, tile, S, seg, *geom, 1.0 / (R * 3),
+            int(white_bkgd), bf16, n_blocks, n_grad, dev.index, stream,
+        )
+        w_out = z_out = None
+    else:
+        seed_t = _seed_tensor(0 if seed is None else seed, dev)
+        w_out = z_out = None
+        if emit_sampling:
+            w_out = torch.empty(R + pad, S, dtype=torch.float32, device=dev)
+            z_out = torch.empty(R + pad, S, dtype=torch.float32, device=dev)
+        err = lib.tinynerf_fused_nerf_train(
+            o.data_ptr(), d.data_ptr(), tgt.data_ptr(), ptr(z), ptr(delta), ptr(noise),
+            seed_t.data_ptr(),
+            w_fwd.data_ptr(), w_bwd.data_ptr(), ws.data_ptr(), partials.data_ptr(),
+            dst.data_ptr(), out.data_ptr(), ptr(w_out), ptr(z_out), R + pad, R, tile, S, *geom,
+            float(near), (far - near) / (S - 1), 1.0 / (R * 3), int(randomized),
+            int(white_bkgd), bf16, n_blocks, n_grad, dev.index, stream,
+        )
+    _raise_on(err, "fused_nerf_train_streamed kernel" if streamed else "fused_nerf_train kernel")
+    grads: List[torch.Tensor] = []
+    off = 0
+    for p in mlp.parameters():
+        grads.append(out[off:off + p.numel()].view(p.shape))
+        off += p.numel()
+    if emit_sampling:
+        return out[n_params], grads, w_out[:R], z_out[:R]
+    return out[n_params], grads
+
+
+def fused_nerf_pass_grads(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    target: torch.Tensor,
+    seed,
+    z_vals: Optional[torch.Tensor] = None,
+    *,
+    sigma_noise: Optional[torch.Tensor] = None,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    randomized: bool = True,
+    white_bkgd: bool = True,
+    emit_sampling: bool = False,
+    cfg: Optional[NeRFConfig] = None,
+):
+    """One fused fwd+bwd NeRF-MLP pass -> (loss, grads aligned to
+    mlp.parameters()), plus (weights (R, S), z (R, S)) with emit_sampling.
+
+    z_vals (R, S) gives the depths (the fine pass); None draws them in the
+    kernel: the grid near + s*h, jittered in its bins when randomized
+    (Philox keyed by the int32 `seed`, an int or a one-element tensor on
+    the rays' device). CUDA tensors launch the kernel (or raise); CPU
+    tensors take fused_nerf_pass_grads_plain. `cfg` defaults to mlp.cfg."""
+    cfg = cfg or mlp.cfg
+    S = z_vals.shape[1] if z_vals is not None else n_samples
+    if S < 2:
+        raise ValueError(f"the kernel needs at least 2 samples per ray, got {S}")
+    kw = dict(sigma_noise=sigma_noise, near=near, far=far, white_bkgd=white_bkgd,
+              emit_sampling=emit_sampling)
+    if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
+        return fused_nerf_pass_grads_plain(mlp, rays_o, rays_d, target, seed, z_vals,
+                                           n_samples=n_samples, randomized=randomized, cfg=cfg,
+                                           **kw)
+    tile = check_train_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
+    res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=False, seg=S,
+                      z=z_vals, seed=seed,
+                      randomized=randomized and z_vals is None, **kw)
+    fused_nerf_pass_grads.launches += 1
+    return res
+
+
+fused_nerf_pass_grads.launches = 0  # kernel launches since the last reset
+
+
+def fine_pass_route(s, cfg: NeRFConfig, n_fine: int, tile_r: int = DEFAULT_TILE_R,
+                    sample_block: Optional[int] = None) -> Optional[int]:
+    """The JAX package's routing rule for the fine pass
+    (tinynerf_tpu/kernels/fused_nerf_train.py:490-518): the sample block
+    of the streamed K6, or None for the monolithic K4. An explicit
+    sample_block always streams; else the pass streams when depth x
+    hidden x min(tile_r, n_rand) x S_union in the compute dtype passes
+    STREAM_ACT_BYTES, in the largest block <= 64 that divides the union
+    and is a multiple of 8."""
+    from tinynerf_tpu_torch.kernels.fused_nerf import default_sample_block
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import DEFAULT_SAMPLE_BLOCK
+
+    s_union = s.n_samples + n_fine
+    if sample_block is not None:
+        block = min(sample_block, s_union)
+        if s_union % block:
+            raise ValueError(f"fine union {s_union} must be a multiple of sample_block {block}")
+        return block
+    itemsize = 2 if cfg.compute_dtype == torch.bfloat16 else 4
+    act_bytes = cfg.depth * cfg.hidden * min(tile_r, s.n_rand) * s_union * itemsize
+    if act_bytes > STREAM_ACT_BYTES:
+        return default_sample_block(s_union, DEFAULT_SAMPLE_BLOCK)
+    return None
+
+
+def make_fused_nerf_grad_fn(s, cfg: NeRFConfig, n_fine: int = 64, tile_r: int = DEFAULT_TILE_R,
+                            randomized: bool = True, sample_block: Optional[int] = None):
+    """The hierarchical (coarse + fine) fused step, the drop-in for
+    autograd of models/nerf.make_hierarchical_loss: (model: NeRF, ro, rd,
+    target, generator, noise_scale=1.0) -> (fine loss, metrics), writing
+    each parameter's .grad.
+
+    The generator draws, in the JAX package's order (:522-538), the
+    coarse (R, S) and fine (R, S_union) sigma-noise (only when
+    s.sigma_noise_std > 0), then the int32 kernel seed (on the
+    generator's device: no host sync), then sample_pdf's u. The fine pass
+    takes K4 or K6 by fine_pass_route. On CPU tensors the kernels' plain
+    versions run."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+
+    s_union = s.n_samples + n_fine
+    fine_block = fine_pass_route(s, cfg, n_fine, tile_r, sample_block)
+    noise_std = s.sigma_noise_std
+
+    def grad_fn(model: NeRF, ro, rd, target, generator, noise_scale=1.0):
+        gdev = generator.device
+        noise_c = noise_f = None
+        if noise_std > 0.0:
+            def draw(n):
+                return (noise_scale * noise_std * torch.randn(
+                    (ro.shape[0], n), generator=generator, dtype=torch.float32, device=gdev
+                )).to(ro.device)
+
+            noise_c, noise_f = draw(s.n_samples), draw(s_union)
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, dtype=torch.int32,
+                             device=gdev).to(ro.device)
+        loss_c, g_c, weights, z_c = fused_nerf_pass_grads(
+            model.coarse, ro, rd, target, seed, n_samples=s.n_samples, near=s.near, far=s.far,
+            randomized=randomized, white_bkgd=s.white_bkgd, emit_sampling=True, cfg=cfg,
+            sigma_noise=noise_c,
+        )
+        z_mids = 0.5 * (z_c[:, 1:] + z_c[:, :-1])
+        z_f = sample_pdf(z_mids, weights[:, 1:-1], n_fine, randomized=randomized,
+                         generator=generator if randomized else None)
+        z_union = torch.sort(torch.cat([z_c, z_f], dim=-1), dim=-1).values
+        if fine_block is not None:
+            loss_f, g_f = fused_nerf_pass_grads_streamed(
+                model.fine, ro, rd, target, z_union, sigma_noise=noise_f,
+                white_bkgd=s.white_bkgd, cfg=cfg, sample_block=fine_block,
+            )
+        else:
+            loss_f, g_f = fused_nerf_pass_grads(
+                model.fine, ro, rd, target, seed, z_union, near=s.near, far=s.far,
+                randomized=False, white_bkgd=s.white_bkgd, cfg=cfg, sigma_noise=noise_f,
+            )
+        for mlp, grads in ((model.coarse, g_c), (model.fine, g_f)):
+            for p, g in zip(mlp.parameters(), grads):
+                p.grad = g
+        return loss_f, {"loss": loss_f, "psnr": mse2psnr(loss_f), "loss_coarse": loss_c}
+
+    return grad_fn

@@ -58,6 +58,25 @@ def depth_grid(n_samples: int, near: float, far: float, device) -> torch.Tensor:
     return near + h * s
 
 
+def stratified_depths(seed, n_rays: int, n_samples: int, near: float, far: float,
+                      randomized: bool, device) -> torch.Tensor:
+    """The train kernels' depths (n_rays, n_samples): the grid near + s*h,
+    or with randomized=True one uniform draw in each of its bins (first
+    and last half-bins clamped), u from a torch.Generator seeded with
+    `seed` on `device`: the kernels' bins, another stream than their
+    Philox draws."""
+    grid = depth_grid(n_samples, near, far, device)
+    if not randomized:
+        return grid.expand(n_rays, n_samples)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    u = torch.rand((n_rays, n_samples), generator=gen, dtype=torch.float32, device=device)
+    h = (far - near) / (n_samples - 1)
+    s = torch.arange(n_samples, device=device)
+    lower = torch.where(s == 0, grid, grid - 0.5 * h)
+    upper = torch.where(s == n_samples - 1, grid, grid + 0.5 * h)
+    return lower + (upper - lower) * u
+
+
 def fused_loss_grads_plain(
     model: TinyNeRF,
     rays_o: torch.Tensor,
@@ -86,18 +105,7 @@ def fused_loss_grads_plain(
     """
     cfg = model_cfg or model.cfg
     R, S = rays_o.shape[0], n_samples
-    dev = rays_o.device
-    grid = depth_grid(S, near, far, dev)
-    if randomized:
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        u = torch.rand((R, S), generator=gen, dtype=torch.float32, device=dev)
-        h = (far - near) / (S - 1)
-        s = torch.arange(S, device=dev)
-        lower = torch.where(s == 0, grid, grid - 0.5 * h)
-        upper = torch.where(s == S - 1, grid, grid + 0.5 * h)
-        z = lower + (upper - lower) * u
-    else:
-        z = grid.expand(R, S)
+    z = stratified_depths(seed, R, S, near, far, randomized, rays_o.device)
     norm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
     gap = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], DELTA_INF)], dim=-1)
     delta = gap * norm

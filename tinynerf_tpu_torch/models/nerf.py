@@ -1,7 +1,7 @@
 """Full NeRF: view-direction conditioning and split coarse/fine MLPs
 with hierarchical resampling.
 
-Port of tinynerf_tpu/models/nerf.py:40-213. Per MLP: a `depth` x
+Port of tinynerf_tpu/models/nerf.py:40-250. Per MLP: a `depth` x
 `hidden` ReLU trunk; after the ReLU of layer (skip_at - 1) the encoded
 position is concatenated; sigma = ReLU(Linear(hidden, 1)) of the trunk
 (view-independent); rgb = Sigmoid(Linear(rgb_hidden, 3)) of
@@ -153,14 +153,16 @@ def view_encoding(rays_d: torch.Tensor, cfg: NeRFConfig) -> Optional[torch.Tenso
     return positional_encoding(vdirs, num_freqs=cfg.num_freqs_dir)
 
 
-def run_mlp(mlp: NeRFMLP, pts: torch.Tensor, d_enc_ray: Optional[torch.Tensor], cfg: NeRFConfig):
-    """(R, S, 3) points -> rgb (R, S, 3), sigma (R, S)."""
+def run_mlp(mlp: NeRFMLP, pts: torch.Tensor, d_enc_ray: Optional[torch.Tensor], cfg: NeRFConfig,
+            sigma_noise: Optional[torch.Tensor] = None):
+    """(R, S, 3) points -> rgb (R, S, 3), sigma (R, S); sigma_noise
+    (R * S, 1) is added to the raw density before its ReLU."""
     n_rays, n_samples = pts.shape[:2]
     x_enc = positional_encoding(pts.reshape(-1, 3), num_freqs=cfg.num_freqs)
     d_enc = None
     if d_enc_ray is not None:
         d_enc = d_enc_ray.repeat_interleave(n_samples, dim=0)
-    rgb, sigma = mlp(x_enc, d_enc, cfg)
+    rgb, sigma = mlp(x_enc, d_enc, cfg, sigma_noise=sigma_noise)
     return rgb.reshape(n_rays, n_samples, 3), sigma.reshape(n_rays, n_samples)
 
 
@@ -176,39 +178,75 @@ def render_rays_hierarchical(
     white_bkgd: bool = True,
     cfg: Optional[NeRFConfig] = None,
     randomized: bool = False,
+    generator: Optional[torch.Generator] = None,
     sigma_noise_std: float = 0.0,
+    sigma_noise_scale=1.0,
     return_aux: bool = False,
 ):
     """Coarse pass -> inverse-CDF resample -> fine pass on the sorted
     union of depths -> (comp_coarse (R, 3), comp_fine (R, 3)).
 
-    The deterministic render only: the training draws (randomized,
-    sigma_noise_std) come with the NeRF training slice and the depth
-    and acc channels (return_aux) with the aux rendering."""
-    if randomized or sigma_noise_std > 0.0:
-        raise NotImplementedError(
-            "randomized / sigma-noise hierarchical rendering is the NeRF training "
-            "slice, not ported yet (ROADMAP.md, queue 1, item 9: make_hierarchical_loss)"
-        )
+    randomized=True (training) draws from `generator`, in the JAX
+    package's order (tinynerf_tpu/models/nerf.py:155-163): the coarse and
+    the fine sigma-noise (N(0, std) * sigma_noise_scale, pre-ReLU, only
+    when sigma_noise_std > 0), then the stratified jitter, then
+    sample_pdf's u. The resampling weights carry no gradient. The depth
+    and acc channels (return_aux) come with the aux rendering."""
     if return_aux:
         raise NotImplementedError(
             "return_aux (depth/acc) is not ported yet (ROADMAP.md, queue 1, item 10)"
         )
+    if randomized and generator is None:
+        raise ValueError("render_rays_hierarchical(randomized=True) requires a generator")
     cfg = cfg or params.cfg
+    n_rays = rays_o.shape[0]
+    noise_c = noise_f = None
+    if randomized and sigma_noise_std > 0.0:
+        def draw(n_samples):
+            return (sigma_noise_scale * sigma_noise_std * torch.randn(
+                (n_rays * n_samples, 1), generator=generator, dtype=torch.float32,
+                device=generator.device)).to(rays_o.device)
+
+        noise_c, noise_f = draw(n_coarse), draw(n_coarse + n_fine)
     d_enc_ray = view_encoding(rays_d, cfg)
 
-    z_c, pts_c = stratified_samples(near, far, n_coarse, rays_o, rays_d, randomized=False)
-    rgb_c, sigma_c = run_mlp(params.coarse, pts_c, d_enc_ray, cfg)
+    z_c, pts_c = stratified_samples(near, far, n_coarse, rays_o, rays_d, randomized=randomized,
+                                    generator=generator)
+    rgb_c, sigma_c = run_mlp(params.coarse, pts_c, d_enc_ray, cfg, sigma_noise=noise_c)
     comp_c, _, _, weights = volume_render(rgb_c, sigma_c, z_c, rays_d, white_bkgd=white_bkgd)
 
     z_mids = 0.5 * (z_c[:, 1:] + z_c[:, :-1])
-    z_f = sample_pdf(z_mids, weights[:, 1:-1].detach(), n_fine, randomized=False)
+    z_f = sample_pdf(z_mids, weights[:, 1:-1].detach(), n_fine, randomized=randomized,
+                     generator=generator)
     z_union = torch.sort(torch.cat([z_c, z_f], dim=-1), dim=-1).values
     pts_f = rays_o[:, None, :] + rays_d[:, None, :] * z_union[..., None]
 
-    rgb_f, sigma_f = run_mlp(params.fine, pts_f, d_enc_ray, cfg)
+    rgb_f, sigma_f = run_mlp(params.fine, pts_f, d_enc_ray, cfg, sigma_noise=noise_f)
     comp_f, _, _, _ = volume_render(rgb_f, sigma_f, z_union, rays_d, white_bkgd=white_bkgd)
     return comp_c, comp_f
+
+
+def make_hierarchical_loss(cfg: NeRFConfig, n_fine: int = 64):
+    """The coarse + fine MSE loss (the NeRF paper's objective), pluggable
+    into training.make_train_block: (model, ro, rd, target, generator, s,
+    noise_scale=1.0) -> (mse_c + mse_f, metrics); the PSNR is the fine
+    composite's (tinynerf_tpu/models/nerf.py:216-250)."""
+    from tinynerf_tpu_torch.utils.metrics import mse2psnr
+
+    def loss(model, ro, rd, target, generator, s, noise_scale=1.0):
+        comp_c, comp_f = render_rays_hierarchical(
+            model, ro, rd, n_coarse=s.n_samples, n_fine=n_fine, near=s.near, far=s.far,
+            white_bkgd=s.white_bkgd, cfg=cfg, randomized=True, generator=generator,
+            sigma_noise_std=s.sigma_noise_std, sigma_noise_scale=noise_scale,
+        )
+        target = target.float()
+        mse_c = torch.mean((comp_c - target) ** 2)
+        mse_f = torch.mean((comp_f - target) ** 2)
+        mse_f_d = mse_f.detach()
+        return mse_c + mse_f, {"loss": mse_f_d, "psnr": mse2psnr(mse_f_d),
+                               "loss_coarse": mse_c.detach()}
+
+    return loss
 
 
 def _linear_from_jax(tree, prefix: str, out: dict) -> None:
@@ -232,14 +270,22 @@ def nerf_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def nerf_params_to_jax(model: NeRF) -> Dict[str, Any]:
     """Inverse of nerf_params_from_jax: a JAX-layout tree of numpy arrays."""
-    sd = {k: v.detach().cpu().float().numpy() for k, v in model.state_dict().items()}
+    return nerf_state_to_jax(model.state_dict())
+
+
+def nerf_state_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Any per-parameter tensors of a NeRF (its state_dict, its Adam
+    moments) keyed by parameter name -> the JAX-layout tree of numpy
+    arrays."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state.items()}
 
     def lin(prefix):
         return {"b": sd[f"{prefix}.bias"].copy(), "w": sd[f"{prefix}.weight"].T.copy()}
 
     def mlp(part):
+        depth = sum(1 for k in sd if k.startswith(f"{part}.layers.") and k.endswith(".weight"))
         return {
-            "layers": [lin(f"{part}.layers.{i}") for i in range(len(getattr(model, part).layers))],
+            "layers": [lin(f"{part}.layers.{i}") for i in range(depth)],
             "rgb": lin(f"{part}.rgb"),
             "rgb_in": lin(f"{part}.rgb_in"),
             "sigma": lin(f"{part}.sigma"),

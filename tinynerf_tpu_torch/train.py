@@ -1,20 +1,26 @@
 """Training driver: `python -m tinynerf_tpu_torch.train --iters 20000 ...`
 
-Port of the TinyNeRF branch of tinynerf_tpu/train.py:36-738: seed and
-data, model and Adam, resume of params, optimizer and step from the
-checkpoint, rays precomputed for every pose, an optional tail holdout,
-steps in blocks cut at every log/preview/checkpoint boundary, a log
-line and a JSONL record every log_every, preview PNGs, checkpoints, the
-final checkpoint and final.png, the final evaluation and the
-"[done] ... rays/s" line. The checkpoint's meta is the TinyNeRF subset
-of the JAX driver's, so the JAX eval and make_gif read it.
+Port of the TinyNeRF and full-NeRF (coarse proposal) branches of
+tinynerf_tpu/train.py:36-738: seed and data, model and Adam, resume of
+params, optimizer and step from the checkpoint, rays precomputed for
+every pose, an optional tail holdout, steps in blocks cut at every
+log/preview/checkpoint boundary, a log line and a JSONL record every
+log_every, preview PNGs, checkpoints, the final checkpoint and
+final.png, the final evaluation and the "[done] ... rays/s" line. The
+checkpoint's meta is the JAX driver's (the TinyNeRF subset for
+--model tinynerf), so the JAX eval and make_gif read it and the JAX
+trainer resumes it.
 
-Gradients go through the fused CUDA train kernel (kernels/fused_train.py)
-unless --no-fused-train, which runs training.loss_fn with autograd.
-Metrics stay on the device inside a block; the host reads them only at
-a log point.
+Gradients go through the fused CUDA train kernels unless
+--no-fused-train, which runs the loss (training.loss_fn, or
+models/nerf.make_hierarchical_loss for --model nerf) with autograd:
+TinyNeRF through K2 (kernels/fused_train.py), the full NeRF through K4
+for the coarse pass and K4 or the streamed K6 for the fine pass
+(kernels/fused_nerf_train.py). The NeRF's previews and evaluation render
+through the hierarchical renderer (K3/K5 with --fused). Metrics stay on
+the device inside a block; the host reads them only at a log point.
 
-    python -m tinynerf_tpu_torch.train [--iters N] [--no-fused-train] [--device cuda]
+    python -m tinynerf_tpu_torch.train [--model nerf] [--iters N] [--no-fused-train]
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from tinynerf_tpu_torch.data import ensure_data
 from tinynerf_tpu_torch.evaluation import evaluate_views
 from tinynerf_tpu_torch.main import _sync
 from tinynerf_tpu_torch.ops.rays import get_rays_for_poses
-from tinynerf_tpu_torch.render import make_image_renderer
+from tinynerf_tpu_torch.models.nerf import NeRF, make_hierarchical_loss
+from tinynerf_tpu_torch.render import make_hierarchical_image_renderer, make_image_renderer
 from tinynerf_tpu_torch.training import init_train_state, make_train_block
 from tinynerf_tpu_torch.utils import checkpoint as ckpt_lib
 from tinynerf_tpu_torch.utils.cli import cli
@@ -47,11 +54,19 @@ def _boundaries(start: int, end: int, *cadences: int):
 
 
 def main(cfg: Config = Config()) -> dict:
-    if cfg.model != "tinynerf":
+    if cfg.model not in ("tinynerf", "nerf"):
         raise NotImplementedError(
-            f"training --model {cfg.model} is not ported yet (ROADMAP.md, queue 1: "
-            "'nerf' is item 9, 'grid' item 12)"
+            f"training --model {cfg.model} is not ported yet (ROADMAP.md, queue 1, item 12)"
         )
+    if cfg.proposal not in ("coarse", "occupancy"):
+        raise ValueError(f"unknown proposal {cfg.proposal!r} (coarse|occupancy)")
+    if cfg.proposal == "occupancy":
+        if cfg.model != "nerf":
+            raise ValueError("--proposal occupancy requires --model nerf")
+        raise NotImplementedError(
+            "the occupancy proposal is not ported yet (ROADMAP.md, queue 1, item 11)"
+        )
+    nerf = cfg.model == "nerf"
     t_start = time.time()
     device = torch.device(cfg.device)
     os.makedirs(cfg.out_dir, exist_ok=True)
@@ -70,8 +85,16 @@ def main(cfg: Config = Config()) -> dict:
 
     settings = cfg.train_settings()
     print(f"[train] sigma_noise(std={settings.sigma_noise_std})")
+    loss = init_fn = None
+    if nerf:
+        ncfg = cfg.nerf_cfg()
+        loss = make_hierarchical_loss(ncfg, n_fine=cfg.n_fine)
+
+        def init_fn(generator, dev):
+            return NeRF(ncfg, generator=generator, device=dev)
+
     model, optimizer = init_train_state(
-        torch.Generator().manual_seed(cfg.seed), settings, device=device
+        torch.Generator().manual_seed(cfg.seed), settings, device=device, init_fn=init_fn
     )
 
     start_step = 0
@@ -93,32 +116,53 @@ def main(cfg: Config = Config()) -> dict:
 
     grad_fn = None
     if cfg.fused_train:
-        from tinynerf_tpu_torch.kernels.fused_train import make_fused_grad_fn
+        on_card = device.type == "cuda"
+        route = "CUDA kernel" if on_card else "its plain version on the CPU"
+        if nerf:
+            from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+                fine_pass_route,
+                make_fused_nerf_grad_fn,
+            )
 
-        grad_fn = make_fused_grad_fn(settings)
-        route = "CUDA kernel" if device.type == "cuda" else "its plain version on the CPU"
+            grad_fn = make_fused_nerf_grad_fn(settings, ncfg, n_fine=cfg.n_fine)
+            block = fine_pass_route(settings, ncfg, cfg.n_fine)
+            fine = "K4" if block is None else f"streamed K6, sample block {block}"
+            route = (f"{'CUDA kernels' if on_card else 'their plain versions on the CPU'}: "
+                     f"coarse pass K4, fine pass {fine}")
+        else:
+            from tinynerf_tpu_torch.kernels.fused_train import make_fused_grad_fn
+
+            grad_fn = make_fused_grad_fn(settings)
         print(f"[train] fused fwd+bwd train route: {route}")
 
-    renderer = make_image_renderer(
-        H=H, W=W, focal=focal, chunk=cfg.chunk, n_samples=cfg.n_samples,
-        near=cfg.near, far=cfg.far, num_freqs=cfg.num_freqs,
-        model_cfg=cfg.model_cfg(), use_fused=cfg.fused,
-    )
+    if nerf:
+        renderer = make_hierarchical_image_renderer(
+            H=H, W=W, focal=focal, chunk=min(cfg.chunk, 4096), n_coarse=cfg.n_samples,
+            n_fine=cfg.n_fine, near=cfg.near, far=cfg.far, nerf_cfg=ncfg, use_fused=cfg.fused,
+        )
+        mcfg = {
+            "hidden": cfg.hidden, "depth": cfg.nerf_depth, "skip_at": cfg.nerf_skip_at,
+            "num_freqs": cfg.num_freqs, "num_freqs_dir": cfg.num_freqs_dir,
+            "rgb_hidden": cfg.rgb_hidden, "n_fine": cfg.n_fine, "ndc": False,
+            "proposal": cfg.proposal,
+        }
+    else:
+        renderer = make_image_renderer(
+            H=H, W=W, focal=focal, chunk=cfg.chunk, n_samples=cfg.n_samples,
+            near=cfg.near, far=cfg.far, num_freqs=cfg.num_freqs,
+            model_cfg=cfg.model_cfg(), use_fused=cfg.fused,
+        )
+        mcfg = {"hidden": cfg.hidden, "depth": cfg.depth, "skip_at": cfg.skip_at,
+                "num_freqs": cfg.num_freqs, "ndc": False}
 
     meta = {
         "in_dim": cfg.model_cfg().in_dim,
-        "model": "tinynerf",
+        "model": cfg.model,
         **(
             {"holdout": {"count": cfg.holdout, "mode": "tail", "indices": holdout_indices}}
             if cfg.holdout > 0 else {}
         ),
-        "cfg": {
-            "hidden": cfg.hidden,
-            "depth": cfg.depth,
-            "skip_at": cfg.skip_at,
-            "num_freqs": cfg.num_freqs,
-            "ndc": False,
-        },
+        "cfg": mcfg,
     }
 
     def save_ckpt(step: int):
@@ -134,7 +178,8 @@ def main(cfg: Config = Config()) -> dict:
             start_step, cfg.iters, cfg.log_every, cfg.preview_every, cfg.ckpt_every
         ):
             if block_len not in blocks:
-                blocks[block_len] = make_train_block(settings, block_len, grad_fn=grad_fn)
+                blocks[block_len] = make_train_block(settings, block_len, loss=loss,
+                                                     grad_fn=grad_fn)
             metrics = blocks[block_len](
                 model, optimizer, cfg.seed, block_start, rays_o_all, rays_d_all, pixels
             )
@@ -205,4 +250,4 @@ def main(cfg: Config = Config()) -> dict:
 
 
 if __name__ == "__main__":
-    main(cli(Config, description="Train TinyNeRF (PyTorch + CUDA)"))
+    main(cli(Config, description="Train TinyNeRF or the full NeRF (PyTorch + CUDA)"))

@@ -1,10 +1,11 @@
-"""Single-device TinyNeRF training core.
+"""Single-device training core (TinyNeRF and the full NeRF).
 
 Port of tinynerf_tpu/training.py:37-103, 149-190, 268-297, 300-359,
-362-459 for the reference recipe: each step picks image (step % N),
-draws n_rand pixels, builds jittered stratified samples, runs
-encode -> MLP -> composite, and optimizes the MSE with Adam (b1 0.9,
-b2 0.999, eps 1e-8).
+362-459: each step picks image (step % N), draws n_rand pixels, takes
+the gradient of a loss (by default the reference recipe's TinyNeRF MSE:
+jittered stratified samples, encode -> MLP -> composite; the full NeRF
+plugs in models/nerf.make_hierarchical_loss) or a fused grad_fn, and
+updates with Adam (b1 0.9, b2 0.999, eps 1e-8).
 
 Randomness: the JAX package derives every step's draws from
 fold_in(key, step). Here each step gets a torch.Generator seeded from
@@ -104,37 +105,44 @@ def draw_ray_batch(s, generator: torch.Generator, step: int, rays_o_all, rays_d_
     return rays_o_all[img_i][inds], rays_d_all[img_i][inds], pixels[img_i][inds]
 
 
-def _step_body(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels, s, grad_fn):
+def _step_body(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels, s, loss, grad_fn):
     """One step: draw, gradient (grad_fn writes .grad; else autograd of
-    loss_fn), Adam update. Returns the step's metrics (device tensors)."""
+    `loss`), Adam update. Returns the step's metrics (device tensors)."""
     gen = step_generator(seed, step, rays_o_all.device)
     ro, rd, target = draw_ray_batch(s, gen, step, rays_o_all, rays_d_all, pixels)
     optimizer.zero_grad(set_to_none=True)
     if grad_fn is not None:
         _, metrics = grad_fn(model, ro, rd, target, gen)
     else:
-        loss, metrics = loss_fn(model, ro, rd, target, gen, s)
-        loss.backward()
+        value, metrics = loss(model, ro, rd, target, gen, s)
+        value.backward()
     optimizer.step()
     return metrics
 
 
-def make_train_step(s: TrainSettings, grad_fn=None):
+def make_train_step(s: TrainSettings, loss=None, grad_fn=None):
     """(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels) ->
-    metrics; updates model and optimizer in place."""
+    metrics; updates model and optimizer in place. `loss` is any (model,
+    ro, rd, target, generator, s) -> (scalar, metrics); it defaults to the
+    TinyNeRF loss_fn (models/nerf.make_hierarchical_loss plugs in the
+    full NeRF's). grad_fn (model, ro, rd, target, generator) -> (loss,
+    metrics), writing each parameter's .grad, replaces autograd of it."""
+    loss = loss or loss_fn
 
     def train_step(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels):
-        return _step_body(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels, s, grad_fn)
+        return _step_body(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels, s, loss,
+                          grad_fn)
 
     return train_step
 
 
-def make_train_block(s: TrainSettings, block_size: int, grad_fn=None):
+def make_train_block(s: TrainSettings, block_size: int, loss=None, grad_fn=None):
     """`block_size` consecutive steps: (model, optimizer, seed, step0,
     rays_o_all, rays_d_all, pixels) -> metrics with a leading block axis
-    (device tensors). grad_fn (fused_train.make_fused_grad_fn) routes the
-    gradients through the fused CUDA train kernel."""
-    step_fn = make_train_step(s, grad_fn)
+    (device tensors; every metric key stacked). grad_fn
+    (fused_train.make_fused_grad_fn, fused_nerf_train.make_fused_nerf_grad_fn)
+    routes the gradients through a fused CUDA train kernel."""
+    step_fn = make_train_step(s, loss, grad_fn)
 
     def train_block(model, optimizer, seed, step0, rays_o_all, rays_d_all, pixels):
         ms = [step_fn(model, optimizer, seed, step0 + i, rays_o_all, rays_d_all, pixels)
@@ -144,8 +152,12 @@ def make_train_block(s: TrainSettings, block_size: int, grad_fn=None):
     return train_block
 
 
-def init_train_state(generator: torch.Generator, s: TrainSettings, device=None):
+def init_train_state(generator: torch.Generator, s: TrainSettings, device=None, init_fn=None):
     """(model, optimizer) freshly initialized; the weights are drawn on
-    the CPU from `generator`, then moved to `device`."""
-    model = TinyNeRF(s.model_cfg, generator=generator, device=device)
+    the CPU from `generator`, then moved to `device`. init_fn(generator,
+    device) -> model overrides the TinyNeRF (e.g. a models/nerf.NeRF)."""
+    if init_fn is None:
+        model = TinyNeRF(s.model_cfg, generator=generator, device=device)
+    else:
+        model = init_fn(generator, device)
     return model, make_optimizer(model.parameters(), s.lr)

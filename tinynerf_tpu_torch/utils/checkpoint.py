@@ -12,8 +12,8 @@ and for the full NeRF ({'coarse', 'fine'}) each MLP in turn gives its
   layers[0].b, ..., layers[D-1].w, rgb.b, rgb.w, rgb_in.b, rgb_in.w, sigma.b, sigma.w
 
 Training checkpoints (save_checkpoint / restore_checkpoint, port of
-:32-111; TinyNeRF) also carry optax.adam's state in the JAX layout,
-1 + 2 * n_params leaves:
+:32-111; TinyNeRF or NeRF) also carry optax.adam's state in the JAX
+layout, 1 + 2 * n_params leaves:
   opt_0                       count, an int32 scalar
   opt_1 .. opt_{n}            mu, in the params' flatten order, w as (in, out)
   opt_{n+1} .. opt_{2n}       nu, likewise
@@ -36,8 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tinynerf_tpu_torch.models.nerf import NeRF, nerf_params_from_jax, nerf_params_to_jax
-from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, params_from_jax, params_to_jax, state_to_jax
+from tinynerf_tpu_torch.models.nerf import NeRF, nerf_params_from_jax, nerf_params_to_jax, nerf_state_to_jax
+from tinynerf_tpu_torch.models.tinynerf import params_from_jax, params_to_jax, state_to_jax
 
 
 def _struct(tree) -> str:
@@ -61,8 +61,15 @@ def param_struct(depth: int) -> str:
 
 def opt_struct(depth: int) -> str:
     """The JAX treedef string of optax.adam's state for a TinyNeRF of
-    `depth` layers: (ScaleByAdamState(count, mu, nu), EmptyState())."""
-    inner = param_struct(depth)[len("PyTreeDef("):-1]
+    `depth` layers."""
+    return adam_struct(param_struct(depth))
+
+
+def adam_struct(p_struct: str) -> str:
+    """The JAX treedef string of optax.adam's state,
+    (ScaleByAdamState(count, mu, nu), EmptyState()), for params of the
+    treedef string `p_struct`."""
+    inner = p_struct[len("PyTreeDef("):-1]
     return (
         f"PyTreeDef((CustomNode(namedtuple[ScaleByAdamState], [*, {inner}, {inner}]), "
         "CustomNode(namedtuple[EmptyState], [])))"
@@ -99,6 +106,11 @@ def _to_jax(model: nn.Module):
 
 def _from_jax(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
     return nerf_params_from_jax(tree) if isinstance(model, NeRF) else params_from_jax(tree)
+
+
+def _state_to_jax(model: nn.Module, state: Dict[str, torch.Tensor]):
+    """Per-parameter tensors keyed by parameter name -> the JAX tree."""
+    return nerf_state_to_jax(state) if isinstance(model, NeRF) else state_to_jax(state)
 
 
 def _write(path: str, payload: Dict[str, np.ndarray]) -> None:
@@ -143,13 +155,14 @@ def save_params(path: str, model: nn.Module, step: int, meta: Optional[Dict[str,
 
 def save_checkpoint(
     path: str,
-    model: TinyNeRF,
+    model: nn.Module,
     optimizer: torch.optim.Adam,
     step: int,
     meta: Optional[Dict[str, Any]] = None,
 ) -> None:
-    """Atomically write params, Adam state (JAX layout), step and meta.
-    Before the first update the state is count 0 and zero moments."""
+    """Atomically write params, Adam state (JAX layout), step and meta of
+    a TinyNeRF or a NeRF. Before the first update the state is count 0
+    and zero moments."""
     named = dict(model.named_parameters())
     states = [optimizer.state.get(p, {}) for p in named.values()]
     count = int(states[0]["step"]) if states[0] else 0
@@ -158,8 +171,9 @@ def save_checkpoint(
         mu[name] = st["exp_avg"] if st else torch.zeros_like(p)
         nu[name] = st["exp_avg_sq"] if st else torch.zeros_like(p)
     opt_leaves = [np.asarray(count, dtype=np.int32)]
-    opt_leaves += _flatten(state_to_jax(mu)) + _flatten(state_to_jax(nu))
-    _write(path, _payload(model, opt_leaves, opt_struct(len(model.layers)), step, meta))
+    opt_leaves += _flatten(_state_to_jax(model, mu)) + _flatten(_state_to_jax(model, nu))
+    o_struct = adam_struct(tree_struct(_to_jax(model)))
+    _write(path, _payload(model, opt_leaves, o_struct, step, meta))
 
 
 def read_meta(path: str) -> Dict[str, Any]:
@@ -198,28 +212,28 @@ def restore_params(path: str, model: nn.Module) -> Tuple[int, Dict[str, Any]]:
 
 
 def restore_checkpoint(
-    path: str, model: TinyNeRF, optimizer: torch.optim.Adam
+    path: str, model: nn.Module, optimizer: torch.optim.Adam
 ) -> Tuple[int, Dict[str, Any]]:
     """Load params and Adam state into `model` and `optimizer` in place.
 
     Returns (step, meta). Raises ValueError when the stored optimizer
     state is not optax.adam's for this model (a params-only checkpoint,
     another optimizer chain) or a shape does not match."""
-    depth = len(model.layers)
+    template = _to_jax(model)
+    want = adam_struct(tree_struct(template))
     with np.load(path, allow_pickle=False) as z:
         info = json.loads(str(z["meta"]))
         n_p = info["n_params"]
-        if info["opt_struct"] != opt_struct(depth) or info["n_opt"] != 1 + 2 * n_p:
+        if info["opt_struct"] != want or info["n_opt"] != 1 + 2 * n_p:
             raise ValueError(
                 "checkpoint optimizer-state structure mismatch: "
-                f"stored {info['opt_struct']} vs optax.adam's {opt_struct(depth)}"
+                f"stored {info['opt_struct']} vs optax.adam's {want}"
             )
         opt = [np.asarray(z[f"opt_{i}"]) for i in range(info["n_opt"])]
     step, meta = restore_params(path, model)
     count = int(opt[0])
-    template = params_to_jax(model)
-    mu = params_from_jax(_unflatten(opt[1:1 + n_p], template))
-    nu = params_from_jax(_unflatten(opt[1 + n_p:], template))
+    mu = _from_jax(model, _unflatten(opt[1:1 + n_p], template))
+    nu = _from_jax(model, _unflatten(opt[1 + n_p:], template))
     optimizer.state.clear()
     for name, p in model.named_parameters():
         optimizer.state[p] = {

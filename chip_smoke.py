@@ -52,6 +52,28 @@ Phases, each printed with its result and time:
                 eager and each K3 launch against its plain version; one
                 4096-ray K5 call at S=512 against its plain version; one
                 100x100 flagship image fused against eager.
+ 16. build    - the NeRF train kernels fused_nerf_train.cu (K4 and K6, one
+                library; its nvcc runs beside the other three).
+ 17. kernel   - K4 against its plain version on 2048 rays of a synthetic
+                view, f32 (against float64 sums) and bf16: (a) the
+                flagship coarse pass, S=64, weights and z out, with and
+                without sigma-noise, and the f32 plain version on the CPU
+                against the same float64 sums; (b) a hidden-128 fine pass
+                on a 128-sample union; (c) the hidden-128 coarse pass
+                jittered in the kernel, on the depths it emitted; seed
+                replay.
+ 18. jitter   - K4's emitted depths: in their bins, uniform, adjacent
+                ray tiles uncorrelated, seed replay.
+ 19. kernel   - K6 against its plain version (flagship fine S=192 and
+                hidden 128 S=512, block 64), K6 against K4 on one union,
+                and the flagship fused step against autograd of the eager
+                hierarchical loss.
+ 20. train    - `tinynerf_tpu_torch.train --model nerf` in process at
+                hidden 128, 500 steps fused (K4 twice a step) and eager;
+                the flagship 20 steps (K4 and K6 once a step each), its
+                resume to 25, and `eval` of its checkpoint (K3).
+ 21. timing   - one flagship K4 coarse call, one K6 fine call and one
+                flagship train step against their plain versions.
 
 Weights are random from a seed throughout.
 
@@ -103,6 +125,18 @@ def macs_per_point(module: torch.nn.Module) -> int:
     """Multiply-adds of one point through every nn.Linear of `module`."""
     return sum(m.in_features * m.out_features for m in module.modules()
                if isinstance(m, torch.nn.Linear))
+
+
+def train_macs_per_point(module: torch.nn.Module) -> int:
+    """Multiply-adds of one point's training pass: the forward and the
+    weight-gradient products in full, and the upstream (input-gradient)
+    products only where a layer's input comes from another layer: none
+    for the first layer (the encoding), and the first `hidden` rows of a
+    wider input (the skip layer's [h, enc], rgb_in's [h, dir_enc])."""
+    lin = [m for m in module.modules() if isinstance(m, torch.nn.Linear)]
+    hidden = lin[0].out_features
+    upstream = sum(min(m.in_features, hidden) * m.out_features for m in lin[1:])
+    return 2 * macs_per_point(module) + upstream
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
@@ -493,8 +527,7 @@ def run_train(build_train) -> dict:
         "fused_loss_grads", "tinynerf_tpu_torch/csrc/fused_train.cu",
         "tinynerf_tpu/kernels/fused_train.py:263", runs["fused"]["k2"],
         errs[torch.bfloat16]["max_abs"], ms["bfloat16", "kernel"], ms["bfloat16", "plain"],
-        # forward, weight-gradient and upstream products
-        flops=3 * 2 * N_RAYS_TRAIN * N_SAMPLES * macs_per_point(models[torch.bfloat16]),
+        flops=2 * N_RAYS_TRAIN * N_SAMPLES * train_macs_per_point(models[torch.bfloat16]),
         nbytes=4 * (N_RAYS_TRAIN * 9 + 2 * n_par + 1))
 
 
@@ -788,7 +821,9 @@ def run_nerf_train(build_nerf_train) -> list:
         pass f32 evaluation moves a tiny early-layer leaf by ~5e-4 of its
         max; at a 192-sample union the f32 plain version's rounding of the
         density gradient's cancellation moves the sigma head's leaves by
-        ~3e-4 (the kernel's recurrence stays within 1e-5 there)."""
+        ~3e-4 (the kernel's recurrence stays within 1e-5 there). The gate
+        allows the slack capped at 3e-4 of the leaf's max: at most twice
+        the JAX package's tolerance."""
         if dtype == torch.bfloat16:
             out = fn(mlp, *args, **kw)
             return out[0], out[1], None
@@ -809,14 +844,19 @@ def run_nerf_train(build_nerf_train) -> list:
         check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads),
               f"{what}: loss and gradients finite")
         if dtype == torch.float32:
-            over = [(g - w).abs().max().item() - (3e-4 * w.abs().max().item() + sl)
-                    for g, w, sl in zip(grads, want, slack)]
-            err["f32_plain_max_rel_to_leaf"] = max(
-                sl / max(float(w.abs().max()), 1e-30) for w, sl in zip(want, slack))
+            top = [max(w.abs().max().item(), 1e-30) for w in want]
+            tol = [3e-4 * m for m in top]
+            gap = [(g - w).abs().max().item() for g, w in zip(grads, want)]
+            err["f32_plain_max_rel_to_leaf"] = max(sl / m for m, sl in zip(top, slack))
+            # The leaves that pass only through the f32 plain version's own
+            # error, each with (kernel, f32 plain) error over its max.
+            err["on_allowance"] = {n: [e / m, sl / m]
+                                   for n, e, m, t, sl in zip(names, gap, top, tol, slack) if e > t}
             print(f"[kernel] {what} f32: {json.dumps(err)}", flush=True)
-            check(rel < 1e-5 and max(over) <= 0.0,
+            check(rel < 1e-5 and all(e <= t + min(sl, t) for e, t, sl in zip(gap, tol, slack)),
                   f"{what} f32: loss rel < 1e-5; per leaf |err| <= 3e-4 max|leaf| + the f32 "
-                  "plain version's own |err|, both against float64 sums")
+                  "plain version's own |err| (at most another 3e-4 max|leaf|), both against "
+                  "float64 sums")
         else:
             print(f"[kernel] {what} bf16: {json.dumps(err)}", flush=True)
             check(rel < 1e-3 and err["min_cosine"] > 0.98,
@@ -835,6 +875,21 @@ def run_nerf_train(build_nerf_train) -> list:
                             **kw)
             _, _, want_w, want_z = fused_nerf_pass_grads_plain(m.coarse, ro, rd, tgt, 0, **kw)
             errs["a", dtype, sn is None] = grad_gates(what, dtype, m.coarse, loss, grads, ref)
+            if dtype == torch.float32 and sn is None:
+                # A second f32 ordering of the plain version, on the host's
+                # CPU, against the same float64 sums: whether the slack
+                # belongs to f32 evaluation or to one ordering of it.
+                t1 = time.time()
+                host = fused_nerf_pass_grads_plain(copy.deepcopy(m.coarse).cpu(), ro.cpu(),
+                                                   rd.cpu(), tgt.cpu(), 0, **kw)[1]
+                names = [n for n, _ in m.coarse.named_parameters()]
+                rel = {n: [sl / max(float(w.abs().max()), 1e-30),
+                           float((c.to(dev) - w).abs().max()) / max(float(w.abs().max()), 1e-30)]
+                       for n, c, w, sl in zip(names, host, ref[1], ref[2])}
+                worst = sorted(rel, key=lambda n: -max(rel[n]))[:3]
+                print(f"[kernel] {what} f32 plain vs float64 sums, per-leaf max |err| over the "
+                      f"leaf's max, [CUDA, CPU]: {json.dumps({n: rel[n] for n in worst})} "
+                      f"({time.time() - t1:.1f}s)", flush=True)
             err_w = ray_errors(w, want_w, width=64)
             print(f"[kernel] {what} {str(dtype)[6:]}: weights {json.dumps(err_w)}", flush=True)
             check(torch.equal(zs, want_z) and within(err_w, dtype), f"{what}: weights and z")
@@ -852,6 +907,14 @@ def run_nerf_train(build_nerf_train) -> list:
                         dtype=dtype)
         errs["b", dtype] = grad_gates("K4 (b) hidden-128 fine pass, S=128 union", dtype, m.fine,
                                       loss, grads, ref)
+        # (c) the hidden-128 train's coarse pass: jittered in the kernel,
+        # held against the plain version on the depths the kernel emitted.
+        loss, grads, _, zj = k4(m.coarse, ro, rd, tgt, 7, n_samples=64, emit_sampling=True)
+        torch.cuda.synchronize()
+        ref = reference(fused_nerf_pass_grads_plain, m.coarse, ro, rd, tgt, 0, zj,
+                        randomized=False, dtype=dtype)
+        errs["c", dtype] = grad_gates("K4 (c) hidden-128 coarse pass, S=64 jittered in the kernel",
+                                      dtype, m.coarse, loss, grads, ref)
     m = models[torch.bfloat16]
     runs = []
     for seed in (11, 11, 12):
@@ -1061,14 +1124,13 @@ def run_nerf_train(build_nerf_train) -> list:
             "fused_nerf_pass_grads", "tinynerf_tpu_torch/csrc/fused_nerf_train.cu",
             "tinynerf_tpu/kernels/fused_nerf_train.py:344", runs["fused"]["k4"],
             errs["a", bf16, True]["max_abs"], ms["k4", "kernel"], ms["k4", "plain"],
-            # forward, weight-gradient and upstream products
-            flops=3 * 2 * N_RAYS_TRAIN * 64 * macs_per_point(m.coarse),
+            flops=2 * N_RAYS_TRAIN * 64 * train_macs_per_point(m.coarse),
             nbytes=pass_bytes + 4 * 2 * N_RAYS_TRAIN * 64),  # + weights and z out
         kernel_entry(
             "fused_nerf_pass_grads_streamed", "tinynerf_tpu_torch/csrc/fused_nerf_train.cu",
             "tinynerf_tpu/kernels/fused_nerf_stream.py:548", flag_launches[1],
             errs["k6", True, bf16]["max_abs"], ms["k6", "kernel"], ms["k6", "plain"],
-            flops=3 * 2 * N_RAYS_TRAIN * s_fine * macs_per_point(m.fine),
+            flops=2 * N_RAYS_TRAIN * s_fine * train_macs_per_point(m.fine),
             nbytes=pass_bytes + 4 * N_RAYS_TRAIN * s_fine),  # + z in
     ]
 

@@ -301,15 +301,17 @@ def _plain(fn, mlp, *args, dtype, **kw):
 def _leaf_check(loss, grads, ref, dtype):
     """f32: loss rel. error < 1e-5 and every leaf within 3e-4 of its max
     (the JAX package's kernel tolerance, tests/test_fused_nerf_train.py)
-    plus the f32 plain version's own error, against float64 sums; bf16:
-    loss rel. error < 1e-3 and worst leaf cosine > 0.98 (bench.py)."""
+    plus the f32 plain version's own error, capped at another 3e-4 of
+    the max, against float64 sums; bf16: loss rel. error < 1e-3 and worst
+    leaf cosine > 0.98 (bench.py)."""
     want_loss, want, slack = ref
     rel = abs(float(loss) - float(want_loss)) / float(want_loss)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     if dtype == torch.float32:
         assert rel < 1e-5
         for g, w, sl in zip(grads, want, slack):
-            assert float((g - w).abs().max()) <= 3e-4 * float(w.abs().max()) + sl + 1e-8
+            tol = 3e-4 * float(w.abs().max())
+            assert float((g - w).abs().max()) <= tol + min(sl, tol) + 1e-8
     else:
         assert rel < 1e-3
         assert min(_cosine(g, w) for g, w in zip(grads, want)) > 0.98

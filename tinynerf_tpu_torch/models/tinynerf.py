@@ -51,13 +51,12 @@ def layer_in_dims(cfg: TinyNeRFConfig) -> list:
 
 
 def dense(h: torch.Tensor, layer: nn.Linear, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Linear layer with compute_dtype inputs and float32 accumulation
-    (float64 for a float64 layer: the high-precision reference the
-    kernels' f32 gradients are checked against)."""
-    acc = torch.float64 if layer.weight.dtype == torch.float64 else torch.float32
+    """Linear layer with compute_dtype inputs, accumulated in the
+    parameters' own dtype (float32)."""
+    acc = layer.weight.dtype
     x = h.to(compute_dtype).to(acc)
     w = layer.weight.to(compute_dtype).to(acc)
-    return F.linear(x, w, layer.bias.to(acc))
+    return F.linear(x, w, layer.bias)
 
 
 class TinyNeRF(nn.Module):

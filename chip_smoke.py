@@ -74,6 +74,29 @@ Phases, each printed with its result and time:
                 resume to 25, and `eval` of its checkpoint (K3).
  21. timing   - one flagship K4 coarse call, one K6 fine call and one
                 flagship train step against their plain versions.
+ 22. build    - the block-partials kernel pair fused_partials.cu (K7
+                forward and backward, one library; its nvcc runs beside the
+                other four).
+ 23. kernel   - K7 against its plain versions at the flagship width on 2048
+                rays, both shards of the coarse pass (2 x 32, weights out) and
+                of the fine union (2 x 96, block 48, sigma-noise) at world 2,
+                f32 (gradients against float64 sums) and bf16, with random
+                cotangents (g_T and g_w included); two shards combined against
+                K3's composite of the union and their MSE gradient against
+                K6's; same inputs twice bit-identical.
+ 24. train    - (a) one flagship step of the world-1 sharded block, K7
+                against the eager shard (2 K7 forwards and backwards);
+                (b) `torch.distributed.run --nproc-per-node 2 -m
+                tinynerf_tpu_torch.train --data-parallel --sample-parallel 2`
+                at the flagship, two ranks sharing the card (gloo), 20 steps,
+                then a resume to 25, then `--data-parallel` alone (K4/K6 per
+                rank), 10 steps: every rank exits 0 with bit-identical
+                parameters; (c) one sharded pass on the same depths, world 2
+                (spawned ranks) against world 1.
+ 25. timing   - the K7 forward and backward at the fine and coarse shards, and
+                the world-1 sharded step, against their plain versions; the
+                steps/s of the 2-rank runs (two processes on one card, not
+                scaling).
 
 Weights are random from a seed throughout.
 
@@ -1135,15 +1158,531 @@ def run_nerf_train(build_nerf_train) -> list:
     ]
 
 
+SP_ITERS = 20  # the 2-rank flagship sample-parallel train (K7), then a resume to +5
+DP_ITERS = 10  # the 2-rank flagship data-parallel train (K4 and K6 on each rank)
+PARTIAL_KEYS = ("C", "A", "T", "D")
+
+
+def sharded_pass_case(mesh, inputs: dict, dev) -> dict:
+    """Phase 24 (c), through K7 on `mesh`: the flagship f32 coarse pass's
+    composite and global weights on z_c, and the fine pass's MSE on z_f
+    with its gradients mean-reduced over the sample axis."""
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.models.nerf import NeRF
+    from tinynerf_tpu_torch.parallel.mesh import SAMPLE_AXIS
+    from tinynerf_tpu_torch.parallel.train import mean_over, sharded_pass
+
+    cfg = Config(model="nerf", hidden=256, bf16=False).nerf_cfg()
+    model = NeRF(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    ro, rd, tgt, z_c, z_f = (inputs[k].to(dev) for k in ("ro", "rd", "tgt", "z_c", "z_f"))
+    with torch.no_grad():
+        comp_c, w_c = sharded_pass(model.coarse, ro, rd, z_c, mesh, cfg, need_weights=True,
+                                   fused_kernels=True)
+    comp_f, _ = sharded_pass(model.fine, ro, rd, z_f, mesh, cfg, fused_kernels=True)
+    loss = torch.mean((comp_f - tgt) ** 2)
+    grads = torch.autograd.grad(loss, list(model.fine.parameters()))
+    flat = mean_over(torch.cat([g.reshape(-1) for g in grads]), mesh, (SAMPLE_AXIS,))
+    return {"comp_c": comp_c.cpu(), "w_c": w_c.cpu(), "comp_f": comp_f.detach().cpu(),
+            "loss": float(loss), "grads": flat.cpu().split([g.numel() for g in grads])}
+
+
+def sharded_pass_rank(rank: int, world: int, init: str, path: str) -> None:
+    """Phase 24 (c): one rank of a world-2 sharded pass. Both ranks use
+    card 0, so the collectives take gloo (parallel/mesh.py's rule)."""
+    import torch.distributed as dist
+
+    from tinynerf_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(init_method=init, world_size=world, rank=rank, backend="gloo")
+    out = sharded_pass_case(make_mesh(sample_parallel=world), torch.load(path), dev)
+    torch.save(out, f"{path}.rank{rank}")
+    dist.destroy_process_group()
+
+
+def torchrun_train(tag: str, *args: str) -> dict:
+    """`python -m torch.distributed.run --nproc-per-node 2 -m
+    tinynerf_tpu_torch.train ...` at the flagship width on the one card ->
+    its output, each rank's kernel launches and the rays/s of its [done]
+    line. Fails unless every rank exits 0 with the same parameter
+    digest."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           "-m", "tinynerf_tpu_torch.train", "--model", "nerf", "--hidden", "256", "--n-fine", "128",
+           "--data-parallel", "--data-path", os.path.join(OUT_DIR, "absent.npz"), "--holdout", "4",
+           "--log-every", "10", "--out-dir", os.path.join(OUT_DIR, tag),
+           "--ckpt-path", os.path.join(OUT_DIR, f"{tag}.npz"), *args]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": os.getcwd()})
+    out = proc.stdout + proc.stderr
+    with open(os.path.join(OUT_DIR, f"{tag}.log"), "w") as f:
+        f.write(out)
+    keep = ("[distributed]", "[train] step", "[train] mesh", "[train] fused", "[resume]", "[eval]",
+            "[done]", "Error", "error")
+    print("\n".join(line for line in out.splitlines() if any(k in line for k in keep)), flush=True)
+    check(proc.returncode == 0, f"{tag}: every rank exits 0 (rc {proc.returncode})")
+    ranks = [line.split("parameter digest ")[1] for line in out.splitlines()
+             if "parameter digest" in line]
+    digests = {r.split(",")[0] for r in ranks}
+    check(len(ranks) == 2 and len(digests) == 1, f"{tag}: both ranks' parameters bit-identical")
+    done = [line for line in out.splitlines() if line.startswith("[done]")]
+    rays = float(done[0].split(" rays/s")[0].split(", ")[-1].replace(",", ""))
+    return {"out": out, "launches": [json.loads(r.split("kernel launches ")[1]) for r in ranks],
+            "rays_per_sec": rays}
+
+
+def run_partials(build_partials) -> list:
+    import copy
+
+    import torch.multiprocessing as mp
+
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.data import ensure_data
+    from tinynerf_tpu_torch.kernels.fused_nerf import (
+        fused_nerf_render_rays, fused_nerf_render_rays_plain, linspace_depths, union_depths,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed, fused_nerf_pass_grads_streamed_plain,
+    )
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        block_partials_grads_plain, block_partials_plain, fused_block_partials_bwd,
+        fused_block_partials_fwd, make_fused_block_partials_fn,
+    )
+    from tinynerf_tpu_torch.models.nerf import NeRF
+    from tinynerf_tpu_torch.ops.rays import get_rays, get_rays_for_poses
+    from tinynerf_tpu_torch.ops.volume import combine_block_partials, global_deltas
+    from tinynerf_tpu_torch.parallel.mesh import make_mesh
+    from tinynerf_tpu_torch.parallel.train import make_sharded_train_block
+    from tinynerf_tpu_torch.training import make_optimizer
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    fwd, bwd = fused_block_partials_fwd, fused_block_partials_bwd
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    # 22. build
+    lib, secs = build_partials.result()
+    log = lib.with_suffix(".log").read_text()
+    print(f"[build] fused_partials.cu (K7 forward, backward) -> {lib.name} in {secs:.2f}s (nvcc "
+          "beside the other four)", flush=True)
+    print("\n".join(line for line in log.splitlines()
+                    if "registers" in line or "spill" in line or "stack frame" in line), flush=True)
+
+    # 23. K7 against its plain versions: both shards of the flagship's coarse
+    #     (2 x 32, weights out) and fine (2 x 96, block 48, sigma-noise)
+    #     passes at world 2, on 2048 rays of a synthetic view.
+    t0 = time.time()
+    data_path = os.path.join(OUT_DIR, "absent.npz")  # phase 3's synthetic scene
+    d = ensure_data(data_path, device=dev)
+    images = torch.from_numpy(d["images"]).to(dev)
+    poses = torch.from_numpy(d["poses"]).to(dev)
+    focal = float(d["focal"])
+    n_images, H, W, _ = images.shape
+    rays_o, rays_d = get_rays(H, W, focal, poses[0])
+    idx = torch.randperm(H * W, generator=torch.Generator().manual_seed(0))[:N_RAYS_TRAIN].to(dev)
+    ro, rd = rays_o[idx].contiguous(), rays_d[idx].contiguous()
+    tgt = images[0].reshape(-1, 3)[idx].contiguous()
+    R = N_RAYS_TRAIN
+
+    def nerf(dtype):
+        cfg = Config(model="nerf", hidden=256, bf16=dtype == bf16).nerf_cfg()
+        return NeRF(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+
+    models = {dtype: nerf(dtype) for dtype in (f32, bf16)}
+    z_c = linspace_depths(64, 2.0, 6.0, dev).expand(R, 64).contiguous()
+    with torch.no_grad():
+        _, w = fused_nerf_render_rays_plain(models[f32].coarse, ro, rd, n_samples=64,
+                                            return_weights=True)
+    z_f = union_depths(w, 128, 2.0, 6.0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    noise_f = 0.5 * torch.randn(R, 192, generator=gen, device=dev)
+    passes = {"coarse": (z_c, None, 32, True), "fine": (z_f, noise_f, 48, False)}
+
+    def shard(name, b):
+        """(z, deltas, noise) of shard b of the pass at world 2."""
+        z, noise, _, _ = passes[name]
+        sh = z.shape[1] // 2
+        sl = slice(b * sh, (b + 1) * sh)
+        return (z[:, sl].contiguous(), global_deltas(z, rd)[:, sl].contiguous(),
+                None if noise is None else noise[:, sl].contiguous())
+
+    def cotangents(S, seed, signed=True):
+        """Random cotangents of C, A, T, D and the local weights (g_T and
+        g_w nonzero): N(0, 1) / R, or with signed=False U[0.5, 1.5) / R."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def draw(*shape):
+            if signed:
+                return torch.randn(*shape, generator=g, device=dev) / R
+            return (0.5 + torch.rand(*shape, generator=g, device=dev)) / R
+
+        cot = {k: draw(*shape) for k, shape in (("C", (R, 3)), ("A", (R,)), ("T", (R,)), ("D", (R,)))}
+        return cot, draw(R, S)
+
+    def inner(cot, g_w, partials, w):
+        """sum of cotangent x output (the scalar whose gradient the
+        backward computes) and the sum of its terms' magnitudes."""
+        terms = [cot[k] * partials[k] for k in PARTIAL_KEYS] + ([g_w * w] if w is not None else [])
+        return (float(sum(x.double().sum() for x in terms)),
+                float(sum(x.double().abs().sum() for x in terms)))
+
+    def relu_flips(mlp, mlp64, run):
+        """Pre-activations (every layer's, the density's before its noise)
+        on the other side of zero in run(mlp64) than in run(mlp), recorded
+        by wrapping models/nerf.dense."""
+        import tinynerf_tpu_torch.models.nerf as nerf_mod
+
+        dense = nerf_mod.dense
+
+        def signs(m):
+            out = []
+
+            def record(h, layer, dt):
+                y = dense(h, layer, dt)
+                out.append(y.detach() > 0)
+                return y
+
+            nerf_mod.dense = record
+            try:
+                with torch.no_grad():
+                    run(m)
+            finally:
+                nerf_mod.dense = dense
+            return out
+
+        return sum(int((a != b).sum()) for a, b in zip(signs(mlp), signs(mlp64)))
+
+    errs = {}
+    for dtype in (f32, bf16):
+        for name, mlp_of in (("coarse", lambda m: m.coarse), ("fine", lambda m: m.fine)):
+            mlp = mlp_of(models[dtype])
+            names = [n for n, _ in mlp.named_parameters()]
+            _, _, sb, emit = passes[name]
+            for b in (0, 1):
+                what = f"K7 {name} shard {b} ({sb}-sample blocks) {str(dtype)[6:]}"
+                z, deltas, noise = shard(name, b)
+                S = z.shape[1]
+                fn = make_fused_block_partials_fn(mlp.cfg, emit_weights=emit, sample_block=sb)
+                plain_kw = dict(sample_block=sb, emit_weights=emit)
+
+                def through_kernel(cot, g_w):
+                    partials, w = fn(mlp, ro, rd, z, deltas, noise)
+                    outs = [partials[k] for k in PARTIAL_KEYS] + ([w] if emit else [])
+                    cots = [cot[k] for k in PARTIAL_KEYS] + ([g_w] if emit else [])
+                    grads = torch.autograd.grad(outs, list(mlp.parameters()), grad_outputs=cots)
+                    torch.cuda.synchronize()
+                    return ({k: v.detach() for k, v in partials.items()},
+                            w.detach() if emit else None, grads)
+
+                def reference(ref_mlp, cot, g_w):
+                    """(the plain version's inner product, its gradients)."""
+                    with torch.no_grad():
+                        p, pw = block_partials_plain(ref_mlp, ro, rd, z, deltas, noise, **plain_kw)
+                    grads = block_partials_grads_plain(ref_mlp, ro, rd, z, deltas, noise, cot, g_w,
+                                                       sample_block=sb)
+                    return inner(cot, g_w, p, pw)[0], [g.float() for g in grads]
+
+                cot, g_w = cotangents(S, 7 + b)
+                g_w = g_w if emit else None
+                partials, w, grads = through_kernel(cot, g_w)
+                with torch.no_grad():
+                    want, want_w = block_partials_plain(mlp, ro, rd, z, deltas, noise, **plain_kw)
+                fe = {k: ray_errors(partials[k].reshape(R, -1) / (6.0 if k == "D" else 1.0),
+                                    want[k].reshape(R, -1) / (6.0 if k == "D" else 1.0),
+                                    width=3 if k == "C" else 1) for k in PARTIAL_KEYS}
+                if emit:
+                    fe["w"] = ray_errors(w, want_w, width=S)
+                fe_max = max(float((partials[k] - want[k]).abs().max()) for k in PARTIAL_KEYS)
+                print(f"[kernel] {what} forward (D over 6): {json.dumps(fe)}", flush=True)
+                check(all(bool(torch.isfinite(partials[k]).all()) for k in PARTIAL_KEYS)
+                      and all(within(e, dtype) for e in fe.values()),
+                      f"{what}: partials and weights within {GATES[dtype]}")
+                check(all(bool(torch.isfinite(g).all()) for g in grads), f"{what}: grads finite")
+                got_l, scale = inner(cot, g_w, partials, w)
+                if dtype == bf16:
+                    want_l, ref = reference(mlp, cot, g_w)
+                    be = {"inner_rel": abs(got_l - want_l) / scale, **leaf_errors(grads, ref)}
+                    print(f"[kernel] {what} backward: {json.dumps(be)}", flush=True)
+                    check(be["inner_rel"] < 1e-3 and be["min_cosine"] > 0.98,
+                          f"{what} backward: inner product rel < 1e-3, per-leaf cosine > 0.98")
+                    errs[name, b, dtype] = {"fwd_max_abs": fe_max, "bwd_max_abs": be["max_abs"]}
+                    continue
+                # f32. With cotangents of random sign, every leaf is a sum of
+                # terms of both signs whose max grows only like sqrt(points):
+                # one pre-activation on the other side of its ReLU in the
+                # float64 evaluation moves a leaf by ~1/sqrt(points) of its
+                # max, the same for the kernel and the f32 plain version. A
+                # reading: both against float64 sums, the count of such ReLU
+                # flips, and the kernel against the f32 plain version.
+                mlp64 = copy.deepcopy(mlp).double()
+                want_l, ref = reference(mlp64, cot, g_w)
+                _, plain = reference(mlp, cot, g_w)
+                top = [max(float(r.abs().max()), 1e-30) for r in ref]
+                dev64 = {n: [float((g - r).abs().max()) / m, float((p - r).abs().max()) / m]
+                         for n, g, p, r, m in zip(names, grads, plain, ref, top)}
+                worst = sorted(dev64, key=lambda n: -dev64[n][0])[:3]
+                signed = {"inner_rel": abs(got_l - want_l) / scale,
+                          "vs_float64_kernel_and_f32_plain": {n: dev64[n] for n in worst},
+                          "kernel_vs_f32_plain_max_rel_to_leaf": max(
+                              float((g - p).abs().max()) / m for g, p, m in zip(grads, plain, top)),
+                          "relu_flips": relu_flips(mlp, mlp64, lambda m: block_partials_plain(
+                              m, ro, rd, z, deltas, noise, **plain_kw))}
+                print(f"[kernel] {what} backward, signed cotangents (a reading): "
+                      f"{json.dumps(signed)}", flush=True)
+                # The gate: one-signed random cotangents, against float64 sums
+                # with the NeRF pass gates' capped allowance.
+                cot, g_w = cotangents(S, 17 + b, signed=False)
+                g_w = g_w if emit else None
+                partials, w, grads = through_kernel(cot, g_w)
+                got_l, scale = inner(cot, g_w, partials, w)
+                want_l, ref = reference(mlp64, cot, g_w)
+                _, plain = reference(mlp, cot, g_w)
+                top = [max(float(r.abs().max()), 1e-30) for r in ref]
+                gap = [float((g - r).abs().max()) for g, r in zip(grads, ref)]
+                slack = [float((p - r).abs().max()) for p, r in zip(plain, ref)]
+                be = {"inner_rel": abs(got_l - want_l) / scale, **leaf_errors(grads, ref),
+                      "f32_plain_max_rel_to_leaf": max(sl / m for sl, m in zip(slack, top)),
+                      "on_allowance": {n: [e / m, sl / m] for n, e, m, sl in
+                                       zip(names, gap, top, slack) if e > 3e-4 * m}}
+                print(f"[kernel] {what} backward, one-signed cotangents: {json.dumps(be)}",
+                      flush=True)
+                check(be["inner_rel"] < 1e-5 and all(e <= 3e-4 * m + min(sl, 3e-4 * m)
+                                                     for e, m, sl in zip(gap, top, slack)),
+                      f"{what} backward: inner product rel < 1e-5; per leaf |err| <= 3e-4 "
+                      "max|leaf| + the f32 plain version's own |err| (capped at as much), "
+                      "against float64 sums")
+                errs[name, b, dtype] = {"fwd_max_abs": fe_max, "bwd_max_abs": be["max_abs"]}
+    # Cross-checks, f32: two shards combined against the whole union's
+    # K3 composite, and the MSE's gradient through them against K6's (and
+    # both against float64 sums). At the shard boundary the density
+    # recurrence starts from the cotangent of T, D = g_T - g_w: two terms
+    # of size g_w that cancel where the colour changes little (PERF.md,
+    # section 6), so the sigma head's two leaves are held to the JAX package's
+    # K7 tolerance, 3e-4 of the leaf's max; every other leaf to K6-vs-K4's
+    # 1e-5.
+    m = models[f32]
+    sigma_head = [n.startswith("sigma.") for n, _ in m.fine.named_parameters()]
+
+    def boundary_gate(rel_to_leaf):
+        return all(e <= (3e-4 if sig else 1e-5) for e, sig in zip(rel_to_leaf, sigma_head))
+
+    cross = {}
+    for name, mlp, z, sb in (("coarse", m.coarse, z_c, 32), ("fine", m.fine, z_f, 48)):
+        fn = make_fused_block_partials_fn(m.cfg, sample_block=sb)
+        parts = [fn(mlp, ro, rd, *shard(name, b)[:2])[0] for b in (0, 1)]
+        comp, _, _ = combine_block_partials({k: torch.stack([p[k] for p in parts])
+                                             for k in PARTIAL_KEYS})
+        with torch.no_grad():
+            k3 = fused_nerf_render_rays(mlp, ro, rd, z, cfg=m.cfg)
+        cross[f"{name}_vs_k3"] = float((comp.detach() - k3).abs().max())
+        if name == "fine":
+            loss = torch.mean((comp - tgt) ** 2)
+            grads = torch.autograd.grad(loss, list(mlp.parameters()))
+            l6, g6 = fused_nerf_pass_grads_streamed(mlp, ro, rd, tgt, z, sample_block=64)
+            g64 = [g.float() for g in fused_nerf_pass_grads_streamed_plain(
+                copy.deepcopy(mlp).double(), ro, rd, tgt, z, sample_block=64)[1]]
+            names = [n for n, _ in mlp.named_parameters()]
+
+            def per_leaf(a, b):
+                return [float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b)]
+
+            k7_vs_k6 = per_leaf(grads, g6)
+            cross["loss_rel_vs_k6"] = abs(float(loss) - float(l6)) / float(l6)
+            cross["max_rel_to_leaf_vs_k6"] = dict(zip(names, k7_vs_k6))
+            for what, g in (("k7", grads), ("k6", g6)):
+                cross[f"{what}_vs_float64_worst"] = max(zip(per_leaf(g, g64), names))
+    print(f"[kernel] K7 two shards vs the whole union, f32: {json.dumps(cross)}", flush=True)
+    check(cross["coarse_vs_k3"] < 2.5e-5 and cross["fine_vs_k3"] < 2.5e-5,
+          "two K7 shards combined equal K3's composite of the union within 2.5e-5")
+    check(cross["loss_rel_vs_k6"] <= 1e-6 and boundary_gate(k7_vs_k6),
+          "MSE gradient through two K7 shards equals K6's: loss rel <= 1e-6, per leaf <= 1e-5 "
+          "max|leaf| (the sigma head's <= 3e-4)")
+    mlp = models[bf16].fine
+    fn = make_fused_block_partials_fn(mlp.cfg, emit_weights=True, sample_block=48)
+    cot, g_w = cotangents(96, 9)
+    runs = []
+    for _ in range(2):
+        partials, w = fn(mlp, ro, rd, *shard("fine", 1))
+        outs = [partials[k] for k in PARTIAL_KEYS] + [w]
+        grads = torch.autograd.grad(outs, list(mlp.parameters()),
+                                    grad_outputs=[cot[k] for k in PARTIAL_KEYS] + [g_w])
+        runs.append([o.detach().clone() for o in outs] + [g.clone() for g in grads])
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"[kernel] K7 same inputs twice: bit-identical {same}", flush=True)
+    check(same, "K7 forward and backward bit-identical on the same inputs")
+    print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 24. train. (a) world 1 in process: one flagship step of the sharded
+    #     block, K7 against the eager shard, on the same draws.
+    t0 = time.time()
+    settings = Config(model="nerf", hidden=256, n_fine=128).train_settings()
+    train_poses = poses[: n_images - 4]
+    rays_o_all, rays_d_all = get_rays_for_poses(H, W, focal, train_poses)
+    pixels = images[: n_images - 4].reshape(len(train_poses), H * W, 3)
+    step = {}
+    for fused in (True, False):
+        model = nerf(bf16)
+        opt = make_optimizer(model.parameters(), settings.lr)
+        block = make_sharded_train_block(settings, 1, make_mesh(), nerf_cfg=model.cfg, n_fine=128,
+                                         fused_kernels=fused)
+        fwd.launches = bwd.launches = 0
+        metrics = block(model, opt, 0, 0, rays_o_all, rays_d_all, pixels)
+        step[fused] = (float(metrics["loss"][0] + metrics["loss_coarse"][0]),
+                       [p.grad.clone() for p in model.parameters()], (fwd.launches, bwd.launches))
+    a_err = {"loss_rel": abs(step[True][0] - step[False][0]) / step[False][0],
+             "launches": step[True][2], **leaf_errors(step[True][1], step[False][1])}
+    print(f"[train] (a) world-1 sharded step, K7 vs the eager shard, bf16: {json.dumps(a_err)}",
+          flush=True)
+    check(step[True][2] == (2, 2) and step[False][2] == (0, 0),
+          "the K7 step runs 2 forwards and 2 backwards, the eager step none")
+    check(a_err["loss_rel"] < 1e-3 and a_err["min_cosine"] > 0.98,
+          "K7 step vs eager step: loss rel < 1e-3, per-leaf cosine > 0.98")
+
+    # (b) two ranks on the one card through the trainer: the main path.
+    sp_metrics = os.path.join(OUT_DIR, "sp2.jsonl")
+    if os.path.exists(sp_metrics):
+        os.unlink(sp_metrics)
+    sp = torchrun_train("sp2", "--sample-parallel", "2", "--iters", str(SP_ITERS), "--no-resume",
+                        "--metrics-path", sp_metrics)
+    main_launches = [(r.get("fused_block_partials_fwd", 0), r.get("fused_block_partials_bwd", 0))
+                     for r in sp["launches"]]
+    losses = [r["loss"] for r in map(json.loads, open(sp_metrics)) if "loss" in r]
+    print(f"[train] (b) sample-parallel 2 ranks, {SP_ITERS} steps: K7 (forward, backward) "
+          f"launches per rank {main_launches}, losses {losses}", flush=True)
+    check(all(x == (2 * SP_ITERS, 2 * SP_ITERS) for x in main_launches),
+          "each rank's K7 ran 2 forwards and 2 backwards per step")
+    check(all(math.isfinite(x) for x in losses), "sample-parallel losses finite")
+    check("[distributed] process 0/2, backend gloo" in sp["out"],
+          "two ranks sharing the card take gloo")
+    resumed = torchrun_train("sp2", "--sample-parallel", "2", "--iters", str(SP_ITERS + 5))
+    check(f"from step {SP_ITERS}" in resumed["out"], f"resume prints from step {SP_ITERS}")
+    dp = torchrun_train("dp2", "--iters", str(DP_ITERS), "--no-resume")
+    dp_launches = [(r.get("fused_nerf_pass_grads", 0), r.get("fused_nerf_pass_grads_streamed", 0))
+                   for r in dp["launches"]]
+    print(f"[train] (b) data-parallel 2 ranks, {DP_ITERS} steps: (K4, K6) launches per rank "
+          f"{dp_launches}", flush=True)
+    check(all(x == (DP_ITERS, DP_ITERS) for x in dp_launches),
+          "data-parallel: K4 and K6 once per step on each rank")
+
+    # (c) one sharded pass on the same z, world 2 (spawned ranks) against
+    #     world 1 (in process): the gates of phase 23's cross-checks.
+    inputs = {"ro": ro.cpu(), "rd": rd.cpu(), "tgt": tgt.cpu(), "z_c": z_c.cpu(), "z_f": z_f.cpu()}
+    path = os.path.abspath(os.path.join(OUT_DIR, "sharded_pass.pt"))
+    store = path + ".store"
+    torch.save(inputs, path)
+    if os.path.exists(store):
+        os.unlink(store)
+    mp.spawn(sharded_pass_rank, args=(2, f"file://{store}", path), nprocs=2, join=True)
+    one = sharded_pass_case(make_mesh(), inputs, dev)
+    c_err, c_leaf = {}, {}
+    names = [n for n, _ in models[f32].fine.named_parameters()]
+    for r in (0, 1):
+        two = torch.load(f"{path}.rank{r}")
+        c_leaf[r] = [float((a - b).abs().max() / b.abs().max())
+                     for a, b in zip(two["grads"], one["grads"])]
+        c_err[r] = {k: float((two[k] - one[k]).abs().max()) for k in ("comp_c", "w_c", "comp_f")}
+        c_err[r].update(loss_rel=abs(two["loss"] - one["loss"]) / one["loss"],
+                        max_rel_to_leaf=max(zip(c_leaf[r], names)))
+    print(f"[train] (c) sharded pass, world 2 vs world 1, f32, per rank: {json.dumps(c_err)}",
+          flush=True)
+    check(all(e["comp_c"] < 2.5e-5 and e["w_c"] < 2.5e-5 and e["comp_f"] < 2.5e-5
+              and e["loss_rel"] <= 1e-6 and boundary_gate(c_leaf[r]) for r, e in c_err.items()),
+          "world 2 equals world 1: composites and weights within 2.5e-5, loss rel <= 1e-6, "
+          "per leaf <= 1e-5 max|leaf| (the sigma head's <= 3e-4, phase 23's boundary gate)")
+    print(f"[train] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 25. timing: plain, kernel, kernel, plain (bf16, flagship)
+    t0 = time.time()
+    m = models[bf16]
+    cases = {}
+    for name, mlp, b in (("fine", m.fine, 1), ("coarse", m.coarse, 0)):
+        _, _, sb, emit = passes[name]
+        z, deltas, noise = shard(name, b)
+        tile = 128 // math.gcd(128, sb)
+        fn = make_fused_block_partials_fn(m.cfg, emit_weights=emit, sample_block=sb)
+        cot, g_w = cotangents(z.shape[1], 11)
+        g_w = g_w if emit else None
+        g_ray = torch.cat([cot["C"], torch.stack([cot["A"], cot["T"], cot["D"]], dim=1)], dim=1)
+        _, tin, _, w_fwd = fwd(mlp, m.cfg, ro, rd, z, deltas, noise, sb, tile, emit)
+        args = (ro, rd, z, deltas, noise)
+        cases[name, "fwd"] = {
+            "kernel": lambda fn=fn, mlp=mlp, args=args: fn(mlp, *args),
+            "plain": lambda mlp=mlp, args=args, sb=sb, emit=emit: block_partials_plain(
+                mlp, *args, sample_block=sb, emit_weights=emit)}
+        cases[name, "bwd"] = {
+            "kernel": lambda mlp=mlp, args=args, tin=tin, g_ray=g_ray, g_w=g_w, w_fwd=w_fwd, sb=sb,
+            tile=tile: bwd(mlp, m.cfg, *args, tin, g_ray, g_w, w_fwd, sb, tile),
+            "plain": lambda mlp=mlp, args=args, cot=cot, g_w=g_w, sb=sb: block_partials_grads_plain(
+                mlp, *args, cot, g_w, sample_block=sb)}
+    counter = iter(range(10**6))
+    for fused in (True, False):
+        step_model = nerf(bf16)
+        step_opt = make_optimizer(step_model.parameters(), settings.lr)
+        block = make_sharded_train_block(settings, 1, make_mesh(), nerf_cfg=step_model.cfg,
+                                         n_fine=128, fused_kernels=fused)
+        cases.setdefault(("step", ""), {})["kernel" if fused else "plain"] = (
+            lambda block=block, sm=step_model, so=step_opt: block(
+                sm, so, 0, next(counter), rays_o_all, rays_d_all, pixels))
+    times = {}
+    with torch.no_grad():
+        for key, fns in cases.items():
+            for name in ("plain", "kernel", "kernel", "plain"):
+                if key[0] == "step":
+                    with torch.enable_grad():
+                        t = cuda_ms(fns[name], iters=3)
+                else:
+                    t = cuda_ms(fns[name], iters=5)
+                times.setdefault((*key, name), []).append(t)
+    ms = {k: min(v) for k, v in times.items()}
+    print(f"[timing] {card}: bf16, {R} rays; K7 forward fine shard (S=96, block 48) "
+          f"{ms['fine', 'fwd', 'kernel']:.4f} ms, plain {ms['fine', 'fwd', 'plain']:.4f} ms; "
+          f"coarse shard (S=32, weights) {ms['coarse', 'fwd', 'kernel']:.4f} ms, plain "
+          f"{ms['coarse', 'fwd', 'plain']:.4f} ms; K7 backward fine shard "
+          f"{ms['fine', 'bwd', 'kernel']:.4f} ms, plain {ms['fine', 'bwd', 'plain']:.4f} ms; "
+          f"coarse shard {ms['coarse', 'bwd', 'kernel']:.4f} ms, plain "
+          f"{ms['coarse', 'bwd', 'plain']:.4f} ms; world-1 sharded step K7 "
+          f"{ms['step', '', 'kernel']:.4f} ms, eager {ms['step', '', 'plain']:.4f} ms "
+          f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
+    print(f"[timing] {card}: flagship train loop of two processes sharing one card (not "
+          f"scaling): sample-parallel 2 {sp['rays_per_sec'] / R:.2f} steps/s "
+          f"({sp['rays_per_sec']:,.0f} rays/s), data-parallel 2 {dp['rays_per_sec'] / R:.2f} "
+          f"steps/s ({dp['rays_per_sec']:,.0f} rays/s)", flush=True)
+    print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
+
+    mlp_par = sum(p.numel() for p in m.fine.parameters())
+    S, nb = 96, 2  # the fine shard at world 2, blocks of 48
+    macs, train_macs = macs_per_point(m.fine), train_macs_per_point(m.fine)
+    replaces = "tinynerf_tpu/kernels/fused_partials.py"
+    return [
+        kernel_entry(
+            "fused_block_partials (forward)", "tinynerf_tpu_torch/csrc/fused_partials.cu",
+            f"{replaces}:407", sum(x[0] for x in main_launches),
+            errs["fine", 1, bf16]["fwd_max_abs"], ms["fine", "fwd", "kernel"],
+            ms["fine", "fwd", "plain"], flops=2 * R * S * macs,
+            # rays, z, deltas, noise and the weights in; partials, entry T out
+            nbytes=4 * (R * (6 + 3 * S) + mlp_par + R * (6 + nb))),
+        kernel_entry(
+            "fused_block_partials (backward)", "tinynerf_tpu_torch/csrc/fused_partials.cu",
+            f"{replaces}:486", sum(x[1] for x in main_launches),
+            errs["fine", 1, bf16]["bwd_max_abs"], ms["fine", "bwd", "kernel"],
+            ms["fine", "bwd", "plain"], flops=2 * R * S * (train_macs - macs),
+            # rays, z, deltas, noise, entry T, cotangents and the weights in;
+            # gradients out (the recomputed forward is not counted)
+            nbytes=4 * (R * (6 + 3 * S + nb + 6) + 2 * mlp_par)),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sources = ("fused_render", "fused_train", "fused_nerf", "fused_nerf_train")
+    sources = ("fused_render", "fused_train", "fused_nerf", "fused_nerf_train", "fused_partials")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc per source, together
         builds = {n: pool.submit(timed_build, n) for n in sources}
         kernels = [run(builds["fused_render"]), run_train(builds["fused_train"]),
-                   *run_nerf(builds["fused_nerf"]), *run_nerf_train(builds["fused_nerf_train"])]
+                   *run_nerf(builds["fused_nerf"]), *run_nerf_train(builds["fused_nerf_train"]),
+                   *run_partials(builds["fused_partials"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

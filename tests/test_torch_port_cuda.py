@@ -1,6 +1,7 @@
 """The fused render (K1), train (K2), NeRF (K3), streamed NeRF (K5),
-NeRF train (K4) and streamed NeRF train (K6) kernels against their plain
-versions, and K2's and K4's jitter, on a CUDA device.
+NeRF train (K4), streamed NeRF train (K6) and block-partials (K7)
+kernels against their plain versions, and K2's and K4's jitter, on a
+CUDA device.
 
 Skips without one. This file imports neither jax nor the JAX package, so
 it also runs on a GPU machine that has no JAX (without the suite's
@@ -469,3 +470,136 @@ def test_hierarchical_grad_fn_on_card(cuda_device, sample_block, want_k6):
     assert abs(float(metrics["loss_coarse"]) + float(loss_f) - float(ref)) < 1e-6
     for p, w in zip(model.parameters(), want):
         assert float((p.grad - w).abs().max()) <= 3e-4 * float(w.abs().max()) + 1e-8
+
+
+def _partials_case(hidden, num_freqs, dir_freqs, viewdirs, S, dtype, device, n=300, seed=27):
+    """One shard's inputs: sorted depths, their global deltas sliced to the
+    second half of a 2S union (so the terminal 1e10 delta is in), and
+    sigma-noise."""
+    from tinynerf_tpu_torch.ops.volume import global_deltas
+
+    mlp, cfg = _nerf_case(hidden, num_freqs, dir_freqs, viewdirs, dtype, device, seed=seed)
+    ro, rd = _rays(n, seed, device)
+    z_union = _sorted_z(n, 2 * S, seed + 1, device)
+    deltas = global_deltas(z_union, rd)
+    z, deltas = z_union[:, S:].contiguous(), deltas[:, S:].contiguous()
+    g = torch.Generator(device=device).manual_seed(seed)
+    noise = 0.5 * torch.randn(n, S, generator=g, device=device)
+    return mlp, cfg, ro, rd, z, deltas, noise
+
+
+def _partials_cotangents(n, S, device, seed=31):
+    """Random cotangents of C, A, T, D and the local weights: g_T and g_w
+    nonzero."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    cot = {k: torch.randn(*shape, generator=g, device=device) / n
+           for k, shape in (("C", (n, 3)), ("A", (n,)), ("T", (n,)), ("D", (n,)))}
+    return cot, torch.randn(n, S, generator=g, device=device) / n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,viewdirs,S,sample_block,emit", [
+    (256, 10, 4, True, 96, 48, False),   # the flagship's fine shard at world 2
+    (256, 10, 4, True, 32, 32, True),    # the flagship's coarse shard, weights out
+    (32, 4, 2, True, 16, 4, True),
+    (64, 10, 4, False, 24, 8, False),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partials_kernels_match_plain_on_card(cuda_device, hidden, num_freqs, dir_freqs, viewdirs,
+                                              S, sample_block, emit, dtype):
+    """K7's forward (partials, local weights) under the render gates and its
+    backward (parameter gradients from random cotangents, g_T and g_w
+    included) under the NeRF pass gates, against the plain versions."""
+    import copy
+
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        block_partials_grads_plain,
+        block_partials_plain,
+        fused_block_partials_bwd,
+        fused_block_partials_fwd,
+        make_fused_block_partials_fn,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mlp, cfg, ro, rd, z, deltas, noise = _partials_case(hidden, num_freqs, dir_freqs, viewdirs, S,
+                                                        dtype, cuda_device)
+    n = ro.shape[0]
+    cot, g_w = _partials_cotangents(n, S, cuda_device)
+    g_w = g_w if emit else None
+    fn = make_fused_block_partials_fn(cfg, emit_weights=emit, sample_block=sample_block)
+    fwd, bwd = fused_block_partials_fwd.launches, fused_block_partials_bwd.launches
+    partials, w = fn(mlp, ro, rd, z, deltas, noise)
+    outs = [partials[k] for k in ("C", "A", "T", "D")] + ([w] if emit else [])
+    cots = [cot[k] for k in ("C", "A", "T", "D")] + ([g_w] if emit else [])
+    grads = torch.autograd.grad(outs, list(mlp.parameters()), grad_outputs=cots)
+    torch.cuda.synchronize()
+    assert (fused_block_partials_fwd.launches - fwd, fused_block_partials_bwd.launches - bwd) == (1, 1)
+    with torch.no_grad():
+        want, want_w = block_partials_plain(mlp, ro, rd, z, deltas, noise, cfg=cfg,
+                                            sample_block=sample_block, emit_weights=emit)
+    for k in ("C", "A", "T", "D"):
+        assert bool(torch.isfinite(partials[k]).all())
+        # D sums w * z with z in [2, 6]: its gate scales with the depth.
+        scale = 6.0 if k == "D" else 1.0
+        _within_render_gates(partials[k].detach().reshape(n, -1) / scale,
+                             want[k].reshape(n, -1) / scale, dtype)
+    if emit:
+        _within_render_gates(w.detach(), want_w, dtype)
+    args = (ro, rd, z, deltas, noise, cot, g_w)
+    kw = dict(cfg=cfg, sample_block=sample_block)
+    if dtype == torch.bfloat16:
+        ref = block_partials_grads_plain(mlp, *args, **kw)
+        assert min(_cosine(g, r) for g, r in zip(grads, ref)) > 0.98
+        return
+    want64 = [g.float() for g in block_partials_grads_plain(copy.deepcopy(mlp).double(), *args, **kw)]
+    plain32 = block_partials_grads_plain(mlp, *args, **kw)
+    for g, r, p in zip(grads, want64, plain32):
+        tol = 3e-4 * float(r.abs().max())
+        slack = float((p - r).abs().max())
+        assert float((g - r).abs().max()) <= tol + min(slack, tol) + 1e-8
+
+
+@pytest.mark.cuda
+def test_partials_kernels_replay_bit_identical_on_card(cuda_device):
+    from tinynerf_tpu_torch.kernels.fused_partials import make_fused_block_partials_fn
+
+    mlp, cfg, ro, rd, z, deltas, noise = _partials_case(256, 10, 4, True, 96, torch.bfloat16,
+                                                        cuda_device, n=256)
+    cot, g_w = _partials_cotangents(256, 96, cuda_device)
+    fn = make_fused_block_partials_fn(cfg, emit_weights=True, sample_block=48)
+    runs = []
+    for _ in range(2):
+        partials, w = fn(mlp, ro, rd, z, deltas, noise)
+        outs = [partials[k] for k in ("C", "A", "T", "D")] + [w]
+        grads = torch.autograd.grad(outs, list(mlp.parameters()),
+                                    grad_outputs=[cot[k] for k in ("C", "A", "T", "D")] + [g_w])
+        runs.append([o.detach().clone() for o in outs] + [g.clone() for g in grads])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_partials_two_shards_equal_the_streamed_pass_on_card(cuda_device):
+    """Two K7 shards of one union, combined, against K6's loss and
+    gradients on the whole union: the same per-point code, so only the
+    order of sums differs (K6 against K4's gates, 1e-5 of each leaf's
+    max)."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+    from tinynerf_tpu_torch.kernels.fused_partials import make_fused_block_partials_fn
+    from tinynerf_tpu_torch.ops.volume import combine_block_partials, global_deltas
+
+    mlp, cfg = _nerf_case(128, 10, 4, True, torch.float32, cuda_device)
+    n = 256
+    ro, rd = _rays(n, 32, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(33).rand(n, 3).astype(np.float32)).to(cuda_device)
+    z = _sorted_z(n, 192, 34, cuda_device)
+    deltas = global_deltas(z, rd)
+    fn = make_fused_block_partials_fn(cfg, sample_block=48)
+    parts = [fn(mlp, ro, rd, z[:, s:s + 96].contiguous(), deltas[:, s:s + 96].contiguous())[0]
+             for s in (0, 96)]
+    comp, _, _ = combine_block_partials({k: torch.stack([p[k] for p in parts]) for k in parts[0]})
+    loss = torch.mean((comp - target) ** 2)
+    grads = torch.autograd.grad(loss, list(mlp.parameters()))
+    l6, g6 = fused_nerf_pass_grads_streamed(mlp, ro, rd, target, z, cfg=cfg, sample_block=48)
+    assert abs(float(loss) - float(l6)) <= 1e-6 * float(l6)
+    for a, b in zip(grads, g6):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-9

@@ -19,6 +19,9 @@ import tinynerf_tpu_torch.kernels.fused_nerf, tinynerf_tpu_torch.kernels.fused_n
 import tinynerf_tpu_torch.models.nerf, tinynerf_tpu_torch.utils.model_io
 import tinynerf_tpu_torch.kernels.fused_nerf_train, tinynerf_tpu_torch.training
 import tinynerf_tpu_torch.utils.checkpoint, tinynerf_tpu_torch.config
+import tinynerf_tpu_torch.kernels.fused_partials
+import tinynerf_tpu_torch.parallel.mesh, tinynerf_tpu_torch.parallel.train
+import tinynerf_tpu_torch.parallel.render
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tinynerf_tpu"))
 print(bad)
 sys.exit(1 if bad else 0)

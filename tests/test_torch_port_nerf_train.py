@@ -55,6 +55,14 @@ from tinynerf_tpu_torch.training import TrainSettings, make_train_block, init_tr
 TINY = dict(num_freqs=4, num_freqs_dir=2, hidden=32, depth=3, skip_at=2, rgb_hidden=16)
 
 
+@pytest.fixture(autouse=True)
+def _grad_enabled():
+    """Autograd on for each test, whatever an earlier test in this process
+    left (tests/test_torch_parity.py turns it off globally)."""
+    with torch.enable_grad():
+        yield
+
+
 def pair(seed, **kw):
     """A JAX {'coarse', 'fine'} tree and the port's NeRF with the same weights (f32)."""
     over = {**TINY, **kw}

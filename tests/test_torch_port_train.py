@@ -39,6 +39,14 @@ from tinynerf_tpu_torch.utils import metrics
 L, HID = 4, 32
 
 
+@pytest.fixture(autouse=True)
+def _grad_enabled():
+    """Autograd on for each test, whatever an earlier test in this process
+    left (tests/test_torch_parity.py turns it off globally)."""
+    with torch.enable_grad():
+        yield
+
+
 def _pair(seed=0, depth=4, skip_at=2):
     jcfg = JaxConfig(in_dim=27, hidden=HID, depth=depth, skip_at=skip_at, compute_dtype=jnp.float32)
     params = jax.tree_util.tree_map(np.asarray, init_tinynerf(jax.random.PRNGKey(seed), jcfg))

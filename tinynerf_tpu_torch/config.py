@@ -14,8 +14,10 @@ nerf_skip_at, num_freqs_dir, rgb_hidden) and nerf_cfg() follow
 tinynerf_tpu/config.py:51-63, 173-184; train_settings() serves both
 models (train.py hands n_fine and nerf_cfg() to the NeRF's loss and
 fused grad_fn). Fields that only the grid family, the occupancy
-proposal, the parallel paths or the flagship training levers use are
-not ported yet (ROADMAP.md, queue 1).
+proposal or the flagship training levers use are not ported yet
+(ROADMAP.md, queue 1). data_parallel, sample_parallel and distributed
+(tinynerf_tpu/config.py:144-149) select parallel/: a rank of a
+torch.distributed process group is one device of the mesh.
 """
 
 from __future__ import annotations
@@ -65,6 +67,11 @@ class Config:
     bf16: bool = True  # bfloat16 matmul inputs (f32 params and accumulation)
     fused: bool = True  # render through the fused CUDA kernel
     fused_train: bool = True  # train through the fused CUDA fwd+bwd kernels
+    data_parallel: bool = False  # shard ray batches over the ranks of the process group
+    sample_parallel: int = 1  # with data_parallel: size of the mesh's
+    # sample axis (shards the per-ray sample axis / fine union via the
+    # blockwise composite; parallel/train.py)
+    distributed: bool = False  # join the launcher's process group (parallel/mesh.py)
     metrics_path: Optional[str] = None  # JSONL metrics log
     holdout: int = 0  # trailing poses excluded from training, scored at the end
     device: str = "cuda"

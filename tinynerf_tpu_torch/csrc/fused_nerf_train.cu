@@ -27,601 +27,14 @@
 // backward products (weight gradients, upstream gradients). Products run
 // on the CUDA cores' f32 FMAs (tensor cores are later work).
 //
-// Design. The forward of a segment (TR rays x `seg` samples, a whole
-// number of 128-point chunks) is K3's: nerf_mlp.cuh's dense_relu over one
-// 128-row shared buffer, 2*hidden threads of 8x8 register blocks. The
-// backward needs every trunk layer's post-activation, 8 x 256 x 128 floats
-// (1 MB) a chunk, more than a block's 227 KB of shared memory, so the
-// forward also writes each layer's output (the encoding, the trunk
-// activations, rgb_in's output) to a per-block workspace in device memory
-// and the backward reads them back. Storing is cheaper than recomputing:
-// the workspace moves 2 x 8 KB a point at the flagship, about 1 GB for a
-// 2048 x 64 pass (0.3 ms at the data sheet's 3.35 TB/s), while a
-// rematerialised forward would add a third of the pass's arithmetic (the
-// pass's time on the card: chip_smoke.py phase 21). K6 pays that third
-// anyway: its reverse walk recomputes each block's forward, as the TPU
-// kernel does, which keeps its workspace O(sample_block), not O(S). Each
-// 64-point backward chunk reads and writes the block's whole row of
-// partials (2 MB at the flagship): the price of no atomics.
-//
-// The backward runs in chunks of 64 points: the shared buffer holds two
-// 64-row halves, a layer's input (In) and its output gradient (G). Per
-// layer: the weight-gradient blocks (weight_grad_item, 8x8 per thread,
-// summed over the chunk's points and added to the block's own row of
-// partials in device memory), then the upstream product (4x8 per thread
-// in registers, from G and the layer's transposed weights), a barrier, and
-// the masked upstream gradient written over In's activation columns, which
-// makes In the next layer's G: the halves swap roles each layer.
-//
-// Gradient partials: a persistent grid of about one block per SM; block b
-// walks the ray tiles b, b + gridDim.x, ... and read-modify-writes only its
-// own row (n_grad + 1 floats: every packed weight, then the loss). A
-// second kernel sums the rows in a fixed order and scatters them to the
-// model's parameter order: no float atomics, bit-identical launches.
-//
-// Numerics follow _nerf_train_kernel term by term, with one exact
-// rewrite: the composite with one_m = exp(-sigma delta) + 1e-10 and the
-// 1e10 terminal delta scaled by ||d||; the density gradient by a
-// recurrence on colour differences instead of the reference's
-// suffix-sum difference, which cancels (see segment_grads); the trunk's
-// output gradient is the sigma-head plus the rgb-branch contribution;
-// rgb_in's upstream product uses its first `hidden` input rows only (the
-// direction encoding gets a weight gradient only), and the skip layer's
-// skips the encoding rows; ReLU masks come from the stored
-// post-activations. K6 carries the running transmittance and the
-// density recurrence from block to block (where _streamed_kernel scales
-// block-local products), so on one union it computes K4's per-point
-// values bit for bit and only the order in which the gradient partials
-// are summed differs. With bf16 set every upstream gradient is rounded to
-// bf16 where the reference's dense_bwd rounds it, products accumulate in
-// f32, and the composite and the recurrences run in f32.
+// The walk itself (the forward of each segment, the composite, the
+// backward in 64-point chunks, the gradient partials and the density
+// recurrence) is nerf_train_walk.cuh's, Walk::kLoss, which K7
+// (fused_partials.cu) shares; its header explains the design. K4 keeps its
+// one segment's activations in the workspace from the forward to the
+// backward; K6 rematerialises each block's forward on the reverse walk.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include "nerf_mlp.cuh"
-#include "train_common.cuh"
-
-namespace {
-
-constexpr int kBwdPoints = 64;  // point rows of one backward chunk
-constexpr int kBwdRows = 4;     // MT of the backward upstream products
-constexpr int kMaxThreads = 512;
-
-// Per-point scalars of a segment, structure of arrays: ps[q * n_seg + p].
-enum : int {
-  kZ, kDelta, kSigmaRaw, kRgb0, kRgb1, kRgb2, kOneM, kTrans, kGW,
-  kGRgb0, kGRgb1, kGRgb2, kGSigma, kNumScalars
-};
-// Per-ray scalars: rs[q * TR + r]. The k*Next values carry the density
-// recurrence from the sample after a segment into it (see segment_grads).
-enum : int {
-  kGComp0, kGComp1, kGComp2, kGAcc, kTRun, kC0, kC1, kC2, kA, kSqErr,
-  kHaveNext, kDNext, kOmNext, kGwNext, kRgbNext0, kRgbNext1, kRgbNext2, kRayScalars
-};
-
-struct Args {
-  const float* rays_o;  // (R, 3)
-  const float* rays_d;  // (R, 3)
-  const float* target;  // (R, 3)
-  const float* z;       // (R, S), or null: the grid, jittered when randomized
-  const float* delta;   // (R, S) deltas times ||d||, or null: from the depths
-  const float* noise;   // (R, S) pre-ReLU density noise, or null
-  const int* seed;      // one int32 on the device: the jitter's key
-  const float* w_fwd;   // kernels/fused_nerf.py::pack_nerf_weights
-  const float* w_bwd;   // kernels/fused_nerf_train.py::pack_backward_weights
-  float* ws;            // (gridDim.x, workspace floats)
-  float* partials;      // (gridDim.x, n_grad + 1)
-  float* w_out;         // (R, S) per-sample weights, or null
-  float* z_out;         // (R, S) the depths used, or null
-  int n_rays, n_real, S, seg, tile_rays;
-  int num_freqs, dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden;
-  float near, h_bin, inv_n;
-  int randomized, white_bkgd, bf16;
-};
-
-__host__ __device__ inline int layer_in_dim(int i, int E, int H, int skip_at) {
-  return i == 0 ? E : (i == skip_at ? H + E : H);
-}
-
-// Offset of trunk layer i's W (in, H) then b (H) in the packed weights,
-// which is also the layout of the gradient partials.
-__host__ __device__ inline int layer_off(int i, int E, int H, int skip_at) {
-  int off = 0;
-  for (int j = 0; j < i; ++j) off += (layer_in_dim(j, E, H, skip_at) + 1) * H;
-  return off;
-}
-
-// acc[i][j] = sum over o < n_red of G[p][o] * WT[o][col0 + j], for the
-// rows p = pg + n_pg*i of a backward chunk; WT is row-major with rows of
-// n_cols (nn.Linear's own (out, in) weight, first n_cols input columns).
-__device__ __forceinline__ void upstream_item(const float* G, int ld, int n_red,
-                                              const float* __restrict__ WT, int n_cols, int pg,
-                                              int col0, float (&acc)[kBwdRows][kCols]) {
-  constexpr int n_pg = kBwdPoints / kBwdRows;
-#pragma unroll
-  for (int i = 0; i < kBwdRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  const float* gin = G + pg * ld;
-  const float* wrow = WT + col0;
-#pragma unroll 4
-  for (int o = 0; o < n_red; ++o, wrow += n_cols) {
-    const float4 w0 = __ldg(reinterpret_cast<const float4*>(wrow));
-    const float4 w1 = __ldg(reinterpret_cast<const float4*>(wrow) + 1);
-    const float w[kCols] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-    for (int i = 0; i < kBwdRows; ++i) {
-      const float x = gin[i * n_pg * ld + o];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ void accumulate(float* d, float s, bool first) {
-  *d = first ? s : *d + s;
-}
-
-__global__ void __launch_bounds__(kMaxThreads, 1) nerf_train_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int TR = a.tile_rays, SEG = a.seg, S = a.S, H = a.hidden, D = a.depth;
-  const int RH = a.rgb_hidden, L = a.num_freqs;
-  const int E = enc_dim(L), Dd = dir_dim(a.dir_freqs, a.use_viewdirs);
-  const int ld = row_stride(H, L, a.dir_freqs, a.use_viewdirs);
-  const bool bf16 = a.bf16 != 0;
-  const int n_seg = TR * SEG;  // points of one segment: whole 128-point chunks
-  const int NB = S / SEG;
-  float* X = smem;                        // (kTilePoints, ld)
-  float* pts = X + kTilePoints * ld;      // (kTilePoints, 3)
-  float* ps = pts + kTilePoints * 3;      // kNumScalars x n_seg
-  float* rs = ps + kNumScalars * n_seg;   // kRayScalars x TR
-  float* denc = rs + kRayScalars * TR;    // (TR, Dd)
-  float* tin = denc + TR * Dd;            // (NB, TR): each block's entry T
-  auto Q = [&](int q) { return ps + q * n_seg; };
-  auto RS = [&](int q) { return rs + q * TR; };
-
-  // Packed weights (and gradients): trunk (W, b)..., sigma (W hidden, b,
-  // 3 pad), rgb_in (W (H + Dd, RH), b), rgb (W (RH, 3), b).
-  const int off_sigma = layer_off(D, E, H, a.skip_at);
-  const int off_rgb_in = off_sigma + H + 4;
-  const int off_rgb = off_rgb_in + (H + Dd + 1) * RH;
-  const int n_grad = off_rgb + RH * 3 + 3;
-  const float* w_sigma = a.w_fwd + off_sigma;
-  const float* w_rgb_in = a.w_fwd + off_rgb_in;
-  const float* w_rgb = a.w_fwd + off_rgb;
-  float* part = a.partials + (size_t)blockIdx.x * (n_grad + 1);
-  // Workspace: per trunk layer (n_seg, H) post-activations, rgb_in's
-  // output (n_seg, RH), the encoding (n_seg, E).
-  float* ws = a.ws + (size_t)blockIdx.x * n_seg * (D * H + RH + E);
-  float* ws_g1 = ws + (size_t)D * n_seg * H;
-  float* ws_enc = ws_g1 + (size_t)n_seg * RH;
-  const bool randomized = a.randomized != 0;
-  const unsigned int seed = randomized ? (unsigned int)(*a.seed) : 0u;
-
-  int ray0 = 0;
-  bool first = true;       // the block's row of partials is still unwritten
-  float block_loss = 0.f;  // thread 0 only
-
-  // Forward of segment b: depths, then per 128-point chunk the points,
-  // the encoding, the trunk, the heads. Per-point (sigma_raw, rgb) go to
-  // the scalars, every activation to the workspace.
-  auto segment_forward = [&](int b) {
-    const int s0 = b * SEG;
-    for (int q = tid; q < n_seg; q += nt) {
-      const int g = ray0 + q / SEG, s = s0 + q % SEG;
-      const size_t gs = (size_t)g * S + s;
-      const float z = a.z != nullptr ? a.z[gs]
-                                     : sample_depth(seed, g, s, S, a.near, a.h_bin, randomized);
-      Q(kZ)[q] = z;
-      if (a.z_out != nullptr) a.z_out[gs] = z;
-      if (a.delta != nullptr) Q(kDelta)[q] = a.delta[gs];
-    }
-    __syncthreads();
-    if (a.delta == nullptr) {  // one segment of all S samples: z_{s+1} - z_s
-      for (int q = tid; q < n_seg; q += nt) {
-        const int g = ray0 + q / SEG, s = q % SEG;
-        const float dz = s == S - 1 ? kDeltaInf : __fsub_rn(Q(kZ)[q + 1], Q(kZ)[q]);
-        Q(kDelta)[q] = __fmul_rn(dz, ray_norm(a.rays_d + (size_t)g * 3));
-      }
-    }
-    for (int c0 = 0; c0 < n_seg; c0 += kTilePoints) {
-      for (int p = tid; p < kTilePoints; p += nt) {
-        const int q = c0 + p, g = ray0 + q / SEG;
-        const float z = Q(kZ)[q];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float v = __fadd_rn(a.rays_o[(size_t)g * 3 + c],
-                                    __fmul_rn(a.rays_d[(size_t)g * 3 + c], z));
-          pts[p * 3 + c] = v;
-          X[p * ld + H + c] = to_compute(v, bf16);
-        }
-      }
-      __syncthreads();
-      encode_bands<kTilePoints>(X, ld, H, pts, L, bf16);
-      __syncthreads();
-      for (int idx = tid; idx < kTilePoints * E; idx += nt) {
-        const int p = idx / E, j = idx % E;
-        ws_enc[(size_t)(c0 + p) * E + j] = X[p * ld + H + j];
-      }
-      // Trunk: layer 0 reads the encoding, the skip layer [h, enc].
-      const float* wp = a.w_fwd;
-      for (int i = 0; i < D; ++i) {
-        const int n_in = layer_in_dim(i, E, H, a.skip_at);
-        dense_relu<kTilePoints, 8, true>(X, ld, i == 0 ? H : 0, n_in, H, wp, wp + n_in * H, bf16,
-                                         ws + ((size_t)i * n_seg + c0) * H);
-        wp += (n_in + 1) * H;
-      }
-      // Raw density (+ noise) from the trunk; then the direction encoding
-      // goes over the dead encoding columns.
-      for (int p = tid; p < kTilePoints; p += nt) {
-        const float* row = X + p * ld;
-        float acc = 0.f;
-        for (int k = 0; k < H; ++k) acc = fmaf(row[k], __ldg(w_sigma + k), acc);
-        acc += __ldg(w_sigma + H);
-        const int q = c0 + p;
-        if (a.noise != nullptr) acc += a.noise[(size_t)(ray0 + q / SEG) * S + s0 + q % SEG];
-        Q(kSigmaRaw)[q] = acc;
-      }
-      for (int idx = tid; idx < kTilePoints * Dd; idx += nt) {
-        const int p = idx / Dd, j = idx % Dd;
-        X[p * ld + H + j] = denc[((c0 + p) / SEG) * Dd + j];
-      }
-      __syncthreads();
-      const float* b_in = w_rgb_in + (H + Dd) * RH;
-      float* st = ws_g1 + (size_t)c0 * RH;
-      switch (8 * RH / H) {
-        case 1: dense_relu<kTilePoints, 1, true>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-        case 2: dense_relu<kTilePoints, 2, true>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-        case 4: dense_relu<kTilePoints, 4, true>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-        default: dense_relu<kTilePoints, 8, true>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-      }
-      const float* b_rgb = w_rgb + RH * 3;
-      for (int idx = tid; idx < kTilePoints * 3; idx += nt) {
-        const int p = idx / 3, c = idx % 3;
-        const float* row = X + p * ld;
-        float acc = 0.f;
-        for (int k = 0; k < RH; ++k) acc = fmaf(row[k], __ldg(w_rgb + k * 3 + c), acc);
-        Q(kRgb0 + c)[c0 + p] = 1.f / (1.f + expf(-(acc + __ldg(b_rgb + c))));
-      }
-      __syncthreads();
-    }
-  };
-
-  // Composite of segment b: thread r walks ray r's samples in order with
-  // the ray's running transmittance (the exclusive product of one_m over
-  // all earlier samples, continued from segment to segment), and stashes
-  // its value at the segment's entry.
-  auto segment_composite = [&](int b) {
-    for (int r = tid; r < TR; r += nt) {
-      const int g = ray0 + r;
-      float trans = RS(kTRun)[r];
-      float cr = RS(kC0)[r], cg = RS(kC1)[r], cb = RS(kC2)[r], acc = RS(kA)[r];
-      tin[b * TR + r] = trans;
-      for (int sl = 0; sl < SEG; ++sl) {
-        const int q = r * SEG + sl;
-        const float one_m =
-            expf(-__fmul_rn(fmaxf(Q(kSigmaRaw)[q], 0.f), Q(kDelta)[q])) + kTransEps;
-        const float alpha = 1.f - (one_m - kTransEps);
-        const float w = __fmul_rn(alpha, trans);
-        cr = fmaf(w, Q(kRgb0)[q], cr);
-        cg = fmaf(w, Q(kRgb1)[q], cg);
-        cb = fmaf(w, Q(kRgb2)[q], cb);
-        acc += w;
-        if (a.w_out != nullptr) a.w_out[(size_t)g * S + b * SEG + sl] = w;
-        trans = __fmul_rn(trans, one_m);
-      }
-      RS(kTRun)[r] = trans;
-      RS(kC0)[r] = cr;
-      RS(kC1)[r] = cg;
-      RS(kC2)[r] = cb;
-      RS(kA)[r] = acc;
-    }
-    __syncthreads();
-  };
-
-  // Residual, loss and the composite's gradient per ray; padding rays
-  // (g >= n_real) get none.
-  auto ray_loss = [&]() {
-    for (int r = tid; r < TR; r += nt) {
-      const int g = ray0 + r;
-      const bool real = g < a.n_real;
-      const float bg = a.white_bkgd ? 1.f - RS(kA)[r] : 0.f;
-      float e[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        e[c] = real ? (RS(kC0 + c)[r] + bg) - a.target[(size_t)g * 3 + c] : 0.f;
-      const float two_n = 2.f * a.inv_n;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) RS(kGComp0 + c)[r] = two_n * e[c];
-      RS(kGAcc)[r] = a.white_bkgd ? -(two_n * e[0] + two_n * e[1] + two_n * e[2]) : 0.f;
-      RS(kSqErr)[r] = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float tl = 0.f;
-      for (int r = 0; r < TR; ++r) tl += RS(kSqErr)[r];
-      block_loss += tl * a.inv_n;
-    }
-  };
-
-  // Per-point head gradients of segment b. Front to back, from the
-  // stashed entry transmittance: the weights, the rgb gradients and g_w.
-  // Back to front, the density gradient by the recurrence
-  //   D_i = sum_c g_comp_c (rgb_c,i+1 - rgb_c,i) + eps g_w_{i+1}
-  //         + one_m_{i+1} D_{i+1},   D_{S-1} = -g_w_{S-1},
-  //   g_one_m_i = trans_i D_i,
-  // continued across segments through the k*Next carries. It is the
-  // reference's suf_i / one_m_i - g_alpha_i rewritten exactly (alpha +
-  // one_m = 1 + eps): that form subtracts two terms of size g_w * trans
-  // whose difference is tiny where the colour barely changes along the
-  // ray, and at the flagship's 192-sample union its rounding reached 2e-3
-  // of the sigma head's gradient; the colour differences here are nearly
-  // exact in f32. The products and the recurrence run in the order of one
-  // segment of all S samples, so the streamed K6 computes K4's per-point
-  // values.
-  auto segment_grads = [&](int b) {
-    for (int r = tid; r < TR; r += nt) {
-      const float gc[3] = {RS(kGComp0)[r], RS(kGComp1)[r], RS(kGComp2)[r]};
-      const float g_acc = RS(kGAcc)[r];
-      float trans = tin[b * TR + r];
-      for (int sl = 0; sl < SEG; ++sl) {
-        const int q = r * SEG + sl;
-        const float one_m =
-            expf(-__fmul_rn(fmaxf(Q(kSigmaRaw)[q], 0.f), Q(kDelta)[q])) + kTransEps;
-        const float alpha = 1.f - (one_m - kTransEps);
-        const float w = __fmul_rn(alpha, trans);
-        float g_w = 0.f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float rgb = Q(kRgb0 + c)[q];
-          g_w += gc[c] * rgb;
-          Q(kGRgb0 + c)[q] = to_compute(gc[c] * w * rgb * (1.f - rgb), bf16);
-        }
-        g_w += g_acc;
-        Q(kOneM)[q] = one_m;
-        Q(kTrans)[q] = trans;
-        Q(kGW)[q] = g_w;
-        trans = __fmul_rn(trans, one_m);
-      }
-      bool have = RS(kHaveNext)[r] != 0.f;
-      float d_next = RS(kDNext)[r], om_next = RS(kOmNext)[r], gw_next = RS(kGwNext)[r];
-      float rn[3] = {RS(kRgbNext0)[r], RS(kRgbNext1)[r], RS(kRgbNext2)[r]};
-      for (int sl = SEG - 1; sl >= 0; --sl) {
-        const int q = r * SEG + sl;
-        const float rgb[3] = {Q(kRgb0)[q], Q(kRgb1)[q], Q(kRgb2)[q]};
-        const float one_m = Q(kOneM)[q], g_w = Q(kGW)[q];
-        float d = -g_w;
-        if (have) {
-          float dgw = gc[0] * (rn[0] - rgb[0]);
-          dgw = fmaf(gc[1], rn[1] - rgb[1], dgw);
-          dgw = fmaf(gc[2], rn[2] - rgb[2], dgw);
-          d = dgw + fmaf(kTransEps, gw_next, om_next * d_next);
-        }
-        const float g_sigma = (Q(kTrans)[q] * d) * (-Q(kDelta)[q] * (one_m - kTransEps));
-        Q(kGSigma)[q] = to_compute(Q(kSigmaRaw)[q] > 0.f ? g_sigma : 0.f, bf16);
-        have = true;
-        d_next = d;
-        om_next = one_m;
-        gw_next = g_w;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) rn[c] = rgb[c];
-      }
-      RS(kHaveNext)[r] = 1.f;
-      RS(kDNext)[r] = d_next;
-      RS(kOmNext)[r] = om_next;
-      RS(kGwNext)[r] = gw_next;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) RS(kRgbNext0 + c)[r] = rn[c];
-    }
-    __syncthreads();
-  };
-
-  // Backward of the segment in 64-point chunks, from the head gradients
-  // and the workspace to the partials.
-  auto segment_backward = [&]() {
-    constexpr int n_pg = kBwdPoints / kBwdRows;
-    const int pg = tid % n_pg, col0 = (tid / n_pg) * kCols;  // the thread's upstream block
-    float acc[kBwdRows][kCols];
-    for (int c0 = 0; c0 < n_seg; c0 += kBwdPoints) {
-      float* In = X;                     // a layer's input
-      float* G = X + kBwdPoints * ld;    // a layer's output gradient
-      const float* gr[3] = {Q(kGRgb0) + c0, Q(kGRgb1) + c0, Q(kGRgb2) + c0};
-      const float* gs = Q(kGSigma) + c0;
-
-      // 1. In = [h_trunk, d_enc] (rgb_in's input), G = rgb_in's output.
-      for (int idx = tid; idx < kBwdPoints * H; idx += nt) {
-        const int p = idx / H, k = idx % H;
-        In[p * ld + k] = ws[((size_t)(D - 1) * n_seg + c0 + p) * H + k];
-      }
-      for (int idx = tid; idx < kBwdPoints * Dd; idx += nt) {
-        const int p = idx / Dd, j = idx % Dd;
-        In[p * ld + H + j] = denc[((c0 + p) / SEG) * Dd + j];
-      }
-      for (int idx = tid; idx < kBwdPoints * RH; idx += nt) {
-        const int p = idx / RH, k = idx % RH;
-        G[p * ld + k] = ws_g1[(size_t)(c0 + p) * RH + k];
-      }
-      __syncthreads();
-
-      // 2. rgb and sigma heads: weight and bias gradients.
-      for (int item = tid; item < RH * 3 + 3 + H + 1; item += nt) {
-        float s = 0.f;
-        if (item < RH * 3) {
-          const int k = item / 3, c = item % 3;
-          for (int p = 0; p < kBwdPoints; ++p) s = fmaf(G[p * ld + k], gr[c][p], s);
-          accumulate(part + off_rgb + item, s, first);
-        } else if (item < RH * 3 + 3) {
-          const int c = item - RH * 3;
-          for (int p = 0; p < kBwdPoints; ++p) s += gr[c][p];
-          accumulate(part + off_rgb + item, s, first);
-        } else if (item < RH * 3 + 3 + H) {
-          const int k = item - RH * 3 - 3;
-          for (int p = 0; p < kBwdPoints; ++p) s = fmaf(In[p * ld + k], gs[p], s);
-          accumulate(part + off_sigma + k, s, first);
-        } else {
-          for (int p = 0; p < kBwdPoints; ++p) s += gs[p];
-          accumulate(part + off_sigma + H, s, first);
-        }
-      }
-      __syncthreads();
-
-      // 3. rgb_in's output gradient, masked by its ReLU, in place.
-      for (int idx = tid; idx < kBwdPoints * RH; idx += nt) {
-        const int p = idx / RH, k = idx % RH;
-        float v = gr[0][p] * __ldg(w_rgb + k * 3);
-        v = fmaf(gr[1][p], __ldg(w_rgb + k * 3 + 1), v);
-        v = fmaf(gr[2][p], __ldg(w_rgb + k * 3 + 2), v);
-        float* x = G + p * ld + k;
-        *x = *x > 0.f ? to_compute(v, bf16) : 0.f;
-      }
-      __syncthreads();
-
-      // 4. rgb_in: weight and bias gradients; the trunk's output gradient
-      //    (rgb branch + sigma head, masked by the trunk's ReLU) into G.
-      {
-        const int items_w = (H + Dd + kCols - 1) / kCols * (RH / kCols);
-        for (int item = tid; item < items_w + RH; item += nt) {
-          if (item < items_w) {
-            weight_grad_item(item, Seg{In, ld, H + Dd}, 0, G, ld, RH, kBwdPoints,
-                             part + off_rgb_in, first);
-          } else {
-            const int o = item - items_w;
-            float s = 0.f;
-            for (int p = 0; p < kBwdPoints; ++p) s += G[p * ld + o];
-            accumulate(part + off_rgb_in + (H + Dd) * RH + o, s, first);
-          }
-        }
-        upstream_item(G, ld, RH, a.w_bwd + (size_t)(D - 1) * H * H, H, pg, col0, acc);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < kBwdRows; ++i) {
-          const int p = pg + n_pg * i;
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            const int k = col0 + j;
-            const float g_sig = to_compute(__ldg(w_sigma + k) * gs[p], bf16);
-            const float v = to_compute(to_compute(acc[i][j], bf16) + g_sig, bf16);
-            G[p * ld + k] = In[p * ld + k] > 0.f ? v : 0.f;
-          }
-        }
-        __syncthreads();
-      }
-
-      // 5. Trunk, last layer first: G holds layer i's (masked) output
-      //    gradient; In receives layer i's input, then the upstream
-      //    gradient over its activation columns, and the halves swap.
-      for (int i = D - 1; i >= 0; --i) {
-        if (i > 0) {
-          for (int idx = tid; idx < kBwdPoints * H; idx += nt) {
-            const int p = idx / H, k = idx % H;
-            In[p * ld + k] = ws[((size_t)(i - 1) * n_seg + c0 + p) * H + k];
-          }
-        }
-        if (i == 0 || i == a.skip_at) {
-          for (int idx = tid; idx < kBwdPoints * E; idx += nt) {
-            const int p = idx / E, j = idx % E;
-            In[p * ld + H + j] = ws_enc[(size_t)(c0 + p) * E + j];
-          }
-        }
-        __syncthreads();
-        const int off = layer_off(i, E, H, a.skip_at);
-        const int n_in = layer_in_dim(i, E, H, a.skip_at);
-        const Seg sa = i == 0 ? Seg{In + H, ld, E} : Seg{In, ld, H};
-        const Seg sb = (i > 0 && i == a.skip_at) ? Seg{In + H, ld, E} : Seg{In, ld, 0};
-        const int n_og = H / kCols;
-        const int items_a = (sa.n + kCols - 1) / kCols * n_og;
-        const int items_b = (sb.n + kCols - 1) / kCols * n_og;
-        for (int item = tid; item < items_a + items_b + H; item += nt) {
-          if (item < items_a) {
-            weight_grad_item(item, sa, 0, G, ld, H, kBwdPoints, part + off, first);
-          } else if (item < items_a + items_b) {
-            weight_grad_item(item - items_a, sb, sa.n, G, ld, H, kBwdPoints, part + off, first);
-          } else {
-            const int o = item - items_a - items_b;
-            float s = 0.f;
-            for (int p = 0; p < kBwdPoints; ++p) s += G[p * ld + o];
-            accumulate(part + off + n_in * H + o, s, first);
-          }
-        }
-        if (i > 0) {
-          upstream_item(G, ld, H, a.w_bwd + (size_t)(i - 1) * H * H, H, pg, col0, acc);
-          __syncthreads();
-#pragma unroll
-          for (int ii = 0; ii < kBwdRows; ++ii) {
-            float* row = In + (pg + n_pg * ii) * ld + col0;
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) row[j] = row[j] > 0.f ? to_compute(acc[ii][j], bf16) : 0.f;
-          }
-          float* t = In;
-          In = G;
-          G = t;
-        }
-        __syncthreads();
-      }
-      first = false;
-    }
-  };
-
-  const int n_tiles = a.n_rays / TR;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    ray0 = tile * TR;
-    for (int idx = tid; idx < TR * Dd; idx += nt) {
-      const int r = idx / Dd, j = idx % Dd;
-      const float* d = a.rays_d + (size_t)(ray0 + r) * 3;
-      denc[idx] = to_compute(dir_enc_value(d, ray_norm(d), j), bf16);
-    }
-    for (int r = tid; r < TR; r += nt) {
-      RS(kTRun)[r] = 1.f;
-      RS(kC0)[r] = RS(kC1)[r] = RS(kC2)[r] = RS(kA)[r] = RS(kHaveNext)[r] = 0.f;
-    }
-    __syncthreads();
-    for (int b = 0; b < NB; ++b) {
-      segment_forward(b);
-      segment_composite(b);
-    }
-    ray_loss();
-    for (int b = NB - 1; b >= 0; --b) {
-      // K6 rematerialises the block; K4's one segment is still in place.
-      if (NB > 1) segment_forward(b);
-      segment_grads(b);
-      segment_backward();
-    }
-  }
-  if (tid == 0) part[n_grad] = block_loss;
-}
-
-int smem_bytes(int tile_rays, int seg, int n_samples, int num_freqs, int dir_freqs,
-               int use_viewdirs, int hidden) {
-  const int ld = row_stride(hidden, num_freqs, dir_freqs, use_viewdirs);
-  const int floats = kTilePoints * (ld + 3) + kNumScalars * tile_rays * seg +
-                     kRayScalars * tile_rays + tile_rays * dir_dim(dir_freqs, use_viewdirs) +
-                     (n_samples / seg) * tile_rays;
-  return floats * (int)sizeof(float);
-}
-
-// The kernel on n_blocks blocks of 2*hidden threads, then the reduction
-// of the partial rows into out (parameter order, the loss last).
-int launch(const Args& a, int n_blocks, int n_grad, const int* dst, float* out, int device,
-           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int smem = smem_bytes(a.tile_rays, a.seg, a.S, a.num_freqs, a.dir_freqs,
-                              a.use_viewdirs, a.hidden);
-  err = cudaFuncSetAttribute(nerf_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  nerf_train_kernel<<<n_blocks, 2 * a.hidden, smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int row = n_grad + 1;
-  reduce_partials_kernel<<<(row + 255) / 256, 256, 0, st>>>(a.partials, n_blocks, row, dst, out);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "nerf_train_walk.cuh"
 
 extern "C" {
 
@@ -629,13 +42,14 @@ extern "C" {
 // of `seg` samples (seg = S for K4, the sample block for K6).
 int tinynerf_fused_nerf_train_smem_bytes(int tile_rays, int seg, int n_samples, int num_freqs,
                                          int dir_freqs, int use_viewdirs, int hidden) {
-  return smem_bytes(tile_rays, seg, n_samples, num_freqs, dir_freqs, use_viewdirs, hidden);
+  return walk_smem_bytes(tile_rays, seg, n_samples, num_freqs, dir_freqs, use_viewdirs,
+                         hidden);
 }
 
 // Workspace floats of one block: every activation of one segment.
 long long tinynerf_fused_nerf_train_workspace_floats(int tile_rays, int seg, int num_freqs,
                                                      int hidden, int depth, int rgb_hidden) {
-  return (long long)tile_rays * seg * (depth * hidden + rgb_hidden + enc_dim(num_freqs));
+  return walk_workspace_floats(tile_rays, seg, num_freqs, hidden, depth, rgb_hidden);
 }
 
 int tinynerf_fused_nerf_train_max_threads() { return kMaxThreads; }
@@ -659,7 +73,7 @@ int tinynerf_fused_nerf_train(const float* rays_o, const float* rays_d, const fl
                w_out, z_out, n_rays, n_real, n_samples, n_samples, tile_rays, num_freqs,
                dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, near, h_bin, inv_n,
                randomized, white_bkgd, bf16};
-  return launch(a, n_blocks, n_grad, dst, out, device, stream);
+  return launch_walk<Walk::kLoss>(a, n_blocks, n_grad, dst, out, device, stream);
 }
 
 // K6. z and delta (R, S); S must be a multiple of sample_block and n_rays
@@ -678,7 +92,7 @@ int tinynerf_fused_nerf_train_streamed(const float* rays_o, const float* rays_d,
                nullptr, nullptr, n_rays, n_real, n_samples, sample_block, tile_rays, num_freqs,
                dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, 0.f, 0.f, inv_n,
                0, white_bkgd, bf16};
-  return launch(a, n_blocks, n_grad, dst, out, device, stream);
+  return launch_walk<Walk::kLoss>(a, n_blocks, n_grad, dst, out, device, stream);
 }
 
 const char* tinynerf_cuda_error_string(int code) {

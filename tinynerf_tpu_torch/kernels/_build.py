@@ -15,6 +15,7 @@ nvcc.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -55,11 +56,21 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library is already built."""
+    """Compile csrc/<name>.cu unless its library is already built. A lock
+    file per library serialises the processes that ask at once (the
+    ranks of a parallel run): one compiles, the others load its output."""
     lib = library_path(name)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(lib.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(name, lib)
+    return lib
+
+
+def _compile(name: str, lib: Path) -> None:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
     try:
@@ -75,7 +86,6 @@ def build(name: str) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return lib
 
 
 @functools.lru_cache(maxsize=None)

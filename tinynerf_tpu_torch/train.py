@@ -20,16 +20,32 @@ for the coarse pass and K4 or the streamed K6 for the fine pass
 through the hierarchical renderer (K3/K5 with --fused). Metrics stay on
 the device inside a block; the host reads them only at a log point.
 
+Parallel training (tinynerf_tpu/train.py:53-62, 219-258, 361-381):
+--data-parallel (or --distributed) joins the launcher's process group
+(parallel/mesh.initialize_distributed; torch.distributed.run sets the
+environment), and with more than one rank the steps run through
+parallel/train.make_sharded_train_block: the rays sharded over the ranks,
+and with --sample-parallel N (--model nerf) each pass's samples over N
+of them, through K7 with --fused-train. The fused grad_fn (K2, K4/K6)
+serves --data-parallel alone. Rank 0 alone writes the checkpoints,
+previews, metrics and the final evaluation; the other ranks wait at a
+barrier. Every rank prints a digest of its parameters at the end.
+
     python -m tinynerf_tpu_torch.train [--model nerf] [--iters N] [--no-fused-train]
+    python -m torch.distributed.run --nproc-per-node 2 -m tinynerf_tpu_torch.train \
+        --model nerf --data-parallel --sample-parallel 2
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from tinynerf_tpu_torch.config import Config
 from tinynerf_tpu_torch.data import ensure_data
@@ -42,6 +58,18 @@ from tinynerf_tpu_torch.training import init_train_state, make_train_block
 from tinynerf_tpu_torch.utils import checkpoint as ckpt_lib
 from tinynerf_tpu_torch.utils.cli import cli
 from tinynerf_tpu_torch.utils.image_io import write_png
+
+
+def _kernel_launches() -> dict:
+    """The launch count of every kernel wrapper this process imported (a
+    function of kernels/ with a `launches` counter), by name."""
+    counts = {}
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("tinynerf_tpu_torch.kernels."):
+            for attr, fn in vars(mod).items():
+                if getattr(fn, "__module__", None) == name and hasattr(fn, "launches"):
+                    counts[attr] = fn.launches
+    return counts
 
 
 def _boundaries(start: int, end: int, *cadences: int):
@@ -69,11 +97,60 @@ def main(cfg: Config = Config()) -> dict:
     nerf = cfg.model == "nerf"
     t_start = time.time()
     device = torch.device(cfg.device)
+    owns_group = False  # this run joined the process group, and leaves it
+    if cfg.distributed or cfg.data_parallel:
+        from tinynerf_tpu_torch.parallel.mesh import (
+            initialize_distributed,
+            pick_backend,
+            rank_device,
+        )
+
+        backend, why = pick_backend(device.type)
+        owns_group = not dist.is_initialized()
+        if initialize_distributed(backend=backend, device_type=device.type):
+            device = rank_device(cfg.device)
+            print(f"[distributed] process {dist.get_rank()}/{dist.get_world_size()}, backend "
+                  f"{dist.get_backend()} ({why}), device {device}")
+        else:
+            print("[distributed] no launcher environment (RANK, WORLD_SIZE): single-process run")
+        owns_group = owns_group and dist.is_initialized()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    is_main = world == 1 or dist.get_rank() == 0
+    # Parallelism flag validation: a misconfiguration fails loud, never
+    # silently trains another layout than the one requested.
+    if cfg.sample_parallel > 1:
+        if cfg.fused_train and not nerf:
+            raise ValueError(
+                "--fused-train with --sample-parallel > 1 is only implemented for --model nerf "
+                "(the block-partials kernels, kernels/fused_partials.py, implement the NeRF MLP). "
+                "For tinynerf, drop --sample-parallel to keep the fused kernel or drop "
+                "--fused-train to shard the sample axis eagerly."
+            )
+        if not cfg.data_parallel:
+            raise ValueError(
+                "--sample-parallel > 1 requires --data-parallel: the sample axis lives on the "
+                "('data', 'sample') mesh (without it training would silently run unsharded)"
+            )
+        if world == 1:
+            raise ValueError(
+                f"--sample-parallel > 1 needs more than one process (world size {world}): "
+                "launch with python -m torch.distributed.run --nproc-per-node N"
+            )
+    if world > 1 and device.type == "cuda":
+        torch.cuda.set_device(device)  # this rank's card
     os.makedirs(cfg.out_dir, exist_ok=True)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"[device] {device} ({name}) torch={torch.__version__}")
 
+    def barrier():
+        if world > 1:
+            dist.barrier()
+
+    if not is_main:
+        barrier()  # rank 0 generates and caches a missing dataset first
     d = ensure_data(cfg.data_path, allow_synthetic=cfg.allow_synthetic, device=device)
+    if is_main:
+        barrier()
     images = torch.from_numpy(d["images"]).to(device)
     poses = torch.from_numpy(d["poses"]).to(device)
     focal = float(d["focal"])
@@ -115,7 +192,7 @@ def main(cfg: Config = Config()) -> dict:
         print(f"[eval] holding out poses {n_train}..{n_images - 1}")
 
     grad_fn = None
-    if cfg.fused_train:
+    if cfg.fused_train and cfg.sample_parallel <= 1:
         on_card = device.type == "cuda"
         route = "CUDA kernel" if on_card else "its plain version on the CPU"
         if nerf:
@@ -166,11 +243,35 @@ def main(cfg: Config = Config()) -> dict:
     }
 
     def save_ckpt(step: int):
-        ckpt_lib.save_checkpoint(cfg.ckpt_path, model, optimizer, step, meta=meta)
+        if is_main:
+            ckpt_lib.save_checkpoint(cfg.ckpt_path, model, optimizer, step, meta=meta)
+        barrier()
+
+    if cfg.data_parallel and world > 1:
+        from tinynerf_tpu_torch.parallel.mesh import make_mesh
+        from tinynerf_tpu_torch.parallel.train import make_sharded_train_block
+
+        mesh = make_mesh(sample_parallel=cfg.sample_parallel)
+        if nerf and cfg.sample_parallel > 1:
+            # The sharded hierarchical loss; with --fused-train each rank's
+            # passes run K7 (kernels/fused_partials.py).
+            if cfg.fused_train:
+                print("[train] fused block-partials kernels (K7) on the sample mesh")
+
+            def block_factory(n):
+                return make_sharded_train_block(settings, n, mesh, nerf_cfg=ncfg,
+                                                n_fine=cfg.n_fine, fused_kernels=cfg.fused_train)
+        else:
+            def block_factory(n):
+                return make_sharded_train_block(settings, n, mesh, loss=loss, grad_fn=grad_fn)
+        print(f"[train] mesh: data {mesh.n_data} x sample {mesh.n_sample} over {world} ranks")
+    else:
+        def block_factory(n):
+            return make_train_block(settings, n, loss=loss, grad_fn=grad_fn)
 
     blocks = {}  # block_size -> block function
     last = {}
-    metrics_f = open(cfg.metrics_path, "a") if cfg.metrics_path else None
+    metrics_f = open(cfg.metrics_path, "a") if cfg.metrics_path and is_main else None
     try:
         _sync(device)
         t0 = time.time()
@@ -178,8 +279,7 @@ def main(cfg: Config = Config()) -> dict:
             start_step, cfg.iters, cfg.log_every, cfg.preview_every, cfg.ckpt_every
         ):
             if block_len not in blocks:
-                blocks[block_len] = make_train_block(settings, block_len, loss=loss,
-                                                     grad_fn=grad_fn)
+                blocks[block_len] = block_factory(block_len)
             metrics = blocks[block_len](
                 model, optimizer, cfg.seed, block_start, rays_o_all, rays_d_all, pixels
             )
@@ -187,8 +287,9 @@ def main(cfg: Config = Config()) -> dict:
 
             if step_end % cfg.log_every == 0 or step_end == cfg.iters:
                 last = {"loss": float(metrics["loss"][-1]), "psnr": float(metrics["psnr"][-1])}
-                print(f"[train] step {step_end}/{cfg.iters} loss {last['loss']:.6f} "
-                      f"psnr {last['psnr']:.2f}", flush=True)
+                if is_main:
+                    print(f"[train] step {step_end}/{cfg.iters} loss {last['loss']:.6f} "
+                          f"psnr {last['psnr']:.2f}", flush=True)
                 if metrics_f:
                     metrics_f.write(json.dumps({"step": step_end, **last}) + "\n")
                     metrics_f.flush()
@@ -201,8 +302,10 @@ def main(cfg: Config = Config()) -> dict:
                     pose_idx = ((step_end - 1) % n_train + 1) % n_train
                 else:
                     pose_idx = cfg.preview_pose % n_images
-                img = renderer(model, poses[pose_idx])
-                write_png(f"{cfg.out_dir}/preview_{step_end:06d}.png", img.cpu().numpy())
+                if is_main:
+                    img = renderer(model, poses[pose_idx])
+                    write_png(f"{cfg.out_dir}/preview_{step_end:06d}.png", img.cpu().numpy())
+                barrier()
 
             if step_end % cfg.ckpt_every == 0:
                 save_ckpt(step_end)
@@ -213,34 +316,46 @@ def main(cfg: Config = Config()) -> dict:
             metrics_f.close()
 
     save_ckpt(cfg.iters)
-    img = renderer(model, poses[-1])
-    write_png(f"{cfg.out_dir}/final.png", img.cpu().numpy())
+    eval_res = None
+    if is_main:
+        img = renderer(model, poses[-1])
+        write_png(f"{cfg.out_dir}/final.png", img.cpu().numpy())
 
-    # Novel-view PSNR: held-out poses when available, else a spread of
-    # training views.
-    if cfg.holdout > 0:
-        eval_idx, eval_kind = holdout_indices, "held-out"
-    else:
-        eval_idx = list(range(0, n_images, max(1, n_images // 8)))[:8]
-        eval_kind = "train-view"
-    eval_res = evaluate_views(renderer, model, images, poses, eval_idx)
-    print(
-        f"[eval] {eval_kind} PSNR over {len(eval_idx)} views: "
-        f"mean {eval_res['psnr_mean']:.2f} dB "
-        f"(min {eval_res['psnr_min']:.2f}, max {eval_res['psnr_max']:.2f})"
-    )
-    if cfg.metrics_path:
-        with open(cfg.metrics_path, "a") as f:
-            f.write(json.dumps({"step": cfg.iters, "eval": eval_res, "kind": eval_kind,
-                                "final": True}) + "\n")
+        # Novel-view PSNR: held-out poses when available, else a spread of
+        # training views.
+        if cfg.holdout > 0:
+            eval_idx, eval_kind = holdout_indices, "held-out"
+        else:
+            eval_idx = list(range(0, n_images, max(1, n_images // 8)))[:8]
+            eval_kind = "train-view"
+        eval_res = evaluate_views(renderer, model, images, poses, eval_idx)
+        print(
+            f"[eval] {eval_kind} PSNR over {len(eval_idx)} views: "
+            f"mean {eval_res['psnr_mean']:.2f} dB "
+            f"(min {eval_res['psnr_min']:.2f}, max {eval_res['psnr_max']:.2f})"
+        )
+        if cfg.metrics_path:
+            with open(cfg.metrics_path, "a") as f:
+                f.write(json.dumps({"step": cfg.iters, "eval": eval_res, "kind": eval_kind,
+                                    "final": True}) + "\n")
+    if world > 1:
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        print(f"[distributed] rank {dist.get_rank()}/{world} parameter digest "
+              f"{digest.hexdigest()}, kernel launches {json.dumps(_kernel_launches())}", flush=True)
+        barrier()
+    if owns_group:
+        dist.destroy_process_group()
 
     trained_steps = cfg.iters - start_step
     rays_per_sec = (trained_steps * cfg.n_rand / dt) if dt > 0 and trained_steps > 0 else 0.0
-    print(
-        f"[done] {cfg.iters} iters in {(time.time() - t_start) / 60:.2f} min "
-        f"(train loop {dt:.1f}s, {rays_per_sec:,.0f} rays/s) | "
-        f"saved {cfg.ckpt_path} and {cfg.out_dir}/final.png"
-    )
+    if is_main:
+        print(
+            f"[done] {cfg.iters} iters in {(time.time() - t_start) / 60:.2f} min "
+            f"(train loop {dt:.1f}s, {rays_per_sec:,.0f} rays/s) | "
+            f"saved {cfg.ckpt_path} and {cfg.out_dir}/final.png"
+        )
     return {
         "final_psnr": last.get("psnr"),
         "eval": eval_res,

@@ -107,15 +107,17 @@ def draw_ray_batch(s, generator: torch.Generator, step: int, rays_o_all, rays_d_
 
 def _step_body(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels, s, loss, grad_fn):
     """One step: draw, gradient (grad_fn writes .grad; else autograd of
-    `loss`), Adam update. Returns the step's metrics (device tensors)."""
+    `loss`), Adam update. Returns the step's metrics (device tensors).
+    Autograd is on for the step whatever the caller's grad mode."""
     gen = step_generator(seed, step, rays_o_all.device)
     ro, rd, target = draw_ray_batch(s, gen, step, rays_o_all, rays_d_all, pixels)
     optimizer.zero_grad(set_to_none=True)
     if grad_fn is not None:
         _, metrics = grad_fn(model, ro, rd, target, gen)
     else:
-        value, metrics = loss(model, ro, rd, target, gen, s)
-        value.backward()
+        with torch.enable_grad():
+            value, metrics = loss(model, ro, rd, target, gen, s)
+            value.backward()
     optimizer.step()
     return metrics
 

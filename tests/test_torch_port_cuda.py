@@ -414,6 +414,71 @@ def test_streamed_train_kernel_matches_plain_on_card(cuda_device, hidden, num_fr
 
 
 @pytest.mark.cuda
+def test_streamed_train_kernel_on_tensor_cores_at_flagship_on_card(cuda_device):
+    """K6 in bf16 at the flagship width (hidden 256, L 10, L_dir 4, S=192,
+    block 64, 128 rays) takes the tensor-core walk: under the bf16 gates
+    against its plain version, and two launches are bit-identical."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed,
+        fused_nerf_pass_grads_streamed_plain,
+    )
+
+    k6 = fused_nerf_pass_grads_streamed
+    mlp, cfg = _nerf_case(256, 10, 4, True, torch.bfloat16, cuda_device)
+    n = 128
+    ro, rd = _rays(n, 35, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(36).rand(n, 3).astype(np.float32)).to(cuda_device)
+    z = _sorted_z(n, 192, 37, cuda_device)
+    before = (k6.launches, k6.mma_launches)
+    runs = []
+    for _ in range(2):
+        loss, grads = k6(mlp, ro, rd, target, z, cfg=cfg, sample_block=64)
+        runs.append((loss.clone(), [g.clone() for g in grads]))
+    torch.cuda.synchronize()
+    assert (k6.launches - before[0], k6.mma_launches - before[1]) == (2, 2)
+    (l0, g0), (l1, g1) = runs
+    assert torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    ref = _plain(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, target, z,
+                 dtype=torch.bfloat16, cfg=cfg, sample_block=64)
+    _leaf_check(l0, g0, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_train_kernel_counts_tensor_core_launches_on_card(cuda_device, dtype):
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+
+    k6 = fused_nerf_pass_grads_streamed
+    mlp, cfg = _nerf_case(32, 4, 2, True, dtype, cuda_device)
+    ro, rd = _rays(64, 38, cuda_device)
+    target = torch.full((64, 3), 0.5, device=cuda_device)
+    before = (k6.launches, k6.mma_launches)
+    k6(mlp, ro, rd, target, _sorted_z(64, 16, 39, cuda_device), cfg=cfg, sample_block=16)
+    torch.cuda.synchronize()
+    assert (k6.launches - before[0], k6.mma_launches - before[1]) == (1, int(dtype == torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_streamed_train_kernel_refuses_widths_off_the_tensor_cores_on_card(cuda_device):
+    """hidden 64 with rgb_hidden 8 passes the CUDA-core walk's checks, but
+    the bf16 tensor-core walk cannot share rgb_in's 8 columns over its
+    warps: the wrapper raises, and nothing launches."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+
+    k6 = fused_nerf_pass_grads_streamed
+    cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=64, depth=3, skip_at=2, rgb_hidden=8,
+                     compute_dtype=torch.bfloat16)
+    mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(0), device=cuda_device)
+    ro, rd = _rays(64, 40, cuda_device)
+    before = k6.launches
+    with pytest.raises(ValueError, match="tensor cores"):
+        k6(mlp, ro, rd, torch.zeros(64, 3, device=cuda_device), _sorted_z(64, 16, 41, cuda_device),
+           cfg=cfg, sample_block=16)
+    assert k6.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("sample_block", [8, 64])
 def test_streamed_train_kernel_equals_monolithic_on_card(cuda_device, sample_block):
     """Same union, same MLP code: the losses agree to 1e-6 relative and

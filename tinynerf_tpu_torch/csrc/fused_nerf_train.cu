@@ -24,8 +24,12 @@
 // What bounds it on an H100: arithmetic. At the flagship width (hidden
 // 256, depth 8, skip at 4, L=10, L_dir=4, rgb_hidden 64) a point costs
 // 509,568 multiply-adds forward and as many again for each of the two
-// backward products (weight gradients, upstream gradients). Products run
-// on the CUDA cores' f32 FMAs (tensor cores are later work).
+// backward products (weight gradients, upstream gradients). K6 in bf16
+// runs those products on the tensor cores (mma.sync m16n8k16, f32
+// accumulation; mma_bf16.cuh); K4, and K6 in f32, run them on the CUDA
+// cores' f32 FMAs. This is a rule of the design, not a fallback: the f32
+// walk is the exactness reference K4, K6 and K7 are held to, and K4's
+// (and K7's) move to the tensor cores is later work.
 //
 // The walk itself (the forward of each segment, the composite, the
 // backward in 64-point chunks, the gradient partials and the density
@@ -77,22 +81,28 @@ int tinynerf_fused_nerf_train(const float* rays_o, const float* rays_d, const fl
 }
 
 // K6. z and delta (R, S); S must be a multiple of sample_block and n_rays
-// of tile_rays. Returns the CUDA error code (0 = ok).
+// of tile_rays. With bf16 set the walk runs its products on the tensor
+// cores from w_mma (pack_mma_weights; required), else on the CUDA cores.
+// Returns the CUDA error code (0 = ok).
 int tinynerf_fused_nerf_train_streamed(const float* rays_o, const float* rays_d,
                                        const float* target, const float* z, const float* delta,
                                        const float* noise, const float* w_fwd,
-                                       const float* w_bwd, float* ws, float* partials,
+                                       const float* w_bwd, const void* w_mma, float* ws,
+                                       float* partials,
                                        const int* dst, float* out, int n_rays, int n_real,
                                        int tile_rays, int n_samples, int sample_block,
                                        int num_freqs, int dir_freqs, int use_viewdirs,
                                        int hidden, int depth, int skip_at, int rgb_hidden,
                                        float inv_n, int white_bkgd, int bf16, int n_blocks,
                                        int n_grad, int device, void* stream) {
-  const Args a{rays_o, rays_d, target, z, delta, noise, nullptr, w_fwd, w_bwd, ws, partials,
-               nullptr, nullptr, n_rays, n_real, n_samples, sample_block, tile_rays, num_freqs,
-               dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, 0.f, 0.f, inv_n,
-               0, white_bkgd, bf16};
-  return launch_walk<Walk::kLoss>(a, n_blocks, n_grad, dst, out, device, stream);
+  Args a{rays_o, rays_d, target, z, delta, noise, nullptr, w_fwd, w_bwd, ws, partials,
+         nullptr, nullptr, n_rays, n_real, n_samples, sample_block, tile_rays, num_freqs,
+         dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, 0.f, 0.f, inv_n,
+         0, white_bkgd, bf16};
+  if (!bf16) return launch_walk<Walk::kLoss>(a, n_blocks, n_grad, dst, out, device, stream);
+  if (w_mma == nullptr) return (int)cudaErrorInvalidValue;
+  a.w_mma = w_mma;
+  return launch_walk<Walk::kLoss, true>(a, n_blocks, n_grad, dst, out, device, stream);
 }
 
 const char* tinynerf_cuda_error_string(int code) {

@@ -70,6 +70,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
 #include "nerf_mlp.cuh"
 #include "train_common.cuh"
 
@@ -78,6 +79,7 @@ namespace {
 constexpr int kBwdPoints = 64;  // point rows of one backward chunk
 constexpr int kBwdRows = 4;     // MT of the backward upstream products
 constexpr int kMaxThreads = 512;
+static_assert(kBwdPoints == kMmaChunkPoints, "the tensor-core weight gradient sums 64 points");
 
 enum class Walk { kLoss, kPartialsFwd, kPartialsBwd };
 
@@ -117,6 +119,7 @@ struct Args {
   const float* g_w;     // K7 backward: (R, S) cotangent of the local weights, or null
   float* tin;           // K7: (R, S / seg) each segment's entry transmittance
   float* out6;          // K7 forward: (R, 6) partials C(3), A, T, D
+  const void* w_mma;    // kMma: kernels/fused_nerf_train.py::pack_mma_weights (bf16)
 };
 
 __host__ __device__ inline int layer_in_dim(int i, int E, int H, int skip_at) {
@@ -158,11 +161,24 @@ __device__ __forceinline__ void upstream_item(const float* G, int ld, int n_red,
   }
 }
 
+// Offset, in bf16 values, of trunk layer i's forward B fragments in the
+// packed tensor-core weights (pack_mma_weights): the forward of trunk
+// layers 0..D-1 (pad32(in) x H each), rgb_in's forward (pad32(H + Dd) x
+// RH), the upstream of trunk layers 1..D-1 (H x H each), then rgb_in's
+// upstream (pad32(RH) x H).
+__host__ __device__ inline int mma_fwd_off(int i, int E, int H, int skip_at) {
+  int off = 0;
+  for (int j = 0; j < i; ++j) off += pad32(layer_in_dim(j, E, H, skip_at)) * H;
+  return off;
+}
+
 __device__ __forceinline__ void accumulate(float* d, float s, bool first) {
   *d = first ? s : *d + s;
 }
 
-template <Walk kMode>
+// kMma: the three MLP products on the tensor cores (mma_bf16.cuh), for
+// K6 in bf16 only; false keeps the CUDA-core products.
+template <Walk kMode, bool kMma = false>
 __device__ __forceinline__ void nerf_walk(const Args& a) {
   // K7's forward keeps no activations: nothing reads them back.
   constexpr bool kStore = kMode != Walk::kPartialsFwd;
@@ -193,7 +209,11 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
   const float* w_sigma = a.w_fwd + off_sigma;
   const float* w_rgb_in = a.w_fwd + off_rgb_in;
   const float* w_rgb = a.w_fwd + off_rgb;
-  float* part = kStore ? a.partials + (size_t)blockIdx.x * (n_grad + 1) : nullptr;
+  // kMma: the packed B fragments, 4 bf16 values to a uint2.
+  const uint2* w_mma = static_cast<const uint2*>(a.w_mma);
+  const int mma_rgb_in = mma_fwd_off(D, E, H, a.skip_at);
+  const int mma_up = mma_rgb_in + pad32(H + Dd) * RH;  // trunk layer 1's upstream
+  float* part =kStore ? a.partials + (size_t)blockIdx.x * (n_grad + 1) : nullptr;
   // Workspace: per trunk layer (n_seg, H) post-activations, rgb_in's
   // output (n_seg, RH), the encoding (n_seg, E).
   float* ws = kStore ? a.ws + (size_t)blockIdx.x * n_seg * (D * H + RH + E) : nullptr;
@@ -253,9 +273,15 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       const float* wp = a.w_fwd;
       for (int i = 0; i < D; ++i) {
         const int n_in = layer_in_dim(i, E, H, a.skip_at);
-        dense_relu<kTilePoints, 8, kStore>(X, ld, i == 0 ? H : 0, n_in, H, wp, wp + n_in * H,
-                                           bf16, kStore ? ws + ((size_t)i * n_seg + c0) * H
-                                                        : nullptr);
+        if constexpr (kMma) {
+          mma_dense_relu<4, kStore>(X, ld, i == 0 ? H : 0, n_in, H,
+                                    w_mma + mma_fwd_off(i, E, H, a.skip_at) / 4, wp + n_in * H,
+                                    kStore ? ws + ((size_t)i * n_seg + c0) * H : nullptr);
+        } else {
+          dense_relu<kTilePoints, 8, kStore>(X, ld, i == 0 ? H : 0, n_in, H, wp, wp + n_in * H,
+                                             bf16, kStore ? ws + ((size_t)i * n_seg + c0) * H
+                                                          : nullptr);
+        }
         wp += (n_in + 1) * H;
       }
       // Raw density (+ noise) from the trunk; then the direction encoding
@@ -276,11 +302,21 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       __syncthreads();
       const float* b_in = w_rgb_in + (H + Dd) * RH;
       float* st = kStore ? ws_g1 + (size_t)c0 * RH : nullptr;
-      switch (8 * RH / H) {
-        case 1: dense_relu<kTilePoints, 1, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-        case 2: dense_relu<kTilePoints, 2, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-        case 4: dense_relu<kTilePoints, 4, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-        default: dense_relu<kTilePoints, 8, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
+      if constexpr (kMma) {
+        // 2 warps over the rows, H / 32 over rgb_in's columns, 8 NT each.
+        const uint2* wm = w_mma + mma_rgb_in / 4;
+        switch (4 * RH / H) {
+          case 1: mma_dense_relu<1, kStore>(X, ld, 0, H + Dd, RH, wm, b_in, st); break;
+          case 2: mma_dense_relu<2, kStore>(X, ld, 0, H + Dd, RH, wm, b_in, st); break;
+          default: mma_dense_relu<4, kStore>(X, ld, 0, H + Dd, RH, wm, b_in, st); break;
+        }
+      } else {
+        switch (8 * RH / H) {
+          case 1: dense_relu<kTilePoints, 1, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
+          case 2: dense_relu<kTilePoints, 2, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
+          case 4: dense_relu<kTilePoints, 4, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
+          default: dense_relu<kTilePoints, 8, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
+        }
       }
       const float* b_rgb = w_rgb + RH * 3;
       for (int idx = tid; idx < kTilePoints * 3; idx += nt) {
@@ -543,7 +579,33 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
 
       // 4. rgb_in: weight and bias gradients; the trunk's output gradient
       //    (rgb branch + sigma head, masked by the trunk's ReLU) into G.
-      {
+      if constexpr (kMma) {
+        const Seg in{In, ld, H + Dd};
+        switch (RH % 32 == 0 ? 4 : RH % 16 == 0 ? 2 : 1) {
+          case 4: mma_weight_grad<4>(in, G, ld, RH, part + off_rgb_in, first); break;
+          case 2: mma_weight_grad<2>(in, G, ld, RH, part + off_rgb_in, first); break;
+          default: mma_weight_grad<1>(in, G, ld, RH, part + off_rgb_in, first); break;
+        }
+        for (int o = tid; o < RH; o += nt) {
+          float s = 0.f;
+          for (int p = 0; p < kBwdPoints; ++p) s += G[p * ld + o];
+          accumulate(part + off_rgb_in + (H + Dd) * RH + o, s, first);
+        }
+        float up[kUpMTiles][kUpNTiles][4];
+        const int n0 = mma_upstream(up, G, ld, RH, w_mma + (mma_up + (D - 1) * H * H) / 4, H);
+        __syncthreads();
+        for_each_pair(up, ((tid >> 5) % 2) * 16 * kUpMTiles, n0,
+                      [&](int p, int k, float v0, float v1) {
+          const float v[2] = {v0, v1};
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float g_sig = to_compute(__ldg(w_sigma + k + c) * gs[p], true);
+            const float x = to_compute(to_compute(v[c], true) + g_sig, true);
+            G[p * ld + k + c] = In[p * ld + k + c] > 0.f ? x : 0.f;
+          }
+        });
+        __syncthreads();
+      } else {
         const int items_w = (H + Dd + kCols - 1) / kCols * (RH / kCols);
         for (int item = tid; item < items_w + RH; item += nt) {
           if (item < items_w) {
@@ -591,6 +653,32 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
         __syncthreads();
         const int off = layer_off(i, E, H, a.skip_at);
         const int n_in = layer_in_dim(i, E, H, a.skip_at);
+        if constexpr (kMma) {
+          // One segment: the skip layer's [h, enc] are In's columns [0, H + E).
+          mma_weight_grad<4>(i == 0 ? Seg{In + H, ld, E} : Seg{In, ld, n_in}, G, ld, H,
+                             part + off, first);
+          for (int o = tid; o < H; o += nt) {
+            float s = 0.f;
+            for (int p = 0; p < kBwdPoints; ++p) s += G[p * ld + o];
+            accumulate(part + off + n_in * H + o, s, first);
+          }
+          if (i > 0) {
+            float up[kUpMTiles][kUpNTiles][4];
+            const int n0 = mma_upstream(up, G, ld, H, w_mma + (mma_up + (i - 1) * H * H) / 4, H);
+            __syncthreads();
+            for_each_pair(up, ((tid >> 5) % 2) * 16 * kUpMTiles, n0,
+                          [&](int p, int k, float v0, float v1) {
+              float* x = In + p * ld + k;
+              x[0] = x[0] > 0.f ? to_compute(v0, true) : 0.f;
+              x[1] = x[1] > 0.f ? to_compute(v1, true) : 0.f;
+            });
+            float* t = In;
+            In = G;
+            G = t;
+          }
+          __syncthreads();
+          continue;
+        }
         const Seg sa = i == 0 ? Seg{In + H, ld, E} : Seg{In, ld, H};
         const Seg sb = (i > 0 && i == a.skip_at) ? Seg{In + H, ld, E} : Seg{In, ld, 0};
         const int n_og = H / kCols;
@@ -666,9 +754,9 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
   }
 }
 
-template <Walk kMode>
+template <Walk kMode, bool kMma>
 __global__ void __launch_bounds__(kMaxThreads, 1) nerf_walk_kernel(Args a) {
-  nerf_walk<kMode>(a);
+  nerf_walk<kMode, kMma>(a);
 }
 
 // Shared memory of one block, in bytes, for tile_rays rays and segments
@@ -690,19 +778,20 @@ inline long long walk_workspace_floats(int tile_rays, int seg, int num_freqs, in
 
 // The walk on n_blocks blocks of 2*hidden threads; then, when dst is
 // given, the reduction of the partial rows into out (parameter order, the
-// loss last). Returns the CUDA error code (0 = ok).
-template <Walk kMode>
+// loss last). kMma takes the tensor-core products (K6 in bf16). Returns the
+// CUDA error code (0 = ok).
+template <Walk kMode, bool kMma = false>
 int launch_walk(const Args& a, int n_blocks, int n_grad, const int* dst, float* out, int device,
                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int smem = walk_smem_bytes(a.tile_rays, a.seg, a.S, a.num_freqs, a.dir_freqs,
                                    a.use_viewdirs, a.hidden);
-  err = cudaFuncSetAttribute(nerf_walk_kernel<kMode>,
+  err = cudaFuncSetAttribute(nerf_walk_kernel<kMode, kMma>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  nerf_walk_kernel<kMode><<<n_blocks, 2 * a.hidden, smem, st>>>(a);
+  nerf_walk_kernel<kMode, kMma><<<n_blocks, 2 * a.hidden, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || dst == nullptr) return (int)err;
   const int row = n_grad + 1;

@@ -28,8 +28,11 @@ density gradient's recurrence across blocks, so its state is
 O(sample_block). It is the
 second C entry point of csrc/fused_nerf_train.cu (K4's kernel, segments
 of sample_block samples); the deltas are precomputed here, as the JAX
-wrapper does (:593-603). fused_nerf_pass_grads_streamed_plain is the
-same block walk through autograd.
+wrapper does (:593-603). In bf16 (the training dtype) its MLP products
+run on the tensor cores (mma.sync, csrc/mma_bf16.cuh) from the fragments
+of pack_mma_weights, and .mma_launches counts those launches; in f32 they
+run on the CUDA cores, K4's code. fused_nerf_pass_grads_streamed_plain
+is the same block walk through autograd.
 """
 
 from __future__ import annotations
@@ -48,7 +51,12 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     pad_rays,
     raise_on_error,
 )
-from tinynerf_tpu_torch.kernels.fused_nerf_train import check_train_launch, launch_pass, pass_grads_plain
+from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+    check_mma_shapes,
+    check_train_launch,
+    launch_pass,
+    pass_grads_plain,
+)
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
 
 DEFAULT_SAMPLE_BLOCK = 64
@@ -208,10 +216,16 @@ def fused_nerf_pass_grads_streamed(
         return fused_nerf_pass_grads_streamed_plain(mlp, rays_o, rays_d, target, z_vals, cfg=cfg,
                                                     sample_block=sb, **kw)
     tile = check_train_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
+    mma = cfg.compute_dtype == torch.bfloat16
+    if mma:
+        check_mma_shapes(cfg)
     res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=True, seg=sb, z=z_vals,
                       **kw)
     fused_nerf_pass_grads_streamed.launches += 1
+    fused_nerf_pass_grads_streamed.mma_launches += int(mma)
     return res
 
 
 fused_nerf_pass_grads_streamed.launches = 0  # kernel launches since the last reset
+# ... of which took the tensor-core walk (every bf16 launch)
+fused_nerf_pass_grads_streamed.mma_launches = 0

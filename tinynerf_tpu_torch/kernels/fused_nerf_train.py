@@ -138,6 +138,51 @@ def pack_backward_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     return torch.cat([p.to(cfg.compute_dtype).float().reshape(-1) for p in parts]).contiguous()
 
 
+def check_mma_shapes(cfg: NeRFConfig) -> None:
+    """Raise unless K6's tensor-core walk (bf16) takes cfg's widths: warps
+    own whole 32-column tiles of a trunk layer's output, and H / 32 warps
+    share rgb_in's columns in whole 8-column tiles."""
+    if cfg.hidden % 32 or (4 * cfg.rgb_hidden) % cfg.hidden:
+        raise ValueError(
+            "the bf16 streamed kernel runs its products on the tensor cores, which needs hidden "
+            f"a multiple of 32 and 4*rgb_hidden a multiple of hidden, got hidden {cfg.hidden}, "
+            f"rgb_hidden {cfg.rgb_hidden}"
+        )
+
+
+def mma_operands(mlp: NeRFMLP, cfg: NeRFConfig) -> List[tuple]:
+    """The B operands (K, N) of K6's tensor-core products in packing order,
+    as (name, bf16 matrix): each trunk layer's and rgb_in's forward W^T
+    (in, out), then the upstream W[:, :hidden] (out, hidden) of trunk
+    layers 1..depth-1 and of rgb_in (the skip layer's encoding rows and
+    rgb_in's direction rows get no upstream gradient)."""
+    h = cfg.hidden
+    named = [(f"layers.{i}", lin) for i, lin in enumerate(mlp.layers)] + [("rgb_in", mlp.rgb_in)]
+    ws = {n: lin.weight.detach().to(torch.bfloat16) for n, lin in named}
+    out = [(f"{n}.fwd", ws[n].t()) for n, _ in named]
+    return out + [(f"{n}.up", ws[n][:, :h]) for n, _ in named[1:]]
+
+
+def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
+    """One (K, N) B operand as the tensor-core walk reads it
+    (csrc/mma_bf16.cuh): K zero-padded to a multiple of 32, then for each
+    16-deep k-step ks, each 8-column tile nt and each lane (g = lane // 4,
+    t = lane % 4) the 4 values B[32 (ks // 2) + 8 t + 4 (ks % 2) + j][8 nt
+    + g], j = 0..3: one 8-byte load per lane. Flat, same dtype."""
+    K, N = b.shape
+    kp = -(-K // 32) * 32
+    b = torch.cat([b, b.new_zeros(kp - K, N)])
+    # (p, t, h, j, nt, g) -> (p, h, nt, g, t, j): ks = 2 p + h, lane = 4 g + t
+    return b.reshape(kp // 32, 4, 2, 4, N // 8, 8).permute(0, 2, 4, 5, 1, 3).reshape(-1)
+
+
+def pack_mma_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
+    """Every B operand of mma_operands, packed by pack_mma_b and
+    concatenated (bf16): the w_mma buffer of K6's bf16 launch, whose
+    offsets csrc/nerf_train_walk.cuh (mma_fwd_off) mirrors."""
+    return torch.cat([pack_mma_b(b) for _, b in mma_operands(mlp, cfg)]).contiguous()
+
+
 def grad_layout(cfg: NeRFConfig) -> dict:
     """Parameter name -> index tensor (the parameter's shape) into the
     kernel's gradient layout, which is pack_nerf_weights' layout: per
@@ -188,7 +233,7 @@ def _lib() -> ctypes.CDLL:
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     lib.tinynerf_fused_nerf_train.argtypes = [p] * 15 + [i] * 11 + [f] * 3 + [i] * 6 + [p]
     lib.tinynerf_fused_nerf_train.restype = i
-    lib.tinynerf_fused_nerf_train_streamed.argtypes = [p] * 12 + [i] * 12 + [f] + [i] * 5 + [p]
+    lib.tinynerf_fused_nerf_train_streamed.argtypes = [p] * 13 + [i] * 12 + [f] + [i] * 5 + [p]
     lib.tinynerf_fused_nerf_train_streamed.restype = i
     lib.tinynerf_fused_nerf_train_smem_bytes.argtypes = [i] * 7
     lib.tinynerf_fused_nerf_train_smem_bytes.restype = i
@@ -256,8 +301,11 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
     noise = None
     if sigma_noise is not None:
         noise = torch.cat([sigma_noise, sigma_noise.new_zeros(pad, S)]).contiguous()
+    bf16 = int(cfg.compute_dtype == torch.bfloat16)
     w_fwd = pack_nerf_weights(mlp, cfg)
-    w_bwd = pack_backward_weights(mlp, cfg)
+    # K6 in bf16 reads its products' weights as tensor-core fragments only.
+    w_mma = pack_mma_weights(mlp, cfg) if streamed and bf16 else None
+    w_bwd = pack_backward_weights(mlp, cfg) if w_mma is None else None
     n_grad = w_fwd.numel()
     n_tiles = (R + pad) // tile
     n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -272,7 +320,6 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
     stream = torch.cuda.current_stream(dev).cuda_stream
     geom = (cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden, cfg.depth,
             cfg.skip_at, cfg.rgb_hidden)
-    bf16 = int(cfg.compute_dtype == torch.bfloat16)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -280,8 +327,9 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
     if streamed:
         err = lib.tinynerf_fused_nerf_train_streamed(
             o.data_ptr(), d.data_ptr(), tgt.data_ptr(), z.data_ptr(), delta.data_ptr(),
-            ptr(noise), w_fwd.data_ptr(), w_bwd.data_ptr(), ws.data_ptr(), partials.data_ptr(),
-            dst.data_ptr(), out.data_ptr(), R + pad, R, tile, S, seg, *geom, 1.0 / (R * 3),
+            ptr(noise), w_fwd.data_ptr(), ptr(w_bwd), ptr(w_mma), ws.data_ptr(),
+            partials.data_ptr(), dst.data_ptr(), out.data_ptr(), R + pad, R, tile, S, seg, *geom,
+            1.0 / (R * 3),
             int(white_bkgd), bf16, n_blocks, n_grad, dev.index, stream,
         )
         w_out = z_out = None

@@ -97,23 +97,29 @@ __device__ __forceinline__ void mma_rows(float (&acc)[MT][NT][4], const float* A
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   const float* arow = A + (m0 + g) * ld;
   const uint2* bp = Bp + nt0 * 32 + lane;
-  const int n_ks = pad32(n_k) / 16;
+  const int n_ks = pad32(n_k) / 16;  // even: whole 32-column panels
+  // B comes from L2: each k-step's loads are issued two steps ahead.
+  uint2 b[2][NT];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) b[s][nt] = __ldg(bp + (s * n_tiles + nt) * 32);
 #pragma unroll 1
-  for (int ks = 0; ks < n_ks; ++ks) {
-    const int k = lane_k(ks, t);
-    uint32_t b[NT][2];
+  for (int ks = 0; ks < n_ks; ks += 2) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint2 v = __ldg(bp + (ks * n_tiles + nt) * 32);
-      b[nt][0] = v.x;
-      b[nt][1] = v.y;
-    }
+    for (int s = 0; s < 2; ++s) {
+      const int k = lane_k(ks + s, t);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      uint32_t a[4];
-      load_a_rows(a, arow + 16 * mt * ld, ld, k, n_k);
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        load_a_rows(a, arow + 16 * mt * ld, ld, k, n_k);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_16816(acc[mt][nt], a, b[nt][0], b[nt][1]);
+        for (int nt = 0; nt < NT; ++nt) mma_16816(acc[mt][nt], a, b[s][nt].x, b[s][nt].y);
+      }
+      if (ks + s + 2 < n_ks) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) b[s][nt] = __ldg(bp + ((ks + s + 2) * n_tiles + nt) * 32);
+      }
     }
   }
 }
@@ -135,11 +141,11 @@ __device__ __forceinline__ void for_each_pair(const float (&acc)[MT][NT][4], int
 
 // nerf_mlp.cuh's dense_relu on the tensor cores, same contract:
 // X[p][0, n_out) = to_compute(relu(X[p][in_col, in_col + n_in) @ W + b))
-// for the 128 rows, written over the input after a barrier; kStore also
-// writes the rows to `store` (row stride n_out). W is the layer's packed
-// B; warp w takes rows 64 (w % 2) on and columns 8 NT (w / 2) on, so
+// for the 128 rows, written over the input after a barrier; a non-null
+// `store` also receives the rows (row stride n_out). W is the layer's
+// packed B; warp w takes rows 64 (w % 2) on and columns 8 NT (w / 2) on, so
 // blockDim.x / 32 must be 2 n_out / (8 NT).
-template <int NT, bool kStore>
+template <int NT>
 __device__ void mma_dense_relu(float* X, int ld, int in_col, int n_in, int n_out,
                                const uint2* __restrict__ W, const float* __restrict__ b,
                                float* __restrict__ store) {
@@ -154,7 +160,8 @@ __device__ void mma_dense_relu(float* X, int ld, int in_col, int n_in, int n_out
     v1 = to_compute(fmaxf(v1 + __ldg(b + c + 1), 0.f), true);
     X[p * ld + c] = v0;
     X[p * ld + c + 1] = v1;
-    if (kStore) *reinterpret_cast<float2*>(store + (size_t)p * n_out + c) = make_float2(v0, v1);
+    if (store != nullptr)
+      *reinterpret_cast<float2*>(store + (size_t)p * n_out + c) = make_float2(v0, v1);
   });
   __syncthreads();
 }

@@ -213,7 +213,7 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
   const uint2* w_mma = static_cast<const uint2*>(a.w_mma);
   const int mma_rgb_in = mma_fwd_off(D, E, H, a.skip_at);
   const int mma_up = mma_rgb_in + pad32(H + Dd) * RH;  // trunk layer 1's upstream
-  float* part =kStore ? a.partials + (size_t)blockIdx.x * (n_grad + 1) : nullptr;
+  float* part = kStore ? a.partials + (size_t)blockIdx.x * (n_grad + 1) : nullptr;
   // Workspace: per trunk layer (n_seg, H) post-activations, rgb_in's
   // output (n_seg, RH), the encoding (n_seg, E).
   float* ws = kStore ? a.ws + (size_t)blockIdx.x * n_seg * (D * H + RH + E) : nullptr;
@@ -228,8 +228,11 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
 
   // Forward of segment b: depths, then per 128-point chunk the points,
   // the encoding, the trunk, the heads. Per-point (sigma_raw, rgb) go to
-  // the scalars, every activation (kStore) to the workspace.
-  auto segment_forward = [&](int b) {
+  // the scalars, every activation (kStore) to the workspace; the
+  // tensor-core walk stores only when `keep` (not in K6's first walk,
+  // whose activations the reverse walk recomputes).
+  auto segment_forward = [&](int b, bool keep) {
+    const bool store = kStore && (keep || !kMma);
     const int s0 = b * SEG;
     for (int q = tid; q < n_seg; q += nt) {
       const int g = ray0 + q / SEG, s = s0 + q % SEG;
@@ -263,7 +266,7 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       __syncthreads();
       encode_bands<kTilePoints>(X, ld, H, pts, L, bf16);
       __syncthreads();
-      if (kStore) {
+      if (store) {
         for (int idx = tid; idx < kTilePoints * E; idx += nt) {
           const int p = idx / E, j = idx % E;
           ws_enc[(size_t)(c0 + p) * E + j] = X[p * ld + H + j];
@@ -274,9 +277,9 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       for (int i = 0; i < D; ++i) {
         const int n_in = layer_in_dim(i, E, H, a.skip_at);
         if constexpr (kMma) {
-          mma_dense_relu<4, kStore>(X, ld, i == 0 ? H : 0, n_in, H,
-                                    w_mma + mma_fwd_off(i, E, H, a.skip_at) / 4, wp + n_in * H,
-                                    kStore ? ws + ((size_t)i * n_seg + c0) * H : nullptr);
+          mma_dense_relu<4>(X, ld, i == 0 ? H : 0, n_in, H,
+                            w_mma + mma_fwd_off(i, E, H, a.skip_at) / 4, wp + n_in * H,
+                            store ? ws + ((size_t)i * n_seg + c0) * H : nullptr);
         } else {
           dense_relu<kTilePoints, 8, kStore>(X, ld, i == 0 ? H : 0, n_in, H, wp, wp + n_in * H,
                                              bf16, kStore ? ws + ((size_t)i * n_seg + c0) * H
@@ -305,10 +308,11 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       if constexpr (kMma) {
         // 2 warps over the rows, H / 32 over rgb_in's columns, 8 NT each.
         const uint2* wm = w_mma + mma_rgb_in / 4;
+        float* sm = store ? st : nullptr;
         switch (4 * RH / H) {
-          case 1: mma_dense_relu<1, kStore>(X, ld, 0, H + Dd, RH, wm, b_in, st); break;
-          case 2: mma_dense_relu<2, kStore>(X, ld, 0, H + Dd, RH, wm, b_in, st); break;
-          default: mma_dense_relu<4, kStore>(X, ld, 0, H + Dd, RH, wm, b_in, st); break;
+          case 1: mma_dense_relu<1>(X, ld, 0, H + Dd, RH, wm, b_in, sm); break;
+          case 2: mma_dense_relu<2>(X, ld, 0, H + Dd, RH, wm, b_in, sm); break;
+          default: mma_dense_relu<4>(X, ld, 0, H + Dd, RH, wm, b_in, sm); break;
         }
       } else {
         switch (8 * RH / H) {
@@ -732,7 +736,7 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       ray_cotangents();
     } else {
       for (int b = 0; b < NB; ++b) {
-        segment_forward(b);
+        segment_forward(b, NB == 1);
         segment_composite(b);
       }
     }
@@ -743,7 +747,7 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       for (int b = NB - 1; b >= 0; --b) {
         // The backward rematerialises each segment; K4's one segment is
         // still in place.
-        if (kMode == Walk::kPartialsBwd || NB > 1) segment_forward(b);
+        if (kMode == Walk::kPartialsBwd || NB > 1) segment_forward(b, true);
         segment_grads(b);
         segment_backward();
       }

@@ -172,6 +172,23 @@ __host__ __device__ inline int mma_fwd_off(int i, int E, int H, int skip_at) {
   return off;
 }
 
+// rows x n floats from device memory (row stride n, n a multiple of 4,
+// 16-byte aligned) into the shared rows of stride ld: float4 loads, several
+// in flight per thread. No barrier.
+__device__ __forceinline__ void load_rows4(float* dst, int ld, const float* src, int rows, int n) {
+  const int n4 = n / 4;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < rows * n4; idx += blockDim.x) {
+    const int p = idx / n4, c = (idx - p * n4) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(src + (size_t)p * n + c);
+    float* d = dst + p * ld + c;
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+}
+
 __device__ __forceinline__ void accumulate(float* d, float s, bool first) {
   *d = first ? s : *d + s;
 }
@@ -534,17 +551,24 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       const float* gs = Q(kGSigma) + c0;
 
       // 1. In = [h_trunk, d_enc] (rgb_in's input), G = rgb_in's output.
-      for (int idx = tid; idx < kBwdPoints * H; idx += nt) {
-        const int p = idx / H, k = idx % H;
-        In[p * ld + k] = ws[((size_t)(D - 1) * n_seg + c0 + p) * H + k];
+      if constexpr (kMma) {
+        load_rows4(In, ld, ws + ((size_t)(D - 1) * n_seg + c0) * H, kBwdPoints, H);
+        load_rows4(G, ld, ws_g1 + (size_t)c0 * RH, kBwdPoints, RH);
+      } else {
+        for (int idx = tid; idx < kBwdPoints * H; idx += nt) {
+          const int p = idx / H, k = idx % H;
+          In[p * ld + k] = ws[((size_t)(D - 1) * n_seg + c0 + p) * H + k];
+        }
       }
       for (int idx = tid; idx < kBwdPoints * Dd; idx += nt) {
         const int p = idx / Dd, j = idx % Dd;
         In[p * ld + H + j] = denc[((c0 + p) / SEG) * Dd + j];
       }
-      for (int idx = tid; idx < kBwdPoints * RH; idx += nt) {
-        const int p = idx / RH, k = idx % RH;
-        G[p * ld + k] = ws_g1[(size_t)(c0 + p) * RH + k];
+      if constexpr (!kMma) {
+        for (int idx = tid; idx < kBwdPoints * RH; idx += nt) {
+          const int p = idx / RH, k = idx % RH;
+          G[p * ld + k] = ws_g1[(size_t)(c0 + p) * RH + k];
+        }
       }
       __syncthreads();
 
@@ -643,9 +667,13 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       //    gradient over its activation columns, and the halves swap.
       for (int i = D - 1; i >= 0; --i) {
         if (i > 0) {
-          for (int idx = tid; idx < kBwdPoints * H; idx += nt) {
-            const int p = idx / H, k = idx % H;
-            In[p * ld + k] = ws[((size_t)(i - 1) * n_seg + c0 + p) * H + k];
+          if constexpr (kMma) {
+            load_rows4(In, ld, ws + ((size_t)(i - 1) * n_seg + c0) * H, kBwdPoints, H);
+          } else {
+            for (int idx = tid; idx < kBwdPoints * H; idx += nt) {
+              const int p = idx / H, k = idx % H;
+              In[p * ld + k] = ws[((size_t)(i - 1) * n_seg + c0 + p) * H + k];
+            }
           }
         }
         if (i == 0 || i == a.skip_at) {

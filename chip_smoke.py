@@ -53,7 +53,10 @@ Phases, each printed with its result and time:
                 4096-ray K5 call at S=512 against its plain version; one
                 100x100 flagship image fused against eager.
  16. build    - the NeRF train kernels fused_nerf_train.cu (K4 and K6, one
-                library; its nvcc runs beside the other three).
+                library; its nvcc runs beside the other three), with
+                ptxas's registers and spills, and the HMMA instructions of
+                each kernel (cuobjdump -sass): K6's bf16 walk has them, the
+                CUDA-core walk none.
  17. kernel   - K4 against its plain version on 2048 rays of a synthetic
                 view, f32 (against float64 sums) and bf16: (a) the
                 flagship coarse pass, S=64, weights and z out, with and
@@ -65,15 +68,18 @@ Phases, each printed with its result and time:
  18. jitter   - K4's emitted depths: in their bins, uniform, adjacent
                 ray tiles uncorrelated, seed replay.
  19. kernel   - K6 against its plain version (flagship fine S=192 and
-                hidden 128 S=512, block 64), K6 against K4 on one union,
-                and the flagship fused step against autograd of the eager
-                hierarchical loss.
+                hidden 128 S=512, block 64; bf16 on the tensor cores, f32
+                on the CUDA cores), f32 K6 against K4 on one union, and the
+                flagship fused step against autograd of the eager
+                hierarchical loss (its K6 launch on the tensor cores).
  20. train    - `tinynerf_tpu_torch.train --model nerf` in process at
                 hidden 128, 500 steps fused (K4 twice a step) and eager;
-                the flagship 20 steps (K4 and K6 once a step each), its
-                resume to 25, and `eval` of its checkpoint (K3).
+                the flagship 20 steps (K4 and K6 once a step each, every K6
+                on the tensor cores), its resume to 25, and `eval` of its
+                checkpoint (K3).
  21. timing   - one flagship K4 coarse call, one K6 fine call and one
-                flagship train step against their plain versions.
+                flagship train step against their plain versions; K4 on the
+                K6 call's fine union, as a reading.
  22. build    - the block-partials kernel pair fused_partials.cu (K7
                 forward and backward, one library; its nvcc runs beside the
                 other four).
@@ -222,6 +228,24 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sass_counts(lib, opcode: str) -> dict:
+    """Instructions of `opcode` per kernel function of a built library, from
+    cuobjdump -sass (next to nvcc)."""
+    from tinynerf_tpu_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    fn, counts = None, {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and f" {opcode}." in line:
+            counts[fn] += 1
+    return counts
 
 
 def timed_build(name: str):
@@ -813,6 +837,11 @@ def run_nerf_train(build_nerf_train) -> list:
           "other three)", flush=True)
     print("\n".join(line for line in log.splitlines()
                     if "registers" in line or "spill" in line or "stack frame" in line), flush=True)
+    hmma = sass_counts(lib, "HMMA")
+    print(f"[build] HMMA instructions per kernel (cuobjdump -sass): {json.dumps(hmma)}", flush=True)
+    check(any("Lb1E" in fn and n > 0 for fn, n in hmma.items())
+          and not any("Lb0E" in fn and n for fn, n in hmma.items()),
+          "K6's bf16 walk (kMma=true) holds HMMA instructions; the CUDA-core walk none")
 
     # 17. K4 against its plain version: the flagship coarse pass and a
     #     hidden-128 fine pass, on 2048 rays of a synthetic view.
@@ -996,8 +1025,11 @@ def run_nerf_train(build_nerf_train) -> list:
         for key, mlp, label in ((dtype, models[dtype].fine, "flagship fine, S=192 union"),
                                 (512, models[128, dtype].fine, "hidden 128, S=512 union")):
             z = unions[key] if key == dtype else unions[512, dtype]
+            mma = k6.mma_launches
             loss, grads = k6(mlp, ro, rd, tgt, z, sample_block=64)
             torch.cuda.synchronize()
+            check(k6.mma_launches - mma == int(dtype == torch.bfloat16),
+                  f"K6 {label}: the tensor-core walk in bf16 only")
             ref = reference(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, tgt, z,
                             sample_block=64, dtype=dtype)
             errs["k6", key == dtype, dtype] = grad_gates(f"K6 {label}, block 64", dtype, mlp,
@@ -1020,9 +1052,9 @@ def run_nerf_train(build_nerf_train) -> list:
     m = models[torch.bfloat16]
     settings = Config(model="nerf", hidden=256, n_fine=128).train_settings()
     grad_fn = make_fused_nerf_grad_fn(settings, m.cfg, n_fine=128, randomized=False)
-    k4.launches = k6.launches = 0
+    k4.launches = k6.launches = k6.mma_launches = 0
     loss_f, metrics = grad_fn(m, ro, rd, tgt, torch.Generator(device=dev))
-    step_launches = (k4.launches, k6.launches)
+    step_launches = (k4.launches, k6.launches, k6.mma_launches)
     got = [p.grad.clone() for p in m.parameters()]
     comp_c, comp_f = render_rays_hierarchical(m, ro, rd, n_coarse=64, n_fine=128, cfg=m.cfg)
     ref = torch.mean((comp_c - tgt) ** 2) + torch.mean((comp_f - tgt) ** 2)
@@ -1032,7 +1064,8 @@ def run_nerf_train(build_nerf_train) -> list:
                 / float(ref), "launches": step_launches, **leaf_errors(got, want)}
     print(f"[kernel] flagship fused step vs eager autograd, bf16: {json.dumps(step_err)}",
           flush=True)
-    check(step_launches == (1, 1), "the flagship step runs K4 (coarse) and K6 (fine) once")
+    check(step_launches == (1, 1, 1),
+          "the flagship step runs K4 (coarse) and K6 (fine) once, K6 on the tensor cores")
     check(step_err["loss_rel"] < 1e-3 and step_err["min_cosine"] > 0.98,
           "fused step vs eager: loss rel < 1e-3, per-leaf cosine > 0.98")
     print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
@@ -1071,15 +1104,16 @@ def run_nerf_train(build_nerf_train) -> list:
                   metrics_path=os.path.join(OUT_DIR, "flagship.jsonl"))
     if os.path.exists(flag.metrics_path):
         os.unlink(flag.metrics_path)
-    k4.launches = k6.launches = 0
+    k4.launches = k6.launches = k6.mma_launches = 0
     res = train_mod.main(flag)
-    flag_launches = (k4.launches, k6.launches)
+    flag_launches = (k4.launches, k6.launches, k6.mma_launches)
     losses = [r["loss"] for r in map(json.loads, open(flag.metrics_path)) if "loss" in r]
     runs["flagship"] = {"rays_per_sec": res["rays_per_sec"]}
-    print(f"[train] flagship {FLAGSHIP_ITERS} steps: (K4, K6) launches {flag_launches}, losses "
+    print(f"[train] flagship {FLAGSHIP_ITERS} steps: (K4, K6, K6 on the tensor cores) launches "
+          f"{flag_launches}, losses "
           f"{losses}, {res['rays_per_sec']:,.0f} rays/s", flush=True)
-    check(flag_launches == (FLAGSHIP_ITERS, FLAGSHIP_ITERS),
-          "flagship: K4 (coarse) and K6 (fine) once per step")
+    check(flag_launches == (FLAGSHIP_ITERS,) * 3,
+          "flagship: K4 (coarse) and K6 (fine) once per step, every K6 on the tensor cores")
     check(all(math.isfinite(x) for x in losses), "flagship losses finite")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -1120,14 +1154,19 @@ def run_nerf_train(build_nerf_train) -> list:
     counter = iter(range(10**6))
     cases["step"] = {k: (lambda f=f: f(step_model, step_opt, 0, next(counter), rays_o_all,
                                        rays_d_all, pixels)) for k, f in step_fns.items()}
+    # K4 on the same fine union (one segment of 192 samples): a reading
+    # beside K6 for the fine pass's route (ROADMAP R1a); the route stays.
+    cases["k4_union"] = {"kernel": lambda: k4(m.fine, ro, rd, tgt, 0, z, randomized=False)}
     times = {}
     for what, fns in cases.items():
         for name in ("plain", "kernel", "kernel", "plain"):
-            times.setdefault((what, name), []).append(cuda_ms(fns[name], iters=3))
+            if name in fns:
+                times.setdefault((what, name), []).append(cuda_ms(fns[name], iters=3))
     ms = {k: min(v) for k, v in times.items()}
     print(f"[timing] {card}: bf16, {N_RAYS_TRAIN} rays; flagship K4 coarse (S=64, weights and z "
           f"out) {ms['k4', 'kernel']:.4f} ms, plain {ms['k4', 'plain']:.4f} ms; K6 fine (S=192, "
-          f"block 64) {ms['k6', 'kernel']:.4f} ms, plain {ms['k6', 'plain']:.4f} ms; flagship train "
+          f"block 64, tensor cores) {ms['k6', 'kernel']:.4f} ms, plain {ms['k6', 'plain']:.4f} ms; "
+          f"K4 on the same union (reading only) {ms['k4_union', 'kernel']:.4f} ms; flagship train "
           f"step fused {ms['step', 'kernel']:.4f} ms, eager {ms['step', 'plain']:.4f} ms "
           f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
     print(f"[timing] {card}: nerf hidden 128 train loop, {NERF_TRAIN_ITERS} steps of "

@@ -182,18 +182,19 @@ __device__ __forceinline__ int mma_upstream(float (&acc)[kUpMTiles][kUpNTiles][4
   return 8 * nt0;
 }
 
-// train_common.cuh's weight_grad_item loop on the tensor cores, same
-// contract: part[k * n_out + o] (+)= sum over the chunk's 64 points p of
-// in[p][k] * G[p][o], k < in.n, `first` writes, else adds. The block's
-// warps take items of 32 input rows x 8 NT outputs in turn. Rows past
-// in.n are computed from whatever the buffer holds there and dropped.
+// train_common.cuh's weight_grad_item loop on the tensor cores, with the
+// bias gradient as one more input row of ones: part[k * n_out + o] (+)=
+// sum over the chunk's 64 points p of in[p][k] * G[p][o] for k < in.n,
+// and of G[p][o] for k = in.n (the layout's bias row, after W's rows);
+// `first` writes, else adds. The block's warps take items of 32 input
+// rows x 8 NT outputs in turn. Rows past in.n are dropped.
 template <int NT>
 __device__ void mma_weight_grad(Seg in, const float* G, int ld_g, int n_out,
                                 float* __restrict__ part, bool first) {
   constexpr int MT = kGradMTiles;
   const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n_ng = n_out / (8 * NT), n_items = (in.n + 16 * MT - 1) / (16 * MT) * n_ng;
+  const int n_ng = n_out / (8 * NT), n_items = (in.n + 16 * MT) / (16 * MT) * n_ng;
 #pragma unroll 1
   for (int item = warp; item < n_items; item += nw) {
     const int m0 = (item / n_ng) * 16 * MT, n0 = (item % n_ng) * 8 * NT;
@@ -219,10 +220,14 @@ __device__ void mma_weight_grad(Seg in, const float* G, int ld_g, int n_out,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const int m = m0 + 16 * mt + g;
-        const uint32_t a[4] = {pack_bf16x2(x[m], x[in.ld + m]),
-                               pack_bf16x2(x[m + 8], x[in.ld + m + 8]),
-                               pack_bf16x2(x[2 * in.ld + m], x[3 * in.ld + m]),
-                               pack_bf16x2(x[2 * in.ld + m + 8], x[3 * in.ld + m + 8])};
+        float v[2][4];  // rows m and m + 8, the lane's 4 points
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[h][j] = m + 8 * h < in.n ? x[j * in.ld + m + 8 * h] : (m + 8 * h == in.n ? 1.f : 0.f);
+        const uint32_t a[4] = {pack_bf16x2(v[0][0], v[0][1]), pack_bf16x2(v[1][0], v[1][1]),
+                               pack_bf16x2(v[0][2], v[0][3]), pack_bf16x2(v[1][2], v[1][3])};
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) mma_16816(acc[mt][nt], a, b[nt][0], b[nt][1]);
       }
@@ -234,7 +239,7 @@ __device__ void mma_weight_grad(Seg in, const float* G, int ld_g, int n_out,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int k = m0 + 16 * mt + 8 * h + g;
-          if (k < in.n) {
+          if (k <= in.n) {
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
               const float2 old = *reinterpret_cast<const float2*>(
@@ -246,7 +251,7 @@ __device__ void mma_weight_grad(Seg in, const float* G, int ld_g, int n_out,
         }
     }
     for_each_pair(acc, m0, n0, [&](int k, int o, float v0, float v1) {
-      if (k < in.n) *reinterpret_cast<float2*>(part + (size_t)k * n_out + o) = make_float2(v0, v1);
+      if (k <= in.n) *reinterpret_cast<float2*>(part + (size_t)k * n_out + o) = make_float2(v0, v1);
     });
   }
 }

@@ -177,7 +177,7 @@ __host__ __device__ inline int mma_fwd_off(int i, int E, int H, int skip_at) {
 // in flight per thread. No barrier.
 __device__ __forceinline__ void load_rows4(float* dst, int ld, const float* src, int rows, int n) {
   const int n4 = n / 4;
-#pragma unroll 4
+#pragma unroll 8
   for (int idx = threadIdx.x; idx < rows * n4; idx += blockDim.x) {
     const int p = idx / n4, c = (idx - p * n4) * 4;
     const float4 v = *reinterpret_cast<const float4*>(src + (size_t)p * n + c);
@@ -306,14 +306,36 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       }
       // Raw density (+ noise) from the trunk; then the direction encoding
       // goes over the dead encoding columns.
-      for (int p = tid; p < kTilePoints; p += nt) {
-        const float* row = X + p * ld;
-        float acc = 0.f;
-        for (int k = 0; k < H; ++k) acc = fmaf(row[k], __ldg(w_sigma + k), acc);
-        acc += __ldg(w_sigma + H);
-        const int q = c0 + p;
-        if (a.noise != nullptr) acc += a.noise[(size_t)(ray0 + q / SEG) * S + s0 + q % SEG];
-        Q(kSigmaRaw)[q] = acc;
+      if constexpr (kMma) {
+        // 4 neighbouring lanes a point, each over every 4th column, summed
+        // by shuffles; whole warps run every round.
+        for (int base = 0; base < 4 * kTilePoints; base += nt) {
+          const int idx = base + tid, p = idx >> 2, q = idx & 3;
+          const bool valid = idx < 4 * kTilePoints;
+          float acc = 0.f;
+          if (valid) {
+            const float* row = X + p * ld;
+            for (int k = q; k < H; k += 4) acc = fmaf(row[k], __ldg(w_sigma + k), acc);
+          }
+          acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+          acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+          if (valid && q == 0) {
+            acc += __ldg(w_sigma + H);
+            const int qp = c0 + p;
+            if (a.noise != nullptr) acc += a.noise[(size_t)(ray0 + qp / SEG) * S + s0 + qp % SEG];
+            Q(kSigmaRaw)[qp] = acc;
+          }
+        }
+      } else {
+        for (int p = tid; p < kTilePoints; p += nt) {
+          const float* row = X + p * ld;
+          float acc = 0.f;
+          for (int k = 0; k < H; ++k) acc = fmaf(row[k], __ldg(w_sigma + k), acc);
+          acc += __ldg(w_sigma + H);
+          const int q = c0 + p;
+          if (a.noise != nullptr) acc += a.noise[(size_t)(ray0 + q / SEG) * S + s0 + q % SEG];
+          Q(kSigmaRaw)[q] = acc;
+        }
       }
       for (int idx = tid; idx < kTilePoints * Dd; idx += nt) {
         const int p = idx / Dd, j = idx % Dd;
@@ -608,16 +630,11 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       // 4. rgb_in: weight and bias gradients; the trunk's output gradient
       //    (rgb branch + sigma head, masked by the trunk's ReLU) into G.
       if constexpr (kMma) {
-        const Seg in{In, ld, H + Dd};
+        const Seg in{In, ld, H + Dd};  // and the bias gradient as a row of ones
         switch (RH % 32 == 0 ? 4 : RH % 16 == 0 ? 2 : 1) {
           case 4: mma_weight_grad<4>(in, G, ld, RH, part + off_rgb_in, first); break;
           case 2: mma_weight_grad<2>(in, G, ld, RH, part + off_rgb_in, first); break;
           default: mma_weight_grad<1>(in, G, ld, RH, part + off_rgb_in, first); break;
-        }
-        for (int o = tid; o < RH; o += nt) {
-          float s = 0.f;
-          for (int p = 0; p < kBwdPoints; ++p) s += G[p * ld + o];
-          accumulate(part + off_rgb_in + (H + Dd) * RH + o, s, first);
         }
         float up[kUpMTiles][kUpNTiles][4];
         const int n0 = mma_upstream(up, G, ld, RH, w_mma + (mma_up + (D - 1) * H * H) / 4, H);
@@ -686,14 +703,10 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
         const int off = layer_off(i, E, H, a.skip_at);
         const int n_in = layer_in_dim(i, E, H, a.skip_at);
         if constexpr (kMma) {
-          // One segment: the skip layer's [h, enc] are In's columns [0, H + E).
+          // One segment (the skip layer's [h, enc] are In's columns [0, H +
+          // E)); the bias gradient is its row of ones.
           mma_weight_grad<4>(i == 0 ? Seg{In + H, ld, E} : Seg{In, ld, n_in}, G, ld, H,
                              part + off, first);
-          for (int o = tid; o < H; o += nt) {
-            float s = 0.f;
-            for (int p = 0; p < kBwdPoints; ++p) s += G[p * ld + o];
-            accumulate(part + off + n_in * H + o, s, first);
-          }
           if (i > 0) {
             float up[kUpMTiles][kUpNTiles][4];
             const int n0 = mma_upstream(up, G, ld, H, w_mma + (mma_up + (i - 1) * H * H) / 4, H);

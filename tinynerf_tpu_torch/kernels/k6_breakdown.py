@@ -32,11 +32,8 @@ ABLATIONS = {
                           "mma_rows<MT, NT>(acc, X + in_col, ld, m0, 0, W")],
     "workspace stores": [(MMA, "    if (store != nullptr)\n", "    if (false)\n")],
     "workspace reloads": [(WALK, "  const int n4 = n / 4;\n", "  const int n4 = n / 4;\n  return;\n")],
-    "bias sums": [(WALK, "for (int o = tid; o < RH; o += nt) {", "for (int o = tid; o < 0; o += nt) {"),
-                  (WALK, "for (int o = tid; o < H; o += nt) {", "for (int o = tid; o < 0; o += nt) {")],
     "head gradients": [(WALK, "item < RH * 3 + 3 + H + 1; item += nt", "item < 0; item += nt")],
-    "sigma head forward": [(WALK, "for (int k = 0; k < H; ++k) acc = fmaf(row[k], __ldg(w_sigma + k)",
-                            "for (int k = 0; k < 0; ++k) acc = fmaf(row[k], __ldg(w_sigma + k)")],
+    "sigma head forward": [(WALK, "for (int k = q; k < H; k += 4)", "for (int k = q; k < 0; k += 4)")],
     "encoding": [(WALK, "      encode_bands<kTilePoints>(X, ld, H, pts, L, bf16);\n", "")],
     "per-ray gradients": [(WALK, "        segment_grads(b);\n", "")],
 }
@@ -122,11 +119,11 @@ def main() -> dict:
         _build.load.cache_clear()
         fnt._lib.cache_clear()
     best = {k: min(v) for k, v in times.items()}
-    for name, t in best.items():
-        share = "" if name == "full" else f", its share {best['full'] - t:.4f} ms"
-        print(f"[k6_breakdown] {card}: without {name}: {t:.4f} ms{share} (runs {times[name]})"
-              if name != "full" else f"[k6_breakdown] {card}: K6 bf16 2048 x 192: {t:.4f} ms "
-              f"(runs {times[name]})", flush=True)
+    print(f"[k6_breakdown] {card}: K6 bf16 2048 x 192: {best['full']:.4f} ms "
+          f"(runs {times['full']})")
+    for name in ABLATIONS:
+        print(f"[k6_breakdown] {card}: without {name}: {best[name]:.4f} ms, its share "
+              f"{best['full'] - best[name]:.4f} ms (runs {times[name]})")
     print(json.dumps(best))
     return best
 

@@ -3,7 +3,8 @@
 CPU: unpacking by index gives back every layer's bf16 weights with their
 zero K-padding, and an emulation of mma.sync m16n8k16 over the packed
 fragments, reading its A operands the way csrc/mma_bf16.cuh does,
-computes the forward and upstream products. No kernel runs. Imports
+computes the forward and upstream products; the K6 time breakdown's
+ablations match the sources. No kernel runs. Imports
 neither jax nor the JAX package:
 
     python -m pytest -q tests/test_torch_port_mma_pack.py
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tinynerf_tpu_torch.kernels import k6_breakdown
 from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     check_mma_shapes,
     mma_operands,
@@ -132,6 +134,17 @@ def test_mma_shape_rule(hidden, rgb_hidden, ok):
     else:
         with pytest.raises(ValueError, match="tensor cores"):
             check_mma_shapes(cfg)
+
+
+@pytest.mark.parametrize("name", sorted(k6_breakdown.ABLATIONS))
+def test_k6_breakdown_ablations_match_the_sources(name):
+    """Each ablation of kernels/k6_breakdown.py edits text that occurs
+    exactly once in csrc/, so a variant switches off what it names."""
+    from tinynerf_tpu_torch.kernels import _build
+
+    for fname, old, new in k6_breakdown.ABLATIONS[name]:
+        assert (_build.CSRC / fname).read_text().count(old) == 1, (name, old)
+        assert old != new
 
 
 def test_plain_path_on_the_cpu_counts_no_launch():

@@ -18,6 +18,17 @@
 //                       segments back to front rematerialising each one's
 //                       forward, and writes the gradients.
 //
+// Products. The second template argument, kMma, is a rule of the design:
+// K6 in bf16 sets it and runs the three MLP products (forward, weight
+// gradients, upstream gradients) on the tensor cores through mma.sync
+// (mma_bf16.cuh, weights packed by kernels/fused_nerf_train.py::
+// pack_mma_weights), with the bias gradients as rows of ones of the
+// weight gradients; K4, K7 and K6 in f32 leave it unset and run the
+// CUDA-core products described below, which stay the exactness reference.
+// With kMma the sigma head sums over four lanes a point, the backward
+// reloads the workspace with float4 loads, and K6's first forward walk
+// stores no activations (the reverse walk recomputes them).
+//
 // Design. The forward of a segment (TR rays x `seg` samples, a whole
 // number of 128-point chunks) is K3's: nerf_mlp.cuh's dense_relu over one
 // 128-row shared buffer, 2*hidden threads of 8x8 register blocks. The

@@ -15,6 +15,10 @@ tinynerf_tpu/kernels/fused_nerf_train.py:464-573: the coarse pass
 through K4, sample_pdf and the sorted union in torch, the fine pass
 through K4 or, by the JAX package's routing rule, the streamed K6.
 
+K6 in bf16 runs its MLP products on the tensor cores from the B
+fragments of pack_mma_weights (csrc/mma_bf16.cuh); check_mma_shapes
+raises for widths that walk cannot take.
+
 The kernel writes its gradients in pack_nerf_weights' layout; a second
 small kernel sums the per-block partials in a fixed order and scatters
 them to model.parameters() order through scatter_index (the port of

@@ -71,7 +71,8 @@ Phases, each printed with its result and time:
                 hidden 128 S=512, block 64; bf16 on the tensor cores, f32
                 on the CUDA cores), f32 K6 against K4 on one union, and the
                 flagship fused step against autograd of the eager
-                hierarchical loss (its K6 launch on the tensor cores).
+                hierarchical loss (its K6 launch on the tensor cores); bf16
+                K6's tensor-core leaves and the step's also by their scale.
  20. train    - `tinynerf_tpu_torch.train --model nerf` in process at
                 hidden 128, 500 steps fused (K4 twice a step) and eager;
                 the flagship 20 steps (K4 and K6 once a step each, every K6
@@ -377,12 +378,30 @@ def run(build_render) -> dict:
         nbytes=4 * (N_RAYS * (3 + 3 + 3) + n_par))
 
 
+# bf16 K6's tensor-core products write the gradients of the trunk's and
+# rgb_in's weights and biases. The cosine gate reads a leaf's direction
+# but not its length, so each of those leaves is also held to its scale
+# along the reference: |<g, ref> / <ref, ref> - 1| < K6_SCALE. A bias row
+# counted twice, a k-step of points dropped or a stale partial row added
+# moves it (k6_variants.py builds each; PERF.md, PR 7, has the readings).
+K6_SCALE = 0.01
+MMA_LEAVES = ("layers.", "rgb_in.")
+
+
+def mma_scale_error(names, got, want) -> float:
+    """Largest |<g, w> / <w, w> - 1| over the leaves named in MMA_LEAVES."""
+    return max(abs(float((g * w).sum() / (w * w).sum().clamp_min(1e-30)) - 1)
+               for n, g, w in zip(names, got, want) if any(k in n for k in MMA_LEAVES))
+
+
 def leaf_errors(got, want) -> dict:
     """Worst per-leaf errors of a gradient list against its reference."""
     return {
         "max_abs": max(float((g - w).abs().max()) for g, w in zip(got, want)),
         "max_rel_to_leaf": max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
                                for g, w in zip(got, want)),
+        "max_rel_norm": max(float((g - w).norm() / w.norm().clamp_min(1e-30))
+                            for g, w in zip(got, want)),
         "min_cosine": min(float((g * w).sum() / (g.norm() * w.norm()).clamp_min(1e-30))
                           for g, w in zip(got, want)),
     }
@@ -885,7 +904,8 @@ def run_nerf_train(build_nerf_train) -> list:
         slack = [float((a - b).abs().max()) for a, b in zip(out32[1], want)]
         return out[0].float(), want, slack
 
-    def grad_gates(what, dtype, mlp, loss, grads, ref):
+    def grad_gates(what, dtype, mlp, loss, grads, ref, mma=False):
+        """mma: bf16 K6, whose tensor-core leaves are held to K6_SCALE."""
         want_loss, want, slack = ref
         rel = abs(float(loss) - float(want_loss)) / float(want_loss)
         err = {"loss": float(loss), "loss_rel": rel, **leaf_errors(grads, want)}
@@ -910,9 +930,13 @@ def run_nerf_train(build_nerf_train) -> list:
                   "plain version's own |err| (at most another 3e-4 max|leaf|), both against "
                   "float64 sums")
         else:
+            if mma:
+                err["mma_scale_err"] = mma_scale_error(names, grads, want)
             print(f"[kernel] {what} bf16: {json.dumps(err)}", flush=True)
             check(rel < 1e-3 and err["min_cosine"] > 0.98,
                   f"{what} bf16: loss rel < 1e-3, per-leaf cosine > 0.98")
+            check(not mma or err["mma_scale_err"] < K6_SCALE,
+                  f"{what} bf16: each tensor-core leaf's scale within {K6_SCALE} of 1")
         return err
 
     errs, models, unions = {}, {}, {}
@@ -1033,7 +1057,7 @@ def run_nerf_train(build_nerf_train) -> list:
             ref = reference(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, tgt, z,
                             sample_block=64, dtype=dtype)
             errs["k6", key == dtype, dtype] = grad_gates(f"K6 {label}, block 64", dtype, mlp,
-                                                         loss, grads, ref)
+                                                         loss, grads, ref, mma=True)
     # Same union, same MLP code, the same transmittance and density
     # recurrences: only the order of the gradient partials differs. The JAX
     # package's gates for the pair (tests/test_fused_nerf_stream.py:117-128).
@@ -1061,13 +1085,16 @@ def run_nerf_train(build_nerf_train) -> list:
     want = torch.autograd.grad(ref, list(m.parameters()))
     ref = ref.detach()
     step_err = {"loss_rel": abs(float(metrics["loss_coarse"]) + float(loss_f) - float(ref))
-                / float(ref), "launches": step_launches, **leaf_errors(got, want)}
+                / float(ref), "launches": step_launches, **leaf_errors(got, want),
+                "mma_scale_err": mma_scale_error([n for n, _ in m.named_parameters()], got, want)}
     print(f"[kernel] flagship fused step vs eager autograd, bf16: {json.dumps(step_err)}",
           flush=True)
     check(step_launches == (1, 1, 1),
           "the flagship step runs K4 (coarse) and K6 (fine) once, K6 on the tensor cores")
     check(step_err["loss_rel"] < 1e-3 and step_err["min_cosine"] > 0.98,
           "fused step vs eager: loss rel < 1e-3, per-leaf cosine > 0.98")
+    check(step_err["mma_scale_err"] < K6_SCALE,
+          f"fused step vs eager: each trunk and rgb_in leaf's scale within {K6_SCALE} of 1")
     print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
 
     # 20. the train path: python -m tinynerf_tpu_torch.train --model nerf

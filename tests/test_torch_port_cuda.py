@@ -299,12 +299,19 @@ def _plain(fn, mlp, *args, dtype, **kw):
     return out[0].float(), want, [float((a - b).abs().max()) for a, b in zip(out32[1], want)]
 
 
-def _leaf_check(loss, grads, ref, dtype):
+# bf16 K6: each trunk and rgb_in leaf (the tensor-core products' output)
+# within this of 1 in its scale along the reference, <g, w> / <w, w>;
+# chip_smoke.py's K6_SCALE. The cosine gate does not see a scale.
+K6_SCALE = 0.01
+
+
+def _leaf_check(loss, grads, ref, dtype, names=None):
     """f32: loss rel. error < 1e-5 and every leaf within 3e-4 of its max
     (the JAX package's kernel tolerance, tests/test_fused_nerf_train.py)
     plus the f32 plain version's own error, capped at another 3e-4 of
     the max, against float64 sums; bf16: loss rel. error < 1e-3 and worst
-    leaf cosine > 0.98 (bench.py)."""
+    leaf cosine > 0.98 (bench.py), and with the leaves' `names` (bf16 K6)
+    each trunk and rgb_in leaf's scale within K6_SCALE of 1."""
     want_loss, want, slack = ref
     rel = abs(float(loss) - float(want_loss)) / float(want_loss)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
@@ -316,6 +323,10 @@ def _leaf_check(loss, grads, ref, dtype):
     else:
         assert rel < 1e-3
         assert min(_cosine(g, w) for g, w in zip(grads, want)) > 0.98
+        for n, g, w in zip(names or [], grads, want):
+            if n.startswith(("layers.", "rgb_in.")):
+                scale = float((g * w).sum() / (w * w).sum().clamp_min(1e-30))
+                assert abs(scale - 1) < K6_SCALE, (n, scale)
 
 
 @pytest.mark.cuda
@@ -410,14 +421,15 @@ def test_streamed_train_kernel_matches_plain_on_card(cuda_device, hidden, num_fr
     torch.cuda.synchronize()
     ref = _plain(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, target, z, dtype=dtype, **kw)
     assert fused_nerf_pass_grads_streamed.launches == before + 1
-    _leaf_check(loss, grads, ref, dtype)
+    _leaf_check(loss, grads, ref, dtype, names=[n for n, _ in mlp.named_parameters()])
 
 
 @pytest.mark.cuda
 def test_streamed_train_kernel_on_tensor_cores_at_flagship_on_card(cuda_device):
     """K6 in bf16 at the flagship width (hidden 256, L 10, L_dir 4, S=192,
     block 64, 128 rays) takes the tensor-core walk: under the bf16 gates
-    against its plain version, and two launches are bit-identical."""
+    and the tensor-core leaves' scale against its plain version, and two
+    launches are bit-identical."""
     from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
         fused_nerf_pass_grads_streamed,
         fused_nerf_pass_grads_streamed_plain,
@@ -440,7 +452,7 @@ def test_streamed_train_kernel_on_tensor_cores_at_flagship_on_card(cuda_device):
     assert torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
     ref = _plain(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, target, z,
                  dtype=torch.bfloat16, cfg=cfg, sample_block=64)
-    _leaf_check(l0, g0, ref, torch.bfloat16)
+    _leaf_check(l0, g0, ref, torch.bfloat16, names=[n for n, _ in mlp.named_parameters()])
 
 
 @pytest.mark.cuda

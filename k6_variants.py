@@ -1,0 +1,183 @@
+"""K6's bf16 tensor-core walk built from altered copies of
+tinynerf_tpu_torch/csrc/, on a CUDA card. A development tool: nothing of
+the package imports it.
+
+Each variant is a copy of csrc/ with one or more texts replaced, built by
+nvcc into build/k6_variants/<variant>/ (one nvcc each, all together), and
+run in place of K6 on the flagship fine union (2048 rays x 192 samples,
+block 64, hidden 256, bf16). Two kinds:
+
+- ablations switch one part of the walk off. A part's share of K6's time
+  is the full kernel's time less the variant's. Their gradients are
+  wrong; only their times are read.
+- faults are the wrong gradients this walk's design could compute: a
+  k-step of points dropped from the weight gradients, the bias row
+  counted twice, an earlier launch's partial row added where the first
+  chunk writes. Each is held against the plain version beside the sound
+  kernel, on the flagship union and on its first 257 rays, with
+  chip_smoke.py's bf16 gates: loss rel. < 1e-3, per-leaf cosine > 0.98,
+  and each trunk and rgb_in leaf's scale <g, ref> / <ref, ref> within
+  K6_SCALE of 1. A gate that passes a fault does not see it. The worst
+  leaf's ||err|| / ||ref|| is printed beside them.
+
+    python k6_variants.py          # from the root of the repo
+
+Prints the card's name and power limit, one line per variant, then one
+JSON object of the times and errors.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+from chip_smoke import K6_SCALE, card_line, leaf_errors, mma_scale_error
+
+WALK, MMA = "nerf_train_walk.cuh", "mma_bf16.cuh"
+# name -> [(file, text, replacement)]: each text must occur in the file.
+ABLATIONS = {
+    "weight gradients": [(MMA, "  constexpr int MT = kGradMTiles;\n",
+                          "  constexpr int MT = kGradMTiles;\n  if (true) return;\n")],
+    "partial-row reads": [(MMA, "    if (!first) {", "    if (false) {")],
+    "upstream products": [(MMA, "n_red, W, n_cols / 8", "0, W, n_cols / 8")],
+    "forward products": [(MMA, "mma_rows<MT, NT>(acc, X + in_col, ld, m0, n_in, W",
+                          "mma_rows<MT, NT>(acc, X + in_col, ld, m0, 0, W")],
+    "workspace stores": [(MMA, "    if (store != nullptr)\n", "    if (false)\n")],
+    "workspace reloads": [(WALK, "  const int n4 = n / 4;\n", "  const int n4 = n / 4;\n  return;\n")],
+    "head gradients": [(WALK, "item < RH * 3 + 3 + H + 1; item += nt", "item < 0; item += nt")],
+    "sigma head forward": [(WALK, "for (int k = q; k < H; k += 4)", "for (int k = q; k < 0; k += 4)")],
+    "encoding": [(WALK, "      encode_bands<kTilePoints>(X, ld, H, pts, L, bf16);\n", "")],
+    "per-ray gradients": [(WALK, "        segment_grads(b);\n", "")],
+}
+ABLATIONS["all three products"] = (ABLATIONS["weight gradients"] + ABLATIONS["upstream products"]
+                                   + ABLATIONS["forward products"])
+FAULTS = {
+    "k-step of points dropped": [(MMA, "for (int ks = 0; ks < kMmaChunkPoints / 16; ++ks)",
+                                  "for (int ks = 1; ks < kMmaChunkPoints / 16; ++ks)")],
+    "bias row twice": [(MMA, "(m + 8 * h == in.n ? 1.f : 0.f)", "(m + 8 * h == in.n ? 2.f : 0.f)")],
+    "stale partial row added": [(MMA, "    if (!first) {", "    if (true) {")],
+}
+
+
+def build_variant(name: str, edits: list, out_dir: Path) -> Path:
+    """csrc/ with `edits` applied, compiled to out_dir/<slug>/lib.so."""
+    from tinynerf_tpu_torch.kernels import _build
+
+    d = out_dir / name.replace(" ", "_")
+    if d.exists():
+        shutil.rmtree(d)
+    shutil.copytree(_build.CSRC, d / "csrc")
+    for fname, old, new in edits:
+        path = d / "csrc" / fname
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name!r}: {fname} holds {old!r} {text.count(old)} times")
+        path.write_text(text.replace(old, new))
+    lib = d / "lib.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                           str(d / "csrc" / "fused_nerf_train.cu")], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on variant {name!r}:\n{proc.stderr}")
+    return lib
+
+
+def main() -> dict:
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.kernels import _build
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as fnt
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed,
+        fused_nerf_pass_grads_streamed_plain,
+    )
+    from tinynerf_tpu_torch.models.nerf import NeRF
+
+    if not torch.cuda.is_available():
+        raise SystemExit("k6_variants: needs a CUDA device")
+    card = card_line()
+    print(card, flush=True)
+    variants = {"full": [], **ABLATIONS, **FAULTS}
+    out_dir = _build.BUILD_DIR.parent / "k6_variants"
+    with ThreadPoolExecutor(max_workers=len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(lambda kv: build_variant(*kv, out_dir),
+                                           variants.items())))
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(0)
+    R, S = 2048, 192
+    ro = (torch.randn(R, 3, generator=g) * 0.1 + torch.tensor([0.0, 0.0, 4.0])).to(dev)
+    rd = torch.randn(R, 3, generator=g).to(dev)
+    tgt = torch.rand(R, 3, generator=g).to(dev)
+    z = torch.sort(torch.rand(R, S, generator=g) * 4.0 + 2.0, dim=1).values.to(dev)
+    model = NeRF(Config(model="nerf", hidden=256, bf16=True).nerf_cfg(),
+                 generator=torch.Generator().manual_seed(0), device=dev)
+
+    def k6():
+        return fused_nerf_pass_grads_streamed(model.fine, ro, rd, tgt, z, sample_block=64)
+
+    def ms(iters=3):
+        for _ in range(2):
+            k6()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            k6()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    names = [n for n, _ in model.fine.named_parameters()]
+    inputs = {n: (ro[:n], rd[:n], tgt[:n], z[:n]) for n in (R, 257)}
+    refs = {n: fused_nerf_pass_grads_streamed_plain(model.fine, *x, sample_block=64)
+            for n, x in inputs.items()}
+
+    def errors(n):
+        x = inputs[n]
+        fused_nerf_pass_grads_streamed(model.fine, *x, sample_block=64)  # an earlier launch
+        loss, grads = fused_nerf_pass_grads_streamed(model.fine, *x, sample_block=64)
+        want_loss, want = refs[n]
+        err = {"loss_rel": abs(float(loss) - float(want_loss)) / float(want_loss),
+               **leaf_errors(grads, want), "mma_scale_err": mma_scale_error(names, grads, want)}
+        rel_norm = [float((g - w).norm() / w.norm()) for g, w in zip(grads, want)]
+        err["worst_rel_norm_leaf"] = names[max(range(len(names)), key=rel_norm.__getitem__)]
+        err["gates"] = {"loss": err["loss_rel"] < 1e-3, "cosine": err["min_cosine"] > 0.98,
+                        "scale": err["mma_scale_err"] < K6_SCALE}
+        return err
+
+    times, errs = {}, {}
+    build = _build.build
+    try:
+        for rnd in range(2):  # two rounds over every variant; the minimum time is kept
+            for name, lib in libs.items():
+                _build.load.cache_clear()
+                fnt._lib.cache_clear()
+                _build.build = lambda _name, lib=lib: lib
+                if name not in FAULTS:
+                    times.setdefault(name, []).append(ms())
+                if rnd == 0 and (name == "full" or name in FAULTS):
+                    for n in inputs:
+                        errs[f"{name}, {n} rays"] = errors(n)
+    finally:
+        _build.build = build
+        _build.load.cache_clear()
+        fnt._lib.cache_clear()
+    best = {k: min(v) for k, v in times.items()}
+    print(f"[k6_variants] {card}: K6 bf16 2048 x 192: {best['full']:.4f} ms "
+          f"(runs {times['full']})")
+    for name in ABLATIONS:
+        print(f"[k6_variants] {card}: without {name}: {best[name]:.4f} ms, its share "
+              f"{best['full'] - best[name]:.4f} ms (runs {times[name]})")
+    for name, err in errs.items():
+        print(f"[k6_variants] {name.replace('full', 'sound kernel')} against the plain version: "
+              f"{json.dumps(err)}")
+    result = {"ms": best, "errors": errs}
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

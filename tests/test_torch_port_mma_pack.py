@@ -3,8 +3,8 @@
 CPU: unpacking by index gives back every layer's bf16 weights with their
 zero K-padding, and an emulation of mma.sync m16n8k16 over the packed
 fragments, reading its A operands the way csrc/mma_bf16.cuh does,
-computes the forward and upstream products; the K6 time breakdown's
-ablations match the sources. No kernel runs. Imports
+computes the forward and upstream products and, over the permuted
+points with a bias row of ones, the weight gradient. No kernel runs. Imports
 neither jax nor the JAX package:
 
     python -m pytest -q tests/test_torch_port_mma_pack.py
@@ -14,7 +14,6 @@ import numpy as np
 import pytest
 import torch
 
-from tinynerf_tpu_torch.kernels import k6_breakdown
 from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     check_mma_shapes,
     mma_operands,
@@ -136,15 +135,34 @@ def test_mma_shape_rule(hidden, rgb_hidden, ok):
             check_mma_shapes(cfg)
 
 
-@pytest.mark.parametrize("name", sorted(k6_breakdown.ABLATIONS))
-def test_k6_breakdown_ablations_match_the_sources(name):
-    """Each ablation of kernels/k6_breakdown.py edits text that occurs
-    exactly once in csrc/, so a variant switches off what it names."""
-    from tinynerf_tpu_torch.kernels import _build
-
-    for fname, old, new in k6_breakdown.ABLATIONS[name]:
-        assert (_build.CSRC / fname).read_text().count(old) == 1, (name, old)
-        assert old != new
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs", WIDTHS)
+def test_emulated_weight_gradient_takes_each_point_once_and_one_bias_row(hidden, num_freqs,
+                                                                          dir_freqs):
+    """mma_bf16.cuh's mma_weight_grad: over the 4 k-steps of a 64-point
+    chunk the lanes' permuted points (lane_k) cover every point once, and
+    the input row after the last (a row of ones) gives the bias gradient:
+    part = [In^T G; sum_p G] for each layer's input width."""
+    mlp, cfg = _mlp(hidden, num_freqs, dir_freqs, seed=2)
+    rng = np.random.RandomState(hidden + 7 * num_freqs)
+    seen = sorted(32 * (ks // 2) + 8 * t + 4 * (ks % 2) + j
+                  for ks in range(4) for t in range(4) for j in range(4))
+    assert seen == list(range(64))
+    for n_in in sorted(set(nerf_layer_in_dims(cfg) + [cfg.hidden + cfg.dir_dim])):
+        x = torch.from_numpy(rng.randn(64, n_in)).to(torch.bfloat16).double()
+        gr = torch.from_numpy(rng.randn(64, 8)).to(torch.bfloat16).double()
+        rows = torch.cat([x, torch.ones(64, 1, dtype=torch.float64)], dim=1)  # rows m <= n_in
+        part = torch.zeros(n_in + 1, 8, dtype=torch.float64)
+        for ks in range(4):
+            a_log = torch.zeros(n_in + 1, 16, dtype=torch.float64)
+            b_log = torch.zeros(16, 8, dtype=torch.float64)
+            for t in range(4):
+                p = 32 * (ks // 2) + 8 * t + 4 * (ks % 2)
+                for j, d in enumerate(LOGICAL):
+                    a_log[:, 2 * t + d] = rows[p + j]
+                    b_log[2 * t + d] = gr[p + j]
+            part += a_log @ b_log
+        want = torch.cat([x.t() @ gr, gr.sum(0, keepdim=True)])
+        assert float((part - want).abs().max()) <= 1e-9 * float(want.abs().max()), n_in
 
 
 def test_plain_path_on_the_cpu_counts_no_launch():

@@ -383,7 +383,7 @@ def run(build_render) -> dict:
 # but not its length, so each of those leaves is also held to its scale
 # along the reference: |<g, ref> / <ref, ref> - 1| < K6_SCALE. A bias row
 # counted twice, a k-step of points dropped or a stale partial row added
-# moves it (k6_variants.py builds each; PERF.md, PR 7, has the readings).
+# moves it (k6_variants.py builds each; PERF.md has the readings).
 K6_SCALE = 0.01
 MMA_LEAVES = ("layers.", "rgb_in.")
 

@@ -55,49 +55,60 @@ Phases, each printed with its result and time:
  16. build    - the NeRF train kernels fused_nerf_train.cu (K4 and K6, one
                 library; its nvcc runs beside the other three), with
                 ptxas's registers and spills, and the HMMA instructions of
-                each kernel (cuobjdump -sass): K6's bf16 walk has them, the
-                CUDA-core walk none.
+                each kernel (cuobjdump -sass): the bf16 walk that K4 and K6
+                share has them, the CUDA-core walk none.
  17. kernel   - K4 against its plain version on 2048 rays of a synthetic
-                view, f32 (against float64 sums) and bf16: (a) the
-                flagship coarse pass, S=64, weights and z out, with and
-                without sigma-noise, and the f32 plain version on the CPU
-                against the same float64 sums; (b) a hidden-128 fine pass
-                on a 128-sample union; (c) the hidden-128 coarse pass
-                jittered in the kernel, on the depths it emitted; seed
-                replay.
+                view, f32 (against float64 sums; the CUDA cores) and bf16
+                (the tensor cores, every launch counted; also each
+                tensor-core leaf's scale): (a) the flagship coarse pass,
+                S=64, weights and z out, with and without sigma-noise, and
+                the f32 plain version on the CPU against the same float64
+                sums; (b) a hidden-128 fine pass on a 128-sample union; (c)
+                the hidden-128 coarse pass jittered in the kernel, on the
+                depths it emitted; seed replay.
  18. jitter   - K4's emitted depths: in their bins, uniform, adjacent
                 ray tiles uncorrelated, seed replay.
  19. kernel   - K6 against its plain version (flagship fine S=192 and
                 hidden 128 S=512, block 64; bf16 on the tensor cores, f32
                 on the CUDA cores), f32 K6 against K4 on one union, and the
                 flagship fused step against autograd of the eager
-                hierarchical loss (its K6 launch on the tensor cores); bf16
-                K6's tensor-core leaves and the step's also by their scale.
+                hierarchical loss (its K4 and K6 launches on the tensor
+                cores); bf16 K6's tensor-core leaves and the step's also by
+                their scale.
  20. train    - `tinynerf_tpu_torch.train --model nerf` in process at
-                hidden 128, 500 steps fused (K4 twice a step) and eager;
-                the flagship 20 steps (K4 and K6 once a step each, every K6
-                on the tensor cores), its resume to 25, and `eval` of its
-                checkpoint (K3).
- 21. timing   - one flagship K4 coarse call, one K6 fine call and one
-                flagship train step against their plain versions; K4 on the
-                K6 call's fine union, as a reading.
+                hidden 128, 500 steps fused (K4 twice a step, every launch
+                on the tensor cores) and eager; the flagship 20 steps (K4
+                and K6 once a step each, all on the tensor cores), its
+                resume to 25, and `eval` of its checkpoint (K3).
+ 21. timing   - one flagship K4 coarse call (its seed on the device, as the
+                train step passes it), one K6 fine call and one flagship
+                train step against their plain versions; as readings, K4 on
+                the K6 call's fine union (both on the tensor cores) and K4
+                with an int seed (a blocking host-to-device copy a call).
  22. build    - the block-partials kernel pair fused_partials.cu (K7
                 forward and backward, one library; its nvcc runs beside the
-                other four).
+                other four), with ptxas's registers and spills and the HMMA
+                instructions of each kernel: the bf16 forward and backward
+                walks have them, the CUDA-core walks none.
  23. kernel   - K7 against its plain versions at the flagship width on 2048
                 rays, both shards of the coarse pass (2 x 32, weights out) and
                 of the fine union (2 x 96, block 48, sigma-noise) at world 2,
-                f32 (gradients against float64 sums) and bf16, with random
-                cotangents (g_T and g_w included); two shards combined against
-                K3's composite of the union and their MSE gradient against
-                K6's; same inputs twice bit-identical.
+                f32 (gradients against float64 sums; the CUDA cores) and bf16
+                (the tensor cores, every launch counted), with random
+                cotangents (g_T and g_w included); the gates on one-signed
+                cotangents, the signed ones a reading (bf16: each tensor-core
+                leaf's scale too); two shards combined against K3's composite
+                of the union and their MSE gradient against K6's; same inputs
+                twice bit-identical.
  24. train    - (a) one flagship step of the world-1 sharded block, K7
-                against the eager shard (2 K7 forwards and backwards);
+                against the eager shard (2 K7 forwards and backwards, all on
+                the tensor cores; the tensor-core leaves' scale too);
                 (b) `torch.distributed.run --nproc-per-node 2 -m
                 tinynerf_tpu_torch.train --data-parallel --sample-parallel 2`
-                at the flagship, two ranks sharing the card (gloo), 20 steps,
-                then a resume to 25, then `--data-parallel` alone (K4/K6 per
-                rank), 10 steps: every rank exits 0 with bit-identical
+                at the flagship, two ranks sharing the card (gloo), 20 steps
+                (every K7 launch on the tensor cores), then a resume to 25,
+                then `--data-parallel` alone (K4/K6 per rank, on the tensor
+                cores), 10 steps: every rank exits 0 with bit-identical
                 parameters; (c) one sharded pass on the same depths, world 2
                 (spawned ranks) against world 1.
  25. timing   - the K7 forward and backward at the fine and coarse shards, and
@@ -378,20 +389,22 @@ def run(build_render) -> dict:
         nbytes=4 * (N_RAYS * (3 + 3 + 3) + n_par))
 
 
-# bf16 K6's tensor-core products write the gradients of the trunk's and
-# rgb_in's weights and biases. The cosine gate reads a leaf's direction
-# but not its length, so each of those leaves is also held to its scale
-# along the reference: |<g, ref> / <ref, ref> - 1| < K6_SCALE. A bias row
-# counted twice, a k-step of points dropped or a stale partial row added
-# moves it (k6_variants.py builds each; PERF.md has the readings).
-K6_SCALE = 0.01
-MMA_LEAVES = ("layers.", "rgb_in.")
+# The tensor-core products of every bf16 K4, K6 and K7 launch write the
+# gradients of the trunk's and rgb_in's weights and biases. The cosine gate
+# reads a leaf's direction but not its length, so each of those leaves is
+# also held to its scale along the reference: |<g, ref> / <ref, ref> - 1|
+# < MMA_SCALE. A bias row counted twice, a k-step of points dropped or a
+# stale partial row added moves it (k6_variants.py builds each; PERF.md
+# has the readings).
+MMA_SCALE = 0.01
+TENSOR_CORE_LEAVES = ("layers.", "rgb_in.")
 
 
 def mma_scale_error(names, got, want) -> float:
-    """Largest |<g, w> / <w, w> - 1| over the leaves named in MMA_LEAVES."""
+    """Largest |<g, w> / <w, w> - 1| over the leaves named in
+    TENSOR_CORE_LEAVES."""
     return max(abs(float((g * w).sum() / (w * w).sum().clamp_min(1e-30)) - 1)
-               for n, g, w in zip(names, got, want) if any(k in n for k in MMA_LEAVES))
+               for n, g, w in zip(names, got, want) if any(k in n for k in TENSOR_CORE_LEAVES))
 
 
 def leaf_errors(got, want) -> dict:
@@ -860,7 +873,7 @@ def run_nerf_train(build_nerf_train) -> list:
     print(f"[build] HMMA instructions per kernel (cuobjdump -sass): {json.dumps(hmma)}", flush=True)
     check(any("Lb1E" in fn and n > 0 for fn, n in hmma.items())
           and not any("Lb0E" in fn and n for fn, n in hmma.items()),
-          "K6's bf16 walk (kMma=true) holds HMMA instructions; the CUDA-core walk none")
+          "the bf16 walk of K4 and K6 (kMma=true) holds HMMA instructions; the CUDA-core walk none")
 
     # 17. K4 against its plain version: the flagship coarse pass and a
     #     hidden-128 fine pass, on 2048 rays of a synthetic view.
@@ -904,8 +917,9 @@ def run_nerf_train(build_nerf_train) -> list:
         slack = [float((a - b).abs().max()) for a, b in zip(out32[1], want)]
         return out[0].float(), want, slack
 
-    def grad_gates(what, dtype, mlp, loss, grads, ref, mma=False):
-        """mma: bf16 K6, whose tensor-core leaves are held to K6_SCALE."""
+    def grad_gates(what, dtype, mlp, loss, grads, ref):
+        """bf16 runs on the tensor cores: its tensor-core leaves are also
+        held to MMA_SCALE."""
         want_loss, want, slack = ref
         rel = abs(float(loss) - float(want_loss)) / float(want_loss)
         err = {"loss": float(loss), "loss_rel": rel, **leaf_errors(grads, want)}
@@ -930,14 +944,22 @@ def run_nerf_train(build_nerf_train) -> list:
                   "plain version's own |err| (at most another 3e-4 max|leaf|), both against "
                   "float64 sums")
         else:
-            if mma:
-                err["mma_scale_err"] = mma_scale_error(names, grads, want)
+            err["mma_scale_err"] = mma_scale_error(names, grads, want)
             print(f"[kernel] {what} bf16: {json.dumps(err)}", flush=True)
             check(rel < 1e-3 and err["min_cosine"] > 0.98,
                   f"{what} bf16: loss rel < 1e-3, per-leaf cosine > 0.98")
-            check(not mma or err["mma_scale_err"] < K6_SCALE,
-                  f"{what} bf16: each tensor-core leaf's scale within {K6_SCALE} of 1")
+            check(err["mma_scale_err"] < MMA_SCALE,
+                  f"{what} bf16: each tensor-core leaf's scale within {MMA_SCALE} of 1")
         return err
+
+    def through_k4(*args, dtype, **kw):
+        """K4 once, checking that it took the tensor-core walk in bf16 only."""
+        mma = k4.mma_launches
+        out = k4(*args, **kw)
+        torch.cuda.synchronize()
+        check(k4.mma_launches - mma == int(dtype == torch.bfloat16),
+              "K4: the tensor-core walk in bf16, the CUDA cores in f32")
+        return out
 
     errs, models, unions = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -945,8 +967,7 @@ def run_nerf_train(build_nerf_train) -> list:
         for sn in (None, noise):
             what = "K4 (a) flagship coarse S=64" + (" + sigma-noise" if sn is not None else "")
             kw = dict(n_samples=64, randomized=False, emit_sampling=True, sigma_noise=sn)
-            loss, grads, w, zs = k4(m.coarse, ro, rd, tgt, 0, **kw)
-            torch.cuda.synchronize()
+            loss, grads, w, zs = through_k4(m.coarse, ro, rd, tgt, 0, dtype=dtype, **kw)
             ref = reference(fused_nerf_pass_grads_plain, m.coarse, ro, rd, tgt, 0, dtype=dtype,
                             **kw)
             _, _, want_w, want_z = fused_nerf_pass_grads_plain(m.coarse, ro, rd, tgt, 0, **kw)
@@ -977,16 +998,15 @@ def run_nerf_train(build_nerf_train) -> list:
             _, w = fused_nerf_render_rays_plain(m.coarse, ro, rd, n_samples=64, return_weights=True)
         unions[128, dtype] = z = union_depths(w, 64, 2.0, 6.0)
         unions[512, dtype] = union_depths(w, 448, 2.0, 6.0)
-        loss, grads = k4(m.fine, ro, rd, tgt, 0, z, randomized=False)
-        torch.cuda.synchronize()
+        loss, grads = through_k4(m.fine, ro, rd, tgt, 0, z, randomized=False, dtype=dtype)
         ref = reference(fused_nerf_pass_grads_plain, m.fine, ro, rd, tgt, 0, z, randomized=False,
                         dtype=dtype)
         errs["b", dtype] = grad_gates("K4 (b) hidden-128 fine pass, S=128 union", dtype, m.fine,
                                       loss, grads, ref)
         # (c) the hidden-128 train's coarse pass: jittered in the kernel,
         # held against the plain version on the depths the kernel emitted.
-        loss, grads, _, zj = k4(m.coarse, ro, rd, tgt, 7, n_samples=64, emit_sampling=True)
-        torch.cuda.synchronize()
+        loss, grads, _, zj = through_k4(m.coarse, ro, rd, tgt, 7, n_samples=64,
+                                        emit_sampling=True, dtype=dtype)
         ref = reference(fused_nerf_pass_grads_plain, m.coarse, ro, rd, tgt, 0, zj,
                         randomized=False, dtype=dtype)
         errs["c", dtype] = grad_gates("K4 (c) hidden-128 coarse pass, S=64 jittered in the kernel",
@@ -999,8 +1019,8 @@ def run_nerf_train(build_nerf_train) -> list:
     same = (runs[0][0] == runs[1][0] and torch.equal(runs[0][2], runs[1][2])
             and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])))
     differ = runs[0][0] != runs[2][0] and not torch.equal(runs[0][2], runs[2][2])
-    print(f"[kernel] K4 jittered: seed 11 twice bit-identical {same}, seed 12 differs {differ}",
-          flush=True)
+    print(f"[kernel] K4 jittered, bf16 (tensor cores): seed 11 twice bit-identical {same}, seed 12 "
+          f"differs {differ}", flush=True)
     check(same and differ, "K4 deterministic per seed, different across seeds")
     print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
 
@@ -1057,7 +1077,7 @@ def run_nerf_train(build_nerf_train) -> list:
             ref = reference(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, tgt, z,
                             sample_block=64, dtype=dtype)
             errs["k6", key == dtype, dtype] = grad_gates(f"K6 {label}, block 64", dtype, mlp,
-                                                         loss, grads, ref, mma=True)
+                                                         loss, grads, ref)
     # Same union, same MLP code, the same transmittance and density
     # recurrences: only the order of the gradient partials differs. The JAX
     # package's gates for the pair (tests/test_fused_nerf_stream.py:117-128).
@@ -1076,9 +1096,9 @@ def run_nerf_train(build_nerf_train) -> list:
     m = models[torch.bfloat16]
     settings = Config(model="nerf", hidden=256, n_fine=128).train_settings()
     grad_fn = make_fused_nerf_grad_fn(settings, m.cfg, n_fine=128, randomized=False)
-    k4.launches = k6.launches = k6.mma_launches = 0
+    k4.launches = k4.mma_launches = k6.launches = k6.mma_launches = 0
     loss_f, metrics = grad_fn(m, ro, rd, tgt, torch.Generator(device=dev))
-    step_launches = (k4.launches, k6.launches, k6.mma_launches)
+    step_launches = (k4.launches, k4.mma_launches, k6.launches, k6.mma_launches)
     got = [p.grad.clone() for p in m.parameters()]
     comp_c, comp_f = render_rays_hierarchical(m, ro, rd, n_coarse=64, n_fine=128, cfg=m.cfg)
     ref = torch.mean((comp_c - tgt) ** 2) + torch.mean((comp_f - tgt) ** 2)
@@ -1089,12 +1109,12 @@ def run_nerf_train(build_nerf_train) -> list:
                 "mma_scale_err": mma_scale_error([n for n, _ in m.named_parameters()], got, want)}
     print(f"[kernel] flagship fused step vs eager autograd, bf16: {json.dumps(step_err)}",
           flush=True)
-    check(step_launches == (1, 1, 1),
-          "the flagship step runs K4 (coarse) and K6 (fine) once, K6 on the tensor cores")
+    check(step_launches == (1, 1, 1, 1),
+          "the flagship step runs K4 (coarse) and K6 (fine) once, both on the tensor cores")
     check(step_err["loss_rel"] < 1e-3 and step_err["min_cosine"] > 0.98,
           "fused step vs eager: loss rel < 1e-3, per-leaf cosine > 0.98")
-    check(step_err["mma_scale_err"] < K6_SCALE,
-          f"fused step vs eager: each trunk and rgb_in leaf's scale within {K6_SCALE} of 1")
+    check(step_err["mma_scale_err"] < MMA_SCALE,
+          f"fused step vs eager: each trunk and rgb_in leaf's scale within {MMA_SCALE} of 1")
     print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
 
     # 20. the train path: python -m tinynerf_tpu_torch.train --model nerf
@@ -1108,19 +1128,23 @@ def run_nerf_train(build_nerf_train) -> list:
                      metrics_path=os.path.join(OUT_DIR, f"nerf_{name}.jsonl"), fused_train=fused)
         if os.path.exists(cfg.metrics_path):
             os.unlink(cfg.metrics_path)
-        k4.launches = k6.launches = fused_nerf_render_rays.launches = 0
+        k4.launches = k4.mma_launches = k6.launches = fused_nerf_render_rays.launches = 0
         res = train_mod.main(cfg)
         psnrs = logged_psnrs(cfg.metrics_path)
-        runs[name] = {"k4": k4.launches, "k6": k6.launches, "k3": fused_nerf_render_rays.launches,
+        runs[name] = {"k4": k4.launches, "k4_mma": k4.mma_launches, "k6": k6.launches,
+                      "k3": fused_nerf_render_rays.launches,
                       "rise": psnrs[-1] - psnrs[0], "heldout": res["eval"]["psnr_mean"],
                       "rays_per_sec": res["rays_per_sec"]}
-        print(f"[train] nerf hidden 128 {name}: (K4, K6, K3) launches ({k4.launches}, "
-              f"{k6.launches}, {fused_nerf_render_rays.launches}), train PSNR {psnrs[0]:.2f} -> "
+        print(f"[train] nerf hidden 128 {name}: (K4, K4 on the tensor cores, K6, K3) launches "
+              f"({k4.launches}, {k4.mma_launches}, {k6.launches}, "
+              f"{fused_nerf_render_rays.launches}), train PSNR {psnrs[0]:.2f} -> "
               f"{psnrs[-1]:.2f} dB, held-out {res['eval']['psnr_mean']:.2f} dB, "
               f"{res['rays_per_sec']:,.0f} rays/s", flush=True)
         check(runs[name]["rise"] >= 2.0, f"{name} nerf train PSNR rises >= 2 dB")
-    check(runs["fused"]["k4"] == 2 * NERF_TRAIN_ITERS and runs["fused"]["k6"] == 0,
-          "fused nerf run: K4 twice per step (coarse and fine), no K6")
+    check(runs["fused"]["k4"] == runs["fused"]["k4_mma"] == 2 * NERF_TRAIN_ITERS
+          and runs["fused"]["k6"] == 0,
+          "fused nerf run: K4 twice per step (coarse and fine), every launch on the tensor cores; "
+          "no K6")
     check(runs["eager"]["k4"] == 0 and runs["fused"]["k3"] > 0, "eager run: no K4; K3 renders")
     gap = abs(runs["fused"]["heldout"] - runs["eager"]["heldout"])
     print(f"[train] nerf held-out PSNR fused vs eager: {gap:.3f} dB apart", flush=True)
@@ -1131,16 +1155,16 @@ def run_nerf_train(build_nerf_train) -> list:
                   metrics_path=os.path.join(OUT_DIR, "flagship.jsonl"))
     if os.path.exists(flag.metrics_path):
         os.unlink(flag.metrics_path)
-    k4.launches = k6.launches = k6.mma_launches = 0
+    k4.launches = k4.mma_launches = k6.launches = k6.mma_launches = 0
     res = train_mod.main(flag)
-    flag_launches = (k4.launches, k6.launches, k6.mma_launches)
+    flag_launches = (k4.launches, k4.mma_launches, k6.launches, k6.mma_launches)
     losses = [r["loss"] for r in map(json.loads, open(flag.metrics_path)) if "loss" in r]
     runs["flagship"] = {"rays_per_sec": res["rays_per_sec"]}
-    print(f"[train] flagship {FLAGSHIP_ITERS} steps: (K4, K6, K6 on the tensor cores) launches "
-          f"{flag_launches}, losses "
+    print(f"[train] flagship {FLAGSHIP_ITERS} steps: (K4, K4 on the tensor cores, K6, K6 on the "
+          f"tensor cores) launches {flag_launches}, losses "
           f"{losses}, {res['rays_per_sec']:,.0f} rays/s", flush=True)
-    check(flag_launches == (FLAGSHIP_ITERS,) * 3,
-          "flagship: K4 (coarse) and K6 (fine) once per step, every K6 on the tensor cores")
+    check(flag_launches == (FLAGSHIP_ITERS,) * 4,
+          "flagship: K4 (coarse) and K6 (fine) once per step, every launch on the tensor cores")
     check(all(math.isfinite(x) for x in losses), "flagship losses finite")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -1160,8 +1184,11 @@ def run_nerf_train(build_nerf_train) -> list:
     # 21. timing: plain, kernel, kernel, plain (bf16, flagship)
     t0 = time.time()
     m, z = models[torch.bfloat16], unions[torch.bfloat16]
+    # The train step hands K4 its seed on the device; an int seed costs a
+    # blocking host-to-device copy, a stream sync, each call.
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)
     cases = {
-        "k4": {"kernel": lambda: k4(m.coarse, ro, rd, tgt, 3, n_samples=64, emit_sampling=True),
+        "k4": {"kernel": lambda: k4(m.coarse, ro, rd, tgt, seed, n_samples=64, emit_sampling=True),
                "plain": lambda: fused_nerf_pass_grads_plain(m.coarse, ro, rd, tgt, 3, n_samples=64,
                                                             emit_sampling=True)},
         "k6": {"kernel": lambda: k6(m.fine, ro, rd, tgt, z, sample_block=64),
@@ -1181,19 +1208,24 @@ def run_nerf_train(build_nerf_train) -> list:
     counter = iter(range(10**6))
     cases["step"] = {k: (lambda f=f: f(step_model, step_opt, 0, next(counter), rays_o_all,
                                        rays_d_all, pixels)) for k, f in step_fns.items()}
-    # K4 on the same fine union (one segment of 192 samples): a reading
-    # beside K6 for the fine pass's route (ROADMAP R1a); the route stays.
-    cases["k4_union"] = {"kernel": lambda: k4(m.fine, ro, rd, tgt, 0, z, randomized=False)}
+    # K4 on the same fine union (one segment of 192 samples), both on the
+    # tensor cores: a reading beside K6 for the fine pass's route (ROADMAP
+    # R1a); the route is the JAX package's and stays.
+    cases["k4_union"] = {"kernel": lambda: k4(m.fine, ro, rd, tgt, seed, z, randomized=False)}
+    # K4 with an int seed, as a reading: the price of that sync.
+    cases["k4_int_seed"] = {"kernel": lambda: k4(m.coarse, ro, rd, tgt, 3, n_samples=64,
+                                                 emit_sampling=True)}
     times = {}
     for what, fns in cases.items():
         for name in ("plain", "kernel", "kernel", "plain"):
             if name in fns:
                 times.setdefault((what, name), []).append(cuda_ms(fns[name], iters=3))
     ms = {k: min(v) for k, v in times.items()}
-    print(f"[timing] {card}: bf16, {N_RAYS_TRAIN} rays; flagship K4 coarse (S=64, weights and z "
-          f"out) {ms['k4', 'kernel']:.4f} ms, plain {ms['k4', 'plain']:.4f} ms; K6 fine (S=192, "
-          f"block 64, tensor cores) {ms['k6', 'kernel']:.4f} ms, plain {ms['k6', 'plain']:.4f} ms; "
-          f"K4 on the same union (reading only) {ms['k4_union', 'kernel']:.4f} ms; flagship train "
+    print(f"[timing] {card}: bf16 (tensor cores), {N_RAYS_TRAIN} rays; flagship K4 coarse (S=64, "
+          f"weights and z out) {ms['k4', 'kernel']:.4f} ms, plain {ms['k4', 'plain']:.4f} ms; K6 "
+          f"fine (S=192, block 64) {ms['k6', 'kernel']:.4f} ms, plain {ms['k6', 'plain']:.4f} ms; "
+          f"K4 on the same union (reading only) {ms['k4_union', 'kernel']:.4f} ms; K4 coarse with an "
+          f"int seed (reading only) {ms['k4_int_seed', 'kernel']:.4f} ms; flagship train "
           f"step fused {ms['step', 'kernel']:.4f} ms, eager {ms['step', 'plain']:.4f} ms "
           f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
     print(f"[timing] {card}: nerf hidden 128 train loop, {NERF_TRAIN_ITERS} steps of "
@@ -1334,6 +1366,13 @@ def run_partials(build_partials) -> list:
           "beside the other four)", flush=True)
     print("\n".join(line for line in log.splitlines()
                     if "registers" in line or "spill" in line or "stack frame" in line), flush=True)
+    hmma = sass_counts(lib, "HMMA")
+    print(f"[build] HMMA instructions per kernel (cuobjdump -sass): {json.dumps(hmma)}", flush=True)
+    mma_walks = [n for fn, n in hmma.items() if "nerf_walk_kernel" in fn and "Lb1E" in fn]
+    check(len(mma_walks) == 2 and all(mma_walks)
+          and not any("Lb0E" in fn and n for fn, n in hmma.items()),
+          "K7's bf16 forward and backward walks (kMma=true) hold HMMA instructions; the CUDA-core "
+          "walks none")
 
     # 23. K7 against its plain versions: both shards of the flagship's coarse
     #     (2 x 32, weights out) and fine (2 x 96, block 48, sigma-noise)
@@ -1433,11 +1472,17 @@ def run_partials(build_partials) -> list:
                 plain_kw = dict(sample_block=sb, emit_weights=emit)
 
                 def through_kernel(cot, g_w):
+                    """One K7 forward and backward; both on the tensor cores in
+                    bf16 only."""
+                    mma = (fwd.mma_launches, bwd.mma_launches)
                     partials, w = fn(mlp, ro, rd, z, deltas, noise)
                     outs = [partials[k] for k in PARTIAL_KEYS] + ([w] if emit else [])
                     cots = [cot[k] for k in PARTIAL_KEYS] + ([g_w] if emit else [])
                     grads = torch.autograd.grad(outs, list(mlp.parameters()), grad_outputs=cots)
                     torch.cuda.synchronize()
+                    check((fwd.mma_launches - mma[0], bwd.mma_launches - mma[1])
+                          == (int(dtype == bf16),) * 2,
+                          f"{what}: the tensor-core walk in bf16, the CUDA cores in f32")
                     return ({k: v.detach() for k, v in partials.items()},
                             w.detach() if emit else None, grads)
 
@@ -1467,12 +1512,32 @@ def run_partials(build_partials) -> list:
                 check(all(bool(torch.isfinite(g).all()) for g in grads), f"{what}: grads finite")
                 got_l, scale = inner(cot, g_w, partials, w)
                 if dtype == bf16:
+                    # The tensor-core walk. With random-sign cotangents a
+                    # leaf's sum cancels, so its scale is ill-conditioned: a
+                    # reading. The gates: one-signed cotangents.
                     want_l, ref = reference(mlp, cot, g_w)
-                    be = {"inner_rel": abs(got_l - want_l) / scale, **leaf_errors(grads, ref)}
-                    print(f"[kernel] {what} backward: {json.dumps(be)}", flush=True)
-                    check(be["inner_rel"] < 1e-3 and be["min_cosine"] > 0.98,
+                    signed = {"inner_rel": abs(got_l - want_l) / scale, **leaf_errors(grads, ref),
+                              "mma_scale_err": mma_scale_error(names, grads, ref)}
+                    print(f"[kernel] {what} backward, signed cotangents (the scale a reading): "
+                          f"{json.dumps(signed)}", flush=True)
+                    check(signed["inner_rel"] < 1e-3 and signed["min_cosine"] > 0.98,
                           f"{what} backward: inner product rel < 1e-3, per-leaf cosine > 0.98")
-                    errs[name, b, dtype] = {"fwd_max_abs": fe_max, "bwd_max_abs": be["max_abs"]}
+                    cot, g_w = cotangents(S, 17 + b, signed=False)
+                    g_w = g_w if emit else None
+                    partials, w, grads = through_kernel(cot, g_w)
+                    got_l, scale = inner(cot, g_w, partials, w)
+                    want_l, ref = reference(mlp, cot, g_w)
+                    be = {"inner_rel": abs(got_l - want_l) / scale, **leaf_errors(grads, ref),
+                          "mma_scale_err": mma_scale_error(names, grads, ref)}
+                    print(f"[kernel] {what} backward, one-signed cotangents: {json.dumps(be)}",
+                          flush=True)
+                    check(be["inner_rel"] < 1e-3 and be["min_cosine"] > 0.98
+                          and be["mma_scale_err"] < MMA_SCALE,
+                          f"{what} backward: inner product rel < 1e-3, per-leaf cosine > 0.98, "
+                          f"each tensor-core leaf's scale within {MMA_SCALE} of 1")
+                    errs[name, b, dtype] = {"fwd_max_abs": fe_max, "bwd_max_abs": be["max_abs"],
+                                            "signed_scale_err": signed["mma_scale_err"],
+                                            "scale_err": be["mma_scale_err"]}
                     continue
                 # f32. With cotangents of random sign, every leaf is a sum of
                 # terms of both signs whose max grows only like sqrt(points):
@@ -1568,6 +1633,7 @@ def run_partials(build_partials) -> list:
     fn = make_fused_block_partials_fn(mlp.cfg, emit_weights=True, sample_block=48)
     cot, g_w = cotangents(96, 9)
     runs = []
+    mma = (fwd.mma_launches, bwd.mma_launches)
     for _ in range(2):
         partials, w = fn(mlp, ro, rd, *shard("fine", 1))
         outs = [partials[k] for k in PARTIAL_KEYS] + [w]
@@ -1575,8 +1641,9 @@ def run_partials(build_partials) -> list:
                                     grad_outputs=[cot[k] for k in PARTIAL_KEYS] + [g_w])
         runs.append([o.detach().clone() for o in outs] + [g.clone() for g in grads])
     same = all(torch.equal(a, b) for a, b in zip(*runs))
-    print(f"[kernel] K7 same inputs twice: bit-identical {same}", flush=True)
-    check(same, "K7 forward and backward bit-identical on the same inputs")
+    print(f"[kernel] K7 bf16 (tensor cores) same inputs twice: bit-identical {same}", flush=True)
+    check(same and (fwd.mma_launches - mma[0], bwd.mma_launches - mma[1]) == (2, 2),
+          "K7 forward and backward on the tensor cores, bit-identical on the same inputs")
     print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
 
     # 24. train. (a) world 1 in process: one flagship step of the sharded
@@ -1592,18 +1659,24 @@ def run_partials(build_partials) -> list:
         opt = make_optimizer(model.parameters(), settings.lr)
         block = make_sharded_train_block(settings, 1, make_mesh(), nerf_cfg=model.cfg, n_fine=128,
                                          fused_kernels=fused)
-        fwd.launches = bwd.launches = 0
+        fwd.launches = fwd.mma_launches = bwd.launches = bwd.mma_launches = 0
         metrics = block(model, opt, 0, 0, rays_o_all, rays_d_all, pixels)
         step[fused] = (float(metrics["loss"][0] + metrics["loss_coarse"][0]),
-                       [p.grad.clone() for p in model.parameters()], (fwd.launches, bwd.launches))
+                       [p.grad.clone() for p in model.parameters()],
+                       (fwd.launches, fwd.mma_launches, bwd.launches, bwd.mma_launches))
     a_err = {"loss_rel": abs(step[True][0] - step[False][0]) / step[False][0],
-             "launches": step[True][2], **leaf_errors(step[True][1], step[False][1])}
+             "launches": step[True][2], **leaf_errors(step[True][1], step[False][1]),
+             "mma_scale_err": mma_scale_error([n for n, _ in model.named_parameters()],
+                                              step[True][1], step[False][1])}
     print(f"[train] (a) world-1 sharded step, K7 vs the eager shard, bf16: {json.dumps(a_err)}",
           flush=True)
-    check(step[True][2] == (2, 2) and step[False][2] == (0, 0),
-          "the K7 step runs 2 forwards and 2 backwards, the eager step none")
-    check(a_err["loss_rel"] < 1e-3 and a_err["min_cosine"] > 0.98,
-          "K7 step vs eager step: loss rel < 1e-3, per-leaf cosine > 0.98")
+    check(step[True][2] == (2, 2, 2, 2) and step[False][2] == (0, 0, 0, 0),
+          "the K7 step runs 2 forwards and 2 backwards, all on the tensor cores; the eager step "
+          "none")
+    check(a_err["loss_rel"] < 1e-3 and a_err["min_cosine"] > 0.98
+          and a_err["mma_scale_err"] < MMA_SCALE,
+          "K7 step vs eager step: loss rel < 1e-3, per-leaf cosine > 0.98, each trunk and rgb_in "
+          f"leaf's scale within {MMA_SCALE} of 1")
 
     # (b) two ranks on the one card through the trainer: the main path.
     sp_metrics = os.path.join(OUT_DIR, "sp2.jsonl")
@@ -1611,25 +1684,28 @@ def run_partials(build_partials) -> list:
         os.unlink(sp_metrics)
     sp = torchrun_train("sp2", "--sample-parallel", "2", "--iters", str(SP_ITERS), "--no-resume",
                         "--metrics-path", sp_metrics)
-    main_launches = [(r.get("fused_block_partials_fwd", 0), r.get("fused_block_partials_bwd", 0))
-                     for r in sp["launches"]]
+    k7_names = ("fused_block_partials_fwd", "fused_block_partials_fwd.mma_launches",
+                "fused_block_partials_bwd", "fused_block_partials_bwd.mma_launches")
+    main_launches = [tuple(r.get(k, 0) for k in k7_names) for r in sp["launches"]]
     losses = [r["loss"] for r in map(json.loads, open(sp_metrics)) if "loss" in r]
-    print(f"[train] (b) sample-parallel 2 ranks, {SP_ITERS} steps: K7 (forward, backward) "
-          f"launches per rank {main_launches}, losses {losses}", flush=True)
-    check(all(x == (2 * SP_ITERS, 2 * SP_ITERS) for x in main_launches),
-          "each rank's K7 ran 2 forwards and 2 backwards per step")
+    print(f"[train] (b) sample-parallel 2 ranks, {SP_ITERS} steps: K7 (forward, on the tensor "
+          f"cores, backward, on the tensor cores) launches per rank {main_launches}, losses "
+          f"{losses}", flush=True)
+    check(all(x == (2 * SP_ITERS,) * 4 for x in main_launches),
+          "each rank's K7 ran 2 forwards and 2 backwards per step, all on the tensor cores")
     check(all(math.isfinite(x) for x in losses), "sample-parallel losses finite")
     check("[distributed] process 0/2, backend gloo" in sp["out"],
           "two ranks sharing the card take gloo")
     resumed = torchrun_train("sp2", "--sample-parallel", "2", "--iters", str(SP_ITERS + 5))
     check(f"from step {SP_ITERS}" in resumed["out"], f"resume prints from step {SP_ITERS}")
     dp = torchrun_train("dp2", "--iters", str(DP_ITERS), "--no-resume")
-    dp_launches = [(r.get("fused_nerf_pass_grads", 0), r.get("fused_nerf_pass_grads_streamed", 0))
-                   for r in dp["launches"]]
-    print(f"[train] (b) data-parallel 2 ranks, {DP_ITERS} steps: (K4, K6) launches per rank "
-          f"{dp_launches}", flush=True)
-    check(all(x == (DP_ITERS, DP_ITERS) for x in dp_launches),
-          "data-parallel: K4 and K6 once per step on each rank")
+    k46_names = ("fused_nerf_pass_grads", "fused_nerf_pass_grads.mma_launches",
+                 "fused_nerf_pass_grads_streamed", "fused_nerf_pass_grads_streamed.mma_launches")
+    dp_launches = [tuple(r.get(k, 0) for k in k46_names) for r in dp["launches"]]
+    print(f"[train] (b) data-parallel 2 ranks, {DP_ITERS} steps: (K4, on the tensor cores, K6, on "
+          f"the tensor cores) launches per rank {dp_launches}", flush=True)
+    check(all(x == (DP_ITERS,) * 4 for x in dp_launches),
+          "data-parallel: K4 and K6 once per step on each rank, on the tensor cores")
 
     # (c) one sharded pass on the same z, world 2 (spawned ranks) against
     #     world 1 (in process): the gates of phase 23's cross-checks.
@@ -1670,15 +1746,16 @@ def run_partials(build_partials) -> list:
         cot, g_w = cotangents(z.shape[1], 11)
         g_w = g_w if emit else None
         g_ray = torch.cat([cot["C"], torch.stack([cot["A"], cot["T"], cot["D"]], dim=1)], dim=1)
-        _, tin, _, w_fwd = fwd(mlp, m.cfg, ro, rd, z, deltas, noise, sb, tile, emit)
+        _, tin, _, w_fwd, w_mma = fwd(mlp, m.cfg, ro, rd, z, deltas, noise, sb, tile, emit)
         args = (ro, rd, z, deltas, noise)
         cases[name, "fwd"] = {
             "kernel": lambda fn=fn, mlp=mlp, args=args: fn(mlp, *args),
             "plain": lambda mlp=mlp, args=args, sb=sb, emit=emit: block_partials_plain(
                 mlp, *args, sample_block=sb, emit_weights=emit)}
         cases[name, "bwd"] = {
-            "kernel": lambda mlp=mlp, args=args, tin=tin, g_ray=g_ray, g_w=g_w, w_fwd=w_fwd, sb=sb,
-            tile=tile: bwd(mlp, m.cfg, *args, tin, g_ray, g_w, w_fwd, sb, tile),
+            "kernel": lambda mlp=mlp, args=args, tin=tin, g_ray=g_ray, g_w=g_w, w_fwd=w_fwd,
+            w_mma=w_mma, sb=sb, tile=tile: bwd(mlp, m.cfg, *args, tin, g_ray, g_w, w_fwd, w_mma,
+                                               sb, tile),
             "plain": lambda mlp=mlp, args=args, cot=cot, g_w=g_w, sb=sb: block_partials_grads_plain(
                 mlp, *args, cot, g_w, sample_block=sb)}
     counter = iter(range(10**6))
@@ -1701,7 +1778,7 @@ def run_partials(build_partials) -> list:
                     t = cuda_ms(fns[name], iters=5)
                 times.setdefault((*key, name), []).append(t)
     ms = {k: min(v) for k, v in times.items()}
-    print(f"[timing] {card}: bf16, {R} rays; K7 forward fine shard (S=96, block 48) "
+    print(f"[timing] {card}: bf16 (tensor cores), {R} rays; K7 forward fine shard (S=96, block 48) "
           f"{ms['fine', 'fwd', 'kernel']:.4f} ms, plain {ms['fine', 'fwd', 'plain']:.4f} ms; "
           f"coarse shard (S=32, weights) {ms['coarse', 'fwd', 'kernel']:.4f} ms, plain "
           f"{ms['coarse', 'fwd', 'plain']:.4f} ms; K7 backward fine shard "

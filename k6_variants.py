@@ -1,24 +1,27 @@
-"""K6's bf16 tensor-core walk built from altered copies of
-tinynerf_tpu_torch/csrc/, on a CUDA card. A development tool: nothing of
-the package imports it.
+"""The bf16 tensor-core training walk of K6 and K4 built from altered
+copies of tinynerf_tpu_torch/csrc/, on a CUDA card. A development tool:
+nothing of the package imports it.
 
 Each variant is a copy of csrc/ with one or more texts replaced, built by
 nvcc into build/k6_variants/<variant>/ (one nvcc each, all together), and
 run in place of K6 on the flagship fine union (2048 rays x 192 samples,
-block 64, hidden 256, bf16). Two kinds:
+block 64, hidden 256, bf16) and of K4 on the flagship coarse pass (2048
+rays x 64 samples jittered in the kernel, weights and depths out, as
+chip_smoke.py phase 21 times it). Two kinds:
 
-- ablations switch one part of the walk off. A part's share of K6's time
-  is the full kernel's time less the variant's. Their gradients are
-  wrong; only their times are read.
+- ablations switch one part of the walk off. A part's share of a
+  kernel's time is the full kernel's time less the variant's. Their
+  gradients are wrong; only their times are read.
 - faults are the wrong gradients this walk's design could compute: a
   k-step of points dropped from the weight gradients, the bias row
   counted twice, an earlier launch's partial row added where the first
   chunk writes. Each is held against the plain version beside the sound
-  kernel, on the flagship union and on its first 257 rays, with
-  chip_smoke.py's bf16 gates: loss rel. < 1e-3, per-leaf cosine > 0.98,
-  and each trunk and rgb_in leaf's scale <g, ref> / <ref, ref> within
-  K6_SCALE of 1. A gate that passes a fault does not see it. The worst
-  leaf's ||err|| / ||ref|| is printed beside them.
+  kernel (K6 on the flagship union and on its first 257 rays, K4 on the
+  2048 rays' grid depths) with chip_smoke.py's bf16 gates: loss rel. <
+  1e-3, per-leaf cosine > 0.98, and each trunk and rgb_in leaf's scale
+  <g, ref> / <ref, ref> within MMA_SCALE of 1. A gate that passes a fault
+  does not see it. The worst leaf's ||err|| / ||ref|| is printed beside
+  them.
 
     python k6_variants.py          # from the root of the repo
 
@@ -36,7 +39,7 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import K6_SCALE, card_line, leaf_errors, mma_scale_error
+from chip_smoke import MMA_SCALE, card_line, leaf_errors, mma_scale_error
 
 WALK, MMA = "nerf_train_walk.cuh", "mma_bf16.cuh"
 # name -> [(file, text, replacement)]: each text must occur in the file.
@@ -94,6 +97,10 @@ def main() -> dict:
         fused_nerf_pass_grads_streamed,
         fused_nerf_pass_grads_streamed_plain,
     )
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads,
+        fused_nerf_pass_grads_plain,
+    )
     from tinynerf_tpu_torch.models.nerf import NeRF
 
     if not torch.cuda.is_available():
@@ -116,36 +123,51 @@ def main() -> dict:
     model = NeRF(Config(model="nerf", hidden=256, bf16=True).nerf_cfg(),
                  generator=torch.Generator().manual_seed(0), device=dev)
 
-    def k6():
-        return fused_nerf_pass_grads_streamed(model.fine, ro, rd, tgt, z, sample_block=64)
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)  # on the device, as the train step's
+    timed = {
+        "K6": lambda: fused_nerf_pass_grads_streamed(model.fine, ro, rd, tgt, z, sample_block=64),
+        "K4": lambda: fused_nerf_pass_grads(model.coarse, ro, rd, tgt, seed, n_samples=64,
+                                            emit_sampling=True),
+    }
 
-    def ms(iters=3):
+    def ms(fn, iters=3):
         for _ in range(2):
-            k6()
+            fn()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            k6()
+            fn()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
     names = [n for n, _ in model.fine.named_parameters()]
-    inputs = {n: (ro[:n], rd[:n], tgt[:n], z[:n]) for n in (R, 257)}
-    refs = {n: fused_nerf_pass_grads_streamed_plain(model.fine, *x, sample_block=64)
-            for n, x in inputs.items()}
+    # (kernel, its plain version) on each case's inputs
+    grid = dict(n_samples=64, randomized=False)
+    cases = {
+        **{f"K6, {n} rays": (
+            lambda n=n: fused_nerf_pass_grads_streamed(model.fine, ro[:n], rd[:n], tgt[:n], z[:n],
+                                                       sample_block=64),
+            lambda n=n: fused_nerf_pass_grads_streamed_plain(model.fine, ro[:n], rd[:n], tgt[:n],
+                                                             z[:n], sample_block=64))
+           for n in (R, 257)},
+        f"K4, {R} rays": (
+            lambda: fused_nerf_pass_grads(model.coarse, ro, rd, tgt, 0, **grid),
+            lambda: fused_nerf_pass_grads_plain(model.coarse, ro, rd, tgt, 0, **grid)),
+    }
+    refs = {case: plain() for case, (_, plain) in cases.items()}
 
-    def errors(n):
-        x = inputs[n]
-        fused_nerf_pass_grads_streamed(model.fine, *x, sample_block=64)  # an earlier launch
-        loss, grads = fused_nerf_pass_grads_streamed(model.fine, *x, sample_block=64)
-        want_loss, want = refs[n]
+    def errors(case):
+        kernel = cases[case][0]
+        kernel()  # an earlier launch
+        loss, grads = kernel()
+        want_loss, want = refs[case]
         err = {"loss_rel": abs(float(loss) - float(want_loss)) / float(want_loss),
                **leaf_errors(grads, want), "mma_scale_err": mma_scale_error(names, grads, want)}
         rel_norm = [float((g - w).norm() / w.norm()) for g, w in zip(grads, want)]
         err["worst_rel_norm_leaf"] = names[max(range(len(names)), key=rel_norm.__getitem__)]
         err["gates"] = {"loss": err["loss_rel"] < 1e-3, "cosine": err["min_cosine"] > 0.98,
-                        "scale": err["mma_scale_err"] < K6_SCALE}
+                        "scale": err["mma_scale_err"] < MMA_SCALE}
         return err
 
     times, errs = {}, {}
@@ -157,24 +179,27 @@ def main() -> dict:
                 fnt._lib.cache_clear()
                 _build.build = lambda _name, lib=lib: lib
                 if name not in FAULTS:
-                    times.setdefault(name, []).append(ms())
+                    for kernel, fn in timed.items():
+                        times.setdefault((kernel, name), []).append(ms(fn))
                 if rnd == 0 and (name == "full" or name in FAULTS):
-                    for n in inputs:
-                        errs[f"{name}, {n} rays"] = errors(n)
+                    for case in cases:
+                        errs[f"{name}, {case}"] = errors(case)
     finally:
         _build.build = build
         _build.load.cache_clear()
         fnt._lib.cache_clear()
     best = {k: min(v) for k, v in times.items()}
-    print(f"[k6_variants] {card}: K6 bf16 2048 x 192: {best['full']:.4f} ms "
-          f"(runs {times['full']})")
-    for name in ABLATIONS:
-        print(f"[k6_variants] {card}: without {name}: {best[name]:.4f} ms, its share "
-              f"{best['full'] - best[name]:.4f} ms (runs {times[name]})")
+    for kernel, shape in (("K6", "2048 x 192"), ("K4", "2048 x 64")):
+        full = best[kernel, "full"]
+        print(f"[k6_variants] {card}: {kernel} bf16 {shape}: {full:.4f} ms "
+              f"(runs {times[kernel, 'full']})")
+        for name in ABLATIONS:
+            print(f"[k6_variants] {card}: {kernel} without {name}: {best[kernel, name]:.4f} ms, its "
+                  f"share {full - best[kernel, name]:.4f} ms (runs {times[kernel, name]})")
     for name, err in errs.items():
         print(f"[k6_variants] {name.replace('full', 'sound kernel')} against the plain version: "
               f"{json.dumps(err)}")
-    result = {"ms": best, "errors": errs}
+    result = {"ms": {f"{k} {name}": t for (k, name), t in best.items()}, "errors": errs}
     print(json.dumps(result))
     return result
 

@@ -1,7 +1,7 @@
 """The fused render (K1), train (K2), NeRF (K3), streamed NeRF (K5),
 NeRF train (K4), streamed NeRF train (K6) and block-partials (K7)
-kernels against their plain versions, and K2's and K4's jitter, on a
-CUDA device.
+kernels against their plain versions, K2's and K4's jitter, and the
+tensor-core walk of every bf16 K4, K6 and K7 launch, on a CUDA device.
 
 Skips without one. This file imports neither jax nor the JAX package, so
 it also runs on a GPU machine that has no JAX (without the suite's
@@ -299,10 +299,18 @@ def _plain(fn, mlp, *args, dtype, **kw):
     return out[0].float(), want, [float((a - b).abs().max()) for a, b in zip(out32[1], want)]
 
 
-# bf16 K6: each trunk and rgb_in leaf (the tensor-core products' output)
-# within this of 1 in its scale along the reference, <g, w> / <w, w>;
-# chip_smoke.py's K6_SCALE. The cosine gate does not see a scale.
-K6_SCALE = 0.01
+# bf16 K4, K6 and K7's backward: each trunk and rgb_in leaf (the
+# tensor-core products' output) within this of 1 in its scale along the
+# reference, <g, w> / <w, w>; chip_smoke.py's MMA_SCALE. The cosine gate
+# does not see a scale.
+MMA_SCALE = 0.01
+
+
+def _scale_check(names, grads, want):
+    for n, g, w in zip(names, grads, want):
+        if n.startswith(("layers.", "rgb_in.")):
+            scale = float((g * w).sum() / (w * w).sum().clamp_min(1e-30))
+            assert abs(scale - 1) < MMA_SCALE, (n, scale)
 
 
 def _leaf_check(loss, grads, ref, dtype, names=None):
@@ -310,8 +318,9 @@ def _leaf_check(loss, grads, ref, dtype, names=None):
     (the JAX package's kernel tolerance, tests/test_fused_nerf_train.py)
     plus the f32 plain version's own error, capped at another 3e-4 of
     the max, against float64 sums; bf16: loss rel. error < 1e-3 and worst
-    leaf cosine > 0.98 (bench.py), and with the leaves' `names` (bf16 K6)
-    each trunk and rgb_in leaf's scale within K6_SCALE of 1."""
+    leaf cosine > 0.98 (bench.py), and with the leaves' `names` (the
+    tensor-core walk) each trunk and rgb_in leaf's scale within MMA_SCALE
+    of 1."""
     want_loss, want, slack = ref
     rel = abs(float(loss) - float(want_loss)) / float(want_loss)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
@@ -323,10 +332,7 @@ def _leaf_check(loss, grads, ref, dtype, names=None):
     else:
         assert rel < 1e-3
         assert min(_cosine(g, w) for g, w in zip(grads, want)) > 0.98
-        for n, g, w in zip(names or [], grads, want):
-            if n.startswith(("layers.", "rgb_in.")):
-                scale = float((g * w).sum() / (w * w).sum().clamp_min(1e-30))
-                assert abs(scale - 1) < K6_SCALE, (n, scale)
+        _scale_check(names or [], grads, want)
 
 
 @pytest.mark.cuda
@@ -356,15 +362,88 @@ def test_nerf_train_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs,
         g = torch.Generator(device=cuda_device).manual_seed(4)
         sigma_noise = torch.randn(n, S, generator=g, device=cuda_device)
     kw = dict(n_samples=S, randomized=False, sigma_noise=sigma_noise, emit_sampling=True, cfg=cfg)
-    before = fused_nerf_pass_grads.launches
-    loss, grads, w, zs = fused_nerf_pass_grads(mlp, ro, rd, target, 0, z, **kw)
+    k4 = fused_nerf_pass_grads
+    before = (k4.launches, k4.mma_launches)
+    loss, grads, w, zs = k4(mlp, ro, rd, target, 0, z, **kw)
     torch.cuda.synchronize()
     _, _, want_w, want_z = fused_nerf_pass_grads_plain(mlp, ro, rd, target, 0, z, **kw)
     ref = _plain(fused_nerf_pass_grads_plain, mlp, ro, rd, target, 0, z, dtype=dtype, **kw)
-    assert fused_nerf_pass_grads.launches == before + 1
+    assert (k4.launches - before[0], k4.mma_launches - before[1]) == (1, int(dtype == torch.bfloat16))
     assert w.shape == (n, S) and torch.equal(zs, want_z)
-    _leaf_check(loss, grads, ref, dtype)
+    _leaf_check(loss, grads, ref, dtype, names=[n for n, _ in mlp.named_parameters()])
     _within_render_gates(w, want_w, dtype)
+
+
+@pytest.mark.cuda
+def test_nerf_train_kernel_on_tensor_cores_at_flagship_on_card(cuda_device):
+    """K4 in bf16 at the flagship coarse pass (hidden 256, L 10, L_dir 4,
+    S=64 jittered in the kernel, 128 rays) takes the tensor-core walk: two
+    launches with one seed are bit-identical (loss, gradients, weights,
+    depths), and on the depths it drew it passes the bf16 gates and the
+    tensor-core leaves' scale against its plain version."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads,
+        fused_nerf_pass_grads_plain,
+    )
+
+    k4 = fused_nerf_pass_grads
+    mlp, cfg = _nerf_case(256, 10, 4, True, torch.bfloat16, cuda_device)
+    n = 128
+    ro, rd = _rays(n, 42, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(43).rand(n, 3).astype(np.float32)).to(cuda_device)
+    before = (k4.launches, k4.mma_launches)
+    runs = []
+    for _ in range(2):
+        out = k4(mlp, ro, rd, target, 11, n_samples=64, emit_sampling=True, cfg=cfg)
+        runs.append([out[0].clone(), *[g.clone() for g in out[1]], out[2].clone(), out[3].clone()])
+    torch.cuda.synchronize()
+    assert (k4.launches - before[0], k4.mma_launches - before[1]) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    z = runs[0][-1]
+    ref = _plain(fused_nerf_pass_grads_plain, mlp, ro, rd, target, 0, z, dtype=torch.bfloat16,
+                 randomized=False, cfg=cfg)
+    _leaf_check(runs[0][0], runs[0][1:-2], ref, torch.bfloat16,
+                names=[n for n, _ in mlp.named_parameters()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nerf_train_kernel_counts_tensor_core_launches_on_card(cuda_device, dtype):
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import fused_nerf_pass_grads
+
+    k4 = fused_nerf_pass_grads
+    mlp, cfg = _nerf_case(32, 4, 2, True, dtype, cuda_device)
+    ro, rd = _rays(64, 44, cuda_device)
+    before = (k4.launches, k4.mma_launches)
+    k4(mlp, ro, rd, torch.full((64, 3), 0.5, device=cuda_device), 3, n_samples=16, cfg=cfg)
+    torch.cuda.synchronize()
+    assert (k4.launches - before[0], k4.mma_launches - before[1]) == (1, int(dtype == torch.bfloat16))
+
+
+def _off_tensor_core_width(device):
+    """hidden 64 with rgb_hidden 8: the CUDA-core walk's checks pass, but
+    the bf16 tensor-core walk cannot share rgb_in's 8 columns over its
+    warps."""
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+
+    cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=64, depth=3, skip_at=2, rgb_hidden=8,
+                     compute_dtype=torch.bfloat16)
+    return NeRFMLP(cfg, generator=torch.Generator().manual_seed(0), device=device), cfg
+
+
+@pytest.mark.cuda
+def test_nerf_train_kernel_refuses_widths_off_the_tensor_cores_on_card(cuda_device):
+    """A bf16 K4 launch at a width the tensor-core walk cannot take raises,
+    and nothing launches: no fallback to the CUDA cores."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import fused_nerf_pass_grads
+
+    k4 = fused_nerf_pass_grads
+    mlp, cfg = _off_tensor_core_width(cuda_device)
+    ro, rd = _rays(64, 45, cuda_device)
+    before = (k4.launches, k4.mma_launches)
+    with pytest.raises(ValueError, match="tensor cores"):
+        k4(mlp, ro, rd, torch.zeros(64, 3, device=cuda_device), 0, n_samples=16, cfg=cfg)
+    assert (k4.launches, k4.mma_launches) == before
 
 
 @pytest.mark.cuda
@@ -476,12 +555,9 @@ def test_streamed_train_kernel_refuses_widths_off_the_tensor_cores_on_card(cuda_
     the bf16 tensor-core walk cannot share rgb_in's 8 columns over its
     warps: the wrapper raises, and nothing launches."""
     from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
-    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
 
     k6 = fused_nerf_pass_grads_streamed
-    cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=64, depth=3, skip_at=2, rgb_hidden=8,
-                     compute_dtype=torch.bfloat16)
-    mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(0), device=cuda_device)
+    mlp, cfg = _off_tensor_core_width(cuda_device)
     ro, rd = _rays(64, 40, cuda_device)
     before = k6.launches
     with pytest.raises(ValueError, match="tensor cores"):
@@ -565,13 +641,19 @@ def _partials_case(hidden, num_freqs, dir_freqs, viewdirs, S, dtype, device, n=3
     return mlp, cfg, ro, rd, z, deltas, noise
 
 
-def _partials_cotangents(n, S, device, seed=31):
-    """Random cotangents of C, A, T, D and the local weights: g_T and g_w
-    nonzero."""
+def _partials_cotangents(n, S, device, seed=31, signed=True):
+    """Random cotangents of C, A, T, D and the local weights, g_T and g_w
+    nonzero: N(0, 1) / n, or with signed=False U[0.5, 1.5) / n (one sign:
+    no leaf's sum cancels, so its scale is well conditioned)."""
     g = torch.Generator(device=device).manual_seed(seed)
-    cot = {k: torch.randn(*shape, generator=g, device=device) / n
-           for k, shape in (("C", (n, 3)), ("A", (n,)), ("T", (n,)), ("D", (n,)))}
-    return cot, torch.randn(n, S, generator=g, device=device) / n
+
+    def draw(*shape):
+        if signed:
+            return torch.randn(*shape, generator=g, device=device) / n
+        return (0.5 + torch.rand(*shape, generator=g, device=device)) / n
+
+    cot = {k: draw(*shape) for k, shape in (("C", (n, 3)), ("A", (n,)), ("T", (n,)), ("D", (n,)))}
+    return cot, draw(n, S)
 
 
 @pytest.mark.cuda
@@ -586,7 +668,9 @@ def test_partials_kernels_match_plain_on_card(cuda_device, hidden, num_freqs, di
                                               S, sample_block, emit, dtype):
     """K7's forward (partials, local weights) under the render gates and its
     backward (parameter gradients from random cotangents, g_T and g_w
-    included) under the NeRF pass gates, against the plain versions."""
+    included) under the NeRF pass gates, against the plain versions; bf16
+    (the tensor-core walk) also each trunk and rgb_in leaf's scale, with
+    one-signed cotangents."""
     import copy
 
     from tinynerf_tpu_torch.kernels.fused_partials import (
@@ -604,13 +688,20 @@ def test_partials_kernels_match_plain_on_card(cuda_device, hidden, num_freqs, di
     cot, g_w = _partials_cotangents(n, S, cuda_device)
     g_w = g_w if emit else None
     fn = make_fused_block_partials_fn(cfg, emit_weights=emit, sample_block=sample_block)
-    fwd, bwd = fused_block_partials_fwd.launches, fused_block_partials_bwd.launches
-    partials, w = fn(mlp, ro, rd, z, deltas, noise)
-    outs = [partials[k] for k in ("C", "A", "T", "D")] + ([w] if emit else [])
-    cots = [cot[k] for k in ("C", "A", "T", "D")] + ([g_w] if emit else [])
-    grads = torch.autograd.grad(outs, list(mlp.parameters()), grad_outputs=cots)
-    torch.cuda.synchronize()
-    assert (fused_block_partials_fwd.launches - fwd, fused_block_partials_bwd.launches - bwd) == (1, 1)
+    k7 = (fused_block_partials_fwd, fused_block_partials_bwd)
+    before = [(k.launches, k.mma_launches) for k in k7]
+
+    def through_kernels(cot, g_w):
+        partials, w = fn(mlp, ro, rd, z, deltas, noise)
+        outs = [partials[k] for k in ("C", "A", "T", "D")] + ([w] if emit else [])
+        cots = [cot[k] for k in ("C", "A", "T", "D")] + ([g_w] if emit else [])
+        grads = torch.autograd.grad(outs, list(mlp.parameters()), grad_outputs=cots)
+        torch.cuda.synchronize()
+        return partials, w, grads
+
+    partials, w, grads = through_kernels(cot, g_w)
+    mma = int(dtype == torch.bfloat16)
+    assert [(k.launches - l, k.mma_launches - m) for k, (l, m) in zip(k7, before)] == [(1, mma)] * 2
     with torch.no_grad():
         want, want_w = block_partials_plain(mlp, ro, rd, z, deltas, noise, cfg=cfg,
                                             sample_block=sample_block, emit_weights=emit)
@@ -627,6 +718,12 @@ def test_partials_kernels_match_plain_on_card(cuda_device, hidden, num_freqs, di
     if dtype == torch.bfloat16:
         ref = block_partials_grads_plain(mlp, *args, **kw)
         assert min(_cosine(g, r) for g, r in zip(grads, ref)) > 0.98
+        cot, g_w = _partials_cotangents(n, S, cuda_device, seed=46, signed=False)
+        g_w = g_w if emit else None
+        _, _, grads = through_kernels(cot, g_w)
+        ref = block_partials_grads_plain(mlp, ro, rd, z, deltas, noise, cot, g_w, **kw)
+        assert min(_cosine(g, r) for g, r in zip(grads, ref)) > 0.98
+        _scale_check([n for n, _ in mlp.named_parameters()], grads, ref)
         return
     want64 = [g.float() for g in block_partials_grads_plain(copy.deepcopy(mlp).double(), *args, **kw)]
     plain32 = block_partials_grads_plain(mlp, *args, **kw)
@@ -638,12 +735,20 @@ def test_partials_kernels_match_plain_on_card(cuda_device, hidden, num_freqs, di
 
 @pytest.mark.cuda
 def test_partials_kernels_replay_bit_identical_on_card(cuda_device):
-    from tinynerf_tpu_torch.kernels.fused_partials import make_fused_block_partials_fn
+    """bf16 K7 at the flagship fine shard (blocks of 48) on the tensor
+    cores: forward and backward twice on the same inputs, bit-identical."""
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        fused_block_partials_bwd,
+        fused_block_partials_fwd,
+        make_fused_block_partials_fn,
+    )
 
     mlp, cfg, ro, rd, z, deltas, noise = _partials_case(256, 10, 4, True, 96, torch.bfloat16,
                                                         cuda_device, n=256)
     cot, g_w = _partials_cotangents(256, 96, cuda_device)
     fn = make_fused_block_partials_fn(cfg, emit_weights=True, sample_block=48)
+    k7 = (fused_block_partials_fwd, fused_block_partials_bwd)
+    before = [k.mma_launches for k in k7]
     runs = []
     for _ in range(2):
         partials, w = fn(mlp, ro, rd, z, deltas, noise)
@@ -651,7 +756,46 @@ def test_partials_kernels_replay_bit_identical_on_card(cuda_device):
         grads = torch.autograd.grad(outs, list(mlp.parameters()),
                                     grad_outputs=[cot[k] for k in ("C", "A", "T", "D")] + [g_w])
         runs.append([o.detach().clone() for o in outs] + [g.clone() for g in grads])
+    assert [k.mma_launches - b for k, b in zip(k7, before)] == [2, 2]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partials_kernels_count_tensor_core_launches_on_card(cuda_device, dtype):
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        fused_block_partials_bwd,
+        fused_block_partials_fwd,
+        make_fused_block_partials_fn,
+    )
+
+    mlp, cfg, ro, rd, z, deltas, noise = _partials_case(32, 4, 2, True, 16, dtype, cuda_device,
+                                                        n=64)
+    k7 = (fused_block_partials_fwd, fused_block_partials_bwd)
+    before = [(k.launches, k.mma_launches) for k in k7]
+    partials, _ = make_fused_block_partials_fn(cfg, sample_block=8)(mlp, ro, rd, z, deltas, noise)
+    torch.autograd.grad(partials["C"].sum(), list(mlp.parameters()))
+    torch.cuda.synchronize()
+    mma = int(dtype == torch.bfloat16)
+    assert [(k.launches - l, k.mma_launches - m) for k, (l, m) in zip(k7, before)] == [(1, mma)] * 2
+
+
+@pytest.mark.cuda
+def test_partials_kernels_refuse_widths_off_the_tensor_cores_on_card(cuda_device):
+    """A bf16 K7 launch at a width the tensor-core walk cannot take raises
+    in the forward, and nothing launches: no fallback to the CUDA cores."""
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        fused_block_partials_fwd,
+        make_fused_block_partials_fn,
+    )
+
+    mlp, cfg = _off_tensor_core_width(cuda_device)
+    ro, rd = _rays(64, 47, cuda_device)
+    z = _sorted_z(64, 16, 48, cuda_device)
+    before = (fused_block_partials_fwd.launches, fused_block_partials_fwd.mma_launches)
+    with pytest.raises(ValueError, match="tensor cores"):
+        make_fused_block_partials_fn(cfg, sample_block=8)(mlp, ro, rd, z, torch.ones_like(z))
+    assert (fused_block_partials_fwd.launches, fused_block_partials_fwd.mma_launches) == before
 
 
 @pytest.mark.cuda

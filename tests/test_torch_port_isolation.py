@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHECK = """
@@ -31,5 +33,28 @@ sys.exit(1 if bad else 0)
 def test_port_never_imports_jax():
     # `python -c` puts the working directory, the repo root, on sys.path.
     proc = subprocess.run([sys.executable, "-c", CHECK], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# The modules of the bf16 tensor-core walk's wrappers (K4, K6, K7) and the
+# trainer that reports its launch counts, each alone in a fresh interpreter.
+ALONE = """
+import sys
+import {module}
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tinynerf_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "tinynerf_tpu_torch.kernels.fused_nerf_train",
+    "tinynerf_tpu_torch.kernels.fused_nerf_stream",
+    "tinynerf_tpu_torch.kernels.fused_partials",
+    "tinynerf_tpu_torch.train",
+])
+def test_tensor_core_wrappers_alone_never_import_jax(module):
+    proc = subprocess.run([sys.executable, "-c", ALONE.format(module=module)], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,14 +1,17 @@
-"""The tensor-core fragment packer of K6's bf16 walk
-(tinynerf_tpu_torch/kernels/fused_nerf_train.py::pack_mma_weights) on the
-CPU: unpacking by index gives back every layer's bf16 weights with their
-zero K-padding, and an emulation of mma.sync m16n8k16 over the packed
-fragments, reading its A operands the way csrc/mma_bf16.cuh does,
-computes the forward and upstream products and, over the permuted
-points with a bias row of ones, the weight gradient. No kernel runs. Imports
-neither jax nor the JAX package:
+"""The tensor-core fragment packer of the bf16 training walk of K4, K6 and
+K7 (tinynerf_tpu_torch/kernels/fused_nerf_train.py::pack_mma_weights) on
+the CPU: unpacking by index gives back every layer's bf16 weights with
+their zero K-padding, and an emulation of mma.sync m16n8k16 over the
+packed fragments, reading its A operands the way csrc/mma_bf16.cuh does,
+computes the forward and upstream products and, over the permuted points
+with a bias row of ones, the weight gradient; at widths with and without
+view directions. The wrappers' CPU paths take the plain versions and count
+no launch. No kernel runs. Imports neither jax nor the JAX package:
 
     python -m pytest -q tests/test_torch_port_mma_pack.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -19,18 +22,22 @@ from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     mma_operands,
     pack_mma_b,
     pack_mma_weights,
+    uses_tensor_cores,
 )
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, nerf_layer_in_dims
 
-# (hidden, L, L_dir): the card tests' small width, hidden 128, the flagship.
-WIDTHS = [(32, 4, 2), (128, 10, 4), (256, 10, 4), (256, 4, 2)]
+# (hidden, L, L_dir, view directions): the card tests' small width, hidden
+# 128, the flagship, and the K4/K7 card width without view directions
+# (rgb_in's input is the trunk alone: no direction rows, K = hidden).
+WIDTHS = [(32, 4, 2, True), (128, 10, 4, True), (256, 10, 4, True), (256, 4, 2, True),
+          (64, 10, 4, False)]
 LOGICAL = (0, 1, 8, 9)  # logical k of a lane's value j, less 2t
 
 
-def _mlp(hidden, num_freqs, dir_freqs, seed=0):
+def _mlp(hidden, num_freqs, dir_freqs, viewdirs=True, seed=0):
     depth, skip_at, rgb_hidden = (8, 4, 64) if hidden >= 128 else (3, 2, 16)
     cfg = NeRFConfig(num_freqs=num_freqs, num_freqs_dir=dir_freqs, hidden=hidden, depth=depth,
-                     skip_at=skip_at, rgb_hidden=rgb_hidden, use_viewdirs=True,
+                     skip_at=skip_at, rgb_hidden=rgb_hidden, use_viewdirs=viewdirs,
                      compute_dtype=torch.bfloat16)
     return NeRFMLP(cfg, generator=torch.Generator().manual_seed(seed)), cfg
 
@@ -75,9 +82,9 @@ def _emulate(a, flat, K, N):
     return out
 
 
-@pytest.mark.parametrize("hidden,num_freqs,dir_freqs", WIDTHS)
-def test_unpacking_gives_back_the_bf16_weights(hidden, num_freqs, dir_freqs):
-    mlp, cfg = _mlp(hidden, num_freqs, dir_freqs)
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,viewdirs", WIDTHS)
+def test_unpacking_gives_back_the_bf16_weights(hidden, num_freqs, dir_freqs, viewdirs):
+    mlp, cfg = _mlp(hidden, num_freqs, dir_freqs, viewdirs)
     flat = pack_mma_weights(mlp, cfg)
     assert flat.dtype == torch.bfloat16
     h, rh, dd = cfg.hidden, cfg.rgb_hidden, cfg.dir_dim
@@ -100,9 +107,10 @@ def test_unpacking_gives_back_the_bf16_weights(hidden, num_freqs, dir_freqs):
     assert off == flat.numel()
 
 
-@pytest.mark.parametrize("hidden,num_freqs,dir_freqs", WIDTHS)
-def test_emulated_mma_over_the_fragments_computes_the_products(hidden, num_freqs, dir_freqs):
-    mlp, cfg = _mlp(hidden, num_freqs, dir_freqs, seed=1)
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,viewdirs", WIDTHS)
+def test_emulated_mma_over_the_fragments_computes_the_products(hidden, num_freqs, dir_freqs,
+                                                               viewdirs):
+    mlp, cfg = _mlp(hidden, num_freqs, dir_freqs, viewdirs, seed=1)
     rng = np.random.RandomState(hidden + num_freqs)
     h = cfg.hidden
     for name, b in mma_operands(mlp, cfg):
@@ -126,23 +134,29 @@ def test_emulated_mma_over_the_fragments_computes_the_products(hidden, num_freqs
     (48, 24, False),   # hidden not a multiple of 32
 ])
 def test_mma_shape_rule(hidden, rgb_hidden, ok):
+    """The shape rule, and the launch rule of K4, K6 and K7 on it: bf16 takes
+    the tensor cores or raises, f32 the CUDA cores at any width."""
     cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=hidden, depth=3, skip_at=2,
                      rgb_hidden=rgb_hidden, compute_dtype=torch.bfloat16)
     if ok:
         check_mma_shapes(cfg)
+        assert uses_tensor_cores(cfg) is True
     else:
         with pytest.raises(ValueError, match="tensor cores"):
             check_mma_shapes(cfg)
+        with pytest.raises(ValueError, match="tensor cores"):
+            uses_tensor_cores(cfg)
+    assert uses_tensor_cores(dataclasses.replace(cfg, compute_dtype=torch.float32)) is False
 
 
-@pytest.mark.parametrize("hidden,num_freqs,dir_freqs", WIDTHS)
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,viewdirs", WIDTHS)
 def test_emulated_weight_gradient_takes_each_point_once_and_one_bias_row(hidden, num_freqs,
-                                                                          dir_freqs):
+                                                                          dir_freqs, viewdirs):
     """mma_bf16.cuh's mma_weight_grad: over the 4 k-steps of a 64-point
     chunk the lanes' permuted points (lane_k) cover every point once, and
     the input row after the last (a row of ones) gives the bias gradient:
     part = [In^T G; sum_p G] for each layer's input width."""
-    mlp, cfg = _mlp(hidden, num_freqs, dir_freqs, seed=2)
+    mlp, cfg = _mlp(hidden, num_freqs, dir_freqs, viewdirs, seed=2)
     rng = np.random.RandomState(hidden + 7 * num_freqs)
     seen = sorted(32 * (ks // 2) + 8 * t + 4 * (ks % 2) + j
                   for ks in range(4) for t in range(4) for j in range(4))
@@ -165,19 +179,84 @@ def test_emulated_weight_gradient_takes_each_point_once_and_one_bias_row(hidden,
         assert float((part - want).abs().max()) <= 1e-9 * float(want.abs().max()), n_in
 
 
-def test_plain_path_on_the_cpu_counts_no_launch():
-    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
-
-    mlp, cfg = _mlp(32, 4, 2)
-    rng = np.random.RandomState(3)
-    n, S = 8, 16
+def _cpu_inputs(n=8, S=16, seed=3):
+    rng = np.random.RandomState(seed)
     ro = torch.from_numpy((rng.randn(n, 3) * 0.1 + [0, 0, 4]).astype(np.float32))
     rd = torch.from_numpy(rng.randn(n, 3).astype(np.float32))
     tgt = torch.from_numpy(rng.rand(n, 3).astype(np.float32))
     z = torch.from_numpy(np.sort(rng.uniform(2, 6, (n, S)).astype(np.float32), axis=1))
+    return ro, rd, tgt, z
+
+
+def test_plain_path_on_the_cpu_counts_no_launch():
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+
+    mlp, cfg = _mlp(32, 4, 2)
+    ro, rd, tgt, z = _cpu_inputs()
     before = (fused_nerf_pass_grads_streamed.launches, fused_nerf_pass_grads_streamed.mma_launches)
     with torch.enable_grad():
         loss, grads = fused_nerf_pass_grads_streamed(mlp, ro, rd, tgt, z, cfg=cfg, sample_block=8)
     assert bool(torch.isfinite(loss)) and len(grads) == len(list(mlp.parameters()))
     assert (fused_nerf_pass_grads_streamed.launches,
             fused_nerf_pass_grads_streamed.mma_launches) == before
+
+
+def _k4_on_the_cpu(mlp, cfg, ro, rd, tgt, z):
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads,
+        fused_nerf_pass_grads_plain,
+    )
+
+    got = fused_nerf_pass_grads(mlp, ro, rd, tgt, 3, n_samples=16, emit_sampling=True, cfg=cfg)
+    want = fused_nerf_pass_grads_plain(mlp, ro, rd, tgt, 3, n_samples=16, emit_sampling=True,
+                                       cfg=cfg)
+    return [got[0], *got[1], *got[2:]], [want[0], *want[1], *want[2:]]
+
+
+def _k7_on_the_cpu(mlp, cfg, ro, rd, tgt, z):
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        block_partials_grads_plain,
+        block_partials_plain,
+        make_fused_block_partials_fn,
+    )
+    from tinynerf_tpu_torch.ops.volume import global_deltas
+
+    deltas = global_deltas(z, rd)
+    cot = {"C": tgt, "A": tgt[:, 0], "T": tgt[:, 1], "D": tgt[:, 2]}
+    partials, w = make_fused_block_partials_fn(cfg, emit_weights=True, sample_block=8)(
+        mlp, ro, rd, z, deltas)
+    outs = [partials[k] for k in ("C", "A", "T", "D")] + [w]
+    grads = torch.autograd.grad(outs, list(mlp.parameters()),
+                                grad_outputs=[cot[k] for k in ("C", "A", "T", "D")] + [z])
+    with torch.no_grad():
+        want, want_w = block_partials_plain(mlp, ro, rd, z, deltas, cfg=cfg, sample_block=8,
+                                            emit_weights=True)
+    want_grads = block_partials_grads_plain(mlp, ro, rd, z, deltas, None, cot, z, cfg=cfg,
+                                            sample_block=8)
+    return ([o.detach() for o in outs] + list(grads),
+            [want[k] for k in ("C", "A", "T", "D")] + [want_w] + list(want_grads))
+
+
+@pytest.mark.parametrize("run,wrappers", [
+    (_k4_on_the_cpu, ("fused_nerf_train.fused_nerf_pass_grads",)),
+    (_k7_on_the_cpu, ("fused_partials.fused_block_partials_fwd",
+                      "fused_partials.fused_block_partials_bwd")),
+])
+def test_bf16_k4_and_k7_take_the_plain_versions_on_the_cpu(run, wrappers):
+    """bf16 K4 and K7 on CPU tensors: the plain versions' values, and
+    neither .launches nor .mma_launches moves (the tensor-core walk runs
+    only on the card)."""
+    import importlib
+
+    fns = []
+    for w in wrappers:
+        mod, name = w.split(".")
+        fns.append(getattr(importlib.import_module(f"tinynerf_tpu_torch.kernels.{mod}"), name))
+    mlp, cfg = _mlp(32, 4, 2)
+    before = [(f.launches, f.mma_launches) for f in fns]
+    with torch.enable_grad():
+        got, want = run(mlp, cfg, *_cpu_inputs())
+    assert [(f.launches, f.mma_launches) for f in fns] == before
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)

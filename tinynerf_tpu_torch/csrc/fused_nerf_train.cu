@@ -24,12 +24,14 @@
 // What bounds it on an H100: arithmetic. At the flagship width (hidden
 // 256, depth 8, skip at 4, L=10, L_dir=4, rgb_hidden 64) a point costs
 // 509,568 multiply-adds forward and as many again for each of the two
-// backward products (weight gradients, upstream gradients). K6 in bf16
-// runs those products on the tensor cores (mma.sync m16n8k16, f32
-// accumulation; mma_bf16.cuh); K4, and K6 in f32, run them on the CUDA
-// cores' f32 FMAs. This is a rule of the design, not a fallback: the f32
-// walk is the exactness reference K4, K6 and K7 are held to, and K4's
-// (and K7's) move to the tensor cores is later work.
+// backward products (weight gradients, upstream gradients). The rule of
+// the design: every bf16 launch of K4 and K6 (and of K7) runs those
+// products on the tensor cores (mma.sync m16n8k16, f32 accumulation;
+// mma_bf16.cuh, weights packed by kernels/fused_nerf_train.py::
+// pack_mma_weights); every f32 launch runs them on the CUDA cores' f32
+// FMAs, the exactness reference the bf16 walk and the f32 gates are held
+// to. A bf16 width the tensor-core walk cannot take is refused by the
+// wrappers (check_mma_shapes), never run on the CUDA cores.
 //
 // The walk itself (the forward of each segment, the composite, the
 // backward in 64-point chunks, the gradient partials and the density
@@ -62,11 +64,13 @@ int tinynerf_fused_nerf_train_max_threads() { return kMaxThreads; }
 // int32 *seed when randomized, deltas from it); noise (R, S) or null;
 // w_out and z_out (R, S) or null.
 // n_rays must be a multiple of tile_rays; rays from n_real on are padding
-// (no loss, no gradient). Returns the CUDA error code (0 = ok).
+// (no loss, no gradient). With bf16 set the walk runs its products on the
+// tensor cores from w_mma (pack_mma_weights; required, w_bwd unused),
+// else on the CUDA cores from w_bwd. Returns the CUDA error code (0 = ok).
 int tinynerf_fused_nerf_train(const float* rays_o, const float* rays_d, const float* target,
                               const float* z, const float* delta, const float* noise,
-                              const int* seed,
-                              const float* w_fwd, const float* w_bwd, float* ws, float* partials,
+                              const int* seed, const float* w_fwd, const float* w_bwd,
+                              const void* w_mma, float* ws, float* partials,
                               const int* dst, float* out, float* w_out, float* z_out, int n_rays,
                               int n_real, int tile_rays, int n_samples, int num_freqs,
                               int dir_freqs, int use_viewdirs, int hidden, int depth, int skip_at,
@@ -77,13 +81,12 @@ int tinynerf_fused_nerf_train(const float* rays_o, const float* rays_d, const fl
                w_out, z_out, n_rays, n_real, n_samples, n_samples, tile_rays, num_freqs,
                dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, near, h_bin, inv_n,
                randomized, white_bkgd, bf16};
-  return launch_walk<Walk::kLoss>(a, n_blocks, n_grad, dst, out, device, stream);
+  return launch_walk_by_dtype<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
+                                            stream);
 }
 
 // K6. z and delta (R, S); S must be a multiple of sample_block and n_rays
-// of tile_rays. With bf16 set the walk runs its products on the tensor
-// cores from w_mma (pack_mma_weights; required), else on the CUDA cores.
-// Returns the CUDA error code (0 = ok).
+// of tile_rays. bf16 and f32 as K4. Returns the CUDA error code (0 = ok).
 int tinynerf_fused_nerf_train_streamed(const float* rays_o, const float* rays_d,
                                        const float* target, const float* z, const float* delta,
                                        const float* noise, const float* w_fwd,
@@ -95,14 +98,12 @@ int tinynerf_fused_nerf_train_streamed(const float* rays_o, const float* rays_d,
                                        int hidden, int depth, int skip_at, int rgb_hidden,
                                        float inv_n, int white_bkgd, int bf16, int n_blocks,
                                        int n_grad, int device, void* stream) {
-  Args a{rays_o, rays_d, target, z, delta, noise, nullptr, w_fwd, w_bwd, ws, partials,
-         nullptr, nullptr, n_rays, n_real, n_samples, sample_block, tile_rays, num_freqs,
-         dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, 0.f, 0.f, inv_n,
-         0, white_bkgd, bf16};
-  if (!bf16) return launch_walk<Walk::kLoss>(a, n_blocks, n_grad, dst, out, device, stream);
-  if (w_mma == nullptr) return (int)cudaErrorInvalidValue;
-  a.w_mma = w_mma;
-  return launch_walk<Walk::kLoss, true>(a, n_blocks, n_grad, dst, out, device, stream);
+  const Args a{rays_o, rays_d, target, z, delta, noise, nullptr, w_fwd, w_bwd, ws, partials,
+               nullptr, nullptr, n_rays, n_real, n_samples, sample_block, tile_rays, num_freqs,
+               dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, 0.f, 0.f, inv_n,
+               0, white_bkgd, bf16};
+  return launch_walk_by_dtype<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
+                                            stream);
 }
 
 const char* tinynerf_cuda_error_string(int code) {

@@ -27,8 +27,12 @@
 //
 // What bounds it on an H100: arithmetic, as K6. At the flagship width a
 // point costs 509,568 multiply-adds forward; the backward recomputes the
-// forward and adds the weight-gradient and upstream products. Products run
-// on the CUDA cores' f32 FMAs (tensor cores are later work).
+// forward and adds the weight-gradient and upstream products. As for K4
+// and K6, every bf16 launch runs those products on the tensor cores
+// (mma_bf16.cuh, from pack_mma_weights' fragments; the forward and the
+// backward's rematerialised forward with the same products, so the
+// backward recomputes the forward's values) and every f32 launch on the
+// CUDA cores, the exactness reference.
 
 #include "nerf_train_walk.cuh"
 
@@ -50,12 +54,12 @@ long long tinynerf_partials_workspace_floats(int tile_rays, int sample_block, in
 int tinynerf_partials_max_threads() { return kMaxThreads; }
 
 // The forward. z, delta and noise (R, S) (noise may be null); out6 (R, 6)
-// C(3), A, T, D; tin (R, S / sample_block); w_out (R, S) or null. n_rays
-// must be a multiple of tile_rays and S of sample_block. Returns the CUDA
-// error code (0 = ok).
+// C(3), A, T, D; tin (R, S / sample_block); w_out (R, S) or null; w_mma
+// the tensor-core fragments, required in bf16. n_rays must be a multiple
+// of tile_rays and S of sample_block. Returns the CUDA error code (0 = ok).
 int tinynerf_partials_fwd(const float* rays_o, const float* rays_d, const float* z,
                           const float* delta, const float* noise, const float* w_fwd,
-                          float* out6, float* tin, float* w_out, int n_rays, int tile_rays,
+                          const void* w_mma, float* out6, float* tin, float* w_out, int n_rays, int tile_rays,
                           int n_samples, int sample_block, int num_freqs, int dir_freqs,
                           int use_viewdirs, int hidden, int depth, int skip_at, int rgb_hidden,
                           int bf16, int n_blocks, int device, void* stream) {
@@ -81,17 +85,19 @@ int tinynerf_partials_fwd(const float* rays_o, const float* rays_d, const float*
   a.bf16 = bf16;
   a.tin = tin;
   a.out6 = out6;
-  return launch_walk<Walk::kPartialsFwd>(a, n_blocks, 0, nullptr, nullptr, device, stream);
+  return launch_walk_by_dtype<Walk::kPartialsFwd>(a, w_mma, n_blocks, 0, nullptr, nullptr,
+                                                   device, stream);
 }
 
 // The backward. tin (R, S / sample_block) from the forward; g_ray (R, 6)
-// the cotangents of C(3), A, T, D; g_w (R, S) or null. Writes the
-// parameter gradients to out in the order dst gives (then one unused
-// float). Returns the CUDA error code (0 = ok).
+// the cotangents of C(3), A, T, D; g_w (R, S) or null; w_bwd (f32) or
+// w_mma (bf16, required there). Writes the parameter gradients to out in
+// the order dst gives (then one unused float). Returns the CUDA error code
+// (0 = ok).
 int tinynerf_partials_bwd(const float* rays_o, const float* rays_d, const float* z,
                           const float* delta, const float* noise, const float* tin,
                           const float* g_ray, const float* g_w, const float* w_fwd,
-                          const float* w_bwd, float* ws, float* partials, const int* dst,
+                          const float* w_bwd, const void* w_mma, float* ws, float* partials, const int* dst,
                           float* out, int n_rays, int tile_rays, int n_samples, int sample_block,
                           int num_freqs, int dir_freqs, int use_viewdirs, int hidden, int depth,
                           int skip_at, int rgb_hidden, int bf16, int n_blocks, int n_grad,
@@ -121,7 +127,8 @@ int tinynerf_partials_bwd(const float* rays_o, const float* rays_d, const float*
   a.g_ray = g_ray;
   a.g_w = g_w;
   a.tin = const_cast<float*>(tin);
-  return launch_walk<Walk::kPartialsBwd>(a, n_blocks, n_grad, dst, out, device, stream);
+  return launch_walk_by_dtype<Walk::kPartialsBwd>(a, w_mma, n_blocks, n_grad, dst, out, device,
+                                                   stream);
 }
 
 const char* tinynerf_cuda_error_string(int code) {

@@ -1,11 +1,12 @@
-// The bf16 tensor-core products of K6's training walk (nerf_train_walk.cuh
+// The bf16 tensor-core products of the training walk (nerf_train_walk.cuh
 // with kMma): warp-level mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // with f32 accumulation, on Hopper (sm_90a) as on every card since sm_80.
 //
-// Rule of the design: K6 in bf16 runs its three MLP products here (the
-// trunk's and rgb_in's forward, the weight gradients, the upstream
-// gradients); the f32 walk and the other kernels (K3/K5, K4, K7) keep the
-// CUDA-core products of nerf_mlp.cuh and train_common.cuh.
+// Rule of the design: every bf16 launch of K4, K6 and K7 runs its three
+// MLP products here (the trunk's and rgb_in's forward, the weight
+// gradients, the upstream gradients); the f32 walk and the render kernels
+// (K3/K5) keep the CUDA-core products of nerf_mlp.cuh and
+// train_common.cuh.
 //
 // Operands. The walk's shared buffer stays f32 with its odd row stride. A
 // fragment is built by loading floats and packing them to bf16x2, which is

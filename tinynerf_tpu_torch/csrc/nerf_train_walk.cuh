@@ -19,16 +19,19 @@
 //                       forward, and writes the gradients.
 //
 // Products. The second template argument, kMma, is a rule of the design:
-// K6 in bf16 sets it and runs the three MLP products (forward, weight
-// gradients, upstream gradients) on the tensor cores through mma.sync
-// (mma_bf16.cuh, weights packed by kernels/fused_nerf_train.py::
-// pack_mma_weights), with the bias gradients as rows of ones of the
-// weight gradients; K4, K7 and K6 in f32 leave it unset and run the
-// CUDA-core products described below, which stay the exactness reference.
-// With kMma the sigma head sums over four lanes a point, the backward
-// reloads the workspace with float4 loads, and K6's first forward walk
-// stores no activations (the reverse walk recomputes them).
-//
+// every bf16 launch of K4, K6 and K7 (forward and backward) sets it and
+// runs the three MLP products (forward, weight gradients, upstream
+// gradients) on the tensor cores through mma.sync (mma_bf16.cuh, weights
+// packed by kernels/fused_nerf_train.py::pack_mma_weights), with the bias
+// gradients as rows of ones of the weight gradients; every f32 launch
+// leaves it unset and runs the CUDA-core products described below, the
+// exactness reference (launch_walk_by_dtype). With kMma the sigma head sums
+// over four lanes a point, the backward reloads the workspace with float4
+// loads, and a walk that rematerialises its segments (K6) stores no
+// activations in its first forward walk (the reverse walk recomputes
+// them); K4's one segment stores them in its only forward walk, and K7's
+// backward rematerialises from the same products its forward ran.
+
 // Design. The forward of a segment (TR rays x `seg` samples, a whole
 // number of 128-point chunks) is K3's: nerf_mlp.cuh's dense_relu over one
 // 128-row shared buffer, 2*hidden threads of 8x8 register blocks. The
@@ -204,8 +207,8 @@ __device__ __forceinline__ void accumulate(float* d, float s, bool first) {
   *d = first ? s : *d + s;
 }
 
-// kMma: the three MLP products on the tensor cores (mma_bf16.cuh), for
-// K6 in bf16 only; false keeps the CUDA-core products.
+// kMma: the three MLP products on the tensor cores (mma_bf16.cuh), every
+// bf16 launch; false keeps the CUDA-core products (f32).
 template <Walk kMode, bool kMma = false>
 __device__ __forceinline__ void nerf_walk(const Args& a) {
   // K7's forward keeps no activations: nothing reads them back.
@@ -834,8 +837,8 @@ inline long long walk_workspace_floats(int tile_rays, int seg, int num_freqs, in
 
 // The walk on n_blocks blocks of 2*hidden threads; then, when dst is
 // given, the reduction of the partial rows into out (parameter order, the
-// loss last). kMma takes the tensor-core products (K6 in bf16). Returns the
-// CUDA error code (0 = ok).
+// loss last). kMma takes the tensor-core products. Returns the CUDA error
+// code (0 = ok).
 template <Walk kMode, bool kMma = false>
 int launch_walk(const Args& a, int n_blocks, int n_grad, const int* dst, float* out, int device,
                 void* stream) {
@@ -853,6 +856,18 @@ int launch_walk(const Args& a, int n_blocks, int n_grad, const int* dst, float* 
   const int row = n_grad + 1;
   reduce_partials_kernel<<<(row + 255) / 256, 256, 0, st>>>(a.partials, n_blocks, row, dst, out);
   return (int)cudaGetLastError();
+}
+
+// Every entry point's launch, by the rule of the design: bf16 on the
+// tensor-core walk from w_mma (pack_mma_weights; required), f32 on the
+// CUDA-core walk. There is no other route.
+template <Walk kMode>
+int launch_walk_by_dtype(Args a, const void* w_mma, int n_blocks, int n_grad, const int* dst,
+                         float* out, int device, void* stream) {
+  if (!a.bf16) return launch_walk<kMode>(a, n_blocks, n_grad, dst, out, device, stream);
+  if (w_mma == nullptr) return (int)cudaErrorInvalidValue;
+  a.w_mma = w_mma;
+  return launch_walk<kMode, true>(a, n_blocks, n_grad, dst, out, device, stream);
 }
 
 }  // namespace

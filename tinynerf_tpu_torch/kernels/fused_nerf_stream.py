@@ -31,7 +31,7 @@ of sample_block samples); the deltas are precomputed here, as the JAX
 wrapper does (:593-603). In bf16 (the training dtype) its MLP products
 run on the tensor cores (mma.sync, csrc/mma_bf16.cuh) from the fragments
 of pack_mma_weights, and .mma_launches counts those launches; in f32 they
-run on the CUDA cores, K4's code. fused_nerf_pass_grads_streamed_plain
+run on the CUDA cores, as K4's do. fused_nerf_pass_grads_streamed_plain
 is the same block walk through autograd.
 """
 
@@ -52,10 +52,10 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     raise_on_error,
 )
 from tinynerf_tpu_torch.kernels.fused_nerf_train import (
-    check_mma_shapes,
     check_train_launch,
     launch_pass,
     pass_grads_plain,
+    uses_tensor_cores,
 )
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
 
@@ -216,9 +216,7 @@ def fused_nerf_pass_grads_streamed(
         return fused_nerf_pass_grads_streamed_plain(mlp, rays_o, rays_d, target, z_vals, cfg=cfg,
                                                     sample_block=sb, **kw)
     tile = check_train_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
-    mma = cfg.compute_dtype == torch.bfloat16
-    if mma:
-        check_mma_shapes(cfg)
+    mma = uses_tensor_cores(cfg)
     res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=True, seg=sb, z=z_vals,
                       **kw)
     fused_nerf_pass_grads_streamed.launches += 1

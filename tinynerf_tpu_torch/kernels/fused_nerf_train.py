@@ -15,9 +15,12 @@ tinynerf_tpu/kernels/fused_nerf_train.py:464-573: the coarse pass
 through K4, sample_pdf and the sorted union in torch, the fine pass
 through K4 or, by the JAX package's routing rule, the streamed K6.
 
-K6 in bf16 runs its MLP products on the tensor cores from the B
-fragments of pack_mma_weights (csrc/mma_bf16.cuh); check_mma_shapes
-raises for widths that walk cannot take.
+Every bf16 launch of K4 and K6 (and of K7, kernels/fused_partials.py)
+runs its MLP products on the tensor cores from the B fragments of
+pack_mma_weights (csrc/mma_bf16.cuh), and every f32 launch on the CUDA
+cores, the exactness reference; check_mma_shapes raises for bf16 widths
+the tensor-core walk cannot take (no launch falls back to the CUDA
+cores), and .mma_launches counts the tensor-core launches.
 
 The kernel writes its gradients in pack_nerf_weights' layout; a second
 small kernel sums the per-block partials in a fixed order and scatters
@@ -143,19 +146,29 @@ def pack_backward_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
 
 
 def check_mma_shapes(cfg: NeRFConfig) -> None:
-    """Raise unless K6's tensor-core walk (bf16) takes cfg's widths: warps
-    own whole 32-column tiles of a trunk layer's output, and H / 32 warps
-    share rgb_in's columns in whole 8-column tiles."""
+    """Raise unless the tensor-core walk of bf16 K4, K6 and K7 takes cfg's
+    widths: warps own whole 32-column tiles of a trunk layer's output, and
+    H / 32 warps share rgb_in's columns in whole 8-column tiles."""
     if cfg.hidden % 32 or (4 * cfg.rgb_hidden) % cfg.hidden:
         raise ValueError(
-            "the bf16 streamed kernel runs its products on the tensor cores, which needs hidden "
-            f"a multiple of 32 and 4*rgb_hidden a multiple of hidden, got hidden {cfg.hidden}, "
-            f"rgb_hidden {cfg.rgb_hidden}"
+            "the bf16 NeRF training kernels run their products on the tensor cores, which needs "
+            f"hidden a multiple of 32 and 4*rgb_hidden a multiple of hidden, got hidden "
+            f"{cfg.hidden}, rgb_hidden {cfg.rgb_hidden}"
         )
 
 
+def uses_tensor_cores(cfg: NeRFConfig) -> bool:
+    """The launch rule of K4, K6 and K7: bf16 takes the tensor-core walk
+    (True; raising, by check_mma_shapes, for widths it cannot take), f32
+    the CUDA-core walk (False). There is no fallback."""
+    mma = cfg.compute_dtype == torch.bfloat16
+    if mma:
+        check_mma_shapes(cfg)
+    return mma
+
+
 def mma_operands(mlp: NeRFMLP, cfg: NeRFConfig) -> List[tuple]:
-    """The B operands (K, N) of K6's tensor-core products in packing order,
+    """The B operands (K, N) of the tensor-core products in packing order,
     as (name, bf16 matrix): each trunk layer's and rgb_in's forward W^T
     (in, out), then the upstream W[:, :hidden] (out, hidden) of trunk
     layers 1..depth-1 and of rgb_in (the skip layer's encoding rows and
@@ -182,8 +195,8 @@ def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
 
 def pack_mma_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     """Every B operand of mma_operands, packed by pack_mma_b and
-    concatenated (bf16): the w_mma buffer of K6's bf16 launch, whose
-    offsets csrc/nerf_train_walk.cuh (mma_fwd_off) mirrors."""
+    concatenated (bf16): the w_mma buffer of every bf16 launch of K4, K6
+    and K7, whose offsets csrc/nerf_train_walk.cuh (mma_fwd_off) mirrors."""
     return torch.cat([pack_mma_b(b) for _, b in mma_operands(mlp, cfg)]).contiguous()
 
 
@@ -235,7 +248,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_nerf_train")
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.tinynerf_fused_nerf_train.argtypes = [p] * 15 + [i] * 11 + [f] * 3 + [i] * 6 + [p]
+    lib.tinynerf_fused_nerf_train.argtypes = [p] * 16 + [i] * 11 + [f] * 3 + [i] * 6 + [p]
     lib.tinynerf_fused_nerf_train.restype = i
     lib.tinynerf_fused_nerf_train_streamed.argtypes = [p] * 13 + [i] * 12 + [f] + [i] * 5 + [p]
     lib.tinynerf_fused_nerf_train_streamed.restype = i
@@ -307,9 +320,9 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
         noise = torch.cat([sigma_noise, sigma_noise.new_zeros(pad, S)]).contiguous()
     bf16 = int(cfg.compute_dtype == torch.bfloat16)
     w_fwd = pack_nerf_weights(mlp, cfg)
-    # K6 in bf16 reads its products' weights as tensor-core fragments only.
-    w_mma = pack_mma_weights(mlp, cfg) if streamed and bf16 else None
-    w_bwd = pack_backward_weights(mlp, cfg) if w_mma is None else None
+    # bf16 reads its products' weights as tensor-core fragments only.
+    w_mma = pack_mma_weights(mlp, cfg) if bf16 else None
+    w_bwd = None if bf16 else pack_backward_weights(mlp, cfg)
     n_grad = w_fwd.numel()
     n_tiles = (R + pad) // tile
     n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -345,8 +358,8 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
             z_out = torch.empty(R + pad, S, dtype=torch.float32, device=dev)
         err = lib.tinynerf_fused_nerf_train(
             o.data_ptr(), d.data_ptr(), tgt.data_ptr(), ptr(z), ptr(delta), ptr(noise),
-            seed_t.data_ptr(),
-            w_fwd.data_ptr(), w_bwd.data_ptr(), ws.data_ptr(), partials.data_ptr(),
+            seed_t.data_ptr(), w_fwd.data_ptr(), ptr(w_bwd), ptr(w_mma), ws.data_ptr(),
+            partials.data_ptr(),
             dst.data_ptr(), out.data_ptr(), ptr(w_out), ptr(z_out), R + pad, R, tile, S, *geom,
             float(near), (far - near) / (S - 1), 1.0 / (R * 3), int(randomized),
             int(white_bkgd), bf16, n_blocks, n_grad, dev.index, stream,
@@ -385,8 +398,9 @@ def fused_nerf_pass_grads(
     z_vals (R, S) gives the depths (the fine pass); None draws them in the
     kernel: the grid near + s*h, jittered in its bins when randomized
     (Philox keyed by the int32 `seed`, an int or a one-element tensor on
-    the rays' device). CUDA tensors launch the kernel (or raise); CPU
-    tensors take fused_nerf_pass_grads_plain. `cfg` defaults to mlp.cfg."""
+    the rays' device). CUDA tensors launch the kernel (or raise): in bf16
+    on the tensor cores, raising for widths they cannot take; CPU tensors
+    take fused_nerf_pass_grads_plain. `cfg` defaults to mlp.cfg."""
     cfg = cfg or mlp.cfg
     S = z_vals.shape[1] if z_vals is not None else n_samples
     if S < 2:
@@ -398,14 +412,18 @@ def fused_nerf_pass_grads(
                                            n_samples=n_samples, randomized=randomized, cfg=cfg,
                                            **kw)
     tile = check_train_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
+    mma = uses_tensor_cores(cfg)
     res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=False, seg=S,
                       z=z_vals, seed=seed,
                       randomized=randomized and z_vals is None, **kw)
     fused_nerf_pass_grads.launches += 1
+    fused_nerf_pass_grads.mma_launches += int(mma)
     return res
 
 
 fused_nerf_pass_grads.launches = 0  # kernel launches since the last reset
+# ... of which took the tensor-core walk (every bf16 launch)
+fused_nerf_pass_grads.mma_launches = 0
 
 
 def fine_pass_route(s, cfg: NeRFConfig, n_fine: int, tile_r: int = DEFAULT_TILE_R,

@@ -20,9 +20,13 @@ within-shard transmittance. f is a torch.autograd.Function:
   in the JAX package (:554-557).
 
 Both kernels are C entry points of csrc/fused_partials.cu, the walk of K6
-(csrc/nerf_train_walk.cuh). The wrapper pads the rays to whole tiles as
-K4/K6's launch_pass does, so any ray count is taken; the sample block must
-divide the shard's sample count.
+(csrc/nerf_train_walk.cuh). In bf16 both run their MLP products on the
+tensor cores from the fragments of pack_mma_weights, packed once by the
+forward and kept for the backward (uses_tensor_cores raises for widths
+they cannot take; .mma_launches counts those launches); in f32 on the
+CUDA cores. The wrapper pads the rays to whole tiles as K4/K6's
+launch_pass does, so any ray count is taken; the sample block must divide
+the shard's sample count.
 
 block_partials_plain (the forward in torch ops, composited in blocks with
 the entry transmittance carried) and block_partials_grads_plain
@@ -47,7 +51,12 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     pack_nerf_weights,
     pad_rays,
 )
-from tinynerf_tpu_torch.kernels.fused_nerf_train import pack_backward_weights, scatter_index
+from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+    pack_backward_weights,
+    pack_mma_weights,
+    scatter_index,
+    uses_tensor_cores,
+)
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
 
 # The JAX signature's defaults (tinynerf_tpu/kernels/fused_partials.py:64-65).
@@ -126,9 +135,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_partials")
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.tinynerf_partials_fwd.argtypes = [p] * 9 + [i] * 14 + [p]
+    lib.tinynerf_partials_fwd.argtypes = [p] * 10 + [i] * 14 + [p]
     lib.tinynerf_partials_fwd.restype = i
-    lib.tinynerf_partials_bwd.argtypes = [p] * 14 + [i] * 15 + [p]
+    lib.tinynerf_partials_bwd.argtypes = [p] * 15 + [i] * 15 + [p]
     lib.tinynerf_partials_bwd.restype = i
     lib.tinynerf_partials_smem_bytes.argtypes = [i] * 7
     lib.tinynerf_partials_smem_bytes.restype = i
@@ -185,35 +194,43 @@ def fused_block_partials_fwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
                              tile: int, emit_weights: bool):
     """Launch the K7 forward on padded, contiguous inputs (R a multiple of
     tile) -> (out (R, 6): C(3), A, T, D; tin (R, S / sb); weights (R, S)
-    or None; the packed forward weights)."""
+    or None; the packed forward weights; the tensor-core fragments in
+    bf16, else None)."""
     R, S = z.shape
     dev = o.device
+    mma = uses_tensor_cores(cfg)
     w_fwd = pack_nerf_weights(mlp, cfg)
+    w_mma = pack_mma_weights(mlp, cfg) if mma else None
     out = torch.empty(R, 6, dtype=torch.float32, device=dev)
     tin = torch.empty(R, S // sb, dtype=torch.float32, device=dev)
     w_out = torch.empty(R, S, dtype=torch.float32, device=dev) if emit_weights else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tinynerf_partials_fwd(
         o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), _ptr(noise),
-        w_fwd.data_ptr(), out.data_ptr(), tin.data_ptr(), _ptr(w_out), R, tile, S, sb,
-        *_geom(cfg), _n_blocks(R // tile, dev), dev.index, stream,
+        w_fwd.data_ptr(), _ptr(w_mma), out.data_ptr(), tin.data_ptr(), _ptr(w_out), R, tile, S,
+        sb, *_geom(cfg), _n_blocks(R // tile, dev), dev.index, stream,
     )
     _raise_on(err, "fused_partials forward kernel")
     fused_block_partials_fwd.launches += 1
-    return out, tin, w_out, w_fwd
+    fused_block_partials_fwd.mma_launches += int(mma)
+    return out, tin, w_out, w_fwd, w_mma
 
 
 fused_block_partials_fwd.launches = 0  # kernel launches since the last reset
+# ... of which took the tensor-core walk (every bf16 launch)
+fused_block_partials_fwd.mma_launches = 0
 
 
 def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, noise, tin, g_ray,
-                             g_w, w_fwd, sb: int, tile: int) -> List[torch.Tensor]:
+                             g_w, w_fwd, w_mma, sb: int, tile: int) -> List[torch.Tensor]:
     """Launch the K7 backward on the forward's padded inputs, its tin and
-    packed weights, and the padded cotangents g_ray (R, 6) and g_w (R, S)
-    or None -> gradients aligned to mlp.parameters()."""
+    packed weights (w_mma: its tensor-core fragments, required in bf16),
+    and the padded cotangents g_ray (R, 6) and g_w (R, S) or None ->
+    gradients aligned to mlp.parameters()."""
     R, S = z.shape
     dev = o.device
-    w_bwd = pack_backward_weights(mlp, cfg)
+    mma = uses_tensor_cores(cfg)
+    w_bwd = None if mma else pack_backward_weights(mlp, cfg)
     n_grad = w_fwd.numel()
     n_blocks = _n_blocks(R // tile, dev)
     lib = _lib()
@@ -227,12 +244,13 @@ def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.tinynerf_partials_bwd(
         o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), _ptr(noise), tin.data_ptr(),
-        g_ray.data_ptr(), _ptr(g_w), w_fwd.data_ptr(), w_bwd.data_ptr(), ws.data_ptr(),
+        g_ray.data_ptr(), _ptr(g_w), w_fwd.data_ptr(), _ptr(w_bwd), _ptr(w_mma), ws.data_ptr(),
         partials.data_ptr(), dst.data_ptr(), out.data_ptr(), R, tile, S, sb, *_geom(cfg),
         n_blocks, n_grad, dev.index, stream,
     )
     _raise_on(err, "fused_partials backward kernel")
     fused_block_partials_bwd.launches += 1
+    fused_block_partials_bwd.mma_launches += int(mma)
     grads, off = [], 0
     for p in params:
         grads.append(out[off:off + p.numel()].view(p.shape))
@@ -241,6 +259,8 @@ def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
 
 
 fused_block_partials_bwd.launches = 0  # kernel launches since the last reset
+# ... of which took the tensor-core walk (every bf16 launch)
+fused_block_partials_bwd.mma_launches = 0
 
 
 class _BlockPartials(torch.autograd.Function):
@@ -269,10 +289,10 @@ class _BlockPartials(torch.autograd.Function):
         z_p = torch.cat([z, z.new_ones(pad, S)]).contiguous()
         delta_p = torch.cat([deltas, deltas.new_ones(pad, S)]).contiguous()
         noise_p = None if noise is None else torch.cat([noise, noise.new_zeros(pad, S)]).contiguous()
-        out, tin, w_out, w_fwd = fused_block_partials_fwd(mlp, cfg, o, d, z_p, delta_p, noise_p,
-                                                          sb, tile, emit_weights)
+        out, tin, w_out, w_fwd, w_mma = fused_block_partials_fwd(mlp, cfg, o, d, z_p, delta_p,
+                                                                 noise_p, sb, tile, emit_weights)
         ctx.tile, ctx.R = tile, R
-        ctx.save_for_backward(o, d, z_p, delta_p, noise_p, tin, w_fwd)
+        ctx.save_for_backward(o, d, z_p, delta_p, noise_p, tin, w_fwd, w_mma)
         outs = (out[:R, 0:3].contiguous(), out[:R, 3].contiguous(), out[:R, 4].contiguous(),
                 out[:R, 5].contiguous())
         return outs + ((w_out[:R],) if emit_weights else ())
@@ -287,7 +307,7 @@ class _BlockPartials(torch.autograd.Function):
                 mlp, rays_o, rays_d, z, deltas, noise, {"C": g_c, "A": g_a, "T": g_t, "D": g_d},
                 g_w, cfg=cfg, sample_block=sb)
         else:
-            o, d, z_p, delta_p, noise_p, tin, w_fwd = ctx.saved_tensors
+            o, d, z_p, delta_p, noise_p, tin, w_fwd, w_mma = ctx.saved_tensors
             pad = o.shape[0] - ctx.R
             g_ray = torch.cat([g_c, g_a[:, None], g_t[:, None], g_d[:, None]], dim=1).float()
             g_ray = torch.cat([g_ray, g_ray.new_zeros(pad, 6)]).contiguous()
@@ -295,7 +315,7 @@ class _BlockPartials(torch.autograd.Function):
             if g_w is not None:
                 g_w_p = torch.cat([g_w.float(), g_w.new_zeros(pad, z_p.shape[1])]).contiguous()
             grads = fused_block_partials_bwd(mlp, cfg, o, d, z_p, delta_p, noise_p, tin, g_ray,
-                                             g_w_p, w_fwd, sb, ctx.tile)
+                                             g_w_p, w_fwd, w_mma, sb, ctx.tile)
         return (None, None, None, None, None, None, *grads)
 
 

@@ -62,13 +62,17 @@ from tinynerf_tpu_torch.utils.image_io import write_png
 
 def _kernel_launches() -> dict:
     """The launch count of every kernel wrapper this process imported (a
-    function of kernels/ with a `launches` counter), by name."""
+    function of kernels/ with a `launches` counter), by name, and as
+    `<name>.mma_launches` the count of its tensor-core launches where it
+    keeps one."""
     counts = {}
     for name, mod in list(sys.modules.items()):
         if name.startswith("tinynerf_tpu_torch.kernels."):
             for attr, fn in vars(mod).items():
                 if getattr(fn, "__module__", None) == name and hasattr(fn, "launches"):
                     counts[attr] = fn.launches
+                    if hasattr(fn, "mma_launches"):
+                        counts[f"{attr}.mma_launches"] = fn.mma_launches
     return counts
 
 

@@ -34,24 +34,33 @@ Phases, each printed with its result and time:
                 bf16), and steps/s and rays/s of the train loop, fused
                 against eager.
  11. build    - the full-NeRF kernels fused_nerf.cu (K3 and K5, one
-                library; its nvcc runs beside the other two), with
-                ptxas's register and spill counts.
+                library; its nvcc runs beside the other four), with
+                ptxas's register and spill counts and the HMMA
+                instructions of each kernel (cuobjdump -sass): the bf16
+                tensor-core kernel (kMma) has them, the CUDA-core one none.
  12. kernel   - K3 against its plain version at the flagship width
                 (hidden 256, depth 8, skip 4, L=10, L_dir=4, rgb_hidden
-                64) on 4096 rays of a synthetic pose, f32 and bf16:
+                64) on 4096 rays of a synthetic pose, f32 (the CUDA cores)
+                and bf16 (the tensor cores, every launch counted):
                 (a) analytic depths, S=64, weights out; (b) the depth
                 union S=192 of the plain coarse pass plus 128 fine samples.
+                As a reading, bf16 K3's weights against bf16 K4's on the
+                same rays and linspace depths (same per-point code).
  13. kernel   - K5 against its plain version at hidden 128 on a 512-sample
-                union (the --n-fine 448 recipe), block 64, f32 and bf16;
-                K5 against K3 on the flagship's S=192 union (f32).
+                union (the --n-fine 448 recipe), block 64, f32 and bf16
+                (launches counted as K3's); K5 against K3 on the flagship's
+                S=192 union, f32 and bf16.
  14. serving  - flagship NeRF checkpoint: `tinynerf_tpu_torch.eval` on 2
                 views (K3 twice per chunk; the image against --no-fused)
                 and an 8-frame `make_gif`; then `eval --n-fine 448` on a
-                hidden-128 checkpoint (the fine pass through K5).
+                hidden-128 checkpoint (the fine pass through K5); every
+                K3 and K5 launch of the three (bf16) on the tensor cores.
  15. timing   - one 4096-ray flagship hierarchical chunk fused against
                 eager and each K3 launch against its plain version; one
                 4096-ray K5 call at S=512 against its plain version; one
-                100x100 flagship image fused against eager.
+                100x100 flagship image fused against eager (bf16); the
+                same K3 and K5 calls in f32 (the CUDA cores); as a reading,
+                the per-call weight packing alone.
  16. build    - the NeRF train kernels fused_nerf_train.cu (K4 and K6, one
                 library; its nvcc runs beside the other three), with
                 ptxas's registers and spills, and the HMMA instructions of
@@ -621,11 +630,12 @@ def run_nerf(build_nerf) -> list:
     from tinynerf_tpu_torch.data import ensure_data
     from tinynerf_tpu_torch.kernels.fused_nerf import (
         fused_nerf_render_rays, fused_nerf_render_rays_plain, fused_render_rays_hierarchical,
-        union_depths,
+        linspace_depths, pack_mma_forward, pack_nerf_weights, union_depths,
     )
     from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
         fused_nerf_render_rays_streamed, fused_nerf_render_rays_streamed_plain,
     )
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import fused_nerf_pass_grads
     from tinynerf_tpu_torch.models.nerf import NeRF, render_rays_hierarchical
     from tinynerf_tpu_torch.ops.camera import spiral_poses
     from tinynerf_tpu_torch.ops.rays import get_rays
@@ -641,9 +651,15 @@ def run_nerf(build_nerf) -> list:
     lib, secs = build_nerf.result()
     log = lib.with_suffix(".log").read_text()
     print(f"[build] fused_nerf.cu (K3, K5) -> {lib.name} in {secs:.2f}s (nvcc beside the other "
-          "two)", flush=True)
-    print("\n".join(line for line in log.splitlines()
-                    if "registers" in line or "spill" in line or "stack frame" in line), flush=True)
+          "four)", flush=True)
+    print("\n".join(line for line in log.splitlines() if "registers" in line or "spill" in line
+                    or "stack frame" in line or "entry function" in line), flush=True)
+    hmma = sass_counts(lib, "HMMA")
+    print(f"[build] HMMA instructions per kernel (cuobjdump -sass): {json.dumps(hmma)}", flush=True)
+    check(any("fused_nerf_kernelILb1E" in fn and n > 0 for fn, n in hmma.items())
+          and not any("fused_nerf_kernelILb0E" in fn and n for fn, n in hmma.items()),
+          "the bf16 render kernel of K3 and K5 (kMma=true) holds HMMA instructions; the CUDA-core "
+          "one none")
 
     # 12. K3 against its plain version at the flagship width
     t0 = time.time()
@@ -667,6 +683,7 @@ def run_nerf(build_nerf) -> list:
             name = str(dtype)[6:]
             models[dtype] = model = nerf(dtype)
             mlp, cfg = model.coarse, model.cfg
+            mma0 = k3.mma_launches
             got, got_w = k3(mlp, ro, rd, n_samples=64, cfg=cfg, return_weights=True)
             torch.cuda.synchronize()
             want, want_w = fused_nerf_render_rays_plain(mlp, ro, rd, n_samples=64, cfg=cfg,
@@ -685,6 +702,21 @@ def run_nerf(build_nerf) -> list:
             errs["b", dtype] = err = ray_errors(got, want)
             print(f"[kernel] K3 {name} (b) S=192 union: {json.dumps(err)}", flush=True)
             check(within(err, dtype), f"K3 {name} (b) within {GATES[dtype]}")
+            check(k3.mma_launches - mma0 == (2 if dtype == torch.bfloat16 else 0),
+                  f"K3 {name}: both launches on the cores of its dtype (bf16: the tensor cores)")
+        # A reading: bf16 K4 runs the same per-point code (trunk and rgb_in
+        # on the tensor cores, the 4-lane sigma head), so on the same rays
+        # and depths its weights are K3's up to the deltas' rounding (K3
+        # forms them in the kernel, K4 takes torch's).
+        model = models[torch.bfloat16]
+        z_lin = linspace_depths(64, 2.0, 6.0, dev).expand(NERF_CHUNK, 64).contiguous()
+        tgt = torch.rand(NERF_CHUNK, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+        _, w3 = k3(model.coarse, ro, rd, z_lin, cfg=model.cfg, return_weights=True)
+        _, _, w4, _ = fused_nerf_pass_grads(model.coarse, ro, rd, tgt, 0, z_lin, randomized=False,
+                                            emit_sampling=True, cfg=model.cfg)
+        print(f"[kernel] bf16 K3 weights vs bf16 K4 weights, flagship coarse pass, {NERF_CHUNK} "
+              f"rays x 64 linspace depths (reading): {json.dumps(ray_errors(w3, w4, width=64))}",
+              flush=True)
     print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
 
     # 13. K5 against its plain version (hidden 128, S=512), and against K3
@@ -696,6 +728,7 @@ def run_nerf(build_nerf) -> list:
             _, w = fused_nerf_render_rays_plain(model.coarse, ro, rd, n_samples=64, cfg=model.cfg,
                                                 return_weights=True)
             unions[128, dtype] = z = union_depths(w, 448, 2.0, 6.0)
+            mma0 = k5.mma_launches
             got = k5(model.fine, ro, rd, z, cfg=model.cfg, sample_block=64)
             torch.cuda.synchronize()
             want = fused_nerf_render_rays_streamed_plain(model.fine, ro, rd, z, cfg=model.cfg,
@@ -704,16 +737,20 @@ def run_nerf(build_nerf) -> list:
             errs["k5", dtype] = err = ray_errors(got, want)
             print(f"[kernel] K5 {name} S=512 block 64 vs plain: {json.dumps(err)}", flush=True)
             check(within(err, dtype), f"K5 {name} within {GATES[dtype]}")
-        # Same z, same MLP code: the per-point values are equal and only the
-        # order of <= 192 transmittance factors and colour terms differs
-        # (<= 192 * 2^-24 relative each), so <= ~2.3e-5 on a colour in [0, 1].
-        model = models[torch.float32]
-        mono = k3(model.fine, ro, rd, unions[torch.float32], cfg=model.cfg)
-        stream = k5(model.fine, ro, rd, unions[torch.float32], cfg=model.cfg, sample_block=64)
-        k5_vs_k3 = float((mono - stream).abs().max())
-        print(f"[kernel] K5 vs K3 f32 on the flagship S=192 union, block 64: max abs "
-              f"{k5_vs_k3:.3e} (gate {K5_GATE})", flush=True)
-        check(k5_vs_k3 < K5_GATE, "K5 equals K3 on the same z to f32 rounding")
+            check(k5.mma_launches - mma0 == (dtype == torch.bfloat16),
+                  f"K5 {name}: the launch on the cores of its dtype (bf16: the tensor cores)")
+        # Same z, same MLP code (in bf16 both on the tensor cores): the
+        # per-point values are equal and only the order of <= 192
+        # transmittance factors and colour terms differs (<= 192 * 2^-24
+        # relative each), so <= ~2.3e-5 on a colour in [0, 1].
+        for dtype in (torch.float32, torch.bfloat16):
+            model = models[dtype]
+            mono = k3(model.fine, ro, rd, unions[dtype], cfg=model.cfg)
+            stream = k5(model.fine, ro, rd, unions[dtype], cfg=model.cfg, sample_block=64)
+            k5_vs_k3 = float((mono - stream).abs().max())
+            print(f"[kernel] K5 vs K3 {str(dtype)[6:]} on the flagship S=192 union, block 64: max "
+                  f"abs {k5_vs_k3:.3e} (gate {K5_GATE})", flush=True)
+            check(k5_vs_k3 < K5_GATE, "K5 equals K3 on the same z to f32 rounding")
     print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
 
     # 14. serving: eval and make_gif on a flagship checkpoint, eval --n-fine 448
@@ -728,22 +765,28 @@ def run_nerf(build_nerf) -> list:
             "proposal": "coarse"}})
     ckpt, ckpt128 = ckpts[256], ckpts[128]
     n_chunks = -(-hw[0] * hw[1] // NERF_CHUNK)
-    k3.launches = k5.launches = 0
-    res = eval_mod.main(eval_mod.EvalConfig(ckpt_path=ckpt, data_path=data_path, views=2,
-                                            out_dir=os.path.join(OUT_DIR, "eval_nerf")))
-    launches = {"eval": (k3.launches, k5.launches)}
-    k3.launches = k5.launches = 0
-    frames = gif_mod.main(gif_mod.GifConfig(ckpt_path=ckpt, data_path=data_path, n_frames=8,
-                                            out_path=os.path.join(OUT_DIR, "nerf_views.gif")))
-    launches["make_gif"] = (k3.launches, k5.launches)
-    k3.launches = k5.launches = 0
-    res448 = eval_mod.main(eval_mod.EvalConfig(ckpt_path=ckpt128, data_path=data_path, views=1,
-                                               n_fine=448,
-                                               out_dir=os.path.join(OUT_DIR, "eval_nerf448")))
-    launches["eval_n_fine_448"] = (k3.launches, k5.launches)
-    print(f"[serving] (K3, K5) launches {json.dumps(launches)}; {n_chunks} chunks per image; "
-          f"flagship PSNR {res['psnr_mean']:.3f} dB, n-fine 448 PSNR {res448['psnr_mean']:.3f} dB "
-          "(random weights)", flush=True)
+    def counted(run):
+        """run() with every K3/K5 count set to 0 just before -> (its result,
+        (K3, K5) launches, (K3, K5) launches on the tensor cores)."""
+        k3.launches = k5.launches = k3.mma_launches = k5.mma_launches = 0
+        out = run()
+        return out, (k3.launches, k5.launches), (k3.mma_launches, k5.mma_launches)
+
+    res, n_eval, mma_eval = counted(lambda: eval_mod.main(eval_mod.EvalConfig(
+        ckpt_path=ckpt, data_path=data_path, views=2, out_dir=os.path.join(OUT_DIR, "eval_nerf"))))
+    frames, n_gif, mma_gif = counted(lambda: gif_mod.main(gif_mod.GifConfig(
+        ckpt_path=ckpt, data_path=data_path, n_frames=8,
+        out_path=os.path.join(OUT_DIR, "nerf_views.gif"))))
+    res448, n_448, mma_448 = counted(lambda: eval_mod.main(eval_mod.EvalConfig(
+        ckpt_path=ckpt128, data_path=data_path, views=1, n_fine=448,
+        out_dir=os.path.join(OUT_DIR, "eval_nerf448"))))
+    launches = {"eval": n_eval, "make_gif": n_gif, "eval_n_fine_448": n_448}
+    mma = {"eval": mma_eval, "make_gif": mma_gif, "eval_n_fine_448": mma_448}
+    print(f"[serving] (K3, K5) launches {json.dumps(launches)}, of which on the tensor cores "
+          f"{json.dumps(mma)}; {n_chunks} chunks per image; flagship PSNR {res['psnr_mean']:.3f} "
+          f"dB, n-fine 448 PSNR {res448['psnr_mean']:.3f} dB (random weights)", flush=True)
+    check(mma == launches, "every bf16 K3 and K5 launch of eval, make_gif and eval --n-fine 448 "
+          "on the tensor cores")
     # eval renders each view twice (metrics, then the saved image).
     check(launches["eval"] == (2 * n_chunks * 4, 0), "eval: K3 twice per chunk, no K5")
     check(launches["make_gif"] == (2 * n_chunks * 8, 0), "make_gif: K3 twice per chunk")
@@ -780,6 +823,8 @@ def run_nerf(build_nerf) -> list:
     image = {fused: make_hierarchical_image_renderer(H=hw[0], W=hw[1], focal=focal, n_fine=128,
                                                      nerf_cfg=cfg, use_fused=fused)
              for fused in (True, False)}
+    m32, m128_32 = models[torch.float32], models[128, torch.float32]
+    z32, z512_32 = unions[torch.float32], unions[128, torch.float32]
     cases = {
         "chunk": {"kernel": lambda: fused_render_rays_hierarchical(model, ro, rd, **hier),
                   "plain": lambda: render_rays_hierarchical(model, ro, rd, **hier)},
@@ -794,12 +839,27 @@ def run_nerf(build_nerf) -> list:
                    m128.fine, ro, rd, z512, cfg=m128.cfg, sample_block=64)},
         "image": {"kernel": lambda: image[True](model, poses[0]),
                   "plain": lambda: image[False](model, poses[0])},
+        "k3_coarse_f32": {
+            "kernel": lambda: k3(m32.coarse, ro, rd, cfg=m32.cfg, return_weights=True),
+            "plain": lambda: fused_nerf_render_rays_plain(m32.coarse, ro, rd, cfg=m32.cfg,
+                                                          return_weights=True)},
+        "k3_fine_f32": {
+            "kernel": lambda: k3(m32.fine, ro, rd, z32, cfg=m32.cfg),
+            "plain": lambda: fused_nerf_render_rays_plain(m32.fine, ro, rd, z32, cfg=m32.cfg)},
+        "k5_f32": {
+            "kernel": lambda: k5(m128_32.fine, ro, rd, z512_32, cfg=m128_32.cfg, sample_block=64),
+            "plain": lambda: fused_nerf_render_rays_streamed_plain(
+                m128_32.fine, ro, rd, z512_32, cfg=m128_32.cfg, sample_block=64)},
     }
     times = {}
     with torch.no_grad():
         for what, fns in cases.items():
             for name in ("plain", "kernel", "kernel", "plain"):
                 times.setdefault((what, name), []).append(cuda_ms(fns[name], iters=5))
+        # A reading: what each bf16 K3 fine call spends packing its weights
+        # (the f32 buffer and the tensor-core fragments), alone.
+        pack_ms = [cuda_ms(lambda: (pack_nerf_weights(model.fine, cfg),
+                                    pack_mma_forward(model.fine, cfg))) for _ in range(2)]
     ms = {k: min(v) for k, v in times.items()}
     print(f"[timing] {card}: bf16, {NERF_CHUNK} rays; flagship hierarchical chunk fused "
           f"{ms['chunk', 'kernel']:.4f} ms, eager {ms['chunk', 'plain']:.4f} ms; K3 coarse (S=64, "
@@ -809,6 +869,12 @@ def run_nerf(build_nerf) -> list:
           f"{hw[0]}x{hw[1]} flagship image fused {ms['image', 'kernel']:.4f} ms, eager "
           f"{ms['image', 'plain']:.4f} ms "
           f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
+    print(f"[timing] {card}: f32 (the CUDA cores), {NERF_CHUNK} rays; K3 coarse "
+          f"{ms['k3_coarse_f32', 'kernel']:.4f} ms, plain {ms['k3_coarse_f32', 'plain']:.4f} ms; "
+          f"K3 fine {ms['k3_fine_f32', 'kernel']:.4f} ms, plain {ms['k3_fine_f32', 'plain']:.4f} "
+          f"ms; K5 {ms['k5_f32', 'kernel']:.4f} ms, plain {ms['k5_f32', 'plain']:.4f} ms. Weight "
+          f"packing of one bf16 K3 fine call (reading): {min(pack_ms):.4f} ms (runs {pack_ms})",
+          flush=True)
     print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
 
     bf16 = torch.bfloat16
@@ -1172,13 +1238,15 @@ def run_nerf_train(build_nerf_train) -> list:
     print(out.getvalue().strip(), flush=True)
     check(f"from step {FLAGSHIP_ITERS}" in out.getvalue() and "[resume]" in out.getvalue(),
           f"resume prints [resume] ... from step {FLAGSHIP_ITERS}")
-    fused_nerf_render_rays.launches = 0
+    fused_nerf_render_rays.launches = fused_nerf_render_rays.mma_launches = 0
     ev = eval_mod.main(eval_mod.EvalConfig(ckpt_path=flag.ckpt_path, data_path=data_path, views=2,
                                            out_dir=os.path.join(OUT_DIR, "eval_flagship")))
-    print(f"[train] eval of the flagship checkpoint: K3 launches {fused_nerf_render_rays.launches}, "
-          f"PSNR {ev['psnr_mean']:.3f} dB", flush=True)
-    check(fused_nerf_render_rays.launches > 0 and math.isfinite(ev["psnr_mean"]),
-          "eval serves the trained flagship checkpoint through K3")
+    k3_launches = (fused_nerf_render_rays.launches, fused_nerf_render_rays.mma_launches)
+    print(f"[train] eval of the flagship checkpoint: (K3, K3 on the tensor cores) launches "
+          f"{k3_launches}, PSNR {ev['psnr_mean']:.3f} dB", flush=True)
+    check(k3_launches[0] > 0 and k3_launches[0] == k3_launches[1]
+          and math.isfinite(ev["psnr_mean"]),
+          "eval serves the trained flagship checkpoint through K3, on the tensor cores")
     print(f"[train] ok in {time.time() - t0:.2f}s", flush=True)
 
     # 21. timing: plain, kernel, kernel, plain (bf16, flagship)

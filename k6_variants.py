@@ -1,17 +1,23 @@
-"""The bf16 tensor-core training walk of K6 and K4 built from altered
-copies of tinynerf_tpu_torch/csrc/, on a CUDA card. A development tool:
-nothing of the package imports it.
+"""The bf16 tensor-core training walk of K6 and K4, and the bf16
+tensor-core render kernel K3, built from altered copies of
+tinynerf_tpu_torch/csrc/, on a CUDA card. A development tool: nothing of
+the package imports it.
 
 Each variant is a copy of csrc/ with one or more texts replaced, built by
 nvcc into build/k6_variants/<variant>/ (one nvcc each, all together), and
 run in place of K6 on the flagship fine union (2048 rays x 192 samples,
 block 64, hidden 256, bf16) and of K4 on the flagship coarse pass (2048
 rays x 64 samples jittered in the kernel, weights and depths out, as
-chip_smoke.py phase 21 times it). Two kinds:
+chip_smoke.py phase 21 times it), or (the render variants, built from
+fused_nerf.cu) in place of K3 on the flagship fine pass (4096 rays x 192
+given depths, bf16, as chip_smoke.py phase 15 times it). Two kinds:
 
-- ablations switch one part of the walk off. A part's share of a
-  kernel's time is the full kernel's time less the variant's. Their
-  gradients are wrong; only their times are read.
+- ablations switch one part of the walk, or of K3, off. A part's share of
+  a kernel's time is the full kernel's time less the variant's. Their
+  gradients and renders are wrong; only their times are read. K3's parts:
+  the tensor-core products (trunk and rgb_in), the sigma and rgb heads,
+  the encoding, the composite; what they leave is the rest (points,
+  direction encoding, barriers).
 - faults are the wrong gradients this walk's design could compute: a
   k-step of points dropped from the weight gradients, the bias row
   counted twice, an earlier launch's partial row added where the first
@@ -41,7 +47,7 @@ import torch
 
 from chip_smoke import MMA_SCALE, card_line, leaf_errors, mma_scale_error
 
-WALK, MMA = "nerf_train_walk.cuh", "mma_bf16.cuh"
+WALK, MMA, MLP, RENDER = "nerf_train_walk.cuh", "mma_bf16.cuh", "nerf_mlp.cuh", "fused_nerf.cu"
 # name -> [(file, text, replacement)]: each text must occur in the file.
 ABLATIONS = {
     "weight gradients": [(MMA, "  constexpr int MT = kGradMTiles;\n",
@@ -53,12 +59,22 @@ ABLATIONS = {
     "workspace stores": [(MMA, "    if (store != nullptr)\n", "    if (false)\n")],
     "workspace reloads": [(WALK, "  const int n4 = n / 4;\n", "  const int n4 = n / 4;\n  return;\n")],
     "head gradients": [(WALK, "item < RH * 3 + 3 + H + 1; item += nt", "item < 0; item += nt")],
-    "sigma head forward": [(WALK, "for (int k = q; k < H; k += 4)", "for (int k = q; k < 0; k += 4)")],
+    "sigma head forward": [(MLP, "for (int k = j; k < n; k += 4)", "for (int k = j; k < 0; k += 4)")],
     "encoding": [(WALK, "      encode_bands<kTilePoints>(X, ld, H, pts, L, bf16);\n", "")],
     "per-ray gradients": [(WALK, "        segment_grads(b);\n", "")],
 }
 ABLATIONS["all three products"] = (ABLATIONS["weight gradients"] + ABLATIONS["upstream products"]
                                    + ABLATIONS["forward products"])
+# K3's parts, each switched off in a copy of fused_nerf.cu's kMma kernel.
+RENDER_ABLATIONS = {
+    "products": [(MMA, "mma_rows<MT, NT>(acc, X + in_col, ld, m0, n_in, W",
+                  "mma_rows<MT, NT>(acc, X + in_col, ld, m0, 0, W")],
+    "sigma and rgb heads": [(MLP, "for (int k = j; k < n; k += 4)", "for (int k = j; k < 0; k += 4)"),
+                            (RENDER, "for (int k = 0; k < a.rgb_hidden; ++k)",
+                             "for (int k = 0; k < 0; ++k)")],
+    "encoding": [(RENDER, "      encode_bands<kTilePoints>(X, ld, H, pts, a.num_freqs, bf16);\n", "")],
+    "composite": [(RENDER, "for (int sl = 0; sl < SEG; ++sl) {", "for (int sl = 0; sl < 0; ++sl) {")],
+}
 FAULTS = {
     "k-step of points dropped": [(MMA, "for (int ks = 0; ks < kMmaChunkPoints / 16; ++ks)",
                                   "for (int ks = 1; ks < kMmaChunkPoints / 16; ++ks)")],
@@ -67,8 +83,9 @@ FAULTS = {
 }
 
 
-def build_variant(name: str, edits: list, out_dir: Path) -> Path:
-    """csrc/ with `edits` applied, compiled to out_dir/<slug>/lib.so."""
+def build_variant(name: str, source: str, edits: list, out_dir: Path) -> Path:
+    """csrc/ with `edits` applied, csrc/<source>.cu compiled to
+    out_dir/<slug>/lib.so."""
     from tinynerf_tpu_torch.kernels import _build
 
     d = out_dir / name.replace(" ", "_")
@@ -83,7 +100,7 @@ def build_variant(name: str, edits: list, out_dir: Path) -> Path:
         path.write_text(text.replace(old, new))
     lib = d / "lib.so"
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                           str(d / "csrc" / "fused_nerf_train.cu")], capture_output=True, text=True)
+                           str(d / "csrc" / f"{source}.cu")], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on variant {name!r}:\n{proc.stderr}")
     return lib
@@ -92,6 +109,7 @@ def build_variant(name: str, edits: list, out_dir: Path) -> Path:
 def main() -> dict:
     from tinynerf_tpu_torch.config import Config
     from tinynerf_tpu_torch.kernels import _build
+    from tinynerf_tpu_torch.kernels import fused_nerf as fnr
     from tinynerf_tpu_torch.kernels import fused_nerf_train as fnt
     from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
         fused_nerf_pass_grads_streamed,
@@ -107,10 +125,13 @@ def main() -> dict:
         raise SystemExit("k6_variants: needs a CUDA device")
     card = card_line()
     print(card, flush=True)
-    variants = {"full": [], **ABLATIONS, **FAULTS}
+    # name -> (source, edits); the render's variants carry a "K3 " prefix.
+    variants = {n: ("fused_nerf_train", e) for n, e in {"full": [], **ABLATIONS, **FAULTS}.items()}
+    variants.update({f"K3 {n}": ("fused_nerf", e)
+                     for n, e in {"full": [], **RENDER_ABLATIONS}.items()})
     out_dir = _build.BUILD_DIR.parent / "k6_variants"
     with ThreadPoolExecutor(max_workers=len(variants)) as pool:
-        libs = dict(zip(variants, pool.map(lambda kv: build_variant(*kv, out_dir),
+        libs = dict(zip(variants, pool.map(lambda kv: build_variant(kv[0], *kv[1], out_dir),
                                            variants.items())))
 
     dev = torch.device("cuda", 0)
@@ -124,10 +145,18 @@ def main() -> dict:
                  generator=torch.Generator().manual_seed(0), device=dev)
 
     seed = torch.tensor([3], dtype=torch.int32, device=dev)  # on the device, as the train step's
+    # K3's flagship fine pass: 4096 rays (a render chunk) x 192 given depths.
+    ro3 = (torch.randn(2 * R, 3, generator=g) * 0.1 + torch.tensor([0.0, 0.0, 4.0])).to(dev)
+    rd3 = torch.randn(2 * R, 3, generator=g).to(dev)
+    z3 = torch.sort(torch.rand(2 * R, S, generator=g) * 4.0 + 2.0, dim=1).values.to(dev)
     timed = {
-        "K6": lambda: fused_nerf_pass_grads_streamed(model.fine, ro, rd, tgt, z, sample_block=64),
-        "K4": lambda: fused_nerf_pass_grads(model.coarse, ro, rd, tgt, seed, n_samples=64,
-                                            emit_sampling=True),
+        "fused_nerf_train": {
+            "K6": lambda: fused_nerf_pass_grads_streamed(model.fine, ro, rd, tgt, z,
+                                                         sample_block=64),
+            "K4": lambda: fused_nerf_pass_grads(model.coarse, ro, rd, tgt, seed, n_samples=64,
+                                                emit_sampling=True)},
+        "fused_nerf": {
+            "K3": lambda: fnr.fused_nerf_render_rays(model.fine, ro3, rd3, z3)},
     }
 
     def ms(fn, iters=3):
@@ -170,32 +199,38 @@ def main() -> dict:
                         "scale": err["mma_scale_err"] < MMA_SCALE}
         return err
 
+    def clear():
+        _build.load.cache_clear()
+        fnr._lib.cache_clear()
+        fnt._lib.cache_clear()
+
     times, errs = {}, {}
     build = _build.build
     try:
         for rnd in range(2):  # two rounds over every variant; the minimum time is kept
-            for name, lib in libs.items():
-                _build.load.cache_clear()
-                fnt._lib.cache_clear()
-                _build.build = lambda _name, lib=lib: lib
+            for name, (source, _) in variants.items():
+                clear()
+                _build.build = lambda n, s=source, lib=libs[name]: lib if n == s else build(n)
                 if name not in FAULTS:
-                    for kernel, fn in timed.items():
-                        times.setdefault((kernel, name), []).append(ms(fn))
+                    for kernel, f in timed[source].items():
+                        times.setdefault((kernel, name), []).append(ms(f))
                 if rnd == 0 and (name == "full" or name in FAULTS):
                     for case in cases:
                         errs[f"{name}, {case}"] = errors(case)
     finally:
         _build.build = build
-        _build.load.cache_clear()
-        fnt._lib.cache_clear()
+        clear()
     best = {k: min(v) for k, v in times.items()}
-    for kernel, shape in (("K6", "2048 x 192"), ("K4", "2048 x 64")):
-        full = best[kernel, "full"]
+    for kernel, shape, prefix, parts in (("K6", "2048 x 192", "", ABLATIONS),
+                                         ("K4", "2048 x 64", "", ABLATIONS),
+                                         ("K3", "4096 x 192", "K3 ", RENDER_ABLATIONS)):
+        full = best[kernel, f"{prefix}full"]
         print(f"[k6_variants] {card}: {kernel} bf16 {shape}: {full:.4f} ms "
-              f"(runs {times[kernel, 'full']})")
-        for name in ABLATIONS:
-            print(f"[k6_variants] {card}: {kernel} without {name}: {best[kernel, name]:.4f} ms, its "
-                  f"share {full - best[kernel, name]:.4f} ms (runs {times[kernel, name]})")
+              f"(runs {times[kernel, f'{prefix}full']})")
+        for part in parts:
+            t = best[kernel, prefix + part]
+            print(f"[k6_variants] {card}: {kernel} without {part}: {t:.4f} ms, its share "
+                  f"{full - t:.4f} ms (runs {times[kernel, prefix + part]})")
     for name, err in errs.items():
         print(f"[k6_variants] {name.replace('full', 'sound kernel')} against the plain version: "
               f"{json.dumps(err)}")

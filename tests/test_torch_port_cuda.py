@@ -1,7 +1,9 @@
 """The fused render (K1), train (K2), NeRF (K3), streamed NeRF (K5),
 NeRF train (K4), streamed NeRF train (K6) and block-partials (K7)
-kernels against their plain versions, K2's and K4's jitter, and the
-tensor-core walk of every bf16 K4, K6 and K7 launch, on a CUDA device.
+kernels against their plain versions, K2's and K4's jitter, the
+tensor-core walk of every bf16 K4, K6 and K7 launch, and the route of
+K3/K5 (bf16 at the tensor-core widths on the tensor cores, f32 and other
+widths on the CUDA cores), on a CUDA device.
 
 Skips without one. This file imports neither jax nor the JAX package, so
 it also runs on a GPU machine that has no JAX (without the suite's
@@ -139,7 +141,8 @@ def test_jitter_probe_bins_and_uniformity(cuda_device):
 def _nerf_case(hidden, num_freqs, dir_freqs, use_viewdirs, dtype, device, seed=5):
     from tinynerf_tpu_torch.models.nerf import NeRFMLP, NeRFConfig
 
-    depth, skip_at, rgb_hidden = (8, 4, 64) if hidden >= 128 else (3, 2, 16)
+    # hidden 48 (rgb_hidden 24): a bf16 width off the tensor cores' layout.
+    depth, skip_at, rgb_hidden = (8, 4, 64) if hidden >= 128 else (3, 2, 24 if hidden == 48 else 16)
     cfg = NeRFConfig(num_freqs=num_freqs, num_freqs_dir=dir_freqs, hidden=hidden, depth=depth,
                      skip_at=skip_at, rgb_hidden=rgb_hidden, use_viewdirs=use_viewdirs,
                      compute_dtype=dtype)
@@ -169,10 +172,14 @@ def _within_render_gates(got, want, dtype):
     (32, 4, 2, True, 16, False),
     (128, 10, 4, False, 24, True),
     (32, 4, 2, True, 7, True),       # S odd: a tile of 64 rays, partial chunks
+    (48, 4, 2, True, 16, True),      # bf16 off the tensor cores' widths: the CUDA cores
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_nerf_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs, dir_freqs, viewdirs, S,
                                            given_z, dtype):
+    """Each bf16 launch at hidden 32, 128 or 256 runs on the tensor cores
+    (one .mma_launches more), f32 and bf16 at hidden 48 on the CUDA cores
+    (none); all within the render gates."""
     from tinynerf_tpu_torch.kernels.fused_nerf import fused_nerf_render_rays, fused_nerf_render_rays_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -180,12 +187,14 @@ def test_nerf_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs, dir_f
     ro, rd = _rays(1001, 8, cuda_device)
     z = _sorted_z(1001, S, 9, cuda_device) if given_z else None
     kw = dict(n_samples=S, cfg=cfg, return_weights=True)
-    before = fused_nerf_render_rays.launches
+    k3 = fused_nerf_render_rays
+    before = (k3.launches, k3.mma_launches)
     with torch.no_grad():
-        got, got_w = fused_nerf_render_rays(mlp, ro, rd, z, **kw)
+        got, got_w = k3(mlp, ro, rd, z, **kw)
         torch.cuda.synchronize()
         want, want_w = fused_nerf_render_rays_plain(mlp, ro, rd, z, **kw)
-    assert fused_nerf_render_rays.launches == before + 1
+    on_tensor_cores = dtype == torch.bfloat16 and hidden != 48
+    assert (k3.launches, k3.mma_launches) == (before[0] + 1, before[1] + on_tensor_cores)
     assert got.shape == (1001, 3) and got_w.shape == (1001, S)
     assert bool(torch.isfinite(got).all() and torch.isfinite(got_w).all())
     _within_render_gates(got, want, dtype)
@@ -197,10 +206,13 @@ def test_nerf_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs, dir_f
     (128, 10, 4, 512, 64),   # the --n-fine 448 recipe's fine pass
     (32, 4, 2, 24, 8),
     (32, 4, 2, 16, 16),
+    (48, 4, 2, 24, 8),       # bf16 off the tensor cores' widths: the CUDA cores
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_streamed_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs, dir_freqs, S,
                                                sample_block, dtype):
+    """K3's route: one .mma_launches more for each bf16 launch at a
+    tensor-core width, none for f32 or hidden 48."""
     from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
         fused_nerf_render_rays_streamed,
         fused_nerf_render_rays_streamed_plain,
@@ -211,32 +223,39 @@ def test_streamed_kernel_matches_plain_on_card(cuda_device, hidden, num_freqs, d
     ro, rd = _rays(777, 10, cuda_device)
     z = _sorted_z(777, S, 11, cuda_device)
     kw = dict(cfg=cfg, sample_block=sample_block)
-    before = fused_nerf_render_rays_streamed.launches
+    k5 = fused_nerf_render_rays_streamed
+    before = (k5.launches, k5.mma_launches)
     with torch.no_grad():
-        got = fused_nerf_render_rays_streamed(mlp, ro, rd, z, **kw)
+        got = k5(mlp, ro, rd, z, **kw)
         torch.cuda.synchronize()
         want = fused_nerf_render_rays_streamed_plain(mlp, ro, rd, z, **kw)
-    assert fused_nerf_render_rays_streamed.launches == before + 1
+    on_tensor_cores = dtype == torch.bfloat16 and hidden != 48
+    assert (k5.launches, k5.mma_launches) == (before[0] + 1, before[1] + on_tensor_cores)
     assert got.shape == (777, 3) and bool(torch.isfinite(got).all())
     _within_render_gates(got, want, dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sample_block", [8, 64, 192])
-def test_streamed_kernel_equals_monolithic_kernel_on_card(cuda_device, sample_block):
-    """On the same z both kernels run the same MLP code, so the per-point
-    values are equal and only the order of the transmittance products
-    and colour sums differs: <= 192 * 2^-24 relative on each, so at most
-    ~2.3e-5 on a colour in [0, 1] plus its background term."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_kernel_equals_monolithic_kernel_on_card(cuda_device, sample_block, dtype):
+    """On the same z both kernels run the same MLP code (in bf16 both on
+    the tensor cores), so the per-point values are equal and only the
+    order of the transmittance products and colour sums differs: <= 192 *
+    2^-24 relative on each, so at most ~2.3e-5 on a colour in [0, 1] plus
+    its background term."""
     from tinynerf_tpu_torch.kernels.fused_nerf import fused_nerf_render_rays
     from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_render_rays_streamed
 
-    mlp, cfg = _nerf_case(256, 10, 4, True, torch.float32, cuda_device)
+    mlp, cfg = _nerf_case(256, 10, 4, True, dtype, cuda_device)
     ro, rd = _rays(600, 12, cuda_device)
     z = _sorted_z(600, 192, 13, cuda_device)
+    before = fused_nerf_render_rays.mma_launches + fused_nerf_render_rays_streamed.mma_launches
     with torch.no_grad():
         mono = fused_nerf_render_rays(mlp, ro, rd, z, cfg=cfg)
         stream = fused_nerf_render_rays_streamed(mlp, ro, rd, z, cfg=cfg, sample_block=sample_block)
+    after = fused_nerf_render_rays.mma_launches + fused_nerf_render_rays_streamed.mma_launches
+    assert after - before == (2 if dtype == torch.bfloat16 else 0)
     assert float((mono - stream).abs().max()) < 2.5e-5
 
 
@@ -275,11 +294,19 @@ def test_refused_launch_raises(cuda_device):
     from tinynerf_tpu_torch.kernels.fused_nerf import _lib, raise_on_error
 
     stream = torch.cuda.current_stream(cuda_device).cuda_stream
-    err = _lib().tinynerf_fused_nerf(None, None, None, None, None, None, 128, 1, 64, 10, 4, 1,
-                                     1024, 8, 4, 64, 2.0, 6.0, 0, cuda_device.index, stream)
+    err = _lib().tinynerf_fused_nerf(None, None, None, None, None, None, None, 128, 1, 64, 10, 4,
+                                     1, 1024, 8, 4, 64, 2.0, 6.0, 0, cuda_device.index, stream)
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         raise_on_error(err, "fused_nerf")
+    # Tensor-core fragments with an f32 launch, or at a width off their
+    # layout (hidden 48), are refused before anything runs.
+    frag = torch.zeros(4, dtype=torch.bfloat16, device=cuda_device)
+    for hidden, rgb_hidden, bf16 in ((256, 64, 0), (48, 24, 1)):
+        err = _lib().tinynerf_fused_nerf(None, None, None, None, frag.data_ptr(), None, None, 128,
+                                         1, 64, 10, 4, 1, hidden, 8, 4, rgb_hidden, 2.0, 6.0, bf16,
+                                         cuda_device.index, stream)
+        assert err != 0
 
 
 def _plain(fn, mlp, *args, dtype, **kw):

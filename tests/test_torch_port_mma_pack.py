@@ -1,12 +1,16 @@
 """The tensor-core fragment packer of the bf16 training walk of K4, K6 and
-K7 (tinynerf_tpu_torch/kernels/fused_nerf_train.py::pack_mma_weights) on
-the CPU: unpacking by index gives back every layer's bf16 weights with
-their zero K-padding, and an emulation of mma.sync m16n8k16 over the
-packed fragments, reading its A operands the way csrc/mma_bf16.cuh does,
-computes the forward and upstream products and, over the permuted points
-with a bias row of ones, the weight gradient; at widths with and without
-view directions. The wrappers' CPU paths take the plain versions and count
-no launch. No kernel runs. Imports neither jax nor the JAX package:
+K7 (tinynerf_tpu_torch/kernels/fused_nerf_train.py::pack_mma_weights) and
+of the bf16 render kernels K3/K5 (kernels/fused_nerf.py::pack_mma_forward,
+its forward prefix) on the CPU: unpacking by index gives back every
+layer's bf16 weights with their zero K-padding, and an emulation of
+mma.sync m16n8k16 over the packed fragments, reading its A operands the
+way csrc/mma_bf16.cuh does, computes the forward and upstream products,
+the render's trunk and rgb_in forward from its own buffer and, over the
+permuted points with a bias row of ones, the weight gradient; at widths
+with and without view directions. The launch rules: the training kernels
+raise at widths off the tensor cores, the render takes the CUDA cores
+there. The wrappers' CPU paths take the plain versions and count no
+launch. No kernel runs. Imports neither jax nor the JAX package:
 
     python -m pytest -q tests/test_torch_port_mma_pack.py
 """
@@ -17,6 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+from tinynerf_tpu_torch.kernels.fused_nerf import (
+    mma_shapes_ok,
+    pack_mma_forward,
+    render_uses_tensor_cores,
+)
 from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     check_mma_shapes,
     mma_operands,
@@ -25,6 +34,7 @@ from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     uses_tensor_cores,
 )
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, nerf_layer_in_dims
+from tinynerf_tpu_torch.models.tinynerf import dense
 
 # (hidden, L, L_dir, view directions): the card tests' small width, hidden
 # 128, the flagship, and the K4/K7 card width without view directions
@@ -138,6 +148,7 @@ def test_mma_shape_rule(hidden, rgb_hidden, ok):
     the tensor cores or raises, f32 the CUDA cores at any width."""
     cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=hidden, depth=3, skip_at=2,
                      rgb_hidden=rgb_hidden, compute_dtype=torch.bfloat16)
+    assert mma_shapes_ok(cfg) is ok
     if ok:
         check_mma_shapes(cfg)
         assert uses_tensor_cores(cfg) is True
@@ -258,5 +269,110 @@ def test_bf16_k4_and_k7_take_the_plain_versions_on_the_cpu(run, wrappers):
         got, want = run(mlp, cfg, *_cpu_inputs())
     assert [(f.launches, f.mma_launches) for f in fns] == before
     assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def _mma_fwd_off(cfg, i):
+    """csrc/mma_bf16.cuh's mma_fwd_off: trunk layer i's forward fragments
+    (i = depth: rgb_in's), in bf16 values."""
+    return sum(_pad32(n) * cfg.hidden for n in nerf_layer_in_dims(cfg)[:i])
+
+
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,viewdirs", WIDTHS)
+def test_render_forward_buffer_is_the_prefix_of_the_walks(hidden, num_freqs, dir_freqs,
+                                                          viewdirs):
+    """K3/K5's w_mma holds the trunk layers' and rgb_in's forward fragments
+    at the training walk's offsets: the prefix of pack_mma_weights."""
+    mlp, cfg = _mlp(hidden, num_freqs, dir_freqs, viewdirs, seed=4)
+    fwd, full = pack_mma_forward(mlp, cfg), pack_mma_weights(mlp, cfg)
+    assert fwd.dtype == torch.bfloat16 and fwd.is_contiguous()
+    n = _mma_fwd_off(cfg, cfg.depth) + _pad32(cfg.hidden + cfg.dir_dim) * cfg.rgb_hidden
+    assert fwd.numel() == n and fwd.numel() % 4 == 0
+    assert torch.equal(fwd, full[:n])
+
+
+@pytest.mark.parametrize("hidden,num_freqs,dir_freqs,viewdirs", WIDTHS)
+@torch.no_grad()
+def test_emulated_render_forward_over_its_buffer_is_the_models(hidden, num_freqs, dir_freqs,
+                                                               viewdirs):
+    """The render's tensor-core forward, emulated over pack_mma_forward's
+    buffer at mma_fwd_off: each trunk layer and rgb_in, on the same bf16
+    inputs, gives the model's own pre-activation (dense) to float32
+    rounding; chained as the kernel chains them (bias, ReLU, bf16 rounding,
+    the skip concat, the direction encoding over the dead columns) the
+    heads give the model's rgb and sigma within the bf16 render gate."""
+    mlp, cfg = _mlp(hidden, num_freqs, dir_freqs, viewdirs, seed=5)
+    buf = pack_mma_forward(mlp, cfg)
+    rng = np.random.RandomState(hidden + 3 * num_freqs)
+    bf = torch.bfloat16
+    x_enc = torch.from_numpy(rng.uniform(-1, 1, (128, cfg.in_dim)).astype(np.float32)).to(bf).float()
+    d_enc = torch.from_numpy(rng.uniform(-1, 1, (128, cfg.dir_dim)).astype(np.float32)).to(bf).float()
+
+    def layer(a, lin, off):
+        K, N = a.shape[1], lin.out_features
+        got = _emulate(a, buf[off:off + _pad32(K) * N], K, N) + lin.bias.detach().double()
+        want = dense(a, lin, bf).double()
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()) + 1e-6
+        return torch.relu(got).float().to(bf).float()
+
+    h = x_enc
+    for i, lin in enumerate(mlp.layers):
+        h = layer(h, lin, _mma_fwd_off(cfg, i))
+        if i == cfg.skip_at - 1:
+            h = torch.cat([h, x_enc], dim=-1)
+    sigma = torch.relu(dense(h, mlp.sigma, bf))
+    g = layer(torch.cat([h, d_enc], dim=-1), mlp.rgb_in, _mma_fwd_off(cfg, cfg.depth))
+    rgb = torch.sigmoid(dense(g, mlp.rgb, bf))
+    want_rgb, want_sigma = mlp(x_enc, d_enc if viewdirs else None, cfg)
+    assert float((rgb - want_rgb).abs().max()) < 3e-2
+    assert float((sigma - want_sigma).abs().max()) < 3e-2 * max(1.0, float(want_sigma.abs().max()))
+
+
+@pytest.mark.parametrize("hidden,rgb_hidden,dtype,want", [
+    (128, 64, torch.bfloat16, True),   # the --n-fine 448 recipe
+    (256, 64, torch.bfloat16, True),   # the flagship
+    (32, 16, torch.bfloat16, True),    # the card tests' small width
+    (256, 64, torch.float32, False),   # f32: the CUDA cores, the exactness reference
+    (48, 24, torch.bfloat16, False),   # hidden not a multiple of 32
+    (256, 32, torch.bfloat16, False),  # rgb_in's 32 columns over 8 warp pairs: 4 each
+    (256, 192, torch.bfloat16, False), # 3 column tiles a warp: no instantiation
+])
+def test_render_route_by_configuration_never_raises(hidden, rgb_hidden, dtype, want):
+    """K3/K5 take the tensor cores for bf16 at the widths they take and the
+    CUDA cores otherwise, where the training kernels raise."""
+    cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=hidden, depth=3, skip_at=2,
+                     rgb_hidden=rgb_hidden, compute_dtype=dtype)
+    assert render_uses_tensor_cores(cfg) is want
+    if dtype == torch.bfloat16:
+        assert mma_shapes_ok(cfg) is want
+
+
+@pytest.mark.parametrize("hidden,rgb_hidden", [(32, 16), (48, 24)])
+def test_bf16_k3_and_k5_take_the_plain_versions_on_the_cpu(hidden, rgb_hidden):
+    """bf16 K3 (weights out) and K5 on CPU tensors, on and off the tensor
+    cores' widths: the plain versions' values, and neither .launches nor
+    .mma_launches moves."""
+    from tinynerf_tpu_torch.kernels.fused_nerf import (
+        fused_nerf_render_rays,
+        fused_nerf_render_rays_plain,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_render_rays_streamed,
+        fused_nerf_render_rays_streamed_plain,
+    )
+
+    cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=hidden, depth=3, skip_at=2,
+                     rgb_hidden=rgb_hidden, compute_dtype=torch.bfloat16)
+    mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(6))
+    ro, rd, _, z = _cpu_inputs()
+    fns = (fused_nerf_render_rays, fused_nerf_render_rays_streamed)
+    before = [(f.launches, f.mma_launches) for f in fns]
+    with torch.no_grad():
+        got = [*fused_nerf_render_rays(mlp, ro, rd, z, cfg=cfg, return_weights=True),
+               fused_nerf_render_rays_streamed(mlp, ro, rd, z, cfg=cfg, sample_block=8)]
+        want = [*fused_nerf_render_rays_plain(mlp, ro, rd, z, cfg=cfg, return_weights=True),
+                fused_nerf_render_rays_streamed_plain(mlp, ro, rd, z, cfg=cfg, sample_block=8)]
+    assert [(f.launches, f.mma_launches) for f in fns] == before
     for a, b in zip(got, want):
         assert a.shape == b.shape and torch.equal(a, b)

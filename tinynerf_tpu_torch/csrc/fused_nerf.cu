@@ -15,17 +15,29 @@
 //
 // The Python wrappers are tinynerf_tpu_torch/kernels/fused_nerf.py and
 // tinynerf_tpu_torch/kernels/fused_nerf_stream.py. The chunked MLP
-// forward (dense_relu, both encodings) is in nerf_mlp.cuh, shared with
-// the train kernel K4/K6 (fused_nerf_train.cu).
+// forward (dense_relu, both encodings) is in nerf_mlp.cuh, its tensor-core
+// twin (mma_dense_relu) in mma_bf16.cuh, both shared with the training
+// walk of K4/K6/K7 (nerf_train_walk.cuh).
 //
 // What bounds it on an H100: arithmetic. At the flagship width (hidden
 // 256, depth 8, skip at 4, L=10, L_dir=4, rgb_hidden 64) a point costs
 // 509,568 multiply-adds against a few bytes of depth input, while the
 // unfused composition moves every (points, 319) activation through
 // device memory. The kernel keeps a chunk's encoding and activations in
-// shared memory, writes only (R, 4) (and the (R, S) weights when asked)
-// and runs its products on the CUDA cores' f32 FMAs (tensor cores are
-// later work).
+// shared memory and writes only (R, 4) (and the (R, S) weights when
+// asked).
+//
+// Products, by the template argument kMma, chosen by configuration in
+// the wrappers (render_uses_tensor_cores), never by a failure: a bf16
+// launch at the widths mma_dense_relu takes (hidden a multiple of 32,
+// 4 * rgb_hidden / hidden in {1, 2, 4}; every recipe of the repo) sets it
+// and runs the trunk and rgb_in on the tensor cores (mma.sync m16n8k16,
+// f32 accumulation) from the packed forward B fragments w_mma, at the
+// training walk's offsets (mma_fwd_off); its sigma head sums over four
+// lanes a point as the walk's does, so bf16 K3/K5 and bf16 K4 compute the
+// same per-point values from equal inputs. f32 launches, and the bf16
+// widths off that layout (hidden 48, say), run the CUDA cores' f32 FMAs
+// below, the exactness reference.
 //
 // Shared memory at hidden 256 is what shapes the design. A block takes
 // TR rays; their points are processed in chunks of PT = 128 point rows
@@ -40,13 +52,18 @@
 // of one ray (192 points at the flagship's fine pass) would not fit, so
 // the chunk, not the ray, is the unit of the MLP, and per-point
 // (rgb, sigma) go to a small head buffer that the composite reads.
-// Each dense layer is a register-tiled product: a thread owns an 8-row x
-// 8-column block (2*hidden threads, 512 at hidden 256) and holds the
-// whole sum in registers, so the output can be written over its input
-// after a barrier; one buffer serves every layer. The point group is the
-// fast thread index, so the block reads each weight row about once per
-// chunk (weights stay in L2: 2 MB per MLP in f32). Row strides are odd,
-// so the rows a warp reads at one column fall in distinct banks.
+// On the CUDA cores each dense layer is a register-tiled product: a
+// thread owns an 8-row x 8-column block (2*hidden threads, 512 at hidden
+// 256) and holds the whole sum in registers, so the output can be written
+// over its input after a barrier; one buffer serves every layer. The
+// point group is the fast thread index, so the block reads each weight row
+// about once per chunk (weights stay in L2: 2 MB per MLP in f32). Row
+// strides are odd, so the rows a warp reads at one column fall in
+// distinct banks. On the tensor cores the same 2*hidden threads are
+// hidden/16 warps, each a 64-row x 32-column tile of the chunk (8 NT
+// columns for rgb_in), its sums in registers and written over the input
+// after a barrier in the same way; A fragments come from the f32 buffer,
+// the B fragments from L2, two k-steps ahead (mma_bf16.cuh).
 //
 // Composite: one thread per ray walks its samples in order. K3 is one
 // segment of all S samples; K5 is segments of `sample_block` samples,
@@ -61,8 +78,11 @@
 // build with --use_fast_math). With bf16 set, every MLP input (encoding,
 // direction encoding, hidden activations, rgb_in output) is rounded to
 // bf16 where it is written and the wrapper rounds the weights; products
-// are exact in f32 and the sums accumulate in f32.
+// are exact in f32 and the sums accumulate in f32 (on the tensor cores in
+// their k-step order, so bf16 K3/K5 differ from the CUDA-core kernel by
+// summation order only).
 
+#include "mma_bf16.cuh"
 #include "nerf_mlp.cuh"
 
 namespace {
@@ -81,6 +101,7 @@ struct Args {
   int S, seg, tile_rays, num_freqs, dir_freqs, use_viewdirs;
   int hidden, depth, skip_at, rgb_hidden, bf16;
   float near, far;
+  const void* w_mma;     // kMma: kernels/fused_nerf.py::pack_mma_forward (bf16), else null
 };
 
 // Depth of sample s of global ray g.
@@ -97,6 +118,7 @@ __device__ __forceinline__ float delta_at(const Args& a, int g, int s, float nor
   return __fmul_rn(dz, norm);
 }
 
+template <bool kMma>
 __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -113,12 +135,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
   // Packed weights: trunk (W, b)..., sigma (W hidden, b, 3 pad), rgb_in
   // (W (H + Dd, rgb_hidden), b), rgb (W (rgb_hidden, 3), b).
   const float* w_sigma = a.weights;
-  for (int i = 0; i < a.depth; ++i) {
-    const int n_in = i == 0 ? E : (i == a.skip_at ? H + E : H);
-    w_sigma += (n_in + 1) * H;
-  }
+  for (int i = 0; i < a.depth; ++i) w_sigma += (layer_in_dim(i, E, H, a.skip_at) + 1) * H;
   const float* w_rgb_in = w_sigma + H + 4;
   const float* w_rgb = w_rgb_in + (H + Dd + 1) * a.rgb_hidden;
+  // kMma: the packed forward B fragments, 4 bf16 values to a uint2.
+  const uint2* w_mma = static_cast<const uint2*>(a.w_mma);
 
   // Direction encoding of d/||d||, once per ray.
   for (int idx = tid; idx < TR * Dd; idx += nt) {
@@ -159,19 +180,36 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
       const float* wp = a.weights;
       for (int i = 0; i < a.depth; ++i) {
         const int in_col = i == 0 ? H : 0;
-        const int n_in = i == 0 ? E : (i == a.skip_at ? H + E : H);
-        dense_relu<kTilePoints, kTrunkRows>(X, ld, in_col, n_in, H, wp, wp + n_in * H, bf16);
+        const int n_in = layer_in_dim(i, E, H, a.skip_at);
+        if constexpr (kMma) {
+          mma_dense_relu<4>(X, ld, in_col, n_in, H, w_mma + mma_fwd_off(i, E, H, a.skip_at) / 4,
+                            wp + n_in * H, nullptr);
+        } else {
+          dense_relu<kTilePoints, kTrunkRows>(X, ld, in_col, n_in, H, wp, wp + n_in * H, bf16);
+        }
         wp += (n_in + 1) * H;
       }
 
       // sigma = relu(h @ w + b) from the trunk; then the direction
       // encoding goes over the dead encoding columns.
-      for (int p = tid; p < kTilePoints; p += nt) {
-        const float* row = X + p * ld;
-        float s = 0.f;
-        for (int k = 0; k < H; ++k) s = fmaf(row[k], __ldg(w_sigma + k), s);
-        const int q = c0 + p;
-        if (q < n_pts) heads[q * 4 + 3] = fmaxf(s + __ldg(w_sigma + H), 0.f);
+      if constexpr (kMma) {
+        // 4 neighbouring lanes a point (quad_dot, the training walk's sigma
+        // head); whole warps run every round.
+        for (int base = 0; base < 4 * kTilePoints; base += nt) {
+          const int idx = base + tid, p = idx >> 2, j = idx & 3;
+          const bool valid = idx < 4 * kTilePoints;
+          const float s = quad_dot(X + p * ld, w_sigma, H, j, valid);
+          const int q = c0 + p;
+          if (valid && j == 0 && q < n_pts) heads[q * 4 + 3] = fmaxf(s + __ldg(w_sigma + H), 0.f);
+        }
+      } else {
+        for (int p = tid; p < kTilePoints; p += nt) {
+          const float* row = X + p * ld;
+          float s = 0.f;
+          for (int k = 0; k < H; ++k) s = fmaf(row[k], __ldg(w_sigma + k), s);
+          const int q = c0 + p;
+          if (q < n_pts) heads[q * 4 + 3] = fmaxf(s + __ldg(w_sigma + H), 0.f);
+        }
       }
       for (int idx = tid; idx < kTilePoints * Dd; idx += nt) {
         const int p = idx / Dd, j = idx % Dd;
@@ -181,14 +219,25 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
       }
       __syncthreads();
 
-      // rgb_in: [h, d_enc] -> rgb_hidden, with as many rows per thread as
-      // keep every thread busy (8 * rgb_hidden / hidden).
+      // rgb_in: [h, d_enc] -> rgb_hidden. Tensor cores: 2 warps over the
+      // rows, H / 32 over the columns, 8 * (4 * rgb_hidden / H) each; CUDA
+      // cores: as many rows per thread as keep every thread busy
+      // (8 * rgb_hidden / hidden).
       const float* b_in = w_rgb_in + (H + Dd) * a.rgb_hidden;
-      switch (8 * a.rgb_hidden / H) {
-        case 1: dense_relu<kTilePoints, 1>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-        case 2: dense_relu<kTilePoints, 2>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-        case 4: dense_relu<kTilePoints, 4>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-        default: dense_relu<kTilePoints, 8>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+      if constexpr (kMma) {
+        const uint2* wm = w_mma + mma_fwd_off(a.depth, E, H, a.skip_at) / 4;
+        switch (4 * a.rgb_hidden / H) {
+          case 1: mma_dense_relu<1>(X, ld, 0, H + Dd, a.rgb_hidden, wm, b_in, nullptr); break;
+          case 2: mma_dense_relu<2>(X, ld, 0, H + Dd, a.rgb_hidden, wm, b_in, nullptr); break;
+          default: mma_dense_relu<4>(X, ld, 0, H + Dd, a.rgb_hidden, wm, b_in, nullptr); break;
+        }
+      } else {
+        switch (8 * a.rgb_hidden / H) {
+          case 1: dense_relu<kTilePoints, 1>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+          case 2: dense_relu<kTilePoints, 2>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+          case 4: dense_relu<kTilePoints, 4>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+          default: dense_relu<kTilePoints, 8>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
+        }
       }
 
       // rgb = sigmoid(g1 @ W + b).
@@ -239,16 +288,29 @@ int smem_bytes(int tile_rays, int seg, int num_freqs, int dir_freqs, int use_vie
   return floats * (int)sizeof(float);
 }
 
+template <bool kMma>
+int launch_kernel(const Args& a, int n_rays, int smem, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_nerf_kernel<kMma>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_nerf_kernel<kMma><<<n_rays / a.tile_rays, 2 * a.hidden, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The route is the caller's: w_mma null runs the CUDA-core kernel; w_mma
+// set runs the tensor-core kernel, and only a bf16 launch at the widths
+// mma_dense_relu takes may set it (else cudaErrorInvalidValue, no launch).
 int launch(const Args& a, int n_rays, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int smem = smem_bytes(a.tile_rays, a.seg, a.num_freqs, a.dir_freqs, a.use_viewdirs,
                               a.hidden);
-  err = cudaFuncSetAttribute(fused_nerf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_nerf_kernel<<<n_rays / a.tile_rays, 2 * a.hidden, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.w_mma == nullptr) return launch_kernel<false>(a, n_rays, smem, stream);
+  const int nt_rgb = a.hidden > 0 ? 4 * a.rgb_hidden / a.hidden : 0;
+  if (!a.bf16 || a.hidden % 32 != 0 || (4 * a.rgb_hidden) % a.hidden != 0 ||
+      (nt_rgb != 1 && nt_rgb != 2 && nt_rgb != 4))
+    return (int)cudaErrorInvalidValue;
+  return launch_kernel<true>(a, n_rays, smem, stream);
 }
 
 }  // namespace
@@ -269,31 +331,32 @@ int tinynerf_fused_nerf_max_threads() { return kMaxThreads; }
 
 int tinynerf_fused_nerf_tile_points() { return kTilePoints; }
 
-// K3. z (R, S) or null for the analytic linspace; w_out (R, S) or null.
-// n_rays must be a multiple of tile_rays. Returns the CUDA error code of
-// the attribute call or of the launch (0 = ok).
+// K3. z (R, S) or null for the analytic linspace; w_out (R, S) or null;
+// w_mma the packed forward fragments (the tensor-core route) or null (the
+// CUDA cores). n_rays must be a multiple of tile_rays. Returns the CUDA
+// error code of the attribute call or of the launch (0 = ok).
 int tinynerf_fused_nerf(const float* rays_o, const float* rays_d, const float* z,
-                        const float* weights, float* out, float* w_out, int n_rays,
-                        int tile_rays, int n_samples, int num_freqs, int dir_freqs,
+                        const float* weights, const void* w_mma, float* out, float* w_out,
+                        int n_rays, int tile_rays, int n_samples, int num_freqs, int dir_freqs,
                         int use_viewdirs, int hidden, int depth, int skip_at, int rgb_hidden,
                         float near, float far, int bf16, int device, void* stream) {
   const Args a{rays_o, rays_d, z, nullptr, weights, out, w_out, n_samples, n_samples,
                tile_rays, num_freqs, dir_freqs, use_viewdirs, hidden, depth, skip_at,
-               rgb_hidden, bf16, near, far};
+               rgb_hidden, bf16, near, far, w_mma};
   return launch(a, n_rays, device, stream);
 }
 
 // K5. z and delta (R, S); S must be a multiple of sample_block and n_rays
-// of tile_rays. Returns the CUDA error code (0 = ok).
+// of tile_rays; w_mma as K3's. Returns the CUDA error code (0 = ok).
 int tinynerf_fused_nerf_streamed(const float* rays_o, const float* rays_d, const float* z,
-                                 const float* delta, const float* weights, float* out,
-                                 int n_rays, int tile_rays, int n_samples, int sample_block,
-                                 int num_freqs, int dir_freqs, int use_viewdirs, int hidden,
-                                 int depth, int skip_at, int rgb_hidden, int bf16, int device,
-                                 void* stream) {
+                                 const float* delta, const float* weights, const void* w_mma,
+                                 float* out, int n_rays, int tile_rays, int n_samples,
+                                 int sample_block, int num_freqs, int dir_freqs,
+                                 int use_viewdirs, int hidden, int depth, int skip_at,
+                                 int rgb_hidden, int bf16, int device, void* stream) {
   const Args a{rays_o, rays_d, z, delta, weights, out, nullptr, n_samples, sample_block,
                tile_rays, num_freqs, dir_freqs, use_viewdirs, hidden, depth, skip_at,
-               rgb_hidden, bf16, 0.f, 0.f};
+               rgb_hidden, bf16, 0.f, 0.f, w_mma};
   return launch(a, n_rays, device, stream);
 }
 

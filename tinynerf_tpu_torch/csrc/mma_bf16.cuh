@@ -1,20 +1,23 @@
-// The bf16 tensor-core products of the training walk (nerf_train_walk.cuh
-// with kMma): warp-level mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
-// with f32 accumulation, on Hopper (sm_90a) as on every card since sm_80.
+// The bf16 tensor-core products of the NeRF MLP kernels: warp-level
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with f32
+// accumulation, on Hopper (sm_90a) as on every card since sm_80.
 //
 // Rule of the design: every bf16 launch of K4, K6 and K7 runs its three
 // MLP products here (the trunk's and rgb_in's forward, the weight
-// gradients, the upstream gradients); the f32 walk and the render kernels
-// (K3/K5) keep the CUDA-core products of nerf_mlp.cuh and
-// train_common.cuh.
+// gradients, the upstream gradients; nerf_train_walk.cuh with kMma), and
+// every bf16 launch of the render kernels K3/K5 (fused_nerf.cu with kMma)
+// at the widths mma_dense_relu takes runs its forward products here; f32
+// launches, and the few bf16 render widths off that layout, keep the
+// CUDA-core products of nerf_mlp.cuh and train_common.cuh.
 //
-// Operands. The walk's shared buffer stays f32 with its odd row stride. A
+// Operands. The kernels' shared buffer stays f32 with its odd row stride. A
 // fragment is built by loading floats and packing them to bf16x2, which is
 // exact: with bf16 set every MLP input and every output gradient is
 // already rounded to bf16 where it is written (to_compute). The weights'
-// B fragments are packed on the host (kernels/fused_nerf_train.py::
-// pack_mma_weights) in the order one warp reads them: for each 16-deep
-// k-step and 8-column tile, one 8-byte load per lane, straight from L2.
+// B fragments are packed on the host (kernels/fused_nerf.py::pack_mma_b:
+// pack_mma_weights for the walk, its forward prefix pack_mma_forward for
+// the render) in the order one warp reads them: for each 16-deep k-step
+// and 8-column tile, one 8-byte load per lane, straight from L2.
 //
 // The k order. A product sums over k, so a lane may hold any k as long as
 // its A and B values agree. Lane (g = lane / 4, t = lane % 4) of k-step
@@ -45,6 +48,24 @@ constexpr int kUpNTiles = 4;   // 8-column tiles of an upstream warp
 constexpr int kGradMTiles = 2; // of a weight-gradient item: 32 input rows
 
 __host__ __device__ inline int pad32(int n) { return (n + 31) & ~31; }
+
+// Input width of trunk layer i: the encoding (E), the skip layer's [h, enc]
+// or the hidden activations.
+__host__ __device__ inline int layer_in_dim(int i, int E, int H, int skip_at) {
+  return i == 0 ? E : (i == skip_at ? H + E : H);
+}
+
+// Offset, in bf16 values, of trunk layer i's forward B fragments in the
+// packed tensor-core weights (pack_mma_weights): the forward of trunk
+// layers 0..D-1 (pad32(in) x H each), rgb_in's forward (pad32(H + Dd) x
+// RH), the upstream of trunk layers 1..D-1 (H x H each), then rgb_in's
+// upstream (pad32(RH) x H). The render kernels read the forward prefix
+// alone (pack_mma_forward), at the same offsets.
+__host__ __device__ inline int mma_fwd_off(int i, int E, int H, int skip_at) {
+  int off = 0;
+  for (int j = 0; j < i; ++j) off += pad32(layer_in_dim(j, E, H, skip_at)) * H;
+  return off;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -98,6 +98,20 @@ __device__ void dense_relu(float* X, int ld, int in_col, int n_in, int n_out,
   __syncthreads();
 }
 
+// The tensor-core kernels' sigma head (K3/K5 and the training walk alike,
+// so they compute equal densities): lane j of 4 neighbouring lanes sums
+// row[k] * w[k] over k = j, j + 4, ... < n, and two shuffles give each of
+// the four the whole sum. Whole warps call it; lanes with valid false add 0.
+__device__ __forceinline__ float quad_dot(const float* row, const float* __restrict__ w, int n,
+                                          int j, bool valid) {
+  float acc = 0.f;
+  if (valid)
+    for (int k = j; k < n; k += 4) acc = fmaf(row[k], __ldg(w + k), acc);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  return acc;
+}
+
 __device__ __forceinline__ float ray_norm(const float* d) {
   return sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
                          __fmul_rn(d[2], d[2])));

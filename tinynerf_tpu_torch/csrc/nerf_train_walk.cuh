@@ -136,10 +136,6 @@ struct Args {
   const void* w_mma;    // kMma: kernels/fused_nerf_train.py::pack_mma_weights (bf16)
 };
 
-__host__ __device__ inline int layer_in_dim(int i, int E, int H, int skip_at) {
-  return i == 0 ? E : (i == skip_at ? H + E : H);
-}
-
 // Offset of trunk layer i's W (in, H) then b (H) in the packed weights,
 // which is also the layout of the gradient partials.
 __host__ __device__ inline int layer_off(int i, int E, int H, int skip_at) {
@@ -173,17 +169,6 @@ __device__ __forceinline__ void upstream_item(const float* G, int ld, int n_red,
       for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
     }
   }
-}
-
-// Offset, in bf16 values, of trunk layer i's forward B fragments in the
-// packed tensor-core weights (pack_mma_weights): the forward of trunk
-// layers 0..D-1 (pad32(in) x H each), rgb_in's forward (pad32(H + Dd) x
-// RH), the upstream of trunk layers 1..D-1 (H x H each), then rgb_in's
-// upstream (pad32(RH) x H).
-__host__ __device__ inline int mma_fwd_off(int i, int E, int H, int skip_at) {
-  int off = 0;
-  for (int j = 0; j < i; ++j) off += pad32(layer_in_dim(j, E, H, skip_at)) * H;
-  return off;
 }
 
 // rows x n floats from device memory (row stride n, n a multiple of 4,
@@ -326,13 +311,7 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
         for (int base = 0; base < 4 * kTilePoints; base += nt) {
           const int idx = base + tid, p = idx >> 2, q = idx & 3;
           const bool valid = idx < 4 * kTilePoints;
-          float acc = 0.f;
-          if (valid) {
-            const float* row = X + p * ld;
-            for (int k = q; k < H; k += 4) acc = fmaf(row[k], __ldg(w_sigma + k), acc);
-          }
-          acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-          acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+          float acc = quad_dot(X + p * ld, w_sigma, H, q, valid);
           if (valid && q == 0) {
             acc += __ldg(w_sigma + H);
             const int qp = c0 + p;

@@ -20,6 +20,17 @@ csrc/fused_nerf.cu. The TPU kernel's encoding row permutations
 (_encode_permutation, _dir_permutation) are not carried over: the
 kernel computes both encodings in the model's interleaved order.
 
+The route is chosen by configuration before the launch, never by a
+failure (render_uses_tensor_cores): bf16 at the widths the tensor-core
+products take (mma_shapes_ok: hidden a multiple of 32, 4 * rgb_hidden /
+hidden in {1, 2, 4}; every recipe of the repo) runs the trunk and rgb_in
+as mma.sync products (csrc/mma_bf16.cuh) from the fragments of
+pack_mma_forward, packed for each launch; f32, and the few bf16 widths
+off that layout, run the CUDA-core kernel. Unlike the training kernels,
+the render refuses no width. .mma_launches counts the tensor-core
+launches beside .launches. The fragment packer (mma_operands, pack_mma_b)
+lives here and serves the training kernels too.
+
 fused_nerf_render_rays_plain is the same computation in torch ops: the
 CPU path of the wrapper and the reference the kernel is checked against
 on the card.
@@ -30,7 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -121,6 +132,59 @@ def pack_nerf_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     return torch.cat(parts).contiguous()
 
 
+def mma_shapes_ok(cfg: NeRFConfig) -> bool:
+    """Whether the tensor-core products (csrc/mma_bf16.cuh: mma_dense_relu)
+    take cfg's widths: warps own whole 32-column tiles of a trunk layer's
+    output, and hidden / 32 warps share rgb_in's columns in 1, 2 or 4 whole
+    8-column tiles each. Never raises."""
+    h, rh = cfg.hidden, cfg.rgb_hidden
+    return h > 0 and h % 32 == 0 and (4 * rh) % h == 0 and 4 * rh // h in (1, 2, 4)
+
+
+def render_uses_tensor_cores(cfg: NeRFConfig) -> bool:
+    """The route of K3 and K5, by configuration: bf16 at widths the
+    tensor-core products take (True), else the CUDA-core kernel (f32, and
+    bf16 widths such as hidden 48). Never raises: the render refuses no
+    width the JAX kernel takes."""
+    return cfg.compute_dtype == torch.bfloat16 and mma_shapes_ok(cfg)
+
+
+def mma_operands(mlp: NeRFMLP, cfg: NeRFConfig) -> List[tuple]:
+    """The B operands (K, N) of the tensor-core products in packing order,
+    as (name, bf16 matrix): each trunk layer's and rgb_in's forward W^T
+    (in, out), then the upstream W[:, :hidden] (out, hidden) of trunk
+    layers 1..depth-1 and of rgb_in (the skip layer's encoding rows and
+    rgb_in's direction rows get no upstream gradient)."""
+    h = cfg.hidden
+    named = [(f"layers.{i}", lin) for i, lin in enumerate(mlp.layers)] + [("rgb_in", mlp.rgb_in)]
+    ws = {n: lin.weight.detach().to(torch.bfloat16) for n, lin in named}
+    out = [(f"{n}.fwd", ws[n].t()) for n, _ in named]
+    return out + [(f"{n}.up", ws[n][:, :h]) for n, _ in named[1:]]
+
+
+def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
+    """One (K, N) B operand as the tensor-core products read it
+    (csrc/mma_bf16.cuh): K zero-padded to a multiple of 32, then for each
+    16-deep k-step ks, each 8-column tile nt and each lane (g = lane // 4,
+    t = lane % 4) the 4 values B[32 (ks // 2) + 8 t + 4 (ks % 2) + j][8 nt
+    + g], j = 0..3: one 8-byte load per lane. Flat, same dtype."""
+    K, N = b.shape
+    kp = -(-K // 32) * 32
+    b = torch.cat([b, b.new_zeros(kp - K, N)])
+    # (p, t, h, j, nt, g) -> (p, h, nt, g, t, j): ks = 2 p + h, lane = 4 g + t
+    return b.reshape(kp // 32, 4, 2, 4, N // 8, 8).permute(0, 2, 4, 5, 1, 3).reshape(-1)
+
+
+def pack_mma_forward(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
+    """The w_mma buffer of a tensor-core K3/K5 launch (bf16): the forward
+    operands of mma_operands (the first depth + 1: the trunk layers' and
+    rgb_in's W^T), packed by pack_mma_b and concatenated. It is the prefix
+    of the training kernels' pack_mma_weights, so csrc/mma_bf16.cuh's
+    mma_fwd_off serves both."""
+    return torch.cat([pack_mma_b(b) for name, b in mma_operands(mlp, cfg)
+                      if name.endswith(".fwd")]).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """Build (first use) and load csrc/fused_nerf.cu, typed for ctypes:
@@ -130,9 +194,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_nerf")
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.tinynerf_fused_nerf.argtypes = [p] * 6 + [i] * 10 + [f, f, i, i, p]
+    lib.tinynerf_fused_nerf.argtypes = [p] * 7 + [i] * 10 + [f, f, i, i, p]
     lib.tinynerf_fused_nerf.restype = i
-    lib.tinynerf_fused_nerf_streamed.argtypes = [p] * 6 + [i] * 13 + [p]
+    lib.tinynerf_fused_nerf_streamed.argtypes = [p] * 7 + [i] * 13 + [p]
     lib.tinynerf_fused_nerf_streamed.restype = i
     lib.tinynerf_fused_nerf_smem_bytes.argtypes = [i] * 6
     lib.tinynerf_fused_nerf_smem_bytes.restype = i
@@ -237,7 +301,8 @@ def fused_nerf_render_rays(
     weights (R, S) when return_weights. z_vals (R, S) gives the depths;
     None uses the linspace of n_samples.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
+    CUDA tensors launch the kernel (or raise): on the tensor cores where
+    render_uses_tensor_cores(cfg), else on the CUDA cores; CPU tensors take
     fused_nerf_render_rays_plain. `cfg` defaults to mlp.cfg."""
     cfg = cfg or mlp.cfg
     kw = dict(n_samples=n_samples, near=near, far=far, white_bkgd=white_bkgd, cfg=cfg,
@@ -257,18 +322,22 @@ def fused_nerf_render_rays(
     if z_vals is not None:
         z = torch.cat([z_vals, z_vals.new_zeros(pad, S)]).contiguous()
     wts = pack_nerf_weights(mlp, cfg)
+    mma = render_uses_tensor_cores(cfg)
+    w_mma = pack_mma_forward(mlp, cfg) if mma else None
     out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
     w_out = torch.empty(R + pad, S, dtype=torch.float32, device=dev) if return_weights else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tinynerf_fused_nerf(
         o.data_ptr(), d.data_ptr(), None if z is None else z.data_ptr(), wts.data_ptr(),
-        out.data_ptr(), None if w_out is None else w_out.data_ptr(),
+        None if w_mma is None else w_mma.data_ptr(), out.data_ptr(),
+        None if w_out is None else w_out.data_ptr(),
         R + pad, tile, S, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
         cfg.depth, cfg.skip_at, cfg.rgb_hidden, float(near), float(far),
         int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
     )
     raise_on_error(err, "fused_nerf")
     fused_nerf_render_rays.launches += 1
+    fused_nerf_render_rays.mma_launches += int(mma)
     comp = out[:R, :3]
     if white_bkgd:
         comp = comp + (1.0 - out[:R, 3:4])
@@ -276,6 +345,8 @@ def fused_nerf_render_rays(
 
 
 fused_nerf_render_rays.launches = 0  # kernel launches since the last reset
+# ... of which took the tensor cores (every bf16 launch at mma_shapes_ok widths)
+fused_nerf_render_rays.mma_launches = 0
 
 
 def default_sample_block(s_union: int, cap: int) -> int:

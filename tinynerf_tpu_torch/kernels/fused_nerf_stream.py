@@ -11,7 +11,10 @@ O(sample_block), not O(S), so the fine pass of a large union (the
 `--n-fine 448` recipe: hidden 128, S = 512) runs in one launch.
 
 The kernel is the second C entry point of csrc/fused_nerf.cu: it shares
-K3's chunked MLP and encodings and adds the carried block walk. The
+K3's chunked MLP and encodings, and K3's route (render_uses_tensor_cores:
+bf16 at the tensor-core widths runs its products on the tensor cores
+from pack_mma_forward's fragments, counted by .mma_launches; f32 and
+other widths on the CUDA cores), and adds the carried block walk. The
 deltas are precomputed here, as the JAX wrapper does (:488-496).
 
 fused_nerf_render_rays_streamed_plain is the same block walk in torch
@@ -47,9 +50,11 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     check_launch,
     composite_one_m,
     deltas,
+    pack_mma_forward,
     pack_nerf_weights,
     pad_rays,
     raise_on_error,
+    render_uses_tensor_cores,
 )
 from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     check_train_launch,
@@ -131,7 +136,8 @@ def fused_nerf_render_rays_streamed(
     """Streamed forward render over a given sorted depth union ->
     comp_rgb (R, 3). Raises when S is not a multiple of sample_block.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
+    CUDA tensors launch the kernel (or raise), on the tensor cores or the
+    CUDA cores by K3's route (render_uses_tensor_cores); CPU tensors take
     fused_nerf_render_rays_streamed_plain. `cfg` defaults to mlp.cfg."""
     cfg = cfg or mlp.cfg
     R, S = z_vals.shape
@@ -147,16 +153,19 @@ def fused_nerf_render_rays_streamed(
     z = torch.cat([z_vals, z_vals.new_ones(pad, S)]).contiguous()
     delta = deltas(z, d).contiguous()
     wts = pack_nerf_weights(mlp, cfg)
+    mma = render_uses_tensor_cores(cfg)
+    w_mma = pack_mma_forward(mlp, cfg) if mma else None
     out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tinynerf_fused_nerf_streamed(
         o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), wts.data_ptr(),
-        out.data_ptr(), R + pad, tile, S, sb, cfg.num_freqs, cfg.num_freqs_dir,
+        None if w_mma is None else w_mma.data_ptr(), out.data_ptr(), R + pad, tile, S, sb, cfg.num_freqs, cfg.num_freqs_dir,
         int(cfg.use_viewdirs), cfg.hidden, cfg.depth, cfg.skip_at, cfg.rgb_hidden,
         int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
     )
     raise_on_error(err, "fused_nerf_streamed")
     fused_nerf_render_rays_streamed.launches += 1
+    fused_nerf_render_rays_streamed.mma_launches += int(mma)
     comp = out[:R, :3]
     if white_bkgd:
         comp = comp + (1.0 - out[:R, 3:4])
@@ -164,6 +173,8 @@ def fused_nerf_render_rays_streamed(
 
 
 fused_nerf_render_rays_streamed.launches = 0  # kernel launches since the last reset
+# ... of which took the tensor cores (K3's route)
+fused_nerf_render_rays_streamed.mma_launches = 0
 
 
 def fused_nerf_pass_grads_streamed_plain(

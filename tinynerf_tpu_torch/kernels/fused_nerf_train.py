@@ -17,10 +17,12 @@ through K4 or, by the JAX package's routing rule, the streamed K6.
 
 Every bf16 launch of K4 and K6 (and of K7, kernels/fused_partials.py)
 runs its MLP products on the tensor cores from the B fragments of
-pack_mma_weights (csrc/mma_bf16.cuh), and every f32 launch on the CUDA
-cores, the exactness reference; check_mma_shapes raises for bf16 widths
-the tensor-core walk cannot take (no launch falls back to the CUDA
-cores), and .mma_launches counts the tensor-core launches.
+pack_mma_weights (csrc/mma_bf16.cuh; packed by kernels/fused_nerf.py's
+mma_operands and pack_mma_b, which the render kernels share), and every
+f32 launch on the CUDA cores, the exactness reference; check_mma_shapes
+raises for bf16 widths the tensor-core walk cannot take (no launch falls
+back to the CUDA cores), and .mma_launches counts the tensor-core
+launches.
 
 The kernel writes its gradients in pack_nerf_weights' layout; a second
 small kernel sums the per-block partials in a fixed order and scatters
@@ -50,6 +52,9 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     check_inputs,
     composite_one_m,
     deltas,
+    mma_operands,
+    mma_shapes_ok,
+    pack_mma_b,
     pack_nerf_weights,
     pad_rays,
 )
@@ -147,12 +152,13 @@ def pack_backward_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
 
 def check_mma_shapes(cfg: NeRFConfig) -> None:
     """Raise unless the tensor-core walk of bf16 K4, K6 and K7 takes cfg's
-    widths: warps own whole 32-column tiles of a trunk layer's output, and
-    H / 32 warps share rgb_in's columns in whole 8-column tiles."""
-    if cfg.hidden % 32 or (4 * cfg.rgb_hidden) % cfg.hidden:
+    widths (mma_shapes_ok: warps own whole 32-column tiles of a trunk
+    layer's output, and H / 32 warps share rgb_in's columns in whole
+    8-column tiles)."""
+    if not mma_shapes_ok(cfg):
         raise ValueError(
             "the bf16 NeRF training kernels run their products on the tensor cores, which needs "
-            f"hidden a multiple of 32 and 4*rgb_hidden a multiple of hidden, got hidden "
+            f"hidden a multiple of 32 and 4*rgb_hidden/hidden in {{1, 2, 4}}, got hidden "
             f"{cfg.hidden}, rgb_hidden {cfg.rgb_hidden}"
         )
 
@@ -167,36 +173,10 @@ def uses_tensor_cores(cfg: NeRFConfig) -> bool:
     return mma
 
 
-def mma_operands(mlp: NeRFMLP, cfg: NeRFConfig) -> List[tuple]:
-    """The B operands (K, N) of the tensor-core products in packing order,
-    as (name, bf16 matrix): each trunk layer's and rgb_in's forward W^T
-    (in, out), then the upstream W[:, :hidden] (out, hidden) of trunk
-    layers 1..depth-1 and of rgb_in (the skip layer's encoding rows and
-    rgb_in's direction rows get no upstream gradient)."""
-    h = cfg.hidden
-    named = [(f"layers.{i}", lin) for i, lin in enumerate(mlp.layers)] + [("rgb_in", mlp.rgb_in)]
-    ws = {n: lin.weight.detach().to(torch.bfloat16) for n, lin in named}
-    out = [(f"{n}.fwd", ws[n].t()) for n, _ in named]
-    return out + [(f"{n}.up", ws[n][:, :h]) for n, _ in named[1:]]
-
-
-def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
-    """One (K, N) B operand as the tensor-core walk reads it
-    (csrc/mma_bf16.cuh): K zero-padded to a multiple of 32, then for each
-    16-deep k-step ks, each 8-column tile nt and each lane (g = lane // 4,
-    t = lane % 4) the 4 values B[32 (ks // 2) + 8 t + 4 (ks % 2) + j][8 nt
-    + g], j = 0..3: one 8-byte load per lane. Flat, same dtype."""
-    K, N = b.shape
-    kp = -(-K // 32) * 32
-    b = torch.cat([b, b.new_zeros(kp - K, N)])
-    # (p, t, h, j, nt, g) -> (p, h, nt, g, t, j): ks = 2 p + h, lane = 4 g + t
-    return b.reshape(kp // 32, 4, 2, 4, N // 8, 8).permute(0, 2, 4, 5, 1, 3).reshape(-1)
-
-
 def pack_mma_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     """Every B operand of mma_operands, packed by pack_mma_b and
     concatenated (bf16): the w_mma buffer of every bf16 launch of K4, K6
-    and K7, whose offsets csrc/nerf_train_walk.cuh (mma_fwd_off) mirrors."""
+    and K7, whose offsets csrc/mma_bf16.cuh (mma_fwd_off) mirrors."""
     return torch.cat([pack_mma_b(b) for _, b in mma_operands(mlp, cfg)]).contiguous()
 
 

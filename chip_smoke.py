@@ -3,36 +3,50 @@
     python3 chip_smoke.py
 
 Phases, each printed with its result and time:
-  1. build    - compile every kernel of the render path from csrc/ (nvcc).
+  1. build    - compile every kernel of the render path from csrc/ (nvcc),
+                with the HMMA instructions of each K1 kernel (cuobjdump
+                -sass): the bf16 tensor-core kernel (kMma) has them, the
+                CUDA-core one none.
   2. kernel   - each kernel against its plain torch version on the card,
                 at the main path's shapes (8192 rays from get_rays on a
-                synthetic pose, 64 samples, hidden 128), f32 and bf16.
+                synthetic pose, 64 samples, hidden 128), f32 (the CUDA
+                cores) and bf16 (the tensor cores, the launch counted).
   3. main     - `tinynerf_tpu_torch.main` in process: untrained model,
                 synthetic scene fallback at 100x100, chunk 8192. The image
                 must be finite, in [0, 1], agree with the eager render of
-                the same model, and the kernel's launch count must rise.
+                the same model, and the kernel's launch count must rise,
+                every launch on the tensor cores (bf16).
   4. make_gif - write a params-only checkpoint, render a 60-frame spiral
                 from it with `tinynerf_tpu_torch.make_gif`; count again.
   5. timing   - steady-state time of one 100x100 image and of one
-                8192-ray batch through each kernel and its plain version.
+                8192-ray batch through each kernel and its plain version,
+                bf16 (the tensor cores) and f32 (the CUDA cores); as a
+                reading, K1's per-call weight packing alone.
   6. build    - the train kernel fused_train.cu (its nvcc runs beside
-                phase 1's), with ptxas's register and spill counts.
+                phase 1's), with ptxas's register and spill counts and
+                the HMMA instructions of each K2 kernel (kMma: some; the
+                CUDA-core one: none).
   7. kernel   - K2 against its plain version at the train path's shapes
                 (2048 rays of a synthetic view, 64 samples, hidden 128,
-                L=10, deterministic depths), f32 and bf16; two launches
-                with one seed are bit-identical, another seed differs.
+                L=10, deterministic depths), f32 (the CUDA cores) and bf16
+                (the tensor cores, the launch counted; each trunk leaf's
+                scale too); two launches with one seed are bit-identical,
+                another seed differs.
   8. jitter   - K2's own depth draws (the probe entry point): every z in
                 its bin, uniform in the bin (mean, variance, deciles),
                 adjacent ray tiles uncorrelated, seed replay, and no
                 dependence on the tile size.
-  9. train    - `tinynerf_tpu_torch.train` in process, 1000 steps of 2048
+ 9. train    - `tinynerf_tpu_torch.train` in process, 1000 steps of 2048
                 rays at full width, bf16, tail holdout 4: fused (K2 must
-                launch 1000 times, K1 must render) and eager; each run's
-                train PSNR must rise >= 3 dB and the held-out PSNRs agree
-                within 1.5 dB; then the fused run resumes to 1200 steps.
- 10. timing   - one 2048-ray K2 call against its plain version (f32,
-                bf16), and steps/s and rays/s of the train loop, fused
-                against eager.
+                launch 1000 times, K1 must render, every launch of both on
+                the tensor cores) and eager; each run's train PSNR must
+                rise >= 3 dB and the held-out PSNRs agree within 1.5 dB;
+                then the fused run resumes to 1200 steps (its K1 and K2
+                launches on the tensor cores too).
+ 10. timing   - one 2048-ray K2 call against its plain version (f32 on the
+                CUDA cores, bf16 on the tensor cores), and steps/s and
+                rays/s of the train loop, fused against eager; as a
+                reading, K2's per-call weight packing alone.
  11. build    - the full-NeRF kernels fused_nerf.cu (K3 and K5, one
                 library; its nvcc runs beside the other four), with
                 ptxas's register and spill counts and the HMMA
@@ -269,6 +283,17 @@ def sass_counts(lib, opcode: str) -> dict:
     return counts
 
 
+def check_hmma(lib, kernel: str, what: str) -> None:
+    """Print the HMMA instructions per kernel of a built library and check
+    that the tensor-core instantiation of `kernel` (kMma = true) holds some
+    and the CUDA-core one (kMma = false) none."""
+    hmma = sass_counts(lib, "HMMA")
+    print(f"[build] HMMA instructions per kernel (cuobjdump -sass): {json.dumps(hmma)}", flush=True)
+    check(any(f"{kernel}ILb1E" in fn and n > 0 for fn, n in hmma.items())
+          and not any(f"{kernel}ILb0E" in fn and n for fn, n in hmma.items()),
+          f"the bf16 {what} kernel (kMma=true) holds HMMA instructions; the CUDA-core one none")
+
+
 def timed_build(name: str):
     from tinynerf_tpu_torch.kernels import _build
 
@@ -282,7 +307,9 @@ def run(build_render) -> dict:
     from tinynerf_tpu_torch import make_gif as gif_mod
     from tinynerf_tpu_torch.config import Config
     from tinynerf_tpu_torch.data import ensure_data
-    from tinynerf_tpu_torch.kernels.fused_render import fused_render_rays, fused_render_rays_plain
+    from tinynerf_tpu_torch.kernels.fused_render import (
+        fused_render_rays, fused_render_rays_plain, pack_tiny_weights,
+    )
     from tinynerf_tpu_torch.models.tinynerf import TinyNeRF
     from tinynerf_tpu_torch.ops.camera import spiral_poses
     from tinynerf_tpu_torch.ops.rays import get_rays
@@ -302,6 +329,7 @@ def run(build_render) -> dict:
     lib, secs = build_render.result()
     print(f"[build] fused_render.cu -> {lib.name} in {secs:.2f}s", flush=True)
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    check_hmma(lib, "fused_render_kernel", "K1")
 
     # 2. kernel against its plain version, at the main path's shapes
     t0 = time.time()
@@ -309,26 +337,32 @@ def run(build_render) -> dict:
     rays_o, rays_d = get_rays(H, W, FOCAL, pose)
     rays_o, rays_d = rays_o[:N_RAYS].contiguous(), rays_d[:N_RAYS].contiguous()
     kw = dict(n_samples=N_SAMPLES, near=2.0, far=6.0, num_freqs=10)
-    errs = {}
+    errs, models = {}, {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             cfg = Config(bf16=dtype == torch.bfloat16).model_cfg()
-            model = TinyNeRF(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+            models[dtype] = model = TinyNeRF(cfg, generator=torch.Generator().manual_seed(0),
+                                             device=dev)
+            mma0 = fused_render_rays.mma_launches
             got = fused_render_rays(model, rays_o, rays_d, **kw)
             torch.cuda.synchronize()
+            mma = fused_render_rays.mma_launches - mma0
             want = fused_render_rays_plain(model, rays_o, rays_d, **kw)
             check(got.shape == (N_RAYS, 3) and bool(torch.isfinite(got).all()), "kernel output finite")
             errs[dtype] = err = ray_errors(got, want)
-            print(f"[kernel] fused_render {str(dtype)[6:]}: {json.dumps(err)}", flush=True)
+            route = "tensor cores" if mma else "CUDA cores"
+            print(f"[kernel] fused_render {str(dtype)[6:]} ({route}): {json.dumps(err)}", flush=True)
             check(within(err, dtype), f"fused_render {dtype} within {GATES[dtype]}")
+            check(mma == int(dtype == torch.bfloat16),
+                  f"fused_render {dtype}: bf16 on the tensor cores, f32 on the CUDA cores")
     print(f"[kernel] ok in {time.time() - t0:.2f}s", flush=True)
 
     # 3. the main path: python -m tinynerf_tpu_torch.main, in process
     t0 = time.time()
     cfg = Config(data_path=os.path.join(OUT_DIR, "absent.npz"), out_dir=OUT_DIR, chunk=8192)
-    fused_render_rays.launches = 0
+    fused_render_rays.launches = fused_render_rays.mma_launches = 0
     img = main_mod.main(cfg)
-    launches = fused_render_rays.launches
+    launches, mma_launches = fused_render_rays.launches, fused_render_rays.mma_launches
     d = ensure_data(cfg.data_path, device=dev)  # the scene main rendered
     poses = torch.from_numpy(d["poses"]).to(dev)
     focal = float(d["focal"])
@@ -336,10 +370,12 @@ def run(build_render) -> dict:
     check(d["synthetic"] and img.shape == (*hw, 3), f"main image shape {img.shape}")
     check(bool((img >= 0).all() and (img <= 1).all()), "main image finite, in [0, 1]")
     check(launches > 0, "main launched fused_render")
+    check(mma_launches == launches, "every bf16 K1 launch of main on the tensor cores")
     model = TinyNeRF(cfg.model_cfg(), generator=torch.Generator().manual_seed(cfg.seed), device=dev)
     eager = make_image_renderer(H=hw[0], W=hw[1], focal=focal, chunk=8192, model_cfg=cfg.model_cfg())
     err = ray_errors(torch.from_numpy(img), eager(model, poses[0]).cpu())
-    print(f"[main] {hw[0]}x{hw[1]} image, launches={launches}, vs eager render: {json.dumps(err)}", flush=True)
+    print(f"[main] {hw[0]}x{hw[1]} image, launches={launches} (tensor cores {mma_launches}), vs "
+          f"eager render: {json.dumps(err)}", flush=True)
     check(within(err, torch.bfloat16), "main image agrees with the eager render")
     print(f"[main] ok in {time.time() - t0:.2f}s", flush=True)
 
@@ -351,9 +387,11 @@ def run(build_render) -> dict:
         "num_freqs": cfg.num_freqs}})
     gif_cfg = gif_mod.GifConfig(ckpt_path=ckpt, data_path=cfg.data_path,
                                 out_path=os.path.join(OUT_DIR, "novel_views.gif"))
-    fused_render_rays.launches = 0
+    fused_render_rays.launches = fused_render_rays.mma_launches = 0
     frames = gif_mod.main(gif_cfg)
     gif_launches = fused_render_rays.launches
+    check(fused_render_rays.mma_launches == gif_launches,
+          "every bf16 K1 launch of make_gif on the tensor cores")
     check(frames.shape == (60, *hw, 3) and frames.dtype.name == "uint8", f"gif frames {frames.shape}")
     check(gif_launches > 0, "make_gif launched fused_render")
     launches += gif_launches
@@ -366,34 +404,45 @@ def run(build_render) -> dict:
     check(frac < GATES[torch.bfloat16]["flip"], "gif frame agrees with the eager render")
     print(f"[make_gif] ok in {time.time() - t0:.2f}s", flush=True)
 
-    # 5. timing: plain, kernel, kernel, plain
+    # 5. timing: plain, kernel, kernel, plain; bf16 (main's model, the
+    #    tensor cores) and f32 (phase 2's, the CUDA cores)
     t0 = time.time()
     with torch.no_grad():
-        batch = {
-            "kernel": lambda: fused_render_rays(model, rays_o, rays_d, **kw),
-            "plain": lambda: fused_render_rays_plain(model, rays_o, rays_d, **kw),
-        }
-        image = {
-            name: (lambda f=f: chunked_over_rays(lambda ro, rd: f(model, ro, rd, **kw),
-                                                 *hw, focal, poses[0], 8192))
-            for name, f in (("kernel", fused_render_rays), ("plain", fused_render_rays_plain))
-        }
+        cases = {}
+        for tag, m in (("bf16", model), ("f32", models[torch.float32])):
+            cases[tag, "batch"] = {
+                "kernel": lambda m=m: fused_render_rays(m, rays_o, rays_d, **kw),
+                "plain": lambda m=m: fused_render_rays_plain(m, rays_o, rays_d, **kw),
+            }
+            cases[tag, "image"] = {
+                name: (lambda f=f, m=m: chunked_over_rays(lambda ro, rd: f(m, ro, rd, **kw),
+                                                          *hw, focal, poses[0], 8192))
+                for name, f in (("kernel", fused_render_rays), ("plain", fused_render_rays_plain))
+            }
         times = {}
-        for what, fns in (("batch", batch), ("image", image)):
+        for key, fns in cases.items():
             for name in ("plain", "kernel", "kernel", "plain"):
-                times.setdefault((what, name), []).append(cuda_ms(fns[name]))
+                times.setdefault((*key, name), []).append(cuda_ms(fns[name]))
+        # A reading: what each bf16 call spends packing its weights (one
+        # concatenation and one gather each for w_fwd and the fragments).
+        pack_ms = [cuda_ms(lambda: pack_tiny_weights(model, model.cfg, mma=True))
+                   for _ in range(2)]
     ms = {k: min(v) for k, v in times.items()}
-    print(f"[timing] {card}: {N_RAYS}-ray batch kernel {ms['batch', 'kernel']:.4f} ms, "
-          f"plain {ms['batch', 'plain']:.4f} ms; {hw[0]}x{hw[1]} image kernel "
-          f"{ms['image', 'kernel']:.4f} ms, plain {ms['image', 'plain']:.4f} ms "
-          f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
+    for tag, route in (("bf16", "tensor cores"), ("f32", "CUDA cores")):
+        print(f"[timing] {card}: {tag} ({route}): {N_RAYS}-ray batch kernel "
+              f"{ms[tag, 'batch', 'kernel']:.4f} ms, plain {ms[tag, 'batch', 'plain']:.4f} ms; "
+              f"{hw[0]}x{hw[1]} image kernel {ms[tag, 'image', 'kernel']:.4f} ms, plain "
+              f"{ms[tag, 'image', 'plain']:.4f} ms", flush=True)
+    print(f"[timing] {card}: K1's weight packing of one bf16 call (reading): {min(pack_ms):.4f} ms "
+          f"(runs {pack_ms}); all runs "
+          f"{json.dumps({' '.join(k): v for k, v in times.items()})}", flush=True)
     print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
 
     n_par = sum(p.numel() for p in model.parameters())
     return kernel_entry(
         "fused_render_rays", "tinynerf_tpu_torch/csrc/fused_render.cu",
         "tinynerf_tpu/kernels/fused_render.py:211", launches, errs[torch.bfloat16]["max"],
-        ms["batch", "kernel"], ms["batch", "plain"],
+        ms["bf16", "batch", "kernel"], ms["bf16", "batch", "plain"],
         flops=2 * N_RAYS * N_SAMPLES * macs_per_point(model),
         nbytes=4 * (N_RAYS * (3 + 3 + 3) + n_par))
 
@@ -439,6 +488,7 @@ def run_train(build_train) -> dict:
     from tinynerf_tpu_torch.config import Config
     from tinynerf_tpu_torch.data import ensure_data
     from tinynerf_tpu_torch.kernels.fused_render import fused_render_rays
+    from tinynerf_tpu_torch.kernels.fused_render import pack_tiny_weights
     from tinynerf_tpu_torch.kernels.fused_train import (
         depth_grid, fused_loss_grads, fused_loss_grads_plain, jitter_probe, make_fused_grad_fn,
     )
@@ -454,6 +504,7 @@ def run_train(build_train) -> dict:
     print(f"[build] fused_train.cu -> {lib.name} in {secs:.2f}s (nvcc beside fused_render.cu)",
           flush=True)
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    check_hmma(lib, "fused_train_kernel", "K2")
 
     # 7. K2 against its plain version at the train path's shapes
     t0 = time.time()
@@ -472,20 +523,28 @@ def run_train(build_train) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         cfg = Config(bf16=dtype == torch.bfloat16).model_cfg()
         models[dtype] = model = TinyNeRF(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+        mma0 = fused_loss_grads.mma_launches
         loss, grads = fused_loss_grads(model, ro, rd, tgt, 0, randomized=False, **kw)
         torch.cuda.synchronize()
+        mma = fused_loss_grads.mma_launches - mma0
         want_loss, want = fused_loss_grads_plain(model, ro, rd, tgt, 0, randomized=False, **kw)
         check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads),
               "K2 loss and gradients finite")
         rel = abs(float(loss) - float(want_loss)) / float(want_loss)
-        errs[dtype] = err = {"loss": float(loss), "loss_rel": rel, **leaf_errors(grads, want)}
-        print(f"[kernel] fused_train {str(dtype)[6:]}: {json.dumps(err)}", flush=True)
+        names = [n for n, _ in model.named_parameters()]
+        errs[dtype] = err = {"loss": float(loss), "loss_rel": rel, **leaf_errors(grads, want),
+                             "mma_scale_err": mma_scale_error(names, grads, want)}
+        route = "tensor cores" if mma else "CUDA cores"
+        print(f"[kernel] fused_train {str(dtype)[6:]} ({route}): {json.dumps(err)}", flush=True)
+        check(mma == int(dtype == torch.bfloat16),
+              f"fused_train {dtype}: bf16 on the tensor cores, f32 on the CUDA cores")
         if dtype == torch.float32:
             check(rel < 1e-5 and err["max_rel_to_leaf"] <= 2e-4,
                   "fused_train f32: loss rel < 1e-5, per-leaf |err| <= 2e-4 max|leaf|")
         else:
-            check(rel < 1e-3 and err["min_cosine"] > 0.98,
-                  "fused_train bf16: loss rel < 1e-3, per-leaf cosine > 0.98")
+            check(rel < 1e-3 and err["min_cosine"] > 0.98 and err["mma_scale_err"] < MMA_SCALE,
+                  f"fused_train bf16: loss rel < 1e-3, per-leaf cosine > 0.98, each trunk leaf's "
+                  f"scale within {MMA_SCALE} of 1")
     model = models[torch.bfloat16]
     runs = []
     for seed in (11, 11, 12):
@@ -544,10 +603,12 @@ def run_train(build_train) -> dict:
                      fused_train=fused)
         if os.path.exists(cfg.metrics_path):
             os.unlink(cfg.metrics_path)
-        fused_loss_grads.launches = 0
-        fused_render_rays.launches = 0
+        fused_loss_grads.launches = fused_loss_grads.mma_launches = 0
+        fused_render_rays.launches = fused_render_rays.mma_launches = 0
         res = train_mod.main(cfg)
         k2, k1 = fused_loss_grads.launches, fused_render_rays.launches
+        check(fused_loss_grads.mma_launches == k2 and fused_render_rays.mma_launches == k1,
+              f"{name} run: every bf16 K1 and K2 launch on the tensor cores")
         psnrs = logged_psnrs(cfg.metrics_path)
         rise = sum(psnrs[-5:]) / 5 - psnrs[0]
         runs[name] = {"cfg": cfg, "k2": k2, "k1": k1, "rise": rise,
@@ -565,11 +626,19 @@ def run_train(build_train) -> dict:
     resume_cfg = Config(**{**runs["fused"]["cfg"].__dict__, "iters": TRAIN_ITERS + 200,
                            "resume": True})
     out = io.StringIO()
+    fused_loss_grads.launches = fused_loss_grads.mma_launches = 0
+    fused_render_rays.launches = fused_render_rays.mma_launches = 0
     with contextlib.redirect_stdout(out):
         train_mod.main(resume_cfg)
     print(out.getvalue().strip(), flush=True)
     check(f"from step {TRAIN_ITERS}" in out.getvalue() and "[resume]" in out.getvalue(),
           f"resume prints [resume] ... from step {TRAIN_ITERS}")
+    resumed = {"k2": (fused_loss_grads.launches, fused_loss_grads.mma_launches),
+               "k1": (fused_render_rays.launches, fused_render_rays.mma_launches)}
+    print(f"[train] resume: (launches, on the tensor cores) {json.dumps(resumed)}", flush=True)
+    check(resumed["k2"] == (200, 200) and resumed["k1"][0] > 0
+          and resumed["k1"][0] == resumed["k1"][1],
+          "the resume's 200 K2 launches and its K1 launches on the tensor cores")
     print(f"[train] ok in {time.time() - t0:.2f}s", flush=True)
 
     # 10. timing: plain, kernel, kernel, plain
@@ -584,6 +653,11 @@ def run_train(build_train) -> dict:
         for name in ("plain", "kernel", "kernel", "plain"):
             times.setdefault((str(dtype)[6:], name), []).append(cuda_ms(fns[name]))
     ms = {k: min(v) for k, v in times.items()}
+    # A reading: what each bf16 step spends packing its weights (w_fwd and
+    # the forward and upstream fragments: one concatenation, one gather each).
+    m = models[torch.bfloat16]
+    pack_ms = [cuda_ms(lambda: pack_tiny_weights(m, m.cfg, mma=True, upstream=True))
+               for _ in range(2)]
     settings = Config().train_settings()
     train_poses = poses[: n_images - 4]
     rays_o_all, rays_d_all = get_rays_for_poses(H, W, focal, train_poses)
@@ -600,9 +674,10 @@ def run_train(build_train) -> dict:
         torch.cuda.synchronize()
         step_s.setdefault(name, []).append(TIMED_STEPS / (time.time() - t1))
     sps = {k: max(v) for k, v in step_s.items()}
-    print(f"[timing] {card}: {N_RAYS_TRAIN}-ray K2 call f32 kernel {ms['float32', 'kernel']:.4f} "
-          f"ms, plain {ms['float32', 'plain']:.4f} ms; bf16 kernel {ms['bfloat16', 'kernel']:.4f} "
-          f"ms, plain {ms['bfloat16', 'plain']:.4f} ms "
+    print(f"[timing] {card}: {N_RAYS_TRAIN}-ray K2 call f32 (CUDA cores) kernel "
+          f"{ms['float32', 'kernel']:.4f} ms, plain {ms['float32', 'plain']:.4f} ms; bf16 (tensor "
+          f"cores) kernel {ms['bfloat16', 'kernel']:.4f} ms, plain {ms['bfloat16', 'plain']:.4f} ms; "
+          f"K2's weight packing of one bf16 call (reading) {min(pack_ms):.4f} ms (runs {pack_ms}) "
           f"(all runs {json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
     print(f"[timing] {card}: train loop, {TIMED_STEPS} steps of {N_RAYS_TRAIN} rays, bf16: fused "
           f"{sps['fused']:.2f} steps/s ({sps['fused'] * N_RAYS_TRAIN:,.0f} rays/s), eager "
@@ -654,12 +729,7 @@ def run_nerf(build_nerf) -> list:
           "four)", flush=True)
     print("\n".join(line for line in log.splitlines() if "registers" in line or "spill" in line
                     or "stack frame" in line or "entry function" in line), flush=True)
-    hmma = sass_counts(lib, "HMMA")
-    print(f"[build] HMMA instructions per kernel (cuobjdump -sass): {json.dumps(hmma)}", flush=True)
-    check(any("fused_nerf_kernelILb1E" in fn and n > 0 for fn, n in hmma.items())
-          and not any("fused_nerf_kernelILb0E" in fn and n for fn, n in hmma.items()),
-          "the bf16 render kernel of K3 and K5 (kMma=true) holds HMMA instructions; the CUDA-core "
-          "one none")
+    check_hmma(lib, "fused_nerf_kernel", "render kernel of K3 and K5")
 
     # 12. K3 against its plain version at the flagship width
     t0 = time.time()

@@ -1,9 +1,9 @@
 """The fused render (K1), train (K2), NeRF (K3), streamed NeRF (K5),
 NeRF train (K4), streamed NeRF train (K6) and block-partials (K7)
 kernels against their plain versions, K2's and K4's jitter, the
-tensor-core walk of every bf16 K4, K6 and K7 launch, and the route of
-K3/K5 (bf16 at the tensor-core widths on the tensor cores, f32 and other
-widths on the CUDA cores), on a CUDA device.
+tensor-core walk of every bf16 K4, K6 and K7 launch, and the routes of
+K1, K2 and K3/K5 (bf16 at the tensor-core shapes on the tensor cores, f32
+and other shapes on the CUDA cores), on a CUDA device.
 
 Skips without one. This file imports neither jax nor the JAX package, so
 it also runs on a GPU machine that has no JAX (without the suite's
@@ -16,7 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from tinynerf_tpu_torch.kernels.fused_render import fused_render_rays, fused_render_rays_plain
+from tinynerf_tpu_torch.kernels.fused_render import (
+    fused_render_rays,
+    fused_render_rays_plain,
+    k1_uses_tensor_cores,
+)
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import encoding_dim
 
@@ -38,25 +42,34 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_samples,hidden,num_freqs", [(64, 128, 10), (16, 32, 4), (48, 64, 10)])
+@pytest.mark.parametrize("n_samples,hidden,num_freqs,mma", [
+    (64, 128, 10, True), (16, 32, 4, True),
+    (48, 64, 10, True),    # 96 points padded to the tensor cores' 128 rows
+    (64, 48, 10, False),   # bf16 off the tensor cores' layout: the CUDA cores
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_card(cuda_device, n_samples, hidden, num_freqs, dtype):
+def test_kernel_matches_plain_on_card(cuda_device, n_samples, hidden, num_freqs, mma, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = TinyNeRFConfig(in_dim=encoding_dim(num_freqs), hidden=hidden, compute_dtype=dtype)
     model = TinyNeRF(cfg, generator=torch.Generator().manual_seed(2), device=cuda_device)
     ro, rd = _rays(1001, 6, cuda_device)  # not a multiple of any tile
     kw = dict(n_samples=n_samples, num_freqs=num_freqs)
-    before = fused_render_rays.launches
+    mma = mma and dtype == torch.bfloat16  # f32: the CUDA cores
+    assert k1_uses_tensor_cores(cfg, n_samples) is mma
+    before = (fused_render_rays.launches, fused_render_rays.mma_launches)
     with torch.no_grad():
         got = fused_render_rays(model, ro, rd, **kw)
         torch.cuda.synchronize()
         want = fused_render_rays_plain(model, ro, rd, **kw)
-    assert fused_render_rays.launches == before + 1
+    assert (fused_render_rays.launches, fused_render_rays.mma_launches) == (
+        before[0] + 1, before[1] + int(mma))
     err = (got - want).abs().max(dim=1).values
     # f32: summation order only; bf16: the render parity gates.
     p999 = 5e-4 if dtype == torch.float32 else 3e-2
     assert float(torch.quantile(err, 0.999)) < p999
     assert float((err > 3e-2).float().mean()) < 2.5e-3
+    if dtype == torch.bfloat16:
+        assert float(err.mean()) < 1e-3
 
 
 def _train_case(n_samples, hidden, num_freqs, dtype, device, n_rays=256, seed=3):
@@ -73,10 +86,18 @@ def _cosine(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_samples,hidden,num_freqs,noise", [
-    (64, 128, 10, False), (16, 32, 4, False), (48, 64, 10, False), (64, 128, 10, True)])
+    (64, 128, 10, False), (16, 32, 4, False),
+    (48, 64, 10, False),  # bf16 tiles of 48 points: the CUDA cores
+    (64, 128, 10, True),
+    (64, 48, 10, False),  # bf16 hidden 48: the CUDA cores
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_kernel_matches_plain_on_card(cuda_device, n_samples, hidden, num_freqs, noise, dtype):
-    from tinynerf_tpu_torch.kernels.fused_train import fused_loss_grads, fused_loss_grads_plain
+    from tinynerf_tpu_torch.kernels.fused_train import (
+        fused_loss_grads,
+        fused_loss_grads_plain,
+        k2_uses_tensor_cores,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     model, ro, rd, target = _train_case(n_samples, hidden, num_freqs, dtype, cuda_device)
@@ -85,11 +106,14 @@ def test_train_kernel_matches_plain_on_card(cuda_device, n_samples, hidden, num_
         g = torch.Generator(device=cuda_device).manual_seed(4)
         sigma_noise = torch.randn(ro.shape[0], n_samples, generator=g, device=cuda_device)
     kw = dict(n_samples=n_samples, num_freqs=num_freqs, randomized=False, sigma_noise=sigma_noise)
-    before = fused_loss_grads.launches
+    mma = k2_uses_tensor_cores(model.cfg, n_samples)
+    assert mma is (dtype == torch.bfloat16 and n_samples in (64, 16) and hidden != 48)
+    before = (fused_loss_grads.launches, fused_loss_grads.mma_launches)
     loss, grads = fused_loss_grads(model, ro, rd, target, 0, **kw)
     torch.cuda.synchronize()
     want_loss, want = fused_loss_grads_plain(model, ro, rd, target, 0, **kw)
-    assert fused_loss_grads.launches == before + 1
+    assert (fused_loss_grads.launches, fused_loss_grads.mma_launches) == (
+        before[0] + 1, before[1] + int(mma))
     rel = abs(float(loss) - float(want_loss)) / float(want_loss)
     if dtype == torch.float32:
         # Summation order only: the JAX package's own kernel tolerance.
@@ -97,9 +121,59 @@ def test_train_kernel_matches_plain_on_card(cuda_device, n_samples, hidden, num_
         for g, w in zip(grads, want):
             assert float((g - w).abs().max()) <= 2e-4 * float(w.abs().max()) + 1e-8
     else:
-        # bf16 rounds at other places than autograd: bench.py's gates.
+        # bf16 rounds at other places than autograd: bench.py's gates; on
+        # the tensor cores each trunk leaf also by its scale.
         assert rel < 1e-3
         assert min(_cosine(g, w) for g, w in zip(grads, want)) > 0.98
+        _scale_check([n for n, _ in model.named_parameters()], grads, want)
+
+
+@pytest.mark.cuda
+def test_train_kernel_on_tensor_cores_sums_many_tiles_a_block_on_card(cuda_device):
+    """bf16 K2 on the tensor cores with about 8 tiles a block (1056 rays of
+    64 samples over at most 132 blocks): each block's first tile writes its
+    partial row and the later ones add to it. The bf16 gates with each
+    trunk leaf's scale, and a second launch bit-identical (no earlier
+    launch's row leaks in)."""
+    from tinynerf_tpu_torch.kernels.fused_train import fused_loss_grads, fused_loss_grads_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, ro, rd, target = _train_case(64, 128, 10, torch.bfloat16, cuda_device, n_rays=1056,
+                                        seed=9)
+    kw = dict(n_samples=64, num_freqs=10, randomized=False)
+    mma0 = fused_loss_grads.mma_launches
+    runs = [fused_loss_grads(model, ro, rd, target, 0, **kw) for _ in range(2)]
+    assert fused_loss_grads.mma_launches == mma0 + 2
+    (l0, g0), (l1, g1) = [(float(l), [g.clone() for g in gs]) for l, gs in runs]
+    assert l0 == l1 and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    want_loss, want = fused_loss_grads_plain(model, ro, rd, target, 0, **kw)
+    assert abs(l0 - float(want_loss)) / float(want_loss) < 1e-3
+    assert min(_cosine(g, w) for g, w in zip(g0, want)) > 0.98
+    _scale_check([n for n, _ in model.named_parameters()], g0, want)
+
+
+@pytest.mark.cuda
+def test_k1_and_k2_refuse_fragments_off_their_route_on_card(cuda_device):
+    """K1's and K2's C entries run the tensor-core kernel only for a bf16
+    launch at its shapes: fragments with an f32 launch, at hidden 48, or
+    (K1) over 128 points a tile or (K2) with tiles of 48 points come back
+    as cudaErrorInvalidValue before anything runs."""
+    from tinynerf_tpu_torch.kernels import fused_render as k1
+    from tinynerf_tpu_torch.kernels import fused_train as k2
+
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    frag = torch.zeros(4, dtype=torch.bfloat16, device=cuda_device).data_ptr()
+    # (tile_rays, n_samples, hidden, bf16)
+    for tile, S, hidden, bf16 in ((2, 64, 128, 0), (2, 64, 48, 1), (1, 192, 128, 1)):
+        err = k1._lib().tinynerf_fused_render(None, None, None, frag, None, 2 * tile, tile, S, 10,
+                                              hidden, 4, 2, 2.0, 6.0, bf16, cuda_device.index,
+                                              stream)
+        assert err != 0, (tile, S, hidden, bf16)
+    for tile, S, hidden, bf16 in ((1, 64, 128, 0), (1, 64, 48, 1), (1, 48, 128, 1)):
+        err = k2._lib().tinynerf_fused_train(
+            None, None, None, None, None, None, None, frag, None, None, None, 132, tile, S, 10,
+            hidden, 4, 2, 2.0, 0.1, 0.01, 0, 1, bf16, 132, 100, 104, cuda_device.index, stream)
+        assert err != 0, (tile, S, hidden, bf16)
 
 
 @pytest.mark.cuda

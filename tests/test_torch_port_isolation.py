@@ -37,9 +37,9 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# The modules of the bf16 tensor-core wrappers (K3 and the packer, K4, K5,
-# K6, K7) and the trainer that reports its launch counts, each alone in a
-# fresh interpreter.
+# The modules of the bf16 tensor-core wrappers (K1 and K2 and their
+# packer, K3 and the packer, K4, K5, K6, K7) and the trainer that reports
+# its launch counts, each alone in a fresh interpreter.
 ALONE = """
 import sys
 import {module}
@@ -50,6 +50,8 @@ sys.exit(1 if bad else 0)
 
 
 @pytest.mark.parametrize("module", [
+    "tinynerf_tpu_torch.kernels.fused_render",
+    "tinynerf_tpu_torch.kernels.fused_train",
     "tinynerf_tpu_torch.kernels.fused_nerf",
     "tinynerf_tpu_torch.kernels.fused_nerf_train",
     "tinynerf_tpu_torch.kernels.fused_nerf_stream",

@@ -13,13 +13,25 @@
 //   X[p][hidden, hidden + in_dim)   encoding [x, sin f0, cos f0, ...]
 //
 // so the skip concat [h, enc] is simply columns [0, hidden + in_dim)
-// and no copy is made. Each dense layer is a register-tiled product on
-// the CUDA cores: a thread owns an 8-point x 8-output block, holds the
-// whole sum in registers, and writes it back over its input only after
-// a barrier. The row stride hidden + in_dim is odd (in_dim = 3 + 6L),
-// so the 8 point rows a warp reads at one k fall in distinct banks.
-// Weights are read from global memory (they stay in L1/L2). Only the
-// (R, 4) composite [r, g, b, acc] is written back to device memory.
+// and no copy is made. The row stride hidden + in_dim is odd (in_dim =
+// 3 + 6L), so the rows a warp reads at one column fall in distinct
+// banks. Only the (R, 4) composite [r, g, b, acc] is written back to
+// device memory.
+//
+// Products, by the template argument kMma, chosen by configuration in
+// the wrapper (k1_uses_tensor_cores), never by a failure. A bf16 launch
+// with hidden a multiple of 32 and a tile of at most 128 points sets it:
+// the tile is padded to 128 rows and every trunk layer runs on the
+// tensor cores (mma_bf16.cuh's mma_dense_relu: mma.sync m16n8k16, f32
+// accumulation, hidden/16 warps of 64-row x 32-column tiles) from the
+// host-packed B fragments w_mma (kernels/fused_render.py::
+// pack_tiny_mma), at mma_fwd_off's offsets. f32 launches, and the bf16
+// widths and tiles off that layout, run the CUDA cores' f32 FMAs below,
+// the exactness reference: a thread owns an 8-point x 8-output register
+// block, holds the whole sum in registers, and writes it back over its
+// input only after a barrier; weights are read from global memory (they
+// stay in L1/L2). The combined 4-column head runs on the CUDA cores on
+// both routes.
 //
 // Numerics: depths, points, deltas and the composite are f32, with
 // rounded (uncontracted) products where the reference rounds; sin/cos
@@ -27,28 +39,23 @@
 // (never build with --use_fast_math). With bf16 set, every MLP input
 // (encoding and hidden activations) is rounded to bf16 where it is
 // written; the wrapper rounds the weights. bf16 x bf16 products are
-// exact in f32 and the sums accumulate in f32.
+// exact in f32 and the sums accumulate in f32 (on the tensor cores in
+// their k-step order).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "mma_bf16.cuh"
+#include "nerf_mlp.cuh"
 
 namespace {
 
 constexpr int kPointsPerThread = 8;   // MT: rows of a thread's block
 constexpr int kOutputsPerThread = 8;  // NT: columns of a thread's block
 constexpr int kMaxThreads = 512;
-constexpr float kDeltaInf = 1e10f;
-constexpr float kTransEps = 1e-10f;
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// X[:, 0:hidden) = relu(X[:, in_col:in_col+in_dim) @ W + b).
-// W is (in_dim, hidden) row-major. blockDim.x == n_pg * hidden / NT.
-__device__ void dense_relu(float* X, int ld, int n_pg, int in_col, int in_dim,
-                           int hidden, const float* __restrict__ W,
-                           const float* __restrict__ b, bool bf16) {
+// X[:, 0:hidden) = relu(X[:, in_col:in_col+in_dim) @ W + b) on the CUDA
+// cores. W is (in_dim, hidden) row-major. blockDim.x == n_pg * hidden / NT.
+__device__ void render_dense_relu(float* X, int ld, int n_pg, int in_col, int in_dim,
+                                  int hidden, const float* __restrict__ W,
+                                  const float* __restrict__ b, bool bf16) {
   const int n_og = hidden / kOutputsPerThread;
   const int pg = threadIdx.x / n_og;
   const int og = threadIdx.x % n_og;
@@ -83,16 +90,26 @@ __device__ void dense_relu(float* X, int ld, int n_pg, int in_col, int in_dim,
 #pragma unroll
     for (int j = 0; j < kOutputsPerThread; ++j) {
       float v = fmaxf(acc[i][j] + __ldg(b + col0 + j), 0.f);
-      row[j] = bf16 ? round_bf16(v) : v;
+      row[j] = to_compute(v, bf16);
     }
   }
   __syncthreads();
 }
 
+// Point rows of a tile's buffer: the 8-row blocks' padding on the CUDA
+// cores, the 128 rows of mma_dense_relu on the tensor cores.
+__host__ __device__ inline int padded_points(int P, bool mma) {
+  return mma ? kTilePoints : (P + kPointsPerThread - 1) / kPointsPerThread * kPointsPerThread;
+}
+
+// kMma: the trunk on the tensor cores from w_mma (4 bf16 values to a
+// uint2); else on the CUDA cores (w_mma unused).
+template <bool kMma>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_render_kernel(const float* __restrict__ rays_o,
                     const float* __restrict__ rays_d,
                     const float* __restrict__ weights,
+                    const uint2* __restrict__ w_mma,
                     float* __restrict__ out, int tile_rays, int n_samples,
                     int num_freqs, int hidden, int depth, int skip_at,
                     float near, float far, int bf16) {
@@ -100,7 +117,7 @@ fused_render_kernel(const float* __restrict__ rays_o,
   const int S = n_samples;
   const int P = tile_rays * S;
   const int n_pg = (P + kPointsPerThread - 1) / kPointsPerThread;
-  const int p_pad = n_pg * kPointsPerThread;
+  const int p_pad = padded_points(P, kMma);
   const int in_dim = 3 + 6 * num_freqs;
   const int ld = hidden + in_dim;
   float* X = smem;                 // (p_pad, ld)
@@ -109,7 +126,7 @@ fused_render_kernel(const float* __restrict__ rays_o,
   const int ray0 = blockIdx.x * tile_rays;
   const bool use_bf16 = bf16 != 0;
 
-  // Rows past the last point only pad the 8-row blocks: keep them finite.
+  // Rows past the last point only pad the tile: keep them finite.
   for (int idx = P * ld + threadIdx.x; idx < p_pad * ld; idx += blockDim.x)
     X[idx] = 0.f;
 
@@ -123,7 +140,7 @@ fused_render_kernel(const float* __restrict__ rays_o,
       const int g = (ray0 + r) * 3 + c;
       const float v = __fadd_rn(rays_o[g], __fmul_rn(rays_d[g], z));
       pts[p * 3 + c] = v;
-      X[p * ld + hidden + c] = use_bf16 ? round_bf16(v) : v;
+      X[p * ld + hidden + c] = to_compute(v, use_bf16);
     }
   }
   __syncthreads();
@@ -136,8 +153,8 @@ fused_render_kernel(const float* __restrict__ rays_o,
     float sn, cs;
     sincosf(ldexpf(pts[p * 3 + c], k), &sn, &cs);
     float* row = X + p * ld + hidden + 3 + 6 * k + c;
-    row[0] = use_bf16 ? round_bf16(sn) : sn;
-    row[3] = use_bf16 ? round_bf16(cs) : cs;
+    row[0] = to_compute(sn, use_bf16);
+    row[3] = to_compute(cs, use_bf16);
   }
   __syncthreads();
 
@@ -147,7 +164,13 @@ fused_render_kernel(const float* __restrict__ rays_o,
   for (int i = 0; i < depth; ++i) {
     const int in_col = (i == 0) ? hidden : 0;
     const int n_in = (i == 0) ? in_dim : (i == skip_at ? ld : hidden);
-    dense_relu(X, ld, n_pg, in_col, n_in, hidden, wp, wp + n_in * hidden, use_bf16);
+    if constexpr (kMma) {
+      mma_dense_relu<4>(X, ld, in_col, n_in, hidden,
+                        w_mma + mma_fwd_off(i, in_dim, hidden, skip_at) / 4, wp + n_in * hidden,
+                        nullptr);
+    } else {
+      render_dense_relu(X, ld, n_pg, in_col, n_in, hidden, wp, wp + n_in * hidden, use_bf16);
+    }
     wp += n_in * hidden + hidden;
   }
 
@@ -189,46 +212,69 @@ fused_render_kernel(const float* __restrict__ rays_o,
   }
 }
 
+// The tensor-core route's shapes: bf16, whole 32-column warp tiles, a
+// tile of at most 128 points, 2 * hidden threads.
+bool mma_route_ok(int tile_rays, int n_samples, int hidden, int bf16) {
+  return bf16 && hidden > 0 && hidden % 32 == 0 && tile_rays * n_samples <= kTilePoints &&
+         2 * hidden <= kMaxThreads;
+}
+
+template <bool kMma>
+int launch_kernel(const float* rays_o, const float* rays_d, const float* weights,
+                  const void* w_mma, float* out, int n_rays, int tile_rays, int n_samples,
+                  int num_freqs, int hidden, int depth, int skip_at, float near, float far,
+                  int bf16, int smem, int threads, void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_render_kernel<kMma>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_render_kernel<kMma><<<n_rays / tile_rays, threads, smem, (cudaStream_t)stream>>>(
+      rays_o, rays_d, weights, static_cast<const uint2*>(w_mma), out, tile_rays, n_samples,
+      num_freqs, hidden, depth, skip_at, near, far, bf16);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory the kernel needs for one tile, in bytes.
-int tinynerf_fused_render_smem_bytes(int tile_rays, int n_samples,
-                                     int num_freqs, int hidden) {
+// Shared memory the kernel needs for one tile, in bytes; mma: the
+// tensor-core route's 128-row buffer.
+int tinynerf_fused_render_smem_bytes(int tile_rays, int n_samples, int num_freqs, int hidden,
+                                     int mma) {
   const int P = tile_rays * n_samples;
-  const int p_pad = (P + kPointsPerThread - 1) / kPointsPerThread * kPointsPerThread;
   const int ld = hidden + 3 + 6 * num_freqs;
-  return (p_pad * ld + P * 7) * (int)sizeof(float);
+  return (padded_points(P, mma != 0) * ld + P * 7) * (int)sizeof(float);
 }
 
-// Threads of one block: one per 8x8 block of the (points, hidden) tile.
-int tinynerf_fused_render_threads(int tile_rays, int n_samples, int hidden) {
+// Threads of one block: one per 8x8 block of the (points, hidden) tile
+// on the CUDA cores, hidden/16 warps on the tensor cores.
+int tinynerf_fused_render_threads(int tile_rays, int n_samples, int hidden, int mma) {
+  if (mma) return 2 * hidden;
   const int P = tile_rays * n_samples;
   return (P + kPointsPerThread - 1) / kPointsPerThread * (hidden / kOutputsPerThread);
 }
 
 int tinynerf_fused_render_max_threads() { return kMaxThreads; }
 
-// Launch on `stream`; n_rays must be a multiple of tile_rays. Returns
-// the CUDA error code of the attribute call or of the launch (0 = ok).
-int tinynerf_fused_render(const float* rays_o, const float* rays_d,
-                          const float* weights, float* out, int n_rays,
-                          int tile_rays, int n_samples, int num_freqs,
-                          int hidden, int depth, int skip_at, float near,
-                          float far, int bf16, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// Launch on `stream`; n_rays must be a multiple of tile_rays. The route
+// is the caller's: w_mma null runs the CUDA-core kernel; w_mma set (the
+// packed forward fragments) runs the tensor-core kernel, and only a bf16
+// launch at the shapes mma_route_ok takes may set it (else
+// cudaErrorInvalidValue, no launch). Returns the CUDA error code of the
+// attribute call or of the launch (0 = ok).
+int tinynerf_fused_render(const float* rays_o, const float* rays_d, const float* weights,
+                          const void* w_mma, float* out, int n_rays, int tile_rays,
+                          int n_samples, int num_freqs, int hidden, int depth, int skip_at,
+                          float near, float far, int bf16, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int smem = tinynerf_fused_render_smem_bytes(tile_rays, n_samples, num_freqs, hidden);
-  err = cudaFuncSetAttribute(fused_render_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = tinynerf_fused_render_threads(tile_rays, n_samples, hidden);
-  const int blocks = n_rays / tile_rays;
-  fused_render_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      rays_o, rays_d, weights, out, tile_rays, n_samples, num_freqs, hidden,
-      depth, skip_at, near, far, bf16);
-  return (int)cudaGetLastError();
+  const int mma = w_mma != nullptr;
+  if (mma && !mma_route_ok(tile_rays, n_samples, hidden, bf16)) return (int)cudaErrorInvalidValue;
+  const int smem = tinynerf_fused_render_smem_bytes(tile_rays, n_samples, num_freqs, hidden, mma);
+  const int threads = tinynerf_fused_render_threads(tile_rays, n_samples, hidden, mma);
+  auto launch = mma ? launch_kernel<true> : launch_kernel<false>;
+  return launch(rays_o, rays_d, weights, w_mma, out, n_rays, tile_rays, n_samples, num_freqs,
+                hidden, depth, skip_at, near, far, bf16, smem, threads, stream);
 }
 
 const char* tinynerf_cuda_error_string(int code) {

@@ -14,13 +14,34 @@
 // ~40 bytes of ray input per point; the unfused step instead moves every
 // (points, 191) activation through device memory twice. The kernel keeps
 // a tile's encoding, every layer's activations and the gradient of the
-// current layer in shared memory and runs its products on the CUDA
-// cores' f32 FMAs (tensor cores are later work).
+// current layer in shared memory.
+//
+// Products, by the template argument kMma, chosen by configuration in
+// the wrapper (k2_uses_tensor_cores), never by a failure. A bf16 launch
+// with hidden a multiple of 32 and tiles of exactly 64 points sets it and
+// runs the three MLP products of every trunk layer on the tensor cores
+// (mma_bf16.cuh: mma.sync m16n8k16, f32 accumulation) from the
+// host-packed B fragments w_mma (kernels/fused_render.py::
+// pack_tiny_weights: the forward W^T of every layer, then the upstream
+// W[:, :hidden] of layers 1..depth-1): the forward as warp tiles of 32
+// points x 32 columns (mma_rows) with the bias, ReLU and bf16 epilogue;
+// the weight gradients by mma_weight_grad, the bias gradient as its row
+// of ones; the upstream products as the forward's warp tiles, masked by
+// act_{i-1} and rounded to bf16 where they are written. The skip layer
+// reads one segment: with kMma, act_{skip_at-1}'s rows are [act | enc]
+// (stride hidden + in_dim) and hold the tile's encoding, so its weight
+// gradient emits its bias row once. f32 launches, and the bf16 widths
+// and tiles off that layout, run the CUDA cores' f32 FMAs
+// (point_product_item, weight_grad_item), the exactness reference. The
+// head, the composite, the scans and the jitter are the same code on
+// both routes.
 //
 // Grid: a persistent grid of about one block per SM. Block b walks the
 // ray tiles b, b + gridDim.x, ... and accumulates its gradient and loss
 // into its own row of `partials` in device memory (first tile writes,
-// later tiles add; 132 rows of 66,309 floats stay in the 50 MB L2). A
+// later tiles add; 132 rows of 66,312 floats stay in the 50 MB L2; a
+// row's stride is a multiple of 4 floats, so mma_weight_grad's float2
+// accesses stay aligned, and the padding after the loss is skipped). A
 // second kernel sums the rows in a fixed order and scatters them to the
 // model's parameter order. No atomics: the same seed and inputs give
 // bit-identical loss and gradients from launch to launch.
@@ -29,6 +50,7 @@
 // memory, row per point (strides odd, so the rows a warp reads at one
 // column fall in distinct banks):
 //   enc   (P, in_dim)               encoding [x, sin 2^k x, cos 2^k x]
+//                                   (kMma with a skip: inside act_{skip_at-1})
 //   act_i (P, hidden + 1), i < depth  post-ReLU output of trunk layer i
 //   G     (P, hidden + 1)           gradient at the last layer's output
 //   per-point and per-ray scalars
@@ -53,15 +75,14 @@
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 
+#include "mma_bf16.cuh"
+#include "nerf_mlp.cuh"
 #include "train_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 4;  // point rows of a thread's block in point-major products
-constexpr int kCols = 8;  // columns of a thread's block
-constexpr float kDeltaInf = 1e10f;
-constexpr float kTransEps = 1e-10f;
 
 // Per-point scalars, structure of arrays: ps[q * p_pad + p].
 enum : int {
@@ -70,19 +91,11 @@ enum : int {
 };
 constexpr int kRayScalars = 5;  // g_comp r, g, b; g_acc; squared residual
 
-__device__ __forceinline__ float to_compute(float x, bool bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-__device__ __forceinline__ int layer_in(int i, int in_dim, int hidden, int skip_at) {
-  return i == 0 ? in_dim : (i == skip_at ? hidden + in_dim : hidden);
-}
-
 // Offset of trunk layer i's W (in, hidden) then b (hidden) in the packed
 // forward weights, which is also the layout of the gradient partials.
 __device__ int layer_offset(int i, int in_dim, int hidden, int skip_at) {
   int off = 0;
-  for (int j = 0; j < i; ++j) off += (layer_in(j, in_dim, hidden, skip_at) + 1) * hidden;
+  for (int j = 0; j < i; ++j) off += (layer_in_dim(j, in_dim, hidden, skip_at) + 1) * hidden;
   return off;
 }
 
@@ -147,6 +160,24 @@ __device__ __forceinline__ void point_product_item(
   }
 }
 
+// The tensor-core products of a 64-point tile (kMma): acc = rows [0, 64)
+// of A (its first a.n columns) times the packed B of `hidden` columns, as
+// warp tiles of 32 points x 32 columns, hidden / 16 of them taken by the
+// block's warps in turn; f(p, c, acc[p][c], acc[p][c + 1]) for each pair
+// of neighbouring columns. No barrier.
+template <class F>
+__device__ __forceinline__ void tile_products(Seg a, const uint2* __restrict__ Bp, int hidden,
+                                              F f) {
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll 1
+  for (int tile = warp; tile < hidden / 16; tile += nw) {
+    const int m0 = (tile % 2) * 16 * kUpMTiles, nt0 = (tile / 2) * kUpNTiles;
+    float acc[kUpMTiles][kUpNTiles][4];
+    mma_rows<kUpMTiles, kUpNTiles>(acc, a.ptr, a.ld, m0, a.n, Bp, hidden / 8, nt0);
+    for_each_pair(acc, m0, 8 * nt0, f);
+  }
+}
+
 struct Params {
   const float* rays_o;  // (R, 3)
   const float* rays_d;  // (R, 3)
@@ -154,13 +185,15 @@ struct Params {
   const float* noise;   // (R, S) or null
   const int* seed;      // one int32 on the device
   const float* w_fwd;   // per layer W (in, hidden), b; head W (hidden, 4), b
-  const float* w_bwd;   // layers 1..depth-1: W[:, :hidden] as (out, in)
-  float* partials;      // (gridDim.x, n_grad + 1)
-  int n_rays, tile_rays, n_samples, num_freqs, hidden, depth, skip_at;
+  const float* w_bwd;   // layers 1..depth-1: W[:, :hidden] as (out, in); CUDA cores only
+  const uint2* w_mma;   // kMma: the packed B fragments (pack_tiny_weights), 4 bf16 a uint2
+  float* partials;      // (gridDim.x, row): n_grad gradient values, the loss, padding
+  int n_rays, tile_rays, n_samples, num_freqs, hidden, depth, skip_at, row;
   float near, h_bin, inv_n;
   int randomized, white_bkgd, bf16;
 };
 
+template <bool kMma>
 __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm) {
   extern __shared__ float smem[];
   const int S = prm.n_samples;
@@ -178,24 +211,35 @@ __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
 
-  float* enc = smem;                             // (p_pad, in_dim)
-  float* act = enc + p_pad * in_dim;             // depth x (p_pad, ld_h)
-  float* G = act + depth * p_pad * ld_h;         // (p_pad, ld_h)
+  // kMma with a skip: act_{skip_at-1} (stride hidden + in_dim) holds the
+  // encoding in its columns [hidden, hidden + in_dim), so the skip layer's
+  // input [act, enc] is one row; the encoding has no buffer of its own.
+  const bool wide = kMma && skip_at >= 1;
+  float* enc = wide ? smem + (skip_at - 1) * p_pad * ld_h + hidden : smem;  // (p_pad, in_dim)
+  const int ld_enc = wide ? hidden + in_dim : in_dim;
+  float* act = wide ? smem : enc + p_pad * in_dim;  // depth x (p_pad, ld_h)
+  auto LD = [&](int i) { return wide && i == skip_at - 1 ? hidden + in_dim : ld_h; };
+  auto A = [&](int i) {
+    return act + i * p_pad * ld_h + (wide && i >= skip_at ? p_pad * (in_dim - 1) : 0);
+  };
+  float* G = A(depth);                           // (p_pad, ld_h)
   float* ps = G + p_pad * ld_h;                  // kNumScalars x p_pad
   float* rs = ps + kNumScalars * p_pad;          // TR x kRayScalars
-  auto A = [&](int i) { return act + i * p_pad * ld_h; };
   auto Q = [&](int q) { return ps + q * p_pad; };
 
   const int head_off = layer_offset(depth, in_dim, hidden, skip_at);
   const int n_grad = head_off + hidden * 4 + 4;
-  float* part = prm.partials + (size_t)blockIdx.x * (n_grad + 1);
+  float* part = prm.partials + (size_t)blockIdx.x * prm.row;
+  // kMma: trunk layer 1's upstream fragments follow every forward's.
+  const int mma_up = mma_fwd_off(depth, in_dim, hidden, skip_at);
   const float* wh = prm.w_fwd + head_off;  // (hidden, 4)
   const float* bh = wh + hidden * 4;
   const unsigned int seed = randomized ? (unsigned int)(*prm.seed) : 0u;
   const int n_pg = p_pad / kRows;
   const int n_og = hidden / kCols;
 
-  // Padding rows only fill the last 4-row block: keep them finite.
+  // Padding rows only fill the last 4-row block (none with kMma, whose
+  // tiles are 64 points): keep them finite.
   for (int idx = P * in_dim + tid; idx < p_pad * in_dim; idx += nthr) enc[idx] = 0.f;
 
   float block_loss = 0.f;  // thread 0 only
@@ -223,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm) {
       const int c = q % 3, kk = q / 3;
       const int g = (ray0 + p / S) * 3 + c;
       const float pt = __fadd_rn(prm.rays_o[g], __fmul_rn(prm.rays_d[g], Q(kZ)[p]));
-      float* row = enc + p * in_dim;
+      float* row = enc + p * ld_enc;
       if (kk == 0) {
         row[c] = to_compute(pt, bf16);
       } else {
@@ -238,7 +282,20 @@ __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm) {
     // 3. trunk forward: layer 0 reads enc, the skip layer [act, enc].
     for (int i = 0; i < depth; ++i) {
       const int off = layer_offset(i, in_dim, hidden, skip_at);
-      const int n_in = layer_in(i, in_dim, hidden, skip_at);
+      const int n_in = layer_in_dim(i, in_dim, hidden, skip_at);
+      if constexpr (kMma) {
+        const Seg in = i == 0 ? Seg{enc, ld_enc, in_dim} : Seg{A(i - 1), LD(i - 1), n_in};
+        const float* b = prm.w_fwd + off + n_in * hidden;
+        float* out = A(i);
+        const int ld_o = LD(i);
+        tile_products(in, prm.w_mma + mma_fwd_off(i, in_dim, hidden, skip_at) / 4, hidden,
+                      [&](int p, int c, float v0, float v1) {
+          out[p * ld_o + c] = to_compute(fmaxf(v0 + __ldg(b + c), 0.f), true);
+          out[p * ld_o + c + 1] = to_compute(fmaxf(v1 + __ldg(b + c + 1), 0.f), true);
+        });
+        __syncthreads();
+        continue;
+      }
       const Seg a = i == 0 ? Seg{enc, in_dim, in_dim} : Seg{A(i - 1), ld_h, hidden};
       const Seg b = (i > 0 && i == skip_at) ? Seg{enc, in_dim, in_dim} : Seg{enc, in_dim, 0};
       const float* W = prm.w_fwd + off;
@@ -408,7 +465,27 @@ __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm) {
     for (int i = depth - 1; i >= 0; --i) {
       const float* g = i == depth - 1 ? G : A(i + 1);
       const int off = layer_offset(i, in_dim, hidden, skip_at);
-      const int n_in = layer_in(i, in_dim, hidden, skip_at);
+      const int n_in = layer_in_dim(i, in_dim, hidden, skip_at);
+      if constexpr (kMma) {
+        // The weight and bias gradients (one segment, one row of ones),
+        // and the upstream gradient masked by act_{i-1} into act_i's
+        // buffer, which no product of this layer reads.
+        const int ld_g = i == depth - 1 ? ld_h : LD(i + 1);
+        const Seg in = i == 0 ? Seg{enc, ld_enc, in_dim} : Seg{A(i - 1), LD(i - 1), n_in};
+        mma_weight_grad<4>(in, g, ld_g, hidden, part + off, first);
+        if (i > 0) {
+          float* up = A(i);
+          const float* mask = A(i - 1);
+          const int ld_u = LD(i), ld_m = LD(i - 1);
+          tile_products(Seg{g, ld_g, hidden}, prm.w_mma + (mma_up + (i - 1) * hidden * hidden) / 4,
+                        hidden, [&](int p, int k, float v0, float v1) {
+            up[p * ld_u + k] = mask[p * ld_m + k] > 0.f ? to_compute(v0, true) : 0.f;
+            up[p * ld_u + k + 1] = mask[p * ld_m + k + 1] > 0.f ? to_compute(v1, true) : 0.f;
+          });
+        }
+        __syncthreads();
+        continue;
+      }
       const Seg a = i == 0 ? Seg{enc, in_dim, in_dim} : Seg{A(i - 1), ld_h, hidden};
       const Seg b = (i > 0 && i == skip_at) ? Seg{enc, in_dim, in_dim} : Seg{enc, in_dim, 0};
       const int items_a = (a.n + kCols - 1) / kCols * n_og;
@@ -475,30 +552,41 @@ int tinynerf_fused_train_threads() { return kThreads; }
 
 // Launch the step kernel on `n_blocks` blocks, then the reduction.
 // n_rays must be a multiple of tile_rays, n_blocks <= n_rays / tile_rays.
-// out receives n_grad gradient values in parameter order and the loss
-// last. Returns the CUDA error code of the first failing call (0 = ok).
+// partials is (n_blocks, row), row a multiple of 4 and > n_grad; dst has
+// row entries (-1 for the padding after the loss). out receives n_grad
+// gradient values in parameter order and the loss last. The route is the
+// caller's: w_mma null runs the CUDA-core kernel (from w_bwd); w_mma set
+// (the packed fragments) runs the tensor-core kernel, and only a bf16
+// launch with hidden a multiple of 32 and 64-point tiles may set it (else
+// cudaErrorInvalidValue, no launch). Returns the CUDA error code of the
+// first failing call (0 = ok).
 int tinynerf_fused_train(const float* rays_o, const float* rays_d, const float* target,
                          const float* noise, const int* seed, const float* w_fwd,
-                         const float* w_bwd, float* partials, const int* dst, float* out,
-                         int n_rays, int tile_rays, int n_samples, int num_freqs, int hidden,
-                         int depth, int skip_at, float near, float h_bin, float inv_n,
+                         const float* w_bwd, const void* w_mma, float* partials, const int* dst,
+                         float* out, int n_rays, int tile_rays, int n_samples, int num_freqs,
+                         int hidden, int depth, int skip_at, float near, float h_bin, float inv_n,
                          int randomized, int white_bkgd, int bf16, int n_blocks, int n_grad,
-                         int device, void* stream) {
+                         int row, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const bool mma = w_mma != nullptr;
+  if (row <= n_grad || row % 4 != 0 ||
+      (mma && (!bf16 || hidden <= 0 || hidden % 32 != 0 ||
+               tile_rays * n_samples != kMmaChunkPoints)))
+    return (int)cudaErrorInvalidValue;
   const int smem =
       tinynerf_fused_train_smem_bytes(tile_rays, n_samples, num_freqs, hidden, depth);
-  err = cudaFuncSetAttribute(fused_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  auto kernel = mma ? fused_train_kernel<true> : fused_train_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  Params prm{rays_o, rays_d, target, noise, seed, w_fwd, w_bwd, partials,
-             n_rays, tile_rays, n_samples, num_freqs, hidden, depth, skip_at,
+  Params prm{rays_o, rays_d, target, noise, seed, w_fwd, w_bwd,
+             static_cast<const uint2*>(w_mma), partials,
+             n_rays, tile_rays, n_samples, num_freqs, hidden, depth, skip_at, row,
              near, h_bin, inv_n, randomized, white_bkgd, bf16};
   cudaStream_t st = (cudaStream_t)stream;
-  fused_train_kernel<<<n_blocks, kThreads, smem, st>>>(prm);
+  kernel<<<n_blocks, kThreads, smem, st>>>(prm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int row = n_grad + 1;
   reduce_partials_kernel<<<(row + 255) / 256, 256, 0, st>>>(partials, n_blocks, row, dst, out);
   return (int)cudaGetLastError();
 }

@@ -4,11 +4,15 @@
 //
 // Rule of the design: every bf16 launch of K4, K6 and K7 runs its three
 // MLP products here (the trunk's and rgb_in's forward, the weight
-// gradients, the upstream gradients; nerf_train_walk.cuh with kMma), and
+// gradients, the upstream gradients; nerf_train_walk.cuh with kMma);
 // every bf16 launch of the render kernels K3/K5 (fused_nerf.cu with kMma)
-// at the widths mma_dense_relu takes runs its forward products here; f32
-// launches, and the few bf16 render widths off that layout, keep the
-// CUDA-core products of nerf_mlp.cuh and train_common.cuh.
+// at the widths mma_dense_relu takes, and of the TinyNeRF render K1
+// (fused_render.cu) at its tiles of at most 128 points, runs its forward
+// products here; every bf16 launch of the TinyNeRF train kernel K2
+// (fused_train.cu) at its 64-point tiles runs its three products here
+// (64-row warp tiles of mma_rows, mma_weight_grad). f32 launches, and the
+// few bf16 widths and tiles off those layouts, keep the CUDA-core
+// products of nerf_mlp.cuh, train_common.cuh and K1's and K2's own.
 //
 // Operands. The kernels' shared buffer stays f32 with its odd row stride. A
 // fragment is built by loading floats and packing them to bf16x2, which is

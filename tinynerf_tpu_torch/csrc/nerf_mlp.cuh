@@ -1,7 +1,8 @@
 // Device code shared by the full-NeRF kernels: the render kernel K3/K5
 // (fused_nerf.cu) and the train kernel K4/K6 (fused_nerf_train.cu) run
 // the same chunked MLP forward, so the two compute equal per-point values
-// from equal inputs.
+// from equal inputs. The TinyNeRF kernels K1 and K2 take its constants
+// and to_compute (through mma_bf16.cuh).
 //
 // A chunk is kTilePoints point rows of one shared buffer X with an odd
 // row stride ld (the rows a warp reads at one column fall in distinct

@@ -11,9 +11,17 @@ the 4-wide head) against 24 bytes of ray input per 64 points, so the
 unfused composition is bound instead by the device-memory traffic of
 its (points, 191) activations. The kernel keeps every point, encoding
 and activation of a tile in shared memory and writes only (R, 4) back,
-so it moves ~40 bytes per ray and runs on the CUDA cores' f32 FMA rate.
-A register-tiled 8x8 product per thread is the simple first design;
-tensor cores (wgmma) are the next step for speed.
+so it moves ~40 bytes per ray.
+
+The route is chosen by configuration before the launch, never by a
+failure (k1_uses_tensor_cores): bf16 with hidden a multiple of 32 and a
+tile of at most 128 points (every S <= 128, the recipe's S=64 included)
+runs the trunk as mma.sync products on the tensor cores
+(csrc/mma_bf16.cuh) from the fragments of pack_tiny_weights, packed for
+each launch by one gather; f32, and bf16 off that layout, run a
+register-tiled 8x8 f32 product per thread on the CUDA cores. The render
+refuses no width. .mma_launches counts the tensor-core launches beside
+.launches.
 
 Layout: the TPU kernel's feature-major, sample-major lanes, roll scans
 and k-major encoding permutation are not carried over. A block holds
@@ -30,10 +38,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
+from tinynerf_tpu_torch.kernels.fused_nerf import pack_mma_b
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_in_dims
 from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
@@ -41,6 +50,7 @@ from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
 # Points per block: TR = TILE_POINTS // S rays of S samples each.
 TILE_POINTS = 128
 MAX_SMEM_BYTES = 232448  # H100: 227 KB of dynamic shared memory per block
+MAX_THREADS = 512  # csrc/fused_render.cu's kMaxThreads
 
 
 def fused_render_rays_plain(
@@ -87,26 +97,110 @@ def fused_render_rays_plain(
     return comp
 
 
-def pack_weights(params: TinyNeRF, cfg: TinyNeRFConfig) -> torch.Tensor:
-    """All weights as one f32 buffer in the kernel's order: per trunk
-    layer W (in, out) then b, then the head W (hidden, 4) with columns
-    r, g, b, sigma, then its bias. Weights are rounded to bf16 when the
-    compute dtype is bf16; biases stay f32."""
+def _param_offsets(cfg: TinyNeRFConfig) -> dict:
+    """Parameter name -> offset into the concatenation of TinyNeRF's
+    parameters in their order (layers.{i}.weight/bias, sigma.0.*, rgb.0.*)."""
+    shapes = {}
+    for i, n_in in enumerate(layer_in_dims(cfg)):
+        shapes[f"layers.{i}.weight"], shapes[f"layers.{i}.bias"] = cfg.hidden * n_in, cfg.hidden
+    shapes.update({"sigma.0.weight": cfg.hidden, "sigma.0.bias": 1,
+                   "rgb.0.weight": 3 * cfg.hidden, "rgb.0.bias": 3})
+    out, off = {}, 0
+    for name, n in shapes.items():
+        out[name] = off
+        off += n
+    out["zero"] = off  # the one zero the packers append
+    return out
 
-    def w(lin):
-        return lin.weight.detach().to(cfg.compute_dtype).float().t()
 
+def _operand_indices(cfg: TinyNeRFConfig, upstream: bool) -> List[tuple]:
+    """The B operands (K, N) of K1's and K2's tensor-core products in
+    packing order, as (name, matrix of indices into the parameters'
+    concatenation): each trunk layer's forward W^T (in, hidden), then, with
+    upstream, the W[:, :hidden] (hidden, hidden) of trunk layers
+    1..depth-1 (the skip layer's encoding rows get no upstream gradient)."""
+    h, off = cfg.hidden, _param_offsets(cfg)
+    ws = [off[f"layers.{i}.weight"] + torch.arange(h * n_in).reshape(h, n_in)
+          for i, n_in in enumerate(layer_in_dims(cfg))]
+    out = [(f"layers.{i}.fwd", w.t()) for i, w in enumerate(ws)]
+    return out + [(f"layers.{i}.up", w[:, :h]) for i, w in enumerate(ws) if i > 0 and upstream]
+
+
+def tiny_mma_operands(params: TinyNeRF, cfg: TinyNeRFConfig) -> List[tuple]:
+    """K1's and K2's B operands as (name, bf16 matrix), in packing order
+    (_operand_indices): K1 reads the forward ones alone, at mma_fwd_off;
+    K2 all of them."""
+    flat = torch.cat([p.detach().reshape(-1) for p in params.parameters()]).to(torch.bfloat16)
+    return [(name, flat[idx]) for name, idx in _operand_indices(cfg, upstream=True)]
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(cfg: TinyNeRFConfig, mma: bool, upstream: bool,
+                device: torch.device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The gathers of pack_tiny_weights over the parameters' concatenation
+    `flat` (and its trailing zero): the f32 buffer's indices into [rounded
+    flat, flat]; the fragments' indices into flat (_operand_indices packed
+    by pack_mma_b, the K padding on the zero)."""
+    h, off = cfg.hidden, _param_offsets(cfg)
+    n = off["zero"] + 1
+    head = torch.cat([off["rgb.0.weight"] + torch.arange(3 * h).reshape(3, h),
+                      off["sigma.0.weight"] + torch.arange(h).reshape(1, h)]).t()
     parts = []
-    for lin in params.layers:
-        parts += [w(lin).reshape(-1), lin.bias.detach().float()]
-    head_w = torch.cat([w(params.rgb[0]), w(params.sigma[0])], dim=1)  # (hidden, 4)
-    head_b = torch.cat([params.rgb[0].bias, params.sigma[0].bias]).detach().float()
-    parts += [head_w.reshape(-1), head_b]
-    return torch.cat(parts).contiguous()
+    for name, w in _operand_indices(cfg, upstream=False):
+        i = name.split(".")[1]
+        parts += [w.reshape(-1), n + off[f"layers.{i}.bias"] + torch.arange(h)]
+    parts += [head.reshape(-1), n + off["rgb.0.bias"] + torch.arange(3),
+              n + torch.tensor([off["sigma.0.bias"]])]
+    fwd = torch.cat(parts).to(device)
+    if not mma:
+        return fwd, None
+    # pack_mma_b pads K with zeros: shift by one so that 0 is the padding.
+    frag = torch.cat([pack_mma_b(w + 1) for _, w in _operand_indices(cfg, upstream)])
+    return fwd, torch.where(frag == 0, off["zero"], frag - 1).to(device)
 
 
-def _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg) -> int:
-    """Validate what the kernel takes; returns the rays per tile."""
+@torch.no_grad()
+def pack_tiny_weights(params: TinyNeRF, cfg: TinyNeRFConfig, *, mma: bool = False,
+                      upstream: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1's and K2's weight buffers from one concatenation of the
+    parameters and one precomputed gather each -> (w_fwd, w_mma).
+
+    w_fwd (f32): per trunk layer W (in, out) then b, then the head W
+    (hidden, 4) with columns r, g, b, sigma, then its bias; weights
+    rounded to compute_dtype, biases f32. w_mma (bf16, with mma): the
+    tensor-core B fragments of tiny_mma_operands, each packed by
+    pack_mma_b and concatenated, the forward operands alone or (upstream)
+    followed by the upstream ones; else None."""
+    ps = list(params.parameters())
+    flat = torch.cat([p.reshape(-1) for p in ps] + [ps[0].new_zeros(1)])
+    fwd_idx, mma_idx = _pack_index(cfg, mma, upstream, flat.device)
+    w_fwd = torch.cat([flat.to(cfg.compute_dtype).float(), flat])[fwd_idx]
+    return w_fwd, None if mma_idx is None else flat.to(torch.bfloat16)[mma_idx]
+
+
+def pack_weights(params: TinyNeRF, cfg: TinyNeRFConfig) -> torch.Tensor:
+    """All weights as one f32 buffer in the kernels' order (pack_tiny_weights'
+    w_fwd): per trunk layer W (in, out) then b, then the head W (hidden, 4)
+    with columns r, g, b, sigma, then its bias. Weights are rounded to bf16
+    when the compute dtype is bf16; biases stay f32."""
+    return pack_tiny_weights(params, cfg)[0]
+
+
+def k1_uses_tensor_cores(cfg: TinyNeRFConfig, n_samples: int) -> bool:
+    """K1's route, by configuration: bf16 with hidden a multiple of 32
+    (whole 32-column warp tiles, 2 * hidden threads) and a tile of at most
+    128 points padded to 128 rows (every S <= 128) whose buffer fits takes
+    the tensor cores (True); f32, and bf16 off that layout, the CUDA-core
+    kernel. Never raises: the render refuses no width the JAX kernel takes."""
+    h = cfg.hidden
+    return (cfg.compute_dtype == torch.bfloat16 and h > 0 and h % 32 == 0
+            and 2 * h <= MAX_THREADS and 0 < n_samples <= TILE_POINTS
+            and 4 * (TILE_POINTS * (h + cfg.in_dim) + 7 * n_samples * (TILE_POINTS // n_samples))
+            <= MAX_SMEM_BYTES)
+
+
+def _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg, mma: bool) -> int:
+    """Validate what the kernel takes on its route; returns the rays per tile."""
     for name, x in (("rays_o", rays_o), ("rays_d", rays_d)):
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -133,8 +227,8 @@ def _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg) -> int:
         raise ValueError(f"n_samples must be >= 2, got {n_samples}")
     tile = max(1, TILE_POINTS // n_samples)
     lib = _lib()
-    threads = lib.tinynerf_fused_render_threads(tile, n_samples, cfg.hidden)
-    smem = lib.tinynerf_fused_render_smem_bytes(tile, n_samples, num_freqs, cfg.hidden)
+    threads = lib.tinynerf_fused_render_threads(tile, n_samples, cfg.hidden, int(mma))
+    smem = lib.tinynerf_fused_render_smem_bytes(tile, n_samples, num_freqs, cfg.hidden, int(mma))
     if threads > lib.tinynerf_fused_render_max_threads() or smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"tile of {tile} rays x {n_samples} samples at hidden {cfg.hidden} "
@@ -152,11 +246,11 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_render")
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.tinynerf_fused_render.argtypes = [p, p, p, p] + [i] * 7 + [f, f, i, i, p]
+    lib.tinynerf_fused_render.argtypes = [p] * 5 + [i] * 7 + [f, f, i, i, p]
     lib.tinynerf_fused_render.restype = i
-    lib.tinynerf_fused_render_smem_bytes.argtypes = [i, i, i, i]
+    lib.tinynerf_fused_render_smem_bytes.argtypes = [i] * 5
     lib.tinynerf_fused_render_smem_bytes.restype = i
-    lib.tinynerf_fused_render_threads.argtypes = [i, i, i]
+    lib.tinynerf_fused_render_threads.argtypes = [i] * 4
     lib.tinynerf_fused_render_threads.restype = i
     lib.tinynerf_fused_render_max_threads.argtypes = []
     lib.tinynerf_fused_render_max_threads.restype = i
@@ -179,15 +273,18 @@ def fused_render_rays(
 ) -> torch.Tensor:
     """Deterministic fused render of a ray batch -> composite RGB (R, 3).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    fused_render_rays_plain. `model_cfg` defaults to params.cfg.
+    CUDA tensors launch the kernel (or raise): on the tensor cores where
+    k1_uses_tensor_cores(cfg, n_samples), else on the CUDA cores; CPU
+    tensors take fused_render_rays_plain. `model_cfg` defaults to
+    params.cfg.
     """
     cfg = model_cfg or params.cfg
     kw = dict(n_samples=n_samples, near=near, far=far, num_freqs=num_freqs,
               white_bkgd=white_bkgd, model_cfg=cfg)
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_render_rays_plain(params, rays_o, rays_d, **kw)
-    tile = _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg)
+    mma = k1_uses_tensor_cores(cfg, n_samples)
+    tile = _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg, mma)
 
     R = rays_o.shape[0]
     pad = -R % tile
@@ -195,11 +292,12 @@ def fused_render_rays(
     o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)]).contiguous()
     d = torch.cat([rays_d, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(pad, 3)])
     d = d.contiguous()
-    wts = pack_weights(params, cfg)
+    wts, w_mma = pack_tiny_weights(params, cfg, mma=mma)
     out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tinynerf_fused_render(
-        o.data_ptr(), d.data_ptr(), wts.data_ptr(), out.data_ptr(),
+        o.data_ptr(), d.data_ptr(), wts.data_ptr(), None if w_mma is None else w_mma.data_ptr(),
+        out.data_ptr(),
         R + pad, tile, n_samples, num_freqs, cfg.hidden, cfg.depth, cfg.skip_at,
         float(near), float(far), int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
     )
@@ -207,6 +305,7 @@ def fused_render_rays(
         msg = _lib().tinynerf_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_render kernel launch failed: CUDA error {err} ({msg})")
     fused_render_rays.launches += 1
+    fused_render_rays.mma_launches += int(mma)
     comp = out[:R, :3]
     if white_bkgd:
         comp = comp + (1.0 - out[:R, 3:4])
@@ -214,3 +313,5 @@ def fused_render_rays(
 
 
 fused_render_rays.launches = 0  # kernel launches since the last reset
+# ... of which took the tensor cores (every bf16 launch k1_uses_tensor_cores takes)
+fused_render_rays.mma_launches = 0

@@ -14,7 +14,20 @@ kernel keeps a tile's encoding and every layer's activations in shared
 memory, so only rays, targets, weights and one row of gradient partials
 per block touch device memory. The partial rows are summed by a second
 small kernel in a fixed order: no float atomics, so a step is
-bit-identical from launch to launch.
+bit-identical from launch to launch. A row's stride is a multiple of 4
+floats (partial_row), its padding after the loss skipped by the
+reduction (dst = -1).
+
+The route is chosen by configuration before the launch, never by a
+failure (k2_uses_tensor_cores): bf16 with hidden a multiple of 32 and
+tiles of exactly 64 points (S dividing 64: the recipe's S=64 is one ray a
+tile) runs the three MLP products of every layer as mma.sync products on
+the tensor cores (csrc/mma_bf16.cuh) from the fragments of
+kernels/fused_render.py::pack_tiny_weights (forward and upstream
+operands, packed with the f32 buffer from one concatenation and one
+gather each, every step); f32, and bf16 off that layout, run the
+CUDA-core kernel. .mma_launches counts the tensor-core launches beside
+.launches.
 
 The TPU kernel's lane layout (feature-major points, pltpu.repeat/roll
 scans, the k-major encoding permutation and its inverse on the
@@ -35,7 +48,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from tinynerf_tpu_torch.kernels.fused_render import MAX_SMEM_BYTES, pack_weights
+from tinynerf_tpu_torch.kernels.fused_render import MAX_SMEM_BYTES, pack_tiny_weights
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_in_dims
 from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
@@ -48,6 +61,24 @@ TILE_POINTS = 64
 def tile_rays(n_samples: int) -> int:
     """Rays per kernel tile; the batch must be a multiple of it."""
     return max(1, TILE_POINTS // n_samples)
+
+
+def k2_uses_tensor_cores(cfg: TinyNeRFConfig, n_samples: int) -> bool:
+    """K2's route, by configuration: bf16 with hidden a multiple of 32
+    (whole 32-column warp tiles) and tiles of exactly 64 points (S divides
+    64: no padding rows in a weight gradient's 64-point sum) takes the
+    tensor cores (True); f32, and bf16 off that layout (S=48, hidden 48),
+    the CUDA-core kernel. Never raises."""
+    h = cfg.hidden
+    return (cfg.compute_dtype == torch.bfloat16 and h > 0 and h % 32 == 0
+            and 0 < n_samples <= TILE_POINTS and TILE_POINTS % n_samples == 0)
+
+
+def partial_row(n_grad: int) -> int:
+    """Floats of one block's row of gradient partials: n_grad values and
+    the loss, padded to a multiple of 4 (8-byte float2 accesses of the
+    tensor-core weight gradient stay aligned in every block's row)."""
+    return (n_grad + 1 + 3) // 4 * 4
 
 
 def depth_grid(n_samples: int, near: float, far: float, device) -> torch.Tensor:
@@ -163,14 +194,15 @@ def grad_layout(cfg: TinyNeRFConfig) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _scatter_index(names: tuple, cfg: TinyNeRFConfig, device: torch.device) -> torch.Tensor:
-    """dst (n_grad + 1,) int32: kernel-layout index -> position in the
-    flat output (the parameters in `names` order, the loss last)."""
+    """dst (partial_row(n_grad),) int32: kernel-layout index -> position
+    in the flat output (the parameters in `names` order, the loss last;
+    -1 for the row's padding)."""
     layout = grad_layout(cfg)
     if sorted(names) != sorted(layout):
         raise ValueError(f"unexpected parameters {names}")
     src = torch.cat([layout[n].reshape(-1) for n in names])
     n = src.numel()
-    dst = torch.empty(n + 1, dtype=torch.int64)
+    dst = torch.full((partial_row(n),), -1, dtype=torch.int64)
     dst[src] = torch.arange(n)
     dst[n] = n
     return dst.to(torch.int32).to(device)
@@ -184,7 +216,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_train")
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.tinynerf_fused_train.argtypes = [p] * 10 + [i] * 7 + [f] * 3 + [i] * 6 + [p]
+    lib.tinynerf_fused_train.argtypes = [p] * 11 + [i] * 7 + [f] * 3 + [i] * 7 + [p]
     lib.tinynerf_fused_train.restype = i
     lib.tinynerf_fused_train_jitter.argtypes = [p, p, i, i, i, f, f, i, p]
     lib.tinynerf_fused_train_jitter.restype = i
@@ -263,8 +295,9 @@ def fused_loss_grads(
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """One training step's (mse_loss, grads aligned to model.parameters()).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    fused_loss_grads_plain. `seed` is an int or a one-element int tensor
+    CUDA tensors launch the kernel (or raise): on the tensor cores where
+    k2_uses_tensor_cores(cfg, n_samples), else on the CUDA cores; CPU
+    tensors take fused_loss_grads_plain. `seed` is an int or a one-element int tensor
     on the rays' device (the jitter's Philox key). The batch must be a
     multiple of tile_rays(n_samples), else ValueError.
     """
@@ -286,11 +319,14 @@ def fused_loss_grads(
 
     dev = rays_o.device
     seed_t = _seed_tensor(seed, dev)
-    w_fwd = pack_weights(model, cfg)
-    w_bwd = pack_backward_weights(model, cfg)
+    mma = k2_uses_tensor_cores(cfg, n_samples)
+    # The tensor cores read the upstream products' weights as fragments only.
+    w_fwd, w_mma = pack_tiny_weights(model, cfg, mma=mma, upstream=True)
+    w_bwd = None if mma else pack_backward_weights(model, cfg)
     n_grad = w_fwd.numel()
     n_blocks = min(R // tr, torch.cuda.get_device_properties(dev).multi_processor_count)
-    partials = torch.empty(n_blocks, n_grad + 1, dtype=torch.float32, device=dev)
+    row = partial_row(n_grad)
+    partials = torch.empty(n_blocks, row, dtype=torch.float32, device=dev)
     out = torch.empty(n_grad + 1, dtype=torch.float32, device=dev)
     names = tuple(n for n, _ in model.named_parameters())
     dst = _scatter_index(names, cfg, dev)
@@ -298,14 +334,16 @@ def fused_loss_grads(
     err = _lib().tinynerf_fused_train(
         rays_o.data_ptr(), rays_d.data_ptr(), target.data_ptr(),
         None if sigma_noise is None else sigma_noise.data_ptr(), seed_t.data_ptr(),
-        w_fwd.data_ptr(), w_bwd.data_ptr(), partials.data_ptr(), dst.data_ptr(), out.data_ptr(),
-        R, tr, n_samples, num_freqs, cfg.hidden, cfg.depth, cfg.skip_at,
+        w_fwd.data_ptr(), None if w_bwd is None else w_bwd.data_ptr(),
+        None if w_mma is None else w_mma.data_ptr(), partials.data_ptr(), dst.data_ptr(),
+        out.data_ptr(), R, tr, n_samples, num_freqs, cfg.hidden, cfg.depth, cfg.skip_at,
         float(near), (far - near) / (n_samples - 1), 1.0 / (R * 3),
         int(randomized), int(white_bkgd), int(cfg.compute_dtype == torch.bfloat16),
-        n_blocks, n_grad, dev.index, stream,
+        n_blocks, n_grad, row, dev.index, stream,
     )
     _raise_on(err, "fused_train kernel")
     fused_loss_grads.launches += 1
+    fused_loss_grads.mma_launches += int(mma)
     grads, off = [], 0
     for p in model.parameters():
         grads.append(out[off:off + p.numel()].view(p.shape))
@@ -314,6 +352,8 @@ def fused_loss_grads(
 
 
 fused_loss_grads.launches = 0  # kernel launches since the last reset
+# ... of which took the tensor cores (every bf16 launch k2_uses_tensor_cores takes)
+fused_loss_grads.mma_launches = 0
 
 
 def jitter_probe(seed, n_rays: int, n_samples: int, near: float, far: float,

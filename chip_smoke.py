@@ -138,8 +138,38 @@ Phases, each printed with its result and time:
                 the world-1 sharded step, against their plain versions; the
                 steps/s of the 2-rank runs (two processes on one card, not
                 scaling).
+ 26. route    - bf16 K4 (S=64), K6 (S=192, block 64) and the K7 pair (a
+                96-sample shard, block 48) at widths off the tensor cores'
+                layout (hidden 48 with rgb_hidden 24; hidden 256 with
+                rgb_hidden 32) against their plain versions on 2048 rays:
+                the bf16 gates (loss rel < 1e-3, worst leaf cosine > 0.98,
+                the trunk and rgb_in leaves' scale; the partials under the
+                render gates), one launch each and none on the tensor cores,
+                no HMMA in the CUDA-core walks they run; then `train --model
+                nerf --hidden 48 --rgb-hidden 24 --n-fine 64`, bf16 fused, 50
+                steps (K4 twice a step, off the tensor cores).
+ 27. levers   - (a) the flagship with every lever on (pool, precrop 50, noise
+                decay 100 to 0.1, lr decay 200 to 5e-5, AdamW 1e-4, EMA 0.99,
+                the sparsity prior, strided holdout 4, eval every 100,
+                ckpt-keep 2), 200 steps and a resume to 250: every K4 and K6
+                launch on the tensor cores, the lr at the schedule's value
+                across the resume, the EMA twin served by `eval --ema
+                --holdout-views` on the strided poses, two rotated copies,
+                held-out JSONL records with eval_ema; (b) the TinyNeRF through
+                K2 with pool, precrop, noise decay and the EMA, 1000 steps,
+                train PSNR up >= 3 dB; (c) a background-pinned run (margin
+                100 dB) exits 3 in a subprocess, with its checkpoint and its
+                sigma_death record; (d) timing: one flagship step with every
+                lever on against the plain recipe's, the prior and the EMA
+                update alone.
+ 28. sharded  - `torch.distributed.run --nproc-per-node 2 ... --data-parallel
+                --sample-parallel 2` at the flagship with the prior, the EMA
+                and the lr schedule, 10 steps: every rank exits 0 with
+                bit-identical parameters and EMA, every K7 launch on the
+                tensor cores.
 
-Weights are random from a seed throughout.
+Weights are random from a seed throughout. The line before the kernels
+line gives the seconds of all phases.
 
 Exits non-zero without printing a result when there is no CUDA device,
 when the package is missing, or when any phase fails. The line before
@@ -1954,16 +1984,356 @@ def run_partials(build_partials) -> list:
     ]
 
 
+LEVER_ITERS = 200  # phase 27 (a): the flagship with every lever on, then a resume to +50
+LEVER_FLAGS = dict(ray_sampling="pool", precrop_iters=50, sigma_noise_std=1.0,
+                   sigma_noise_decay_steps=100, sigma_noise_floor=0.1, lr_decay_steps=200,
+                   lr_floor=5e-5, weight_decay=1e-4, ema_decay=0.99, sigma_sparsity=1e-3)
+LEVER_SP_ITERS = 10  # phase 28: the 2-rank sample-parallel run with the prior and the EMA
+
+
+def run_levers(build_nerf_train, build_partials) -> None:
+    """Phases 26-28: the route of bf16 K4, K6 and K7 off the tensor cores'
+    widths, the training levers at full width, and the sharded levers."""
+    import dataclasses
+
+    from tinynerf_tpu_torch import eval as eval_mod
+    from tinynerf_tpu_torch import train as train_mod
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.data import ensure_data
+    from tinynerf_tpu_torch.kernels.fused_nerf import fused_nerf_render_rays
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed, fused_nerf_pass_grads_streamed_plain,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads, fused_nerf_pass_grads_plain, make_fused_nerf_grad_fn,
+        uses_tensor_cores,
+    )
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        block_partials_grads_plain, block_partials_plain, fused_block_partials_bwd,
+        fused_block_partials_fwd, make_fused_block_partials_fn,
+    )
+    from tinynerf_tpu_torch.kernels.fused_train import fused_loss_grads
+    from tinynerf_tpu_torch.models.nerf import NeRF, NeRFMLP
+    from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays
+    from tinynerf_tpu_torch.ops.rays import get_rays, get_rays_for_poses
+    from tinynerf_tpu_torch.ops.regularizers import make_sparsity_grad_fn
+    from tinynerf_tpu_torch.ops.volume import global_deltas
+    from tinynerf_tpu_torch.training import make_train_step, settings_optimizer
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    k4, k6 = fused_nerf_pass_grads, fused_nerf_pass_grads_streamed
+    fwd, bwd = fused_block_partials_fwd, fused_block_partials_bwd
+    data_path = os.path.join(OUT_DIR, "absent.npz")  # phase 3's synthetic scene
+    d = ensure_data(data_path, device=dev)
+    images = torch.from_numpy(d["images"]).to(dev)
+    poses = torch.from_numpy(d["poses"]).to(dev)
+    focal = float(d["focal"])
+    n_images, H, W, _ = images.shape
+    rays_o, rays_d = get_rays(H, W, focal, poses[0])
+    idx = torch.randperm(H * W, generator=torch.Generator().manual_seed(0))[:N_RAYS_TRAIN].to(dev)
+    ro, rd = rays_o[idx].contiguous(), rays_d[idx].contiguous()
+    tgt = images[0].reshape(-1, 3)[idx].contiguous()
+    R = N_RAYS_TRAIN
+
+    # 26. route (F1): bf16 K4, K6 and K7 at widths off the tensor cores'
+    #     layout take the CUDA-core walk, by configuration.
+    t0 = time.time()
+    for build, what in ((build_nerf_train, "K4/K6"), (build_partials, "K7")):
+        hmma = sass_counts(build.result()[0], "HMMA")
+        cuda_core = {fn: n for fn, n in hmma.items() if "nerf_walk_kernel" in fn and "Lb0E" in fn}
+        print(f"[route] {what}: HMMA in the CUDA-core walks (kMma=false) {json.dumps(cuda_core)}",
+              flush=True)
+        check(cuda_core and not any(cuda_core.values()),
+              f"the {what} CUDA-core walks that off-layout bf16 launches run hold no HMMA")
+    g = torch.Generator(device=dev).manual_seed(26)
+    z_union = torch.sort(2.0 + 4.0 * torch.rand(R, 192, generator=g, device=dev), dim=1).values
+    deltas = global_deltas(z_union, rd)
+    z_sh, d_sh = z_union[:, 96:].contiguous(), deltas[:, 96:].contiguous()
+    cot = {k: (0.5 + torch.rand(*shape, generator=g, device=dev)) / R
+           for k, shape in (("C", (R, 3)), ("A", (R,)), ("T", (R,)), ("D", (R,)))}
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    route = {}
+    for hidden, rgb_hidden in ((48, 24), (256, 32)):
+        cfg = Config(model="nerf", hidden=hidden, rgb_hidden=rgb_hidden).nerf_cfg()
+        check(cfg.compute_dtype == torch.bfloat16 and not uses_tensor_cores(cfg),
+              f"bf16 hidden {hidden} rgb_hidden {rgb_hidden} routes off the tensor cores")
+        mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+        names = [n for n, _ in mlp.named_parameters()]
+        before = [(k.launches, k.mma_launches) for k in (k4, k6, fwd, bwd)]
+        loss, grads, _, z = k4(mlp, ro, rd, tgt, seed, n_samples=64, emit_sampling=True, cfg=cfg)
+        want = fused_nerf_pass_grads_plain(mlp, ro, rd, tgt, 0, z, randomized=False, cfg=cfg)
+        loss6, grads6 = k6(mlp, ro, rd, tgt, z_union, cfg=cfg, sample_block=64)
+        want6 = fused_nerf_pass_grads_streamed_plain(mlp, ro, rd, tgt, z_union, cfg=cfg,
+                                                     sample_block=64)
+        fn = make_fused_block_partials_fn(cfg, sample_block=48)
+        partials, _ = fn(mlp, ro, rd, z_sh, d_sh)
+        outs = [partials[k] for k in ("C", "A", "T", "D")]
+        grads7 = torch.autograd.grad(outs, list(mlp.parameters()),
+                                     grad_outputs=[cot[k] for k in ("C", "A", "T", "D")])
+        with torch.no_grad():
+            want7, _ = block_partials_plain(mlp, ro, rd, z_sh, d_sh, None, cfg=cfg, sample_block=48)
+        wgrads7 = block_partials_grads_plain(mlp, ro, rd, z_sh, d_sh, None, cot, None, cfg=cfg,
+                                             sample_block=48)
+        torch.cuda.synchronize()
+        moved = [(k.launches - a, k.mma_launches - b)
+                 for k, (a, b) in zip((k4, k6, fwd, bwd), before)]
+        errs = {}
+        for name, l, gr, (wl, wg) in (("K4", loss, grads, want), ("K6", loss6, grads6, want6)):
+            errs[name] = {"loss_rel": abs(float(l) - float(wl)) / float(wl),
+                          **leaf_errors(gr, wg), "mma_scale_err": mma_scale_error(names, gr, wg)}
+        errs["K7 fwd"] = {k: ray_errors(partials[k].detach() / (6.0 if k == "D" else 1.0),
+                                        want7[k] / (6.0 if k == "D" else 1.0),
+                                        width=3 if k == "C" else 1) for k in ("C", "A", "T", "D")}
+        errs["K7 bwd"] = {**leaf_errors(grads7, wgrads7),
+                          "mma_scale_err": mma_scale_error(names, grads7, wgrads7)}
+        route[hidden, rgb_hidden] = {"launches_and_tensor_core_launches": moved, **errs}
+        print(f"[route] bf16 hidden {hidden} rgb_hidden {rgb_hidden}, {R} rays (K4 S=64, K6 "
+              f"S=192 block 64, K7 a 96-sample shard block 48) against the plain versions: "
+              f"{json.dumps(route[hidden, rgb_hidden])}", flush=True)
+        check(moved == [(1, 0)] * 4,
+              "K4, K6, K7 forward and backward launched once each, none on the tensor cores")
+        for name in ("K4", "K6", "K7 bwd"):
+            e = errs[name]
+            check(e.get("loss_rel", 0.0) < 1e-3 and e["min_cosine"] > 0.98
+                  and e["mma_scale_err"] < MMA_SCALE,
+                  f"{name} at hidden {hidden}: loss rel < 1e-3, worst leaf cosine > 0.98, each "
+                  f"trunk and rgb_in leaf's scale within {MMA_SCALE} of 1")
+        check(all(within(e, torch.bfloat16) for e in errs["K7 fwd"].values()),
+              f"K7 forward at hidden {hidden}: the partials within the bf16 render gates")
+        if hidden != 48:
+            continue
+        # Timing at hidden 48 (CUDA-core walk, bf16), plain, kernel, kernel, plain.
+        def k7_pair(fn):
+            parts, _ = fn(mlp, ro, rd, z_sh, d_sh)
+            torch.autograd.grad([parts[k] for k in ("C", "A", "T", "D")],
+                                list(mlp.parameters()),
+                                grad_outputs=[cot[k] for k in ("C", "A", "T", "D")])
+
+        def k7_plain():
+            block_partials_plain(mlp, ro, rd, z_sh, d_sh, None, cfg=cfg, sample_block=48)
+            block_partials_grads_plain(mlp, ro, rd, z_sh, d_sh, None, cot, None, cfg=cfg,
+                                       sample_block=48)
+
+        cases = {
+            "K4": {"kernel": lambda: k4(mlp, ro, rd, tgt, seed, n_samples=64, emit_sampling=True,
+                                        cfg=cfg),
+                   "plain": lambda: fused_nerf_pass_grads_plain(mlp, ro, rd, tgt, 3, n_samples=64,
+                                                                emit_sampling=True, cfg=cfg)},
+            "K6": {"kernel": lambda: k6(mlp, ro, rd, tgt, z_union, cfg=cfg, sample_block=64),
+                   "plain": lambda: fused_nerf_pass_grads_streamed_plain(
+                       mlp, ro, rd, tgt, z_union, cfg=cfg, sample_block=64)},
+            "K7 pair": {"kernel": lambda: k7_pair(fn), "plain": k7_plain},
+        }
+        times = {}
+        for what, fns in cases.items():
+            for name in ("plain", "kernel", "kernel", "plain"):
+                times.setdefault((what, name), []).append(cuda_ms(fns[name], iters=5))
+        ms48 = {k: min(v) for k, v in times.items()}
+        print(f"[timing] {card}: bf16 at hidden 48, rgb_hidden 24, on the CUDA-core walk, {R} "
+              f"rays: K4 (S=64, weights and z out) {ms48['K4', 'kernel']:.4f} ms, plain "
+              f"{ms48['K4', 'plain']:.4f}; K6 (S=192, block 64) {ms48['K6', 'kernel']:.4f}, plain "
+              f"{ms48['K6', 'plain']:.4f}; K7 forward + backward (S=96, block 48) "
+              f"{ms48['K7 pair', 'kernel']:.4f}, plain {ms48['K7 pair', 'plain']:.4f} (all runs "
+              f"{json.dumps({' '.join(k): v for k, v in times.items()})})", flush=True)
+    h48 = Config(model="nerf", hidden=48, rgb_hidden=24, n_fine=64, iters=50, log_every=10,
+                 data_path=data_path, resume=False, out_dir=os.path.join(OUT_DIR, "nerf48"),
+                 ckpt_path=os.path.join(OUT_DIR, "nerf48.npz"),
+                 metrics_path=os.path.join(OUT_DIR, "nerf48.jsonl"))
+    if os.path.exists(h48.metrics_path):
+        os.unlink(h48.metrics_path)
+    k4.launches = k4.mma_launches = k6.launches = k6.mma_launches = 0
+    train_mod.main(h48)
+    h48_launches = (k4.launches, k4.mma_launches, k6.launches, k6.mma_launches)
+    losses = [r["loss"] for r in map(json.loads, open(h48.metrics_path)) if "loss" in r]
+    print(f"[route] train --model nerf --hidden 48 --rgb-hidden 24 --n-fine 64, bf16 fused, 50 "
+          f"steps: (K4, on the tensor cores, K6, on the tensor cores) launches {h48_launches}, "
+          f"losses {losses}", flush=True)
+    check(h48_launches == (100, 0, 0, 0) and all(math.isfinite(x) for x in losses),
+          "hidden 48 trains fused: K4 twice a step, none on the tensor cores; losses finite")
+    print(f"[route] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 27. levers at full width. (a) the flagship with every lever on, then a
+    #     resume; the EMA twin served by eval on the strided poses.
+    t0 = time.time()
+    flag = Config(model="nerf", hidden=256, n_fine=128, data_path=data_path, iters=LEVER_ITERS,
+                  holdout=4, holdout_mode="strided", eval_every=100, ckpt_keep=2, log_every=10,
+                  resume=False, out_dir=os.path.join(OUT_DIR, "levers"),
+                  ckpt_path=os.path.join(OUT_DIR, "levers", "flagship.npz"),
+                  metrics_path=os.path.join(OUT_DIR, "levers.jsonl"), **LEVER_FLAGS)
+    if os.path.exists(flag.metrics_path):
+        os.unlink(flag.metrics_path)
+    os.makedirs(flag.out_dir, exist_ok=True)
+    for f in os.listdir(flag.out_dir):
+        if f.startswith("flagship.npz"):
+            os.unlink(os.path.join(flag.out_dir, f))
+    k4.launches = k4.mma_launches = k6.launches = k6.mma_launches = 0
+    res = train_mod.main(flag)
+    a_launches = (k4.launches, k4.mma_launches, k6.launches, k6.mma_launches)
+    lr_200 = res["optimizer"].param_groups[0]["lr"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res2 = train_mod.main(dataclasses.replace(flag, iters=LEVER_ITERS + 50, resume=True))
+    print(out.getvalue().strip(), flush=True)
+    a_launches2 = (k4.launches, k4.mma_launches, k6.launches, k6.mma_launches)
+    opt = res2["optimizer"]
+    # optax.exponential_decay(5e-4, 200, 0.1, end_value=5e-5), by hand
+    want_199 = max(5e-4 * 0.1 ** (199 / 200), 5e-5)
+    want_250 = max(5e-4 * 0.1 ** (250 / 200), 5e-5)
+    recs = [json.loads(line) for line in open(flag.metrics_path)]
+    held = [(r["step"], r["eval"]["psnr_mean"], r["eval_ema"]["psnr_mean"])
+            for r in recs if r.get("kind") == "held-out" and "eval_ema" in r]
+    copies = sorted(f for f in os.listdir(flag.out_dir) if f.startswith("flagship.npz.step"))
+    k3_before = fused_nerf_render_rays.launches
+    ev = eval_mod.main(eval_mod.EvalConfig(ckpt_path=flag.ckpt_path, data_path=data_path,
+                                           ema=True, holdout_views=True,
+                                           out_dir=os.path.join(OUT_DIR, "eval_levers")))
+    with open(os.path.join(OUT_DIR, "eval_levers", "metrics.json")) as f:
+        ev_indices = json.load(f)["indices"]
+    strided = train_mod.strided_holdout(n_images, 4)
+    print(f"[levers] (a) flagship, every lever on ({json.dumps(LEVER_FLAGS)}, strided holdout 4, "
+          f"eval every 100, ckpt-keep 2), {LEVER_ITERS} steps then a resume to "
+          f"{LEVER_ITERS + 50}: (K4, on the tensor cores, K6, on the tensor cores) launches "
+          f"{a_launches} then {a_launches2}; lr of the last step {lr_200!r} (want {want_199!r}), "
+          f"after the resume count {opt.count()} lr {opt.lr_at(opt.count())!r} (want "
+          f"{want_250!r}); held-out (step, raw, EMA) {held}; rotated copies {copies}; eval --ema "
+          f"--holdout-views on poses {ev_indices} (strided {strided}): PSNR "
+          f"{ev['psnr_mean']:.3f} dB, K3 launches {fused_nerf_render_rays.launches - k3_before}",
+          flush=True)
+    check(a_launches == (LEVER_ITERS,) * 4 and a_launches2 == (LEVER_ITERS + 50,) * 4,
+          "every K4 and K6 launch of the lever run and its resume on the tensor cores")
+    check(abs(lr_200 - want_199) <= 1e-12 and opt.count() == LEVER_ITERS + 50
+          and abs(opt.lr_at(opt.count()) - want_250) <= 1e-12
+          and f"from step {LEVER_ITERS}" in out.getvalue(),
+          "the lr follows the schedule at the optimizer's count, across the resume")
+    check(os.path.exists(flag.ckpt_path + ".ema.npz") and ev_indices == strided
+          and math.isfinite(ev["psnr_mean"]) and fused_nerf_render_rays.launches > k3_before,
+          "the EMA twin exists and eval --ema --holdout-views serves it on the strided poses")
+    check(copies == [f"flagship.npz.step{s:08d}.npz" for s in (LEVER_ITERS, LEVER_ITERS + 50)],
+          "exactly two rotated checkpoint copies")
+    check([h[0] for h in held] == [100, 200, 250]
+          and all(math.isfinite(x) for h in held for x in h[1:]),
+          "held-out JSONL records with eval_ema at steps 100, 200 and 250")
+
+    # (b) the TinyNeRF through K2: pool, precrop, noise decay and the EMA.
+    tiny = Config(data_path=data_path, iters=TRAIN_ITERS, holdout=4, resume=False,
+                  ray_sampling="pool", precrop_iters=200, sigma_noise_std=1.0,
+                  sigma_noise_decay_steps=500, ema_decay=0.999,
+                  out_dir=os.path.join(OUT_DIR, "levers_tiny"),
+                  ckpt_path=os.path.join(OUT_DIR, "levers_tiny.npz"),
+                  metrics_path=os.path.join(OUT_DIR, "levers_tiny.jsonl"))
+    if os.path.exists(tiny.metrics_path):
+        os.unlink(tiny.metrics_path)
+    fused_loss_grads.launches = fused_loss_grads.mma_launches = 0
+    res_tiny = train_mod.main(tiny)
+    psnrs = logged_psnrs(tiny.metrics_path)
+    k2 = (fused_loss_grads.launches, fused_loss_grads.mma_launches)
+    print(f"[levers] (b) TinyNeRF, pool + precrop 200 + noise decay 500 + EMA 0.999, "
+          f"{TRAIN_ITERS} steps: K2 (launches, on the tensor cores) {k2}, train PSNR "
+          f"{psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB, held-out {res_tiny['eval']['psnr_mean']:.2f} dB, "
+          f"EMA {res_tiny['eval_ema']['psnr_mean']:.2f} dB", flush=True)
+    check(k2 == (TRAIN_ITERS, TRAIN_ITERS) and psnrs[-1] - psnrs[0] >= 3.0,
+          "the TinyNeRF lever run goes through K2 on the tensor cores and its PSNR rises >= 3 dB")
+
+    # (c) the watchdog, in a subprocess: a margin of 100 dB pins every
+    #     logged PSNR, so the run saves, logs and exits 3.
+    dead = os.path.join(OUT_DIR, "dead")
+    dead_metrics = dead + ".jsonl"
+    if os.path.exists(dead_metrics):
+        os.unlink(dead_metrics)
+    proc = subprocess.run(
+        [sys.executable, "-m", "tinynerf_tpu_torch.train", "--data-path", data_path, "--iters",
+         "50", "--log-every", "1", "--death-grace", "0", "--death-window", "2",
+         "--death-margin", "100", "--no-resume", "--out-dir", dead, "--ckpt-path",
+         dead + ".npz", "--metrics-path", dead_metrics],
+        capture_output=True, text=True, timeout=300, env={**os.environ, "PYTHONPATH": os.getcwd()})
+    death = [r for r in map(json.loads, open(dead_metrics)) if r.get("sigma_death")]
+    print(f"[levers] (c) watchdog run: rc {proc.returncode}, record {death}, "
+          f"{[x for x in proc.stdout.splitlines() if 'SIGMA' in x or 'watchdog' in x]}", flush=True)
+    check(proc.returncode == 3 and len(death) == 1 and death[0]["step"] == 2
+          and os.path.exists(dead + ".npz"),
+          "a background-pinned run exits 3 after writing its checkpoint and its sigma_death record")
+
+    # (d) timing, plain, levers, levers, plain: one flagship step (fused)
+    #     with every lever on against the plain recipe's, and the prior's
+    #     and the EMA update's time alone.
+    plain_s = Config(model="nerf", hidden=256, n_fine=128).train_settings()
+    lever_s = dataclasses.replace(
+        Config(model="nerf", hidden=256, n_fine=128, **LEVER_FLAGS).train_settings(),
+        image_hw=(H, W))
+    train_poses = poses[: n_images - 4]
+    rays_o_all, rays_d_all = get_rays_for_poses(H, W, focal, train_poses)
+    pixels = images[: n_images - 4].reshape(len(train_poses), H * W, 3)
+    ncfg = Config(model="nerf", hidden=256).nerf_cfg()
+    prior = make_sparsity_grad_fn(lever_s, "nerf", nerf_cfg=ncfg, lam=1e-3,
+                                  aabb=aabb_from_rays(rays_o_all, rays_d_all, 2.0, 6.0))
+    states, fns = {}, {}
+    for name, s, extra in (("plain", plain_s, None), ("levers", lever_s, prior)):
+        model = NeRF(ncfg, generator=torch.Generator().manual_seed(0), device=dev)
+        states[name] = (model, settings_optimizer(model.parameters(), s))
+        fns[name] = make_train_step(s, grad_fn=make_fused_nerf_grad_fn(s, ncfg, n_fine=128),
+                                    extra_grad_fn=extra)
+    counter = iter(range(1000, 10**6))  # past the precrop warmup
+    cases = {name: (lambda n=name: fns[n](*states[n], 0, next(counter), rays_o_all, rays_d_all,
+                                          pixels)) for name in fns}
+    model, opt = states["levers"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases["prior"] = lambda: prior(model, gen)
+
+    def ema_update():
+        torch._foreach_mul_(opt.ema, opt.ema_decay)
+        torch._foreach_add_(opt.ema, opt.params, alpha=1.0 - opt.ema_decay)
+
+    cases["ema"] = ema_update
+    times = {}
+    for name in ("plain", "levers", "levers", "plain", "prior", "ema", "ema", "prior"):
+        times.setdefault(name, []).append(cuda_ms(cases[name], iters=5))
+    ms = {k: min(v) for k, v in times.items()}
+    print(f"[timing] {card}: flagship train step (fused, K4 + K6, 2048 rays), every lever on "
+          f"{ms['levers']:.4f} ms against the plain recipe's {ms['plain']:.4f} ms; the sparsity "
+          f"prior alone (8192 points, both MLPs, eager autograd) {ms['prior']:.4f} ms; the EMA "
+          f"update alone {ms['ema']:.4f} ms (all runs {json.dumps(times)})", flush=True)
+    print(f"[levers] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 28. sharded levers: two ranks on the one card, sample-parallel 2 (K7),
+    #     the prior, the EMA and the lr schedule.
+    t0 = time.time()
+    sp_metrics = os.path.join(OUT_DIR, "levers_sp2.jsonl")
+    if os.path.exists(sp_metrics):
+        os.unlink(sp_metrics)
+    sp = torchrun_train("levers_sp2", "--sample-parallel", "2", "--iters", str(LEVER_SP_ITERS),
+                        "--no-resume", "--sigma-sparsity", "1e-3", "--ema-decay", "0.99",
+                        "--lr-decay-steps", "20", "--metrics-path", sp_metrics)
+    ema_digests = {line.split("EMA digest ")[1].split(",")[0] for line in sp["out"].splitlines()
+                   if "EMA digest" in line}
+    k7_names = ("fused_block_partials_fwd", "fused_block_partials_fwd.mma_launches",
+                "fused_block_partials_bwd", "fused_block_partials_bwd.mma_launches")
+    sp_launches = [tuple(r.get(k, 0) for k in k7_names) for r in sp["launches"]]
+    losses = [r["loss"] for r in map(json.loads, open(sp_metrics)) if "loss" in r]
+    print(f"[levers] sample-parallel 2 ranks with the prior, the EMA and the lr schedule, "
+          f"{LEVER_SP_ITERS} steps: K7 launches per rank {sp_launches}, EMA digests "
+          f"{sorted(ema_digests)}, losses {losses}", flush=True)
+    check(len(ema_digests) == 1 and sp["out"].count("EMA digest") == 2,
+          "both ranks' EMA bit-identical (their parameters too: torchrun_train)")
+    check(all(x == (2 * LEVER_SP_ITERS,) * 4 for x in sp_launches),
+          "each rank's K7 ran 2 forwards and 2 backwards per step, all on the tensor cores")
+    check(all(math.isfinite(x) for x in losses), "sharded lever losses finite")
+    print(f"[levers] ok in {time.time() - t0:.2f}s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.time()
     sources = ("fused_render", "fused_train", "fused_nerf", "fused_nerf_train", "fused_partials")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:  # one nvcc per source, together
         builds = {n: pool.submit(timed_build, n) for n in sources}
         kernels = [run(builds["fused_render"]), run_train(builds["fused_train"]),
                    *run_nerf(builds["fused_nerf"]), *run_nerf_train(builds["fused_nerf_train"]),
                    *run_partials(builds["fused_partials"])]
+        run_levers(builds["fused_nerf_train"], builds["fused_partials"])
+    print(f"[phases] 1-28 in {time.time() - t_start:.2f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """The fused render (K1), train (K2), NeRF (K3), streamed NeRF (K5),
 NeRF train (K4), streamed NeRF train (K6) and block-partials (K7)
-kernels against their plain versions, K2's and K4's jitter, the
-tensor-core walk of every bf16 K4, K6 and K7 launch, and the routes of
-K1, K2 and K3/K5 (bf16 at the tensor-core shapes on the tensor cores, f32
-and other shapes on the CUDA cores), on a CUDA device.
+kernels against their plain versions, K2's and K4's jitter, and the
+routes of K1, K2, K3/K5 and K4/K6/K7 (bf16 at the tensor-core shapes on
+the tensor cores, f32 and other shapes on the CUDA cores; a tensor-core
+width without its fragments refused), on a CUDA device.
 
 Skips without one. This file imports neither jax nor the JAX package, so
 it also runs on a GPU machine that has no JAX (without the suite's
@@ -522,9 +522,9 @@ def test_nerf_train_kernel_counts_tensor_core_launches_on_card(cuda_device, dtyp
 
 
 def _off_tensor_core_width(device):
-    """hidden 64 with rgb_hidden 8: the CUDA-core walk's checks pass, but
-    the bf16 tensor-core walk cannot share rgb_in's 8 columns over its
-    warps."""
+    """hidden 64 with rgb_hidden 8: the CUDA-core walk takes it, but the
+    bf16 tensor-core walk cannot share rgb_in's 8 columns over its warps,
+    so bf16 routes to the CUDA-core walk."""
     from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
 
     cfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=64, depth=3, skip_at=2, rgb_hidden=8,
@@ -534,17 +534,47 @@ def _off_tensor_core_width(device):
 
 @pytest.mark.cuda
 def test_nerf_train_kernel_refuses_widths_off_the_tensor_cores_on_card(cuda_device):
-    """A bf16 K4 launch at a width the tensor-core walk cannot take raises,
-    and nothing launches: no fallback to the CUDA cores."""
-    from tinynerf_tpu_torch.kernels.fused_nerf_train import fused_nerf_pass_grads
+    """A bf16 K4 launch at a width the tensor-core walk cannot take routes
+    to the CUDA-core walk by configuration (it used to be refused): it
+    launches once, none on the tensor cores, and on the depths it drew
+    meets the bf16 gates against its plain version."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads,
+        fused_nerf_pass_grads_plain,
+        uses_tensor_cores,
+    )
 
     k4 = fused_nerf_pass_grads
     mlp, cfg = _off_tensor_core_width(cuda_device)
-    ro, rd = _rays(64, 45, cuda_device)
+    assert uses_tensor_cores(cfg) is False
+    n = 128
+    ro, rd = _rays(n, 45, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(45).rand(n, 3).astype(np.float32)).to(cuda_device)
     before = (k4.launches, k4.mma_launches)
-    with pytest.raises(ValueError, match="tensor cores"):
-        k4(mlp, ro, rd, torch.zeros(64, 3, device=cuda_device), 0, n_samples=16, cfg=cfg)
-    assert (k4.launches, k4.mma_launches) == before
+    loss, grads, _, z = k4(mlp, ro, rd, target, 0, n_samples=16, emit_sampling=True, cfg=cfg)
+    torch.cuda.synchronize()
+    assert (k4.launches - before[0], k4.mma_launches - before[1]) == (1, 0)
+    ref = _plain(fused_nerf_pass_grads_plain, mlp, ro, rd, target, 0, z, dtype=torch.bfloat16,
+                 randomized=False, cfg=cfg)
+    _leaf_check(loss, grads, ref, torch.bfloat16, names=[n for n, _ in mlp.named_parameters()])
+
+
+@pytest.mark.cuda
+def test_nerf_train_kernel_refuses_a_tensor_core_width_without_fragments_on_card(cuda_device,
+                                                                                  monkeypatch):
+    """The C entry checks the route again: a bf16 launch at a width the
+    tensor-core walk takes, handed no fragments (the CUDA-core route
+    forced in Python), is refused with cudaErrorInvalidValue, never run
+    on the CUDA cores."""
+    from tinynerf_tpu_torch.kernels import fused_nerf_train
+
+    mlp, cfg = _nerf_case(32, 4, 2, True, torch.bfloat16, cuda_device)
+    assert fused_nerf_train.uses_tensor_cores(cfg) is True
+    monkeypatch.setattr(fused_nerf_train, "uses_tensor_cores", lambda cfg: False)
+    ro, rd = _rays(64, 49, cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_nerf_train.fused_nerf_pass_grads(mlp, ro, rd, torch.zeros(64, 3, device=cuda_device),
+                                               0, n_samples=16, cfg=cfg)
 
 
 @pytest.mark.cuda
@@ -652,19 +682,28 @@ def test_streamed_train_kernel_counts_tensor_core_launches_on_card(cuda_device, 
 
 @pytest.mark.cuda
 def test_streamed_train_kernel_refuses_widths_off_the_tensor_cores_on_card(cuda_device):
-    """hidden 64 with rgb_hidden 8 passes the CUDA-core walk's checks, but
-    the bf16 tensor-core walk cannot share rgb_in's 8 columns over its
-    warps: the wrapper raises, and nothing launches."""
-    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+    """hidden 64 with rgb_hidden 8: the bf16 tensor-core walk cannot share
+    rgb_in's 8 columns over its warps, so bf16 K6 routes to the CUDA-core
+    walk by configuration (it used to be refused): one launch, none on the
+    tensor cores, within the bf16 gates of its plain version."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed,
+        fused_nerf_pass_grads_streamed_plain,
+    )
 
     k6 = fused_nerf_pass_grads_streamed
     mlp, cfg = _off_tensor_core_width(cuda_device)
-    ro, rd = _rays(64, 40, cuda_device)
-    before = k6.launches
-    with pytest.raises(ValueError, match="tensor cores"):
-        k6(mlp, ro, rd, torch.zeros(64, 3, device=cuda_device), _sorted_z(64, 16, 41, cuda_device),
-           cfg=cfg, sample_block=16)
-    assert k6.launches == before
+    n = 128
+    ro, rd = _rays(n, 40, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(40).rand(n, 3).astype(np.float32)).to(cuda_device)
+    z = _sorted_z(n, 32, 41, cuda_device)
+    before = (k6.launches, k6.mma_launches)
+    loss, grads = k6(mlp, ro, rd, target, z, cfg=cfg, sample_block=16)
+    torch.cuda.synchronize()
+    assert (k6.launches - before[0], k6.mma_launches - before[1]) == (1, 0)
+    ref = _plain(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, target, z,
+                 dtype=torch.bfloat16, cfg=cfg, sample_block=16)
+    _leaf_check(loss, grads, ref, torch.bfloat16, names=[n for n, _ in mlp.named_parameters()])
 
 
 @pytest.mark.cuda
@@ -883,20 +922,45 @@ def test_partials_kernels_count_tensor_core_launches_on_card(cuda_device, dtype)
 
 @pytest.mark.cuda
 def test_partials_kernels_refuse_widths_off_the_tensor_cores_on_card(cuda_device):
-    """A bf16 K7 launch at a width the tensor-core walk cannot take raises
-    in the forward, and nothing launches: no fallback to the CUDA cores."""
+    """A bf16 K7 pair at a width the tensor-core walk cannot take routes to
+    the CUDA-core walk by configuration (it used to be refused): one
+    forward and one backward, none on the tensor cores, the partials
+    within the render gates and the gradients (one-signed cotangents)
+    within the bf16 gates of the plain versions."""
     from tinynerf_tpu_torch.kernels.fused_partials import (
+        block_partials_grads_plain,
+        block_partials_plain,
+        fused_block_partials_bwd,
         fused_block_partials_fwd,
         make_fused_block_partials_fn,
     )
+    from tinynerf_tpu_torch.ops.volume import global_deltas
 
     mlp, cfg = _off_tensor_core_width(cuda_device)
-    ro, rd = _rays(64, 47, cuda_device)
-    z = _sorted_z(64, 16, 48, cuda_device)
-    before = (fused_block_partials_fwd.launches, fused_block_partials_fwd.mma_launches)
-    with pytest.raises(ValueError, match="tensor cores"):
-        make_fused_block_partials_fn(cfg, sample_block=8)(mlp, ro, rd, z, torch.ones_like(z))
-    assert (fused_block_partials_fwd.launches, fused_block_partials_fwd.mma_launches) == before
+    n, S = 128, 16
+    ro, rd = _rays(n, 47, cuda_device)
+    z_union = _sorted_z(n, 2 * S, 48, cuda_device)
+    deltas = global_deltas(z_union, rd)
+    z, deltas = z_union[:, S:].contiguous(), deltas[:, S:].contiguous()
+    cot, _ = _partials_cotangents(n, S, cuda_device, signed=False)
+    k7 = (fused_block_partials_fwd, fused_block_partials_bwd)
+    before = [(k.launches, k.mma_launches) for k in k7]
+    partials, _ = make_fused_block_partials_fn(cfg, sample_block=8)(mlp, ro, rd, z, deltas)
+    outs = [partials[k] for k in ("C", "A", "T", "D")]
+    grads = torch.autograd.grad(outs, list(mlp.parameters()),
+                                grad_outputs=[cot[k] for k in ("C", "A", "T", "D")])
+    torch.cuda.synchronize()
+    assert [(k.launches - l, k.mma_launches - m) for k, (l, m) in zip(k7, before)] == [(1, 0)] * 2
+    with torch.no_grad():
+        want, _ = block_partials_plain(mlp, ro, rd, z, deltas, None, cfg=cfg, sample_block=8)
+    for k in ("C", "A", "T", "D"):
+        scale = 6.0 if k == "D" else 1.0
+        _within_render_gates(partials[k].detach().reshape(n, -1) / scale,
+                             want[k].reshape(n, -1) / scale, torch.bfloat16)
+    ref = block_partials_grads_plain(mlp, ro, rd, z, deltas, None, cot, None, cfg=cfg,
+                                     sample_block=8)
+    assert min(_cosine(g, r) for g, r in zip(grads, ref)) > 0.98
+    _scale_check([n for n, _ in mlp.named_parameters()], grads, ref)
 
 
 @pytest.mark.cuda

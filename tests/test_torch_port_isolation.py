@@ -24,6 +24,7 @@ import tinynerf_tpu_torch.utils.checkpoint, tinynerf_tpu_torch.config
 import tinynerf_tpu_torch.kernels.fused_partials
 import tinynerf_tpu_torch.parallel.mesh, tinynerf_tpu_torch.parallel.train
 import tinynerf_tpu_torch.parallel.render
+import tinynerf_tpu_torch.ops.regularizers, tinynerf_tpu_torch.ops.occupancy
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tinynerf_tpu"))
 print(bad)
 sys.exit(1 if bad else 0)
@@ -38,8 +39,9 @@ def test_port_never_imports_jax():
 
 
 # The modules of the bf16 tensor-core wrappers (K1 and K2 and their
-# packer, K3 and the packer, K4, K5, K6, K7) and the trainer that reports
-# its launch counts, each alone in a fresh interpreter.
+# packer, K3 and the packer, K4, K5, K6, K7), the trainer that reports
+# its launch counts, and the sparsity prior with its scene box, each alone
+# in a fresh interpreter.
 ALONE = """
 import sys
 import {module}
@@ -57,6 +59,8 @@ sys.exit(1 if bad else 0)
     "tinynerf_tpu_torch.kernels.fused_nerf_stream",
     "tinynerf_tpu_torch.kernels.fused_partials",
     "tinynerf_tpu_torch.train",
+    "tinynerf_tpu_torch.ops.regularizers",
+    "tinynerf_tpu_torch.ops.occupancy",
 ])
 def test_tensor_core_wrappers_alone_never_import_jax(module):
     proc = subprocess.run([sys.executable, "-c", ALONE.format(module=module)], cwd=ROOT,

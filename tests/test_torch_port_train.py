@@ -244,11 +244,12 @@ def test_draw_ray_batch_image_mode():
     other = draw_ray_batch(s, step_generator(3, 5, "cpu"), 8, ro, rd, px)
     assert not torch.equal(other[2], draw_ray_batch(s, step_generator(3, 8, "cpu"), 8, ro, rd, px)[2])
 
-    class Pool(TrainSettings):
-        ray_sampling = "pool"
-
-    with pytest.raises(NotImplementedError, match="item 8"):
-        draw_ray_batch(Pool(n_rand=4), step_generator(0, 0, "cpu"), 0, ro, rd, px)
+    # Pool mode (ported): every row comes from the pool of all images.
+    pool = draw_ray_batch(TrainSettings(n_rand=4, ray_sampling="pool"),
+                          step_generator(0, 0, "cpu"), 0, ro, rd, px)
+    for batch, table in zip(pool, (ro, rd, px)):
+        assert batch.shape == (4, 3)
+        assert all(bool((table.reshape(-1, 3) == row).all(-1).any()) for row in batch)
 
 
 def test_train_block_learns_and_replays():

@@ -1,5 +1,5 @@
 """Render and training configuration: the TinyNeRF fields of
-tinynerf_tpu/config.py:26-48, 102, 137-160, 211-236, with the same
+tinynerf_tpu/config.py:26-48, 77-131, 137-160, 211-236, with the same
 names, defaults and meaning, plus the device to run on.
 
 One divergence each for the two kernels: `fused` and `fused_train`
@@ -13,9 +13,13 @@ The full NeRF's fields (model, n_fine, proposal, nerf_depth,
 nerf_skip_at, num_freqs_dir, rgb_hidden) and nerf_cfg() follow
 tinynerf_tpu/config.py:51-63, 173-184; train_settings() serves both
 models (train.py hands n_fine and nerf_cfg() to the NeRF's loss and
-fused grad_fn). Fields that only the grid family, the occupancy
-proposal or the flagship training levers use are not ported yet
-(ROADMAP.md, queue 1). data_parallel, sample_parallel and distributed
+fused grad_fn). The training levers (ray_sampling, precrop, the
+sigma-noise schedule, the lr schedule, weight decay, the EMA, the
+sparsity prior), the sigma-death watchdog, the holdout modes, eval_every
+and ckpt_keep are the JAX package's, every one off by default but the
+watchdog (death_check), as there. Fields that only the grid family, the
+occupancy proposal, NDC or profiling use are not ported yet (ROADMAP.md,
+queue 1). data_parallel, sample_parallel and distributed
 (tinynerf_tpu/config.py:144-149) select parallel/: a rank of a
 torch.distributed process group is one device of the mesh.
 """
@@ -39,6 +43,8 @@ class Config:
     n_rand: int = 2048  # random rays per step
     n_samples: int = 64  # samples along each ray
     lr: float = 5e-4
+    lr_decay_steps: int = 0  # >0: exponential decay over this many steps
+    lr_decay_factor: float = 0.1  # final lr = lr * factor (NeRF schedule)
     near: float = 2.0
     far: float = 6.0
     log_every: int = 50
@@ -61,7 +67,21 @@ class Config:
     nerf_skip_at: int = 4
     num_freqs_dir: int = 4
     rgb_hidden: int = 64
+    ray_sampling: str = "image"  # "image": one image a step | "pool": every train pixel
+    precrop_iters: int = 0  # >0: the first N steps draw from the central window
+    precrop_frac: float = 0.5  # side fraction of that window
+    death_check: bool = True  # abort (rc 3) when the train PSNR pins at the background's
+    death_margin: float = 1.0  # ... within this many dB of it
+    death_window: int = 20  # ... for this many consecutive log points
+    death_grace: int = 1000  # ... after this many steps
     sigma_noise_std: float = 0.0  # train-time N(0, std) noise on raw density pre-ReLU
+    sigma_noise_decay_steps: int = 0  # >0: decay the noise linearly over N steps
+    sigma_noise_floor: float = 0.0  # with decay: decay to this std instead of 0
+    weight_decay: float = 0.0  # AdamW decay on the weight matrices (0: Adam)
+    lr_floor: float = 0.0  # with lr_decay_steps: the schedule's lower bound
+    sigma_sparsity: float = 0.0  # >0: free-space density prior lam (e.g. 1e-3)
+    sigma_sparsity_points: int = 8192  # the prior's points per step
+    ema_decay: float = 0.0  # >0: Polyak average of the params, twin <ckpt>.ema.npz
     data_path: str = "data/tiny_nerf_data.npz"
     allow_synthetic: bool = True  # fall back to the procedural scene offline
     bf16: bool = True  # bfloat16 matmul inputs (f32 params and accumulation)
@@ -73,7 +93,10 @@ class Config:
     # blockwise composite; parallel/train.py)
     distributed: bool = False  # join the launcher's process group (parallel/mesh.py)
     metrics_path: Optional[str] = None  # JSONL metrics log
-    holdout: int = 0  # trailing poses excluded from training, scored at the end
+    holdout: int = 0  # poses excluded from training, scored at the end
+    holdout_mode: str = "tail"  # "tail": the last N poses | "strided": N spread evenly
+    eval_every: int = 0  # >0: score the held-out views every N steps (needs holdout)
+    ckpt_keep: int = 0  # >0: also keep the last N step-stamped checkpoint copies
     device: str = "cuda"
 
     def model_cfg(self) -> TinyNeRFConfig:
@@ -97,14 +120,26 @@ class Config:
         )
 
     def train_settings(self) -> TrainSettings:
+        if self.ray_sampling not in ("image", "pool"):
+            raise ValueError(f"ray_sampling={self.ray_sampling!r} (expected 'image'|'pool')")
         return TrainSettings(
             n_rand=self.n_rand,
             n_samples=self.n_samples,
             near=self.near,
             far=self.far,
+            ray_sampling=self.ray_sampling,
+            precrop_iters=self.precrop_iters,
+            precrop_frac=self.precrop_frac,
+            sigma_noise_std=self.sigma_noise_std,
+            sigma_noise_decay_steps=self.sigma_noise_decay_steps,
+            sigma_noise_floor=self.sigma_noise_floor,
+            weight_decay=self.weight_decay,
+            lr_floor=self.lr_floor,
+            ema_decay=self.ema_decay,
             num_freqs=self.num_freqs,
             lr=self.lr,
+            lr_decay_steps=self.lr_decay_steps,
+            lr_decay_factor=self.lr_decay_factor,
             white_bkgd=True,
-            sigma_noise_std=self.sigma_noise_std,
             model_cfg=self.model_cfg(),
         )

@@ -24,14 +24,17 @@
 // What bounds it on an H100: arithmetic. At the flagship width (hidden
 // 256, depth 8, skip at 4, L=10, L_dir=4, rgb_hidden 64) a point costs
 // 509,568 multiply-adds forward and as many again for each of the two
-// backward products (weight gradients, upstream gradients). The rule of
-// the design: every bf16 launch of K4 and K6 (and of K7) runs those
-// products on the tensor cores (mma.sync m16n8k16, f32 accumulation;
-// mma_bf16.cuh, weights packed by kernels/fused_nerf_train.py::
-// pack_mma_weights); every f32 launch runs them on the CUDA cores' f32
-// FMAs, the exactness reference the bf16 walk and the f32 gates are held
-// to. A bf16 width the tensor-core walk cannot take is refused by the
-// wrappers (check_mma_shapes), never run on the CUDA cores.
+// backward products (weight gradients, upstream gradients). The route is
+// chosen by configuration (kernels/fused_nerf_train.py::uses_tensor_cores,
+// checked again by launch_walk_by_route): every bf16 launch of K4 and K6
+// (and of K7) at the widths the tensor-core products take (every recipe of
+// the repo) runs those products on the tensor cores (mma.sync m16n8k16,
+// f32 accumulation; mma_bf16.cuh, weights packed by
+// kernels/fused_nerf_train.py::pack_mma_weights); every f32 launch, and
+// bf16 at other widths (hidden 48; hidden 256 with rgb_hidden 32), runs
+// them on the CUDA cores' f32 FMAs, bf16 rounding its matmul inputs at run
+// time. f32 is the exactness reference the bf16 walks and the f32 gates are
+// held to.
 //
 // The walk itself (the forward of each segment, the composite, the
 // backward in 64-point chunks, the gradient partials and the density
@@ -64,9 +67,11 @@ int tinynerf_fused_nerf_train_max_threads() { return kMaxThreads; }
 // int32 *seed when randomized, deltas from it); noise (R, S) or null;
 // w_out and z_out (R, S) or null.
 // n_rays must be a multiple of tile_rays; rays from n_real on are padding
-// (no loss, no gradient). With bf16 set the walk runs its products on the
-// tensor cores from w_mma (pack_mma_weights; required, w_bwd unused),
-// else on the CUDA cores from w_bwd. Returns the CUDA error code (0 = ok).
+// (no loss, no gradient). w_mma given (pack_mma_weights; bf16 at the
+// tensor-core widths only) runs the products on the tensor cores, w_bwd
+// unused; w_mma null runs them on the CUDA cores from w_bwd (f32, or bf16
+// at other widths). Off that route: cudaErrorInvalidValue, no launch.
+// Returns the CUDA error code (0 = ok).
 int tinynerf_fused_nerf_train(const float* rays_o, const float* rays_d, const float* target,
                               const float* z, const float* delta, const float* noise,
                               const int* seed, const float* w_fwd, const float* w_bwd,
@@ -81,7 +86,7 @@ int tinynerf_fused_nerf_train(const float* rays_o, const float* rays_d, const fl
                w_out, z_out, n_rays, n_real, n_samples, n_samples, tile_rays, num_freqs,
                dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, near, h_bin, inv_n,
                randomized, white_bkgd, bf16};
-  return launch_walk_by_dtype<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
+  return launch_walk_by_route<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
                                             stream);
 }
 
@@ -102,7 +107,7 @@ int tinynerf_fused_nerf_train_streamed(const float* rays_o, const float* rays_d,
                nullptr, nullptr, n_rays, n_real, n_samples, sample_block, tile_rays, num_freqs,
                dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, 0.f, 0.f, inv_n,
                0, white_bkgd, bf16};
-  return launch_walk_by_dtype<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
+  return launch_walk_by_route<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
                                             stream);
 }
 

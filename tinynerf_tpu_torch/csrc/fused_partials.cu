@@ -28,11 +28,12 @@
 // What bounds it on an H100: arithmetic, as K6. At the flagship width a
 // point costs 509,568 multiply-adds forward; the backward recomputes the
 // forward and adds the weight-gradient and upstream products. As for K4
-// and K6, every bf16 launch runs those products on the tensor cores
+// and K6, the route is chosen by configuration (launch_walk_by_route):
+// bf16 at the tensor-core widths runs those products on the tensor cores
 // (mma_bf16.cuh, from pack_mma_weights' fragments; the forward and the
 // backward's rematerialised forward with the same products, so the
-// backward recomputes the forward's values) and every f32 launch on the
-// CUDA cores, the exactness reference.
+// backward recomputes the forward's values); f32, and bf16 at other
+// widths, on the CUDA cores, f32 being the exactness reference.
 
 #include "nerf_train_walk.cuh"
 
@@ -55,7 +56,8 @@ int tinynerf_partials_max_threads() { return kMaxThreads; }
 
 // The forward. z, delta and noise (R, S) (noise may be null); out6 (R, 6)
 // C(3), A, T, D; tin (R, S / sample_block); w_out (R, S) or null; w_mma
-// the tensor-core fragments, required in bf16. n_rays must be a multiple
+// the tensor-core fragments, given exactly for bf16 at the tensor-core
+// widths (launch_walk_by_route). n_rays must be a multiple
 // of tile_rays and S of sample_block. Returns the CUDA error code (0 = ok).
 int tinynerf_partials_fwd(const float* rays_o, const float* rays_d, const float* z,
                           const float* delta, const float* noise, const float* w_fwd,
@@ -85,13 +87,13 @@ int tinynerf_partials_fwd(const float* rays_o, const float* rays_d, const float*
   a.bf16 = bf16;
   a.tin = tin;
   a.out6 = out6;
-  return launch_walk_by_dtype<Walk::kPartialsFwd>(a, w_mma, n_blocks, 0, nullptr, nullptr,
+  return launch_walk_by_route<Walk::kPartialsFwd>(a, w_mma, n_blocks, 0, nullptr, nullptr,
                                                    device, stream);
 }
 
 // The backward. tin (R, S / sample_block) from the forward; g_ray (R, 6)
-// the cotangents of C(3), A, T, D; g_w (R, S) or null; w_bwd (f32) or
-// w_mma (bf16, required there). Writes the parameter gradients to out in
+// the cotangents of C(3), A, T, D; g_w (R, S) or null; w_mma (bf16 at the
+// tensor-core widths) or else w_bwd. Writes the parameter gradients to out in
 // the order dst gives (then one unused float). Returns the CUDA error code
 // (0 = ok).
 int tinynerf_partials_bwd(const float* rays_o, const float* rays_d, const float* z,
@@ -127,7 +129,7 @@ int tinynerf_partials_bwd(const float* rays_o, const float* rays_d, const float*
   a.g_ray = g_ray;
   a.g_w = g_w;
   a.tin = const_cast<float*>(tin);
-  return launch_walk_by_dtype<Walk::kPartialsBwd>(a, w_mma, n_blocks, n_grad, dst, out, device,
+  return launch_walk_by_route<Walk::kPartialsBwd>(a, w_mma, n_blocks, n_grad, dst, out, device,
                                                    stream);
 }
 

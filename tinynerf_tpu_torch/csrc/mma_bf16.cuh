@@ -2,11 +2,12 @@
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with f32
 // accumulation, on Hopper (sm_90a) as on every card since sm_80.
 //
-// Rule of the design: every bf16 launch of K4, K6 and K7 runs its three
-// MLP products here (the trunk's and rgb_in's forward, the weight
-// gradients, the upstream gradients; nerf_train_walk.cuh with kMma);
-// every bf16 launch of the render kernels K3/K5 (fused_nerf.cu with kMma)
-// at the widths mma_dense_relu takes, and of the TinyNeRF render K1
+// Rule of the design: every bf16 launch of K4, K6 and K7 at the widths
+// mma_dense_relu takes runs its three MLP products here (the trunk's and
+// rgb_in's forward, the weight gradients, the upstream gradients;
+// nerf_train_walk.cuh with kMma); every bf16 launch of the render kernels
+// K3/K5 (fused_nerf.cu with kMma) at the same widths, and of the TinyNeRF
+// render K1
 // (fused_render.cu) at its tiles of at most 128 points, runs its forward
 // products here; every bf16 launch of the TinyNeRF train kernel K2
 // (fused_train.cu) at its 64-point tiles runs its three products here

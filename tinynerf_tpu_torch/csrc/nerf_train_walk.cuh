@@ -18,14 +18,16 @@
 //                       segments back to front rematerialising each one's
 //                       forward, and writes the gradients.
 //
-// Products. The second template argument, kMma, is a rule of the design:
-// every bf16 launch of K4, K6 and K7 (forward and backward) sets it and
-// runs the three MLP products (forward, weight gradients, upstream
-// gradients) on the tensor cores through mma.sync (mma_bf16.cuh, weights
-// packed by kernels/fused_nerf_train.py::pack_mma_weights), with the bias
-// gradients as rows of ones of the weight gradients; every f32 launch
-// leaves it unset and runs the CUDA-core products described below, the
-// exactness reference (launch_walk_by_dtype). With kMma the sigma head sums
+// Products. The second template argument, kMma, is the launch's route,
+// chosen by configuration (launch_walk_by_route): every bf16 launch of K4,
+// K6 and K7 (forward and backward) at the widths the tensor-core products
+// take sets it and runs the three MLP products (forward, weight gradients,
+// upstream gradients) on the tensor cores through mma.sync (mma_bf16.cuh,
+// weights packed by kernels/fused_nerf_train.py::pack_mma_weights), with
+// the bias gradients as rows of ones of the weight gradients; every f32
+// launch, and bf16 at other widths (hidden 48), leaves it unset and runs
+// the CUDA-core products described below, f32 being the exactness
+// reference. With kMma the sigma head sums
 // over four lanes a point, the backward reloads the workspace with float4
 // loads, and a walk that rematerialises its segments (K6) stores no
 // activations in its first forward walk (the reverse walk recomputes
@@ -192,8 +194,9 @@ __device__ __forceinline__ void accumulate(float* d, float s, bool first) {
   *d = first ? s : *d + s;
 }
 
-// kMma: the three MLP products on the tensor cores (mma_bf16.cuh), every
-// bf16 launch; false keeps the CUDA-core products (f32).
+// kMma: the three MLP products on the tensor cores (mma_bf16.cuh), bf16 at
+// the tensor-core widths; false keeps the CUDA-core products (f32, and bf16
+// rounded at run time at other widths).
 template <Walk kMode, bool kMma = false>
 __device__ __forceinline__ void nerf_walk(const Args& a) {
   // K7's forward keeps no activations: nothing reads them back.
@@ -837,14 +840,34 @@ int launch_walk(const Args& a, int n_blocks, int n_grad, const int* dst, float* 
   return (int)cudaGetLastError();
 }
 
-// Every entry point's launch, by the rule of the design: bf16 on the
-// tensor-core walk from w_mma (pack_mma_weights; required), f32 on the
-// CUDA-core walk. There is no other route.
+// Whether the tensor-core walk takes these widths (mma_dense_relu: warps
+// own whole 32-column tiles of a trunk layer's output, and hidden / 32
+// warps share rgb_in's columns in 1, 2 or 4 whole 8-column tiles each):
+// kernels/fused_nerf.py::mma_shapes_ok.
+inline bool walk_mma_widths(int hidden, int rgb_hidden) {
+  if (hidden <= 0 || hidden % 32 != 0 || (4 * rgb_hidden) % hidden != 0) return false;
+  const int nt_rgb = 4 * rgb_hidden / hidden;
+  return nt_rgb == 1 || nt_rgb == 2 || nt_rgb == 4;
+}
+
+// Every entry point's launch, on the route the caller chose
+// (kernels/fused_nerf_train.py::uses_tensor_cores, a function of the dtype
+// and the widths): w_mma given (pack_mma_weights) runs the tensor-core walk,
+// which only bf16 at walk_mma_widths may take; w_mma null runs the CUDA-core
+// walk, for f32 and for bf16 widths off that layout (which rounds to bf16 at
+// run time, to_compute). Anything else is refused with
+// cudaErrorInvalidValue and nothing launches: a bf16 launch at a
+// tensor-core width without its fragments never becomes a CUDA-core
+// launch, and the CUDA-core walk's backward needs w_bwd.
 template <Walk kMode>
-int launch_walk_by_dtype(Args a, const void* w_mma, int n_blocks, int n_grad, const int* dst,
+int launch_walk_by_route(Args a, const void* w_mma, int n_blocks, int n_grad, const int* dst,
                          float* out, int device, void* stream) {
-  if (!a.bf16) return launch_walk<kMode>(a, n_blocks, n_grad, dst, out, device, stream);
-  if (w_mma == nullptr) return (int)cudaErrorInvalidValue;
+  const bool mma = a.bf16 && walk_mma_widths(a.hidden, a.rgb_hidden);
+  if ((w_mma != nullptr) != mma) return (int)cudaErrorInvalidValue;
+  if (!mma) {
+    if (kMode != Walk::kPartialsFwd && a.w_bwd == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_walk<kMode>(a, n_blocks, n_grad, dst, out, device, stream);
+  }
   a.w_mma = w_mma;
   return launch_walk<kMode, true>(a, n_blocks, n_grad, dst, out, device, stream);
 }

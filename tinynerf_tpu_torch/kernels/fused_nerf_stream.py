@@ -236,5 +236,5 @@ def fused_nerf_pass_grads_streamed(
 
 
 fused_nerf_pass_grads_streamed.launches = 0  # kernel launches since the last reset
-# ... of which took the tensor-core walk (every bf16 launch)
+# ... of which took the tensor-core walk (bf16 at the tensor-core widths)
 fused_nerf_pass_grads_streamed.mma_launches = 0

@@ -15,13 +15,15 @@ tinynerf_tpu/kernels/fused_nerf_train.py:464-573: the coarse pass
 through K4, sample_pdf and the sorted union in torch, the fine pass
 through K4 or, by the JAX package's routing rule, the streamed K6.
 
-Every bf16 launch of K4 and K6 (and of K7, kernels/fused_partials.py)
-runs its MLP products on the tensor cores from the B fragments of
+K4, K6 and K7 (kernels/fused_partials.py) route by configuration,
+never after a failure (uses_tensor_cores): bf16 at the widths the
+tensor-core products take (mma_shapes_ok; every recipe of the repo) runs
+its MLP products on the tensor cores from the B fragments of
 pack_mma_weights (csrc/mma_bf16.cuh; packed by kernels/fused_nerf.py's
-mma_operands and pack_mma_b, which the render kernels share), and every
-f32 launch on the CUDA cores, the exactness reference; check_mma_shapes
-raises for bf16 widths the tensor-core walk cannot take (no launch falls
-back to the CUDA cores), and .mma_launches counts the tensor-core
+mma_operands and pack_mma_b, which the render kernels share); f32, the
+exactness reference, and bf16 at other widths (hidden 48; hidden 256
+with rgb_hidden 32) run the CUDA-core walk from pack_backward_weights,
+bf16 rounding at run time. .mma_launches counts the tensor-core
 launches.
 
 The kernel writes its gradients in pack_nerf_weights' layout; a second
@@ -150,32 +152,18 @@ def pack_backward_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     return torch.cat([p.to(cfg.compute_dtype).float().reshape(-1) for p in parts]).contiguous()
 
 
-def check_mma_shapes(cfg: NeRFConfig) -> None:
-    """Raise unless the tensor-core walk of bf16 K4, K6 and K7 takes cfg's
-    widths (mma_shapes_ok: warps own whole 32-column tiles of a trunk
-    layer's output, and H / 32 warps share rgb_in's columns in whole
-    8-column tiles)."""
-    if not mma_shapes_ok(cfg):
-        raise ValueError(
-            "the bf16 NeRF training kernels run their products on the tensor cores, which needs "
-            f"hidden a multiple of 32 and 4*rgb_hidden/hidden in {{1, 2, 4}}, got hidden "
-            f"{cfg.hidden}, rgb_hidden {cfg.rgb_hidden}"
-        )
-
-
 def uses_tensor_cores(cfg: NeRFConfig) -> bool:
-    """The launch rule of K4, K6 and K7: bf16 takes the tensor-core walk
-    (True; raising, by check_mma_shapes, for widths it cannot take), f32
-    the CUDA-core walk (False). There is no fallback."""
-    mma = cfg.compute_dtype == torch.bfloat16
-    if mma:
-        check_mma_shapes(cfg)
-    return mma
+    """The route of K4, K6 and K7, by configuration: bf16 at the widths the
+    tensor-core walk takes (mma_shapes_ok) runs it (True); f32 and bf16
+    at other widths (hidden 48; hidden 256 with rgb_hidden 32) run the
+    CUDA-core walk (False). Never raises; a pure function of the dtype
+    and the widths, so no launch falls back after a failure."""
+    return cfg.compute_dtype == torch.bfloat16 and mma_shapes_ok(cfg)
 
 
 def pack_mma_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     """Every B operand of mma_operands, packed by pack_mma_b and
-    concatenated (bf16): the w_mma buffer of every bf16 launch of K4, K6
+    concatenated (bf16): the w_mma buffer of every tensor-core launch of K4, K6
     and K7, whose offsets csrc/mma_bf16.cuh (mma_fwd_off) mirrors."""
     return torch.cat([pack_mma_b(b) for _, b in mma_operands(mlp, cfg)]).contiguous()
 
@@ -300,9 +288,11 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
         noise = torch.cat([sigma_noise, sigma_noise.new_zeros(pad, S)]).contiguous()
     bf16 = int(cfg.compute_dtype == torch.bfloat16)
     w_fwd = pack_nerf_weights(mlp, cfg)
-    # bf16 reads its products' weights as tensor-core fragments only.
-    w_mma = pack_mma_weights(mlp, cfg) if bf16 else None
-    w_bwd = None if bf16 else pack_backward_weights(mlp, cfg)
+    # The tensor-core route reads its products' weights as fragments only;
+    # the CUDA-core walk reads the upstream weights rounded to the dtype.
+    mma = uses_tensor_cores(cfg)
+    w_mma = pack_mma_weights(mlp, cfg) if mma else None
+    w_bwd = None if mma else pack_backward_weights(mlp, cfg)
     n_grad = w_fwd.numel()
     n_tiles = (R + pad) // tile
     n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -378,9 +368,9 @@ def fused_nerf_pass_grads(
     z_vals (R, S) gives the depths (the fine pass); None draws them in the
     kernel: the grid near + s*h, jittered in its bins when randomized
     (Philox keyed by the int32 `seed`, an int or a one-element tensor on
-    the rays' device). CUDA tensors launch the kernel (or raise): in bf16
-    on the tensor cores, raising for widths they cannot take; CPU tensors
-    take fused_nerf_pass_grads_plain. `cfg` defaults to mlp.cfg."""
+    the rays' device). CUDA tensors launch the kernel (or raise) on the
+    route of uses_tensor_cores; CPU tensors take
+    fused_nerf_pass_grads_plain. `cfg` defaults to mlp.cfg."""
     cfg = cfg or mlp.cfg
     S = z_vals.shape[1] if z_vals is not None else n_samples
     if S < 2:
@@ -402,7 +392,7 @@ def fused_nerf_pass_grads(
 
 
 fused_nerf_pass_grads.launches = 0  # kernel launches since the last reset
-# ... of which took the tensor-core walk (every bf16 launch)
+# ... of which took the tensor-core walk (bf16 at the tensor-core widths)
 fused_nerf_pass_grads.mma_launches = 0
 
 

@@ -20,11 +20,12 @@ within-shard transmittance. f is a torch.autograd.Function:
   in the JAX package (:554-557).
 
 Both kernels are C entry points of csrc/fused_partials.cu, the walk of K6
-(csrc/nerf_train_walk.cuh). In bf16 both run their MLP products on the
-tensor cores from the fragments of pack_mma_weights, packed once by the
-forward and kept for the backward (uses_tensor_cores raises for widths
-they cannot take; .mma_launches counts those launches); in f32 on the
-CUDA cores. The wrapper pads the rays to whole tiles as K4/K6's
+(csrc/nerf_train_walk.cuh). On the route of
+fused_nerf_train.uses_tensor_cores (by configuration) both run their MLP
+products on the tensor cores in bf16 at the widths they take, from the
+fragments of pack_mma_weights packed once by the forward and kept for
+the backward (.mma_launches counts those launches); f32, and bf16 at
+other widths, run on the CUDA cores. The wrapper pads the rays to whole tiles as K4/K6's
 launch_pass does, so any ray count is taken; the sample block must divide
 the shard's sample count.
 
@@ -217,14 +218,14 @@ def fused_block_partials_fwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
 
 
 fused_block_partials_fwd.launches = 0  # kernel launches since the last reset
-# ... of which took the tensor-core walk (every bf16 launch)
+# ... of which took the tensor-core walk (bf16 at the tensor-core widths)
 fused_block_partials_fwd.mma_launches = 0
 
 
 def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, noise, tin, g_ray,
                              g_w, w_fwd, w_mma, sb: int, tile: int) -> List[torch.Tensor]:
     """Launch the K7 backward on the forward's padded inputs, its tin and
-    packed weights (w_mma: its tensor-core fragments, required in bf16),
+    packed weights (w_mma: its tensor-core fragments on that route, else None),
     and the padded cotangents g_ray (R, 6) and g_w (R, S) or None ->
     gradients aligned to mlp.parameters()."""
     R, S = z.shape
@@ -259,7 +260,7 @@ def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
 
 
 fused_block_partials_bwd.launches = 0  # kernel launches since the last reset
-# ... of which took the tensor-core walk (every bf16 launch)
+# ... of which took the tensor-core walk (bf16 at the tensor-core widths)
 fused_block_partials_bwd.mma_launches = 0
 
 

@@ -30,9 +30,15 @@ no process group. Every rank ends a step with bit-identical parameters:
 the gradients' means come from all_reduces whose results are the same
 on every rank, and Adam applies the same update to them.
 
+The training levers are training.py's: the batch draw (pool mode and
+precrop included), the sigma-noise schedule (noise_scale, the same on
+every rank) and the optimizer. extra_grad_fn (the sparsity prior) is
+added after the mean-reduce, drawn from training.prior_generator, which
+every rank seeds alike from (seed, step) (the JAX package's shared key,
+:368-376), so the replicas stay bit-identical.
+
 PyTorch runs eagerly: the block is a Python loop over its steps (the
-JAX package's shard_map'd lax.scan). extra_grad_fn (the sparsity prior)
-and the training levers of ROADMAP.md queue 1 item 8 are not ported yet.
+JAX package's shard_map'd lax.scan).
 """
 
 from __future__ import annotations
@@ -60,27 +66,19 @@ from tinynerf_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_axes,
 )
-from tinynerf_tpu_torch.training import TrainSettings, draw_ray_batch
+from tinynerf_tpu_torch.training import (
+    TrainSettings,
+    add_extra_grads,
+    draw_ray_batch,
+    mix_seed,
+    noise_scale,
+)
 from tinynerf_tpu_torch.utils.metrics import mse2psnr
-
-_MASK64 = (1 << 64) - 1
-
-
-def _mix(*parts: int) -> int:
-    """A 64-bit seed from integers (splitmix64 over each in turn)."""
-    h = 0
-    for p in parts:
-        h = (h ^ (int(p) & _MASK64)) + 0x9E3779B97F4A7C15 & _MASK64
-        h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9 & _MASK64
-        h = (h ^ (h >> 27)) * 0x94D049BB133111EB & _MASK64
-        h ^= h >> 31
-    return h
-
 
 def rank_generator(seed: int, step: int, data_idx: int, device) -> torch.Generator:
     """The generator of one step on one data index (see the module
     docstring)."""
-    return torch.Generator(device=device).manual_seed(_mix(seed, step, data_idx))
+    return torch.Generator(device=device).manual_seed(mix_seed(seed, step, data_idx))
 
 
 def _block_sigma_noise(noise_key, pass_idx: int, sample_idx: int, shape, noise_std: float,
@@ -89,7 +87,7 @@ def _block_sigma_noise(noise_key, pass_idx: int, sample_idx: int, shape, noise_s
     deterministic given (noise_key = (seed, step, data_idx), the pass, the
     sample index), so every sample peer's gathered composite is the
     same."""
-    g = torch.Generator(device=device).manual_seed(_mix(*noise_key, pass_idx, sample_idx))
+    g = torch.Generator(device=device).manual_seed(mix_seed(*noise_key, pass_idx, sample_idx))
     return scale * noise_std * torch.randn(shape, generator=g, dtype=torch.float32, device=device)
 
 
@@ -237,10 +235,9 @@ def make_sharded_train_block(
     training.make_train_step loss) and grad_fn (a fused train kernel:
     K2, or K4/K6 through make_fused_nerf_grad_fn) are data-parallel only.
     After each step's backward the gradients are mean-reduced over the
-    sample axis, then the data axis."""
-    if extra_grad_fn is not None:
-        raise NotImplementedError(
-            "extra_grad_fn (the sparsity prior) is not ported yet (ROADMAP.md, queue 1, item 8)")
+    sample axis, then the data axis; extra_grad_fn (model, generator) ->
+    grads (ops/regularizers.make_sparsity_grad_fn) is then added, the same
+    on every rank."""
     mesh = mesh or make_mesh()
     n_data, n_sample = mesh_axes(mesh)
     if s.n_rand % n_data:
@@ -268,20 +265,22 @@ def make_sharded_train_block(
     def step_body(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels):
         gen = rank_generator(seed, step, mesh.data_idx, rays_o_all.device)
         ro, rd, target = draw_ray_batch(local, gen, step, rays_o_all, rays_d_all, pixels)
+        scale = noise_scale(s, step)
         optimizer.zero_grad(set_to_none=True)
         if grad_fn is not None:
-            _, metrics = grad_fn(model, ro, rd, target, gen)
+            _, metrics = grad_fn(model, ro, rd, target, gen, noise_scale=scale)
         else:
             key = (seed, step, mesh.data_idx)
             with torch.enable_grad():  # whatever the caller's grad mode
                 if loss is not None:
-                    value, metrics = loss(model, ro, rd, target, gen, s)
+                    value, metrics = loss(model, ro, rd, target, gen, s, noise_scale=scale)
                 elif nerf_cfg is not None:
                     value, metrics = _sharded_nerf_loss(model, ro, rd, target, gen, s, mesh,
-                                                        nerf_cfg, n_fine, key,
+                                                        nerf_cfg, n_fine, key, scale,
                                                         fused_kernels=fused_kernels)
                 else:
-                    value, metrics = _sharded_loss(model, ro, rd, target, gen, s, mesh, key)
+                    value, metrics = _sharded_loss(model, ro, rd, target, gen, s, mesh, key,
+                                                   scale)
                 value.backward()
         params = list(model.parameters())
         flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
@@ -291,6 +290,8 @@ def make_sharded_train_block(
         for p in params:
             p.grad = flat[off:off + p.numel()].view_as(p)
             off += p.numel()
+        if extra_grad_fn is not None:
+            add_extra_grads(model, seed, step, rays_o_all.device, extra_grad_fn)
         optimizer.step()
         return metrics
 

@@ -1,15 +1,21 @@
 """Training driver: `python -m tinynerf_tpu_torch.train --iters 20000 ...`
 
 Port of the TinyNeRF and full-NeRF (coarse proposal) branches of
-tinynerf_tpu/train.py:36-738: seed and data, model and Adam, resume of
-params, optimizer and step from the checkpoint, rays precomputed for
-every pose, an optional tail holdout, steps in blocks cut at every
-log/preview/checkpoint boundary, a log line and a JSONL record every
-log_every, preview PNGs, checkpoints, the final checkpoint and
-final.png, the final evaluation and the "[done] ... rays/s" line. The
-checkpoint's meta is the JAX driver's (the TinyNeRF subset for
---model tinynerf), so the JAX eval and make_gif read it and the JAX
-trainer resumes it.
+tinynerf_tpu/train.py:36-738: seed and data, model and optimizer
+(training.make_optimizer's levers: the lr schedule, AdamW, the EMA),
+resume of params, optimizer and step from the checkpoint, rays
+precomputed for every pose, an optional tail or strided holdout, the
+sparsity prior over the capture's box, steps in blocks cut at every
+log/preview/checkpoint/eval boundary, a log line and a JSONL record every
+log_every, the sigma-death watchdog (a run pinned at the background's
+PSNR saves its checkpoint and exits with code 3), held-out evaluations
+every eval_every (the raw and EMA weights), preview PNGs, checkpoints
+(with the EMA twin <ckpt>.ema.npz and, with ckpt_keep, step-stamped
+copies), the final checkpoint and final.png, the final evaluation and
+the "[done] ... rays/s" line (evaluation time excluded). The
+checkpoint's meta is the JAX driver's (the TinyNeRF subset for --model
+tinynerf), so the JAX eval and make_gif read it and the JAX trainer
+resumes it.
 
 Gradients go through the fused CUDA train kernels unless
 --no-fused-train, which runs the loss (training.loss_fn, or
@@ -38,12 +44,15 @@ barrier. Every rank prints a digest of its parameters at the end.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import hashlib
 import json
 import os
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -54,7 +63,12 @@ from tinynerf_tpu_torch.main import _sync
 from tinynerf_tpu_torch.ops.rays import get_rays_for_poses
 from tinynerf_tpu_torch.models.nerf import NeRF, make_hierarchical_loss
 from tinynerf_tpu_torch.render import make_hierarchical_image_renderer, make_image_renderer
-from tinynerf_tpu_torch.training import init_train_state, make_train_block
+from tinynerf_tpu_torch.training import (
+    SigmaDeathDetector,
+    background_psnr,
+    init_train_state,
+    make_train_block,
+)
 from tinynerf_tpu_torch.utils import checkpoint as ckpt_lib
 from tinynerf_tpu_torch.utils.cli import cli
 from tinynerf_tpu_torch.utils.image_io import write_png
@@ -83,6 +97,16 @@ def _boundaries(start: int, end: int, *cadences: int):
         nxt = min([end] + [((step // c) + 1) * c for c in cadences if c > 0])
         yield step, nxt - step
         step = nxt
+
+
+def strided_holdout(n_images: int, count: int) -> list:
+    """`count` pose indices spread evenly over n_images
+    (tinynerf_tpu/train.py:191-197); raises when rounding collapses two."""
+    hold = np.unique(np.round(np.linspace(0, n_images - 1, count)).astype(int)).tolist()
+    if len(hold) != count:
+        raise ValueError(f"strided holdout of {count} from {n_images} poses collapses duplicate "
+                         "indices: lower --holdout")
+    return hold
 
 
 def main(cfg: Config = Config()) -> dict:
@@ -165,7 +189,17 @@ def main(cfg: Config = Config()) -> dict:
     )
 
     settings = cfg.train_settings()
-    print(f"[train] sigma_noise(std={settings.sigma_noise_std})")
+    if cfg.precrop_iters > 0:
+        # The crop window needs the images' geometry (training.draw_ray_batch).
+        settings = dataclasses.replace(settings, image_hw=(H, W))
+        print(f"[train] precrop warmup: central {cfg.precrop_frac:.2f} window for the first "
+              f"{cfg.precrop_iters} steps")
+    # The effective regularizers, as the JAX driver echoes them.
+    print(f"[train] ray_sampling={settings.ray_sampling} "
+          f"sigma_noise(std={settings.sigma_noise_std}, "
+          f"decay_steps={settings.sigma_noise_decay_steps}, "
+          f"floor={settings.sigma_noise_floor}) "
+          f"weight_decay={settings.weight_decay} ema_decay={settings.ema_decay}")
     loss = init_fn = None
     if nerf:
         ncfg = cfg.nerf_cfg()
@@ -185,15 +219,46 @@ def main(cfg: Config = Config()) -> dict:
 
     rays_o_all, rays_d_all = get_rays_for_poses(H, W, focal, poses)
     pixels = images.reshape(n_images, H * W, 3)
+    # The sparsity prior's box bounds every pose's sample points, the
+    # held-out ones included.
+    rays_o_full, rays_d_full = rays_o_all, rays_d_all
 
     n_train = n_images - cfg.holdout
+    if cfg.holdout_mode not in ("tail", "strided"):
+        raise ValueError(f"holdout_mode={cfg.holdout_mode!r} (expected 'tail'|'strided')")
     holdout_indices = list(range(n_train, n_images))
     if cfg.holdout > 0:
         if n_train < 1:
             raise ValueError(f"--holdout {cfg.holdout} leaves no training pose of {n_images}")
+        if cfg.holdout_mode == "strided":
+            # Evenly spread over the capture, then reordered so that the
+            # held-out poses sit at the tail; the checkpoint's meta keeps
+            # their original indices.
+            hold = strided_holdout(n_images, cfg.holdout)
+            order = torch.tensor([i for i in range(n_images) if i not in hold] + hold,
+                                 device=device)
+            images, poses = images[order], poses[order]
+            rays_o_all, rays_d_all, pixels = rays_o_all[order], rays_d_all[order], pixels[order]
+            holdout_indices = hold
+            print(f"[eval] strided holdout: original poses {hold}")
         rays_o_all, rays_d_all = rays_o_all[:n_train], rays_d_all[:n_train]
         pixels = pixels[:n_train]
         print(f"[eval] holding out poses {n_train}..{n_images - 1}")
+    if cfg.eval_every > 0 and cfg.holdout <= 0:
+        raise ValueError("--eval-every > 0 requires --holdout > 0 (nothing held out to evaluate; "
+                         "it would silently score training views)")
+
+    extra_grad_fn = None
+    if cfg.sigma_sparsity > 0:
+        from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays
+        from tinynerf_tpu_torch.ops.regularizers import make_sparsity_grad_fn
+
+        extra_grad_fn = make_sparsity_grad_fn(
+            settings, cfg.model, nerf_cfg=ncfg if nerf else None, lam=cfg.sigma_sparsity,
+            n_points=cfg.sigma_sparsity_points,
+            aabb=aabb_from_rays(rays_o_full, rays_d_full, cfg.near, cfg.far))
+        print(f"[train] free-space sparsity prior: lam={cfg.sigma_sparsity} over "
+              f"{cfg.sigma_sparsity_points} pts/step")
 
     grad_fn = None
     if cfg.fused_train and cfg.sample_parallel <= 1:
@@ -203,13 +268,15 @@ def main(cfg: Config = Config()) -> dict:
             from tinynerf_tpu_torch.kernels.fused_nerf_train import (
                 fine_pass_route,
                 make_fused_nerf_grad_fn,
+                uses_tensor_cores,
             )
 
             grad_fn = make_fused_nerf_grad_fn(settings, ncfg, n_fine=cfg.n_fine)
             block = fine_pass_route(settings, ncfg, cfg.n_fine)
             fine = "K4" if block is None else f"streamed K6, sample block {block}"
+            walk = f" (the {'tensor' if uses_tensor_cores(ncfg) else 'CUDA'}-core walk)"
             route = (f"{'CUDA kernels' if on_card else 'their plain versions on the CPU'}: "
-                     f"coarse pass K4, fine pass {fine}")
+                     f"coarse pass K4, fine pass {fine}{walk if on_card else ''}")
         else:
             from tinynerf_tpu_torch.kernels.fused_train import make_fused_grad_fn
 
@@ -240,7 +307,8 @@ def main(cfg: Config = Config()) -> dict:
         "in_dim": cfg.model_cfg().in_dim,
         "model": cfg.model,
         **(
-            {"holdout": {"count": cfg.holdout, "mode": "tail", "indices": holdout_indices}}
+            {"holdout": {"count": cfg.holdout, "mode": cfg.holdout_mode,
+                         "indices": holdout_indices}}
             if cfg.holdout > 0 else {}
         ),
         "cfg": mcfg,
@@ -248,8 +316,43 @@ def main(cfg: Config = Config()) -> dict:
 
     def save_ckpt(step: int):
         if is_main:
-            ckpt_lib.save_checkpoint(cfg.ckpt_path, model, optimizer, step, meta=meta)
+            if optimizer.ema is not None:
+                # The Polyak twin: params + step + meta, no optimizer state,
+                # which eval and make_gif read (--ema).
+                ckpt_lib.save_params(cfg.ckpt_path + ".ema.npz", model, step, meta=meta,
+                                     params=optimizer.ema)
+            if cfg.ckpt_keep > 0:
+                ckpt_lib.save_checkpoint_rotating(cfg.ckpt_path, model, optimizer, step,
+                                                  meta=meta, keep=cfg.ckpt_keep)
+            else:
+                ckpt_lib.save_checkpoint(cfg.ckpt_path, model, optimizer, step, meta=meta)
         barrier()
+
+    ema_model = None
+
+    def evaluate(idx):
+        """evaluate_views on the poses idx with the raw weights, and with the
+        EMA weights when the optimizer keeps them (else None)."""
+        nonlocal ema_model
+        res = evaluate_views(renderer, model, images, poses, idx)
+        if optimizer.ema is None:
+            return res, None
+        if ema_model is None:
+            ema_model = copy.deepcopy(model)
+        with torch.no_grad():
+            for p, e in zip(ema_model.parameters(), optimizer.ema):
+                p.copy_(e)
+        return res, evaluate_views(renderer, ema_model, images, poses, idx)
+
+    death = None
+    if cfg.death_check:
+        bg_psnr = background_psnr(pixels, white_bkgd=settings.white_bkgd)
+        death = SigmaDeathDetector(bg_psnr, margin=cfg.death_margin, window=cfg.death_window,
+                                   grace=cfg.death_grace)
+        if death.enabled and is_main:
+            print(f"[train] sigma-death watchdog: background floor {bg_psnr:.2f} dB (aborts if "
+                  f"train PSNR pins within {cfg.death_margin} dB of it for {cfg.death_window} "
+                  f"log points after step {cfg.death_grace})")
 
     if cfg.data_parallel and world > 1:
         from tinynerf_tpu_torch.parallel.mesh import make_mesh
@@ -264,23 +367,28 @@ def main(cfg: Config = Config()) -> dict:
 
             def block_factory(n):
                 return make_sharded_train_block(settings, n, mesh, nerf_cfg=ncfg,
-                                                n_fine=cfg.n_fine, fused_kernels=cfg.fused_train)
+                                                n_fine=cfg.n_fine, fused_kernels=cfg.fused_train,
+                                                extra_grad_fn=extra_grad_fn)
         else:
             def block_factory(n):
-                return make_sharded_train_block(settings, n, mesh, loss=loss, grad_fn=grad_fn)
+                return make_sharded_train_block(settings, n, mesh, loss=loss, grad_fn=grad_fn,
+                                                extra_grad_fn=extra_grad_fn)
         print(f"[train] mesh: data {mesh.n_data} x sample {mesh.n_sample} over {world} ranks")
     else:
         def block_factory(n):
-            return make_train_block(settings, n, loss=loss, grad_fn=grad_fn)
+            return make_train_block(settings, n, loss=loss, grad_fn=grad_fn,
+                                    extra_grad_fn=extra_grad_fn)
 
     blocks = {}  # block_size -> block function
     last = {}
     metrics_f = open(cfg.metrics_path, "a") if cfg.metrics_path and is_main else None
+    eval_secs = 0.0  # in-loop held-out evaluations, excluded from the rays/s denominator
     try:
         _sync(device)
         t0 = time.time()
         for block_start, block_len in _boundaries(
-            start_step, cfg.iters, cfg.log_every, cfg.preview_every, cfg.ckpt_every
+            start_step, cfg.iters, cfg.log_every, cfg.preview_every, cfg.ckpt_every,
+            cfg.eval_every,
         ):
             if block_len not in blocks:
                 blocks[block_len] = block_factory(block_len)
@@ -297,6 +405,43 @@ def main(cfg: Config = Config()) -> dict:
                 if metrics_f:
                     metrics_f.write(json.dumps({"step": step_end, **last}) + "\n")
                     metrics_f.flush()
+                if death is not None and death.update(step_end, last["psnr"]):
+                    save_ckpt(step_end)
+                    if metrics_f:
+                        metrics_f.write(json.dumps({
+                            "step": step_end, "sigma_death": True,
+                            "bg_psnr": round(death.bg_psnr, 3),
+                            "pinned_since": death.first_pinned_step}) + "\n")
+                        metrics_f.flush()
+                    if is_main:
+                        print(
+                            f"\n[SIGMA DEATH] train PSNR pinned within {cfg.death_margin} dB of "
+                            f"the background-only floor ({death.bg_psnr:.2f} dB) for "
+                            f"{cfg.death_window} consecutive log points (since step "
+                            f"{death.first_pinned_step}): the render is background-constant -- "
+                            "raw sigma has collapsed below the ReLU, gradients are zero, and "
+                            "the run cannot recover. Rescue levers: --precrop-iters 500 "
+                            "(center-crop warmup), --sigma-noise-std/--sigma-noise-decay-steps "
+                            "sized to the scene, or --ray-sampling image. Aborting instead of "
+                            f"burning the remaining {cfg.iters - step_end} steps (checkpoint "
+                            "saved; --no-death-check disables).", flush=True)
+                    raise SystemExit(3)
+
+            if cfg.eval_every > 0 and step_end % cfg.eval_every == 0 and step_end != cfg.iters:
+                # The held-out learning curve (the final evaluation covers
+                # the last step).
+                if is_main:
+                    t_ev = time.time()
+                    ev, ev_ema = evaluate(list(range(n_train, n_images)))
+                    eval_secs += time.time() - t_ev
+                    print(f"[eval] step {step_end} held-out PSNR mean {ev['psnr_mean']:.2f} dB"
+                          + (f", EMA {ev_ema['psnr_mean']:.2f} dB" if ev_ema else ""), flush=True)
+                    if metrics_f:
+                        metrics_f.write(json.dumps({
+                            "step": step_end, "eval": ev, "kind": "held-out",
+                            **({"eval_ema": ev_ema} if ev_ema else {})}) + "\n")
+                        metrics_f.flush()
+                barrier()
 
             if step_end % cfg.preview_every == 0:
                 # The reference's (step % N)+1 preview pose over the poses
@@ -314,13 +459,13 @@ def main(cfg: Config = Config()) -> dict:
             if step_end % cfg.ckpt_every == 0:
                 save_ckpt(step_end)
         _sync(device)
-        dt = time.time() - t0
+        dt = time.time() - t0 - eval_secs
     finally:
         if metrics_f:
             metrics_f.close()
 
     save_ckpt(cfg.iters)
-    eval_res = None
+    eval_res = eval_res_ema = None
     if is_main:
         img = renderer(model, poses[-1])
         write_png(f"{cfg.out_dir}/final.png", img.cpu().numpy())
@@ -328,26 +473,36 @@ def main(cfg: Config = Config()) -> dict:
         # Novel-view PSNR: held-out poses when available, else a spread of
         # training views.
         if cfg.holdout > 0:
-            eval_idx, eval_kind = holdout_indices, "held-out"
+            eval_idx, eval_kind = list(range(n_train, n_images)), "held-out"
         else:
             eval_idx = list(range(0, n_images, max(1, n_images // 8)))[:8]
             eval_kind = "train-view"
-        eval_res = evaluate_views(renderer, model, images, poses, eval_idx)
+        eval_res, eval_res_ema = evaluate(eval_idx)
         print(
             f"[eval] {eval_kind} PSNR over {len(eval_idx)} views: "
             f"mean {eval_res['psnr_mean']:.2f} dB "
             f"(min {eval_res['psnr_min']:.2f}, max {eval_res['psnr_max']:.2f})"
         )
+        if eval_res_ema is not None:
+            print(f"[eval] {eval_kind} PSNR (EMA weights): mean "
+                  f"{eval_res_ema['psnr_mean']:.2f} dB")
         if cfg.metrics_path:
             with open(cfg.metrics_path, "a") as f:
                 f.write(json.dumps({"step": cfg.iters, "eval": eval_res, "kind": eval_kind,
-                                    "final": True}) + "\n")
+                                    "final": True,
+                                    **({"eval_ema": eval_res_ema} if eval_res_ema else {})})
+                        + "\n")
     if world > 1:
-        digest = hashlib.sha256()
-        for p in model.parameters():
-            digest.update(p.detach().cpu().numpy().tobytes())
+        def digest(tensors):
+            h = hashlib.sha256()
+            for t in tensors:
+                h.update(t.detach().cpu().numpy().tobytes())
+            return h.hexdigest()
+
+        ema = "" if optimizer.ema is None else f", EMA digest {digest(optimizer.ema)}"
         print(f"[distributed] rank {dist.get_rank()}/{world} parameter digest "
-              f"{digest.hexdigest()}, kernel launches {json.dumps(_kernel_launches())}", flush=True)
+              f"{digest(model.parameters())}{ema}, kernel launches "
+              f"{json.dumps(_kernel_launches())}", flush=True)
         barrier()
     if owns_group:
         dist.destroy_process_group()
@@ -363,8 +518,10 @@ def main(cfg: Config = Config()) -> dict:
     return {
         "final_psnr": last.get("psnr"),
         "eval": eval_res,
+        "eval_ema": eval_res_ema,
         "rays_per_sec": rays_per_sec,
         "model": model,
+        "optimizer": optimizer,
     }
 
 

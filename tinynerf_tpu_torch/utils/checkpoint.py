@@ -12,22 +12,29 @@ and for the full NeRF ({'coarse', 'fine'}) each MLP in turn gives its
   layers[0].b, ..., layers[D-1].w, rgb.b, rgb.w, rgb_in.b, rgb_in.w, sigma.b, sigma.w
 
 Training checkpoints (save_checkpoint / restore_checkpoint, port of
-:32-111; TinyNeRF or NeRF) also carry optax.adam's state in the JAX
-layout, 1 + 2 * n_params leaves:
-  opt_0                       count, an int32 scalar
+:32-111; TinyNeRF or NeRF) also carry the optimizer's state in the tree
+the JAX package's make_optimizer gives it (optax_struct), leaf by leaf:
+  opt_0                       Adam's count, an int32 scalar
   opt_1 .. opt_{n}            mu, in the params' flatten order, w as (in, out)
   opt_{n+1} .. opt_{2n}       nu, likewise
-which map to torch.optim.Adam's per-parameter state "step", "exp_avg"
-and "exp_avg_sq" (weights transposed). A checkpoint written by either
-package resumes in the other. Render consumers read the parameters only
-(restore_params) and accept params-only checkpoints (save_params) of
-either model family. Writes are atomic (temp file + rename).
+  opt_{2n+1}                  with lr_decay_steps: the schedule's count
+  then n more                 with ema_decay: the EMA of the params, likewise
+(AdamW's masked decay adds a node and no leaf). They map to the base
+torch optimizer's per-parameter state "step", "exp_avg" and "exp_avg_sq"
+and to training.TrainOptimizer's `ema` (weights transposed). A
+checkpoint written by either package resumes in the other. Render
+consumers read the parameters only (restore_params) and accept
+params-only checkpoints (save_params) of either model family, the EMA
+twin `<ckpt>.ema.npz` among them. save_checkpoint_rotating also keeps
+the last few step-stamped copies. Writes are atomic (temp file +
+rename).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import tempfile
 from typing import Any, Dict, Optional, Tuple
 
@@ -69,11 +76,35 @@ def adam_struct(p_struct: str) -> str:
     """The JAX treedef string of optax.adam's state,
     (ScaleByAdamState(count, mu, nu), EmptyState()), for params of the
     treedef string `p_struct`."""
+    return optax_struct(p_struct)
+
+
+_EMPTY = "CustomNode(namedtuple[EmptyState], [])"
+
+
+def optax_struct(p_struct: str, decay_steps: int = 0, weight_decay: float = 0.0,
+                 ema_decay: float = 0.0) -> str:
+    """The JAX treedef string of the state of the JAX package's
+    make_optimizer (optax 0.2.6) for params of the treedef string
+    `p_struct`: (ScaleByAdamState(count, mu, nu)[, MaskedState(EmptyState)
+    with weight_decay], EmptyState, or ScaleByScheduleState(count) with
+    decay_steps), and with ema_decay that tuple paired with
+    EmaParamsState(ema)."""
     inner = p_struct[len("PyTreeDef("):-1]
-    return (
-        f"PyTreeDef((CustomNode(namedtuple[ScaleByAdamState], [*, {inner}, {inner}]), "
-        "CustomNode(namedtuple[EmptyState], [])))"
-    )
+    nodes = [f"CustomNode(namedtuple[ScaleByAdamState], [*, {inner}, {inner}])"]
+    if weight_decay > 0:
+        nodes.append(f"CustomNode(namedtuple[MaskedState], [{_EMPTY}])")
+    nodes.append("CustomNode(namedtuple[ScaleByScheduleState], [*])" if decay_steps > 0
+                 else _EMPTY)
+    tree = "(" + ", ".join(nodes) + ")"
+    if ema_decay > 0:
+        tree = f"({tree}, CustomNode(namedtuple[EmaParamsState], [{inner}]))"
+    return f"PyTreeDef({tree})"
+
+
+def _options(optimizer):
+    """The options of a training.TrainOptimizer that shape its state tree."""
+    return optimizer.decay_steps, optimizer.weight_decay, optimizer.ema_decay
 
 
 def _flatten(tree) -> list:
@@ -127,8 +158,9 @@ def _write(path: str, payload: Dict[str, np.ndarray]) -> None:
         raise
 
 
-def _payload(model: nn.Module, opt_leaves: list, o_struct: str, step: int, meta) -> dict:
-    tree = _to_jax(model)
+def _payload(model: nn.Module, opt_leaves: list, o_struct: str, step: int, meta,
+             tree=None) -> dict:
+    tree = _to_jax(model) if tree is None else tree
     leaves = _flatten(tree)
     payload = {f"param_{i}": x for i, x in enumerate(leaves)}
     payload.update({f"opt_{i}": x for i, x in enumerate(opt_leaves)})
@@ -147,33 +179,58 @@ def _payload(model: nn.Module, opt_leaves: list, o_struct: str, step: int, meta)
     return payload
 
 
-def save_params(path: str, model: nn.Module, step: int, meta: Optional[Dict[str, Any]] = None) -> None:
+def save_params(path: str, model: nn.Module, step: int, meta: Optional[Dict[str, Any]] = None,
+                params: Optional[list] = None) -> None:
     """Atomically write a params-only checkpoint (empty optimizer state)
-    of a TinyNeRF or a NeRF."""
-    _write(path, _payload(model, [], "PyTreeDef({})", step, meta))
+    of a TinyNeRF or a NeRF: the model's parameters, or `params` (tensors
+    aligned to model.parameters(), e.g. the optimizer's EMA: the
+    `<ckpt>.ema.npz` twin) in their place."""
+    tree = None
+    if params is not None:
+        tree = _state_to_jax(model, dict(zip(dict(model.named_parameters()), params)))
+    _write(path, _payload(model, [], "PyTreeDef({})", step, meta, tree))
 
 
 def save_checkpoint(
     path: str,
     model: nn.Module,
-    optimizer: torch.optim.Adam,
+    optimizer,
     step: int,
     meta: Optional[Dict[str, Any]] = None,
 ) -> None:
-    """Atomically write params, Adam state (JAX layout), step and meta of
-    a TinyNeRF or a NeRF. Before the first update the state is count 0
-    and zero moments."""
+    """Atomically write params, the optimizer's state (optax's tree, see
+    the module docstring), step and meta of a TinyNeRF or a NeRF. Before
+    the first update the state is count 0 and zero moments."""
     named = dict(model.named_parameters())
     states = [optimizer.state.get(p, {}) for p in named.values()]
-    count = int(states[0]["step"]) if states[0] else 0
+    count = np.asarray(int(states[0]["step"]) if states[0] else 0, dtype=np.int32)
     mu, nu = {}, {}
     for (name, p), st in zip(named.items(), states):
         mu[name] = st["exp_avg"] if st else torch.zeros_like(p)
         nu[name] = st["exp_avg_sq"] if st else torch.zeros_like(p)
-    opt_leaves = [np.asarray(count, dtype=np.int32)]
+    decay_steps, weight_decay, ema_decay = _options(optimizer)
+    opt_leaves = [count]
     opt_leaves += _flatten(_state_to_jax(model, mu)) + _flatten(_state_to_jax(model, nu))
-    o_struct = adam_struct(tree_struct(_to_jax(model)))
+    if decay_steps > 0:
+        opt_leaves.append(count)  # the schedule counts the updates as Adam does
+    if ema_decay > 0:
+        opt_leaves += _flatten(_state_to_jax(model, dict(zip(named, optimizer.ema))))
+    o_struct = optax_struct(tree_struct(_to_jax(model)), decay_steps, weight_decay, ema_decay)
     _write(path, _payload(model, opt_leaves, o_struct, step, meta))
+
+
+def save_checkpoint_rotating(path: str, model: nn.Module, optimizer, step: int,
+                             meta: Optional[Dict[str, Any]] = None, keep: int = 3) -> None:
+    """save_checkpoint, then a copy `<path>.step{N:08d}.npz`, pruning all
+    but the last `keep` such copies (tinynerf_tpu/utils/checkpoint.py:154-180)."""
+    save_checkpoint(path, model, optimizer, step, meta)
+    base = os.path.abspath(path)
+    shutil.copyfile(base, f"{base}.step{step:08d}.npz")
+    prefix = os.path.basename(base) + ".step"
+    dirname = os.path.dirname(base)
+    history = sorted(f for f in os.listdir(dirname) if f.startswith(prefix) and f.endswith(".npz"))
+    for old in history[:-keep]:
+        os.unlink(os.path.join(dirname, old))
 
 
 def read_meta(path: str) -> Dict[str, Any]:
@@ -211,29 +268,31 @@ def restore_params(path: str, model: nn.Module) -> Tuple[int, Dict[str, Any]]:
     return step, info["meta"]
 
 
-def restore_checkpoint(
-    path: str, model: nn.Module, optimizer: torch.optim.Adam
-) -> Tuple[int, Dict[str, Any]]:
-    """Load params and Adam state into `model` and `optimizer` in place.
+def restore_checkpoint(path: str, model: nn.Module, optimizer) -> Tuple[int, Dict[str, Any]]:
+    """Load params and the optimizer's state into `model` and `optimizer`
+    (a training.TrainOptimizer) in place.
 
     Returns (step, meta). Raises ValueError when the stored optimizer
-    state is not optax.adam's for this model (a params-only checkpoint,
-    another optimizer chain) or a shape does not match."""
+    state is not the tree of this optimizer's options for this model (a
+    params-only checkpoint, another optimizer chain) or a shape does not
+    match."""
     template = _to_jax(model)
-    want = adam_struct(tree_struct(template))
+    decay_steps, weight_decay, ema_decay = _options(optimizer)
+    want = optax_struct(tree_struct(template), decay_steps, weight_decay, ema_decay)
     with np.load(path, allow_pickle=False) as z:
         info = json.loads(str(z["meta"]))
         n_p = info["n_params"]
-        if info["opt_struct"] != want or info["n_opt"] != 1 + 2 * n_p:
+        n_opt = 1 + 2 * n_p + int(decay_steps > 0) + (n_p if ema_decay > 0 else 0)
+        if info["opt_struct"] != want or info["n_opt"] != n_opt:
             raise ValueError(
                 "checkpoint optimizer-state structure mismatch: "
-                f"stored {info['opt_struct']} vs optax.adam's {want}"
+                f"stored {info['opt_struct']} vs this optimizer's {want}"
             )
         opt = [np.asarray(z[f"opt_{i}"]) for i in range(info["n_opt"])]
     step, meta = restore_params(path, model)
     count = int(opt[0])
     mu = _from_jax(model, _unflatten(opt[1:1 + n_p], template))
-    nu = _from_jax(model, _unflatten(opt[1 + n_p:], template))
+    nu = _from_jax(model, _unflatten(opt[1 + n_p:1 + 2 * n_p], template))
     optimizer.state.clear()
     for name, p in model.named_parameters():
         optimizer.state[p] = {
@@ -241,6 +300,10 @@ def restore_checkpoint(
             "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
             "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
         }
+    if ema_decay > 0:
+        ema = _from_jax(model, _unflatten(opt[n_opt - n_p:], template))
+        optimizer.ema = [ema[name].to(p.device).reshape(p.shape).clone()
+                         for name, p in model.named_parameters()]
     return step, meta
 
 

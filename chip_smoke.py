@@ -167,6 +167,40 @@ Phases, each printed with its result and time:
                 and the lr schedule, 10 steps: every rank exits 0 with
                 bit-identical parameters and EMA, every K7 launch on the
                 tensor cores.
+ 29. f3       - K3 (S=64, weights out), K5 (S=192, block 64), K4 (S=64), K6
+                (S=192, block 64) and the K7 pair (a 96-sample shard, block
+                48) at widths the CUDA-core kernels once refused (hidden 48
+                with rgb_hidden 64; hidden 36 with rgb_hidden 20, zero-padded
+                to 40 and 24), f32 and bf16, against their plain versions on
+                2048 rays: the render gates and the NeRF pass gates, one
+                launch each and none on the tensor cores; their bf16 times at
+                hidden 48; then `train --model nerf --hidden 48` with the
+                default rgb_hidden 64, fused, 50 steps (K4 twice a step).
+ 30. ndc      - the forward-facing scene (synthetic.py, 106 poses of
+                100x100): `train --ndc` (TinyNeRF) fused (K2 and K1, on the
+                tensor cores) and eager, 1000 steps each, train PSNR up >= 3
+                dB, held-out within 1.5 dB; the flagship `--ndc` 20 steps and
+                a resume to 25 (K4 and K6 on the tensor cores), its K3 image
+                from the checkpoint against the eager one under the bf16
+                render gates.
+ 31. aux      - `eval --save-depth` and `make_gif --depth` on the flagship
+                (phase 27's lever checkpoint) and the NDC checkpoints: depth
+                and acc maps written, the depth finite and inside [near, far]
+                where acc > 0.5 and, on the trained checkpoints, not constant.
+ 32. slice    - the flagship `--proposal occupancy` (one MLP, 64 + 128 grid-
+                proposed samples a ray through K6, a 64^3 grid over the
+                capture's box rebuilt once per block, served through K5): 200
+                steps fused and a resume to 250 (every K6 and K5 launch on the
+                tensor cores), 200 steps eager, held-out within 1.5 dB; a
+                100x100 K5 image against the eager one under the render gates;
+                the occupancy step, the grid rebuild and the image timed
+                against the hierarchical flagship's.
+ 33. dp       - `torch.distributed.run --nproc-per-node 2 ... --data-parallel
+                --proposal occupancy`, 10 steps, the ranks sharing the card:
+                bit-identical parameters, K6 on the tensor cores; `--ndc
+                --data-parallel --sample-parallel 2`, 5 steps (K7 on the
+                tensor cores); then a short `--proposal occupancy --ndc` run
+                (the NDC cube as the box).
 
 Weights are random from a seed throughout. The line before the kernels
 line gives the seconds of all phases.
@@ -2321,6 +2355,539 @@ def run_levers(build_nerf_train, build_partials) -> None:
     print(f"[levers] ok in {time.time() - t0:.2f}s", flush=True)
 
 
+F3_WIDTHS = ((48, 64), (36, 20))  # phase 29: F3's example and a width pair off multiples of 8
+F3_TRAIN_ITERS = 50  # phase 29: train --model nerf --hidden 48 (the default rgb_hidden 64)
+NDC_FLAGSHIP_ITERS = 20  # phase 30: the flagship under --ndc, then a resume to +5
+OCC_ITERS = 200  # phase 32: the flagship occupancy run, then a resume to +50
+OCC_SHORT_ITERS = 20  # phase 33: --proposal occupancy --ndc
+OCC_DP_ITERS = 10  # phase 33: the 2-rank data-parallel occupancy run
+NDC_SP_ITERS = 5  # phase 33: the 2-rank --ndc --sample-parallel 2 run (K7)
+
+
+def forward_facing_data(dev) -> str:
+    """The --ndc scene: synthetic.generate_synthetic_dataset(forward_facing=
+    True), 106 forward-facing poses of 100x100, written once to OUT_DIR."""
+    import numpy as np
+
+    from tinynerf_tpu_torch.synthetic import generate_synthetic_dataset
+
+    path = os.path.join(OUT_DIR, "forward_facing.npz")
+    if not os.path.exists(path):
+        d = generate_synthetic_dataset(device=dev, forward_facing=True)
+        np.savez(path, images=d["images"], poses=d["poses"], focal=d["focal"])
+    return path
+
+
+def pass_errors(loss, grads, fn, args, kw, dtype, names) -> dict:
+    """A NeRF pass's gradients against its plain version `fn` on the same
+    inputs (PERF.md section 2): bf16 loss rel., worst leaf cosine and the
+    trunk and rgb_in leaves' scale; f32 against float64 sums (a float64
+    copy of the MLP, args[0]), each leaf within 3e-4 of its max plus the
+    f32 plain version's own error, capped at another 3e-4. loss None: a
+    K7 backward (fn returns the gradients only)."""
+    import copy
+
+    mlp = args[0]
+
+    def run(m):
+        out = fn(m, *args[1:], **kw)
+        return (out[0], list(out[1])) if loss is not None else (None, list(out))
+
+    if dtype == torch.bfloat16:
+        want_loss, want = run(mlp)
+        err = {**leaf_errors(grads, want), "mma_scale_err": mma_scale_error(names, grads, want)}
+        err["loss_rel"] = 0.0 if loss is None else abs(float(loss) - float(want_loss)) / float(want_loss)
+        err["ok"] = (err["loss_rel"] < 1e-3 and err["min_cosine"] > 0.98
+                     and err["mma_scale_err"] < MMA_SCALE)
+        return err
+    _, plain32 = run(mlp)
+    want_loss, want = run(copy.deepcopy(mlp).double())
+    want = [w.float() for w in want]
+    err = leaf_errors(grads, want)
+    err["loss_rel"] = 0.0 if loss is None else abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    ok = err["loss_rel"] < 1e-5
+    for g, w, p in zip(grads, want, plain32):
+        tol = 3e-4 * float(w.abs().max())
+        ok = ok and float((g - w).abs().max()) <= tol + min(float((p - w).abs().max()), tol) + 1e-8
+    err["ok"] = ok
+    return err
+
+
+def run_slice() -> None:
+    """Phases 29-33: F3's widths on the CUDA-core kernels, NDC rays, the
+    depth/acc (aux) rendering and the occupancy proposal (the slice)."""
+    import dataclasses
+
+    import numpy as np
+
+    from tinynerf_tpu_torch import eval as eval_mod
+    from tinynerf_tpu_torch import make_gif as gif_mod
+    from tinynerf_tpu_torch import train as train_mod
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.data import ensure_data
+    from tinynerf_tpu_torch.kernels.fused_nerf import (
+        fused_nerf_render_rays, fused_nerf_render_rays_plain, render_uses_tensor_cores,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed, fused_nerf_pass_grads_streamed_plain,
+        fused_nerf_render_rays_streamed, fused_nerf_render_rays_streamed_plain,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads, fused_nerf_pass_grads_plain, make_fused_nerf_grad_fn,
+        uses_tensor_cores,
+    )
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        block_partials_grads_plain, block_partials_plain, fused_block_partials_bwd,
+        fused_block_partials_fwd, make_fused_block_partials_fn,
+    )
+    from tinynerf_tpu_torch.kernels.fused_render import fused_render_rays
+    from tinynerf_tpu_torch.kernels.fused_train import fused_loss_grads
+    from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP
+    from tinynerf_tpu_torch.ops.occupancy import (
+        aabb_from_rays, density_grid, grid_generator, make_occupancy_fused_grad_fn,
+    )
+    from tinynerf_tpu_torch.ops.rays import get_rays, get_rays_for_poses
+    from tinynerf_tpu_torch.ops.volume import global_deltas
+    from tinynerf_tpu_torch.render import (
+        make_hierarchical_image_renderer, make_occupancy_image_renderer, unpack_aux,
+    )
+    from tinynerf_tpu_torch.training import (
+        draw_ray_batch, make_train_step, settings_optimizer, step_generator,
+    )
+    from tinynerf_tpu_torch.utils.checkpoint import read_meta
+    from tinynerf_tpu_torch.utils.model_io import load_model_and_renderer
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    k3, k5 = fused_nerf_render_rays, fused_nerf_render_rays_streamed
+    k4, k6 = fused_nerf_pass_grads, fused_nerf_pass_grads_streamed
+    fwd, bwd = fused_block_partials_fwd, fused_block_partials_bwd
+    k1, k2 = fused_render_rays, fused_loss_grads
+    all_kernels = (k1, k2, k3, k4, k5, k6, fwd, bwd)
+
+    def reset():
+        for k in all_kernels:
+            k.launches = k.mma_launches = 0
+
+    def counts(*ks):
+        return [(k.launches, k.mma_launches) for k in ks]
+
+    data_path = os.path.join(OUT_DIR, "absent.npz")  # phase 3's synthetic scene
+    d = ensure_data(data_path, device=dev)
+    images = torch.from_numpy(d["images"]).to(dev)
+    poses = torch.from_numpy(d["poses"]).to(dev)
+    focal = float(d["focal"])
+    n_images, H, W, _ = images.shape
+    rays_o, rays_d = get_rays(H, W, focal, poses[0])
+    idx = torch.randperm(H * W, generator=torch.Generator().manual_seed(0))[:N_RAYS_TRAIN].to(dev)
+    ro, rd = rays_o[idx].contiguous(), rays_d[idx].contiguous()
+    tgt = images[0].reshape(-1, 3)[idx].contiguous()
+    R = N_RAYS_TRAIN
+
+    # 29. F3: K3, K4, K5, K6 and the K7 pair at widths off the old rule
+    #     (hidden 48 with rgb_hidden 64; 36 and 20, zero-padded to 40 and
+    #     24), f32 and bf16, on the CUDA cores, against their plain versions.
+    t0 = time.time()
+    g = torch.Generator(device=dev).manual_seed(29)
+    z_union = torch.sort(2.0 + 4.0 * torch.rand(R, 192, generator=g, device=dev), dim=1).values
+    deltas = global_deltas(z_union, rd)
+    z_sh, d_sh = z_union[:, 96:].contiguous(), deltas[:, 96:].contiguous()
+    cot = {k: (0.5 + torch.rand(*shape, generator=g, device=dev)) / R
+           for k, shape in (("C", (R, 3)), ("A", (R,)), ("T", (R,)), ("D", (R,)))}
+    keys = ("C", "A", "T", "D")
+    f3_times = {}
+    for hidden, rgb_hidden in F3_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = NeRFConfig(hidden=hidden, rgb_hidden=rgb_hidden, compute_dtype=dtype)
+            check(not uses_tensor_cores(cfg) and not render_uses_tensor_cores(cfg),
+                  f"hidden {hidden} rgb_hidden {rgb_hidden} routes to the CUDA cores")
+            mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(29), device=dev)
+            with torch.no_grad():
+                # Density along every ray: a narrow random init can leave
+                # every sigma at the ReLU's zero, and the pass no gradient.
+                mlp.sigma.bias.add_(1.0)
+            names = [n for n, _ in mlp.named_parameters()]
+            reset()
+            with torch.no_grad():
+                c3, w3 = k3(mlp, ro, rd, n_samples=64, cfg=cfg, return_weights=True)
+                c5 = k5(mlp, ro, rd, z_union, cfg=cfg, sample_block=64)
+            loss4, grads4 = k4(mlp, ro, rd, tgt, 0, z_union[:, ::3].contiguous(), randomized=False,
+                               cfg=cfg)
+            loss6, grads6 = k6(mlp, ro, rd, tgt, z_union, cfg=cfg, sample_block=64)
+            fn = make_fused_block_partials_fn(cfg, sample_block=48)
+            partials, _ = fn(mlp, ro, rd, z_sh, d_sh)
+            grads7 = torch.autograd.grad([partials[k] for k in keys], list(mlp.parameters()),
+                                         grad_outputs=[cot[k] for k in keys])
+            torch.cuda.synchronize()
+            moved = counts(k3, k5, k4, k6, fwd, bwd)
+            with torch.no_grad():
+                want3, want_w3 = fused_nerf_render_rays_plain(mlp, ro, rd, n_samples=64, cfg=cfg,
+                                                              return_weights=True)
+                want5 = fused_nerf_render_rays_streamed_plain(mlp, ro, rd, z_union, cfg=cfg,
+                                                              sample_block=64)
+                want7, _ = block_partials_plain(mlp, ro, rd, z_sh, d_sh, None, cfg=cfg,
+                                                sample_block=48)
+            errs = {"K3": ray_errors(c3, want3), "K3 weights": ray_errors(w3, want_w3, width=64),
+                    "K5": ray_errors(c5, want5)}
+            errs.update({f"K7 fwd {k}": ray_errors(partials[k].detach() / (6.0 if k == "D" else 1.0),
+                                                    want7[k] / (6.0 if k == "D" else 1.0),
+                                                    width=3 if k == "C" else 1) for k in keys})
+            render_ok = all(within(e, dtype) for e in errs.values())
+            errs["K4"] = pass_errors(loss4, grads4, fused_nerf_pass_grads_plain,
+                                     (mlp, ro, rd, tgt, 0, z_union[:, ::3].contiguous()),
+                                     dict(randomized=False, cfg=cfg), dtype, names)
+            errs["K6"] = pass_errors(loss6, grads6, fused_nerf_pass_grads_streamed_plain,
+                                     (mlp, ro, rd, tgt, z_union), dict(cfg=cfg, sample_block=64),
+                                     dtype, names)
+            errs["K7 bwd"] = pass_errors(None, grads7, block_partials_grads_plain,
+                                         (mlp, ro, rd, z_sh, d_sh, None, cot, None),
+                                         dict(cfg=cfg, sample_block=48), dtype, names)
+            print(f"[f3] {str(dtype).split('.')[-1]} hidden {hidden} rgb_hidden {rgb_hidden}, {R} "
+                  f"rays (K3 S=64 weights out, K5 S=192 block 64, K4 S=64, K6 S=192 block 64, K7 "
+                  f"a 96-sample shard block 48) against the plain versions: (launches, on the "
+                  f"tensor cores) {moved}; {json.dumps(errs)}", flush=True)
+            check(moved == [(1, 0)] * 6,
+                  "K3, K5, K4, K6, K7 forward and backward once each, none on the tensor cores")
+            check(render_ok, f"K3, K5 and K7's partials within the {dtype} render gates")
+            check(all(errs[k]["ok"] for k in ("K4", "K6", "K7 bwd")),
+                  f"K4, K6 and K7's backward within the {dtype} NeRF pass gates")
+            if (hidden, rgb_hidden, dtype) != (48, 64, torch.bfloat16):
+                continue
+            # Timing at F3's example, bf16 on the CUDA cores: plain, kernel,
+            # kernel, plain.
+            def k7_pair(f):
+                parts, _ = f(mlp, ro, rd, z_sh, d_sh)
+                torch.autograd.grad([parts[k] for k in keys], list(mlp.parameters()),
+                                    grad_outputs=[cot[k] for k in keys])
+
+            def k7_plain():
+                block_partials_plain(mlp, ro, rd, z_sh, d_sh, None, cfg=cfg, sample_block=48)
+                block_partials_grads_plain(mlp, ro, rd, z_sh, d_sh, None, cot, None, cfg=cfg,
+                                           sample_block=48)
+
+            z64 = z_union[:, ::3].contiguous()
+            cases = {
+                "K3": (lambda: k3(mlp, ro, rd, n_samples=64, cfg=cfg, return_weights=True),
+                       lambda: fused_nerf_render_rays_plain(mlp, ro, rd, n_samples=64, cfg=cfg,
+                                                            return_weights=True)),
+                "K5": (lambda: k5(mlp, ro, rd, z_union, cfg=cfg, sample_block=64),
+                       lambda: fused_nerf_render_rays_streamed_plain(mlp, ro, rd, z_union, cfg=cfg,
+                                                                     sample_block=64)),
+                "K4": (lambda: k4(mlp, ro, rd, tgt, 0, z64, randomized=False, cfg=cfg),
+                       lambda: fused_nerf_pass_grads_plain(mlp, ro, rd, tgt, 0, z64,
+                                                           randomized=False, cfg=cfg)),
+                "K6": (lambda: k6(mlp, ro, rd, tgt, z_union, cfg=cfg, sample_block=64),
+                       lambda: fused_nerf_pass_grads_streamed_plain(mlp, ro, rd, tgt, z_union,
+                                                                    cfg=cfg, sample_block=64)),
+                "K7 pair": (lambda: k7_pair(fn), k7_plain),
+            }
+            times = {}
+            with torch.no_grad():
+                for what in ("K3", "K5"):
+                    for i in (1, 0, 0, 1):
+                        times.setdefault((what, i), []).append(cuda_ms(cases[what][i], iters=5))
+            for what in ("K4", "K6", "K7 pair"):
+                for i in (1, 0, 0, 1):
+                    times.setdefault((what, i), []).append(cuda_ms(cases[what][i], iters=5))
+            f3_times = {f"{w} {'plain' if i else 'kernel'}": min(v) for (w, i), v in times.items()}
+            print(f"[timing] {card}: bf16 at hidden 48, rgb_hidden 64, on the CUDA cores, {R} "
+                  f"rays: {json.dumps(f3_times)} (all runs "
+                  f"{json.dumps({f'{w} {i}': v for (w, i), v in times.items()})})", flush=True)
+    h48 = Config(model="nerf", hidden=48, n_fine=64, iters=F3_TRAIN_ITERS, log_every=10,
+                 data_path=data_path, resume=False, out_dir=os.path.join(OUT_DIR, "nerf48_64"),
+                 ckpt_path=os.path.join(OUT_DIR, "nerf48_64.npz"),
+                 metrics_path=os.path.join(OUT_DIR, "nerf48_64.jsonl"))
+    if os.path.exists(h48.metrics_path):
+        os.unlink(h48.metrics_path)
+    reset()
+    train_mod.main(h48)
+    h48_launches = counts(k4, k6)
+    losses = [r["loss"] for r in map(json.loads, open(h48.metrics_path)) if "loss" in r]
+    print(f"[f3] train --model nerf --hidden 48 (rgb_hidden {h48.rgb_hidden}) --n-fine 64, bf16 "
+          f"fused, {F3_TRAIN_ITERS} steps: (K4, K6) (launches, on the tensor cores) "
+          f"{h48_launches}, losses {losses}", flush=True)
+    check(h48.rgb_hidden == 64 and h48_launches == [(2 * F3_TRAIN_ITERS, 0), (0, 0)]
+          and all(math.isfinite(x) for x in losses),
+          "hidden 48 with the default rgb_hidden trains fused: K4 twice a step, off the tensor "
+          "cores; losses finite")
+    print(f"[f3] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 30. NDC: the forward-facing scene; TinyNeRF --ndc fused (K2, K1) and
+    #     eager, 1000 steps; the flagship --ndc 20 steps and a resume, its
+    #     K3 image against the eager one.
+    t0 = time.time()
+    ff_path = forward_facing_data(dev)
+    ff = ensure_data(ff_path, device=dev)
+    ff_poses = torch.from_numpy(ff["poses"]).to(dev)
+    ndc_runs = {}
+    for fused in (True, False):
+        name = "fused" if fused else "eager"
+        cfg = Config(ndc=True, data_path=ff_path, iters=TRAIN_ITERS, holdout=4, resume=False,
+                     fused_train=fused, out_dir=os.path.join(OUT_DIR, f"ndc_tiny_{name}"),
+                     ckpt_path=os.path.join(OUT_DIR, f"ndc_tiny_{name}.npz"),
+                     metrics_path=os.path.join(OUT_DIR, f"ndc_tiny_{name}.jsonl"))
+        if os.path.exists(cfg.metrics_path):
+            os.unlink(cfg.metrics_path)
+        reset()
+        res = train_mod.main(cfg)
+        psnrs = logged_psnrs(cfg.metrics_path)
+        ndc_runs[name] = {"k2": counts(k2)[0], "k1": counts(k1)[0], "rise": psnrs[-1] - psnrs[0],
+                          "heldout": res["eval"]["psnr_mean"]}
+        print(f"[ndc] TinyNeRF --ndc {name}, {TRAIN_ITERS} steps on the forward-facing scene: "
+              f"(K2, K1) (launches, on the tensor cores) {ndc_runs[name]['k2']}, "
+              f"{ndc_runs[name]['k1']}; train PSNR {psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB, held-out "
+              f"{res['eval']['psnr_mean']:.2f} dB", flush=True)
+        check(ndc_runs[name]["rise"] >= 3.0, f"{name} --ndc train PSNR rises >= 3 dB")
+    check(ndc_runs["fused"]["k2"] == (TRAIN_ITERS, TRAIN_ITERS) and ndc_runs["eager"]["k2"] == (0, 0)
+          and ndc_runs["fused"]["k1"][0] > 0 and ndc_runs["fused"]["k1"][0] == ndc_runs["fused"]["k1"][1],
+          "--ndc fused: K2 once a step and K1 rendering, every launch on the tensor cores")
+    gap = abs(ndc_runs["fused"]["heldout"] - ndc_runs["eager"]["heldout"])
+    print(f"[ndc] TinyNeRF held-out PSNR fused vs eager: {gap:.3f} dB apart", flush=True)
+    check(gap <= 1.5, "--ndc fused and eager held-out PSNR within 1.5 dB")
+    nflag = Config(model="nerf", hidden=256, n_fine=128, ndc=True, data_path=ff_path,
+                   iters=NDC_FLAGSHIP_ITERS, holdout=4, resume=False, log_every=10,
+                   out_dir=os.path.join(OUT_DIR, "ndc_flagship"),
+                   ckpt_path=os.path.join(OUT_DIR, "ndc_flagship.npz"),
+                   metrics_path=os.path.join(OUT_DIR, "ndc_flagship.jsonl"))
+    if os.path.exists(nflag.metrics_path):
+        os.unlink(nflag.metrics_path)
+    reset()
+    train_mod.main(nflag)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_mod.main(dataclasses.replace(nflag, iters=NDC_FLAGSHIP_ITERS + 5, resume=True))
+    flag_launches = counts(k4, k6)
+    losses = [r["loss"] for r in map(json.loads, open(nflag.metrics_path)) if "loss" in r]
+    meta = read_meta(nflag.ckpt_path)["meta"]["cfg"]
+    print(f"[ndc] flagship --ndc {NDC_FLAGSHIP_ITERS} steps and a resume to "
+          f"{NDC_FLAGSHIP_ITERS + 5}: (K4, K6) (launches, on the tensor cores) {flag_launches}, "
+          f"losses {losses}, meta ndc {meta['ndc']}", flush=True)
+    check(flag_launches == [(NDC_FLAGSHIP_ITERS + 5,) * 2] * 2 and meta["ndc"] is True
+          and "[resume]" in out.getvalue() and all(math.isfinite(x) for x in losses),
+          "flagship --ndc: K4 and K6 once a step on the tensor cores, resumed; meta ndc")
+    imgs = {}
+    for fused in (True, False):
+        model, ren, _ = load_model_and_renderer(nflag.ckpt_path, H=H, W=W, focal=float(ff["focal"]),
+                                                fused=fused, device=dev)
+        reset()
+        imgs[fused] = ren(model, ff_poses[-1])
+        torch.cuda.synchronize()
+        if fused:
+            k3_launches = counts(k3)[0]
+    err = ray_errors(imgs[True].reshape(-1, 3), imgs[False].reshape(-1, 3))
+    print(f"[ndc] flagship --ndc 100x100 image, K3 (launches, on the tensor cores) {k3_launches} "
+          f"against eager: {json.dumps(err)}", flush=True)
+    check(k3_launches[0] > 0 and k3_launches[0] == k3_launches[1] and within(err, torch.bfloat16)
+          and bool(torch.isfinite(imgs[True]).all()),
+          "the --ndc flagship's K3 image within the bf16 render gates of the eager one")
+    print(f"[ndc] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 31. aux: eval --save-depth and make_gif --depth on the flagship (the
+    #     phase-27 lever run, 250 steps) and the NDC checkpoints.
+    t0 = time.time()
+    aux_cases = (("flagship", os.path.join(OUT_DIR, "levers", "flagship.npz"), data_path, True),
+                 ("ndc TinyNeRF", os.path.join(OUT_DIR, "ndc_tiny_fused.npz"), ff_path, True),
+                 ("ndc flagship", nflag.ckpt_path, ff_path, False))
+    for name, ckpt, dpath, trained in aux_cases:
+        tag = name.replace(" ", "_")
+        dset = ensure_data(dpath, device=dev)
+        out_dir = os.path.join(OUT_DIR, f"depth_{tag}")
+        eval_mod.main(eval_mod.EvalConfig(ckpt_path=ckpt, data_path=dpath, views=2,
+                                          save_depth=True, out_dir=out_dir))
+        written = sorted(f for f in os.listdir(out_dir) if f.startswith(("depth_", "acc_")))
+        ndc = bool(read_meta(ckpt)["meta"]["cfg"].get("ndc"))
+        near, far = (0.0, 1.0) if ndc else (2.0, 6.0)
+        model, aux_ren, _ = load_model_and_renderer(ckpt, H=H, W=W, focal=float(dset["focal"]),
+                                                    aux=True, device=dev)
+        depth, acc = unpack_aux(aux_ren(model, torch.from_numpy(dset["poses"][-1]).to(dev)),
+                                near, far)
+        mask = acc > 0.5
+        dm = depth[mask]
+        frames = gif_mod.main(gif_mod.GifConfig(ckpt_path=ckpt, data_path=dpath, n_frames=8,
+                                                depth=True,
+                                                out_path=os.path.join(OUT_DIR, f"depth_{tag}.gif")))
+        stats = {"files": written, "acc>0.5 pixels": int(mask.sum()),
+                 "depth range": [float(dm.min()), float(dm.max())] if dm.numel() else None,
+                 "depth std": float(dm.std()) if dm.numel() > 1 else None,
+                 "gif frames": list(frames.shape), "gif std": float(frames.std())}
+        print(f"[aux] {name} ({ckpt}): eval --save-depth and make_gif --depth, near {near} far "
+              f"{far}: {json.dumps(stats)}", flush=True)
+        check(len(written) == 4 and bool(torch.isfinite(depth).all() and torch.isfinite(acc).all())
+              and bool(((dm >= near) & (dm <= far)).all()) and frames.dtype == np.uint8,
+              f"{name}: depth and acc maps written, finite, the depth inside [near, far] where "
+              "acc > 0.5; the depth GIF written")
+        if trained:
+            check(dm.numel() >= 20 and float(dm.std()) > 0 and float(frames.std()) > 0,
+                  f"{name}: the depth is not constant where acc > 0.5")
+    print(f"[aux] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 32. the slice: the flagship occupancy proposal (one MLP, 64 + 128 =
+    #     192 grid-proposed samples through K6, a 64^3 grid over the
+    #     capture's box, served through K5), 200 steps fused and a resume
+    #     to 250, and 200 steps eager; its K5 image against the eager one;
+    #     then the occupancy step, the grid rebuild and the image timed
+    #     against the hierarchical flagship.
+    t0 = time.time()
+    occ_runs = {}
+    for fused in (True, False):
+        name = "fused" if fused else "eager"
+        occ = Config(model="nerf", hidden=256, n_fine=128, proposal="occupancy", fused_train=fused,
+                     data_path=data_path, iters=OCC_ITERS, holdout=4, resume=False, log_every=10,
+                     out_dir=os.path.join(OUT_DIR, f"occ_{name}"),
+                     ckpt_path=os.path.join(OUT_DIR, f"occ_{name}.npz"),
+                     metrics_path=os.path.join(OUT_DIR, f"occ_{name}.jsonl"))
+        if os.path.exists(occ.metrics_path):
+            os.unlink(occ.metrics_path)
+        reset()
+        res = train_mod.main(occ)
+        launches = dict(zip(("K4", "K6", "K3", "K5"), counts(k4, k6, k3, k5)))
+        psnrs = logged_psnrs(occ.metrics_path)
+        occ_runs[name] = {"launches": launches, "heldout": res["eval"]["psnr_mean"],
+                          "rise": psnrs[-1] - psnrs[0], "rays_per_sec": res["rays_per_sec"],
+                          "cfg": occ}
+        print(f"[occupancy] flagship --proposal occupancy {name}, {OCC_ITERS} steps: (launches, "
+              f"on the tensor cores) {json.dumps(launches)}; train PSNR {psnrs[0]:.2f} -> "
+              f"{psnrs[-1]:.2f} dB, held-out {res['eval']['psnr_mean']:.2f} dB, "
+              f"{res['rays_per_sec']:,.0f} rays/s", flush=True)
+        check(launches["K4"] == launches["K3"] == (0, 0) and launches["K5"][0] > 0
+              and launches["K5"][0] == launches["K5"][1]
+              and launches["K6"] == ((OCC_ITERS, OCC_ITERS) if fused else (0, 0))
+              and all(math.isfinite(x) for x in psnrs),
+              f"occupancy {name}: K6 once a step (fused), K5 serving, every launch on the tensor "
+              "cores; no K4, no K3")
+    occ = occ_runs["fused"]["cfg"]
+    out = io.StringIO()
+    reset()
+    with contextlib.redirect_stdout(out):
+        train_mod.main(dataclasses.replace(occ, iters=OCC_ITERS + 50, resume=True))
+    resumed = counts(k6)[0]
+    meta = read_meta(occ.ckpt_path)["meta"]["cfg"]
+    print(f"[occupancy] resume to {OCC_ITERS + 50}: K6 (launches, on the tensor cores) {resumed}; "
+          f"meta proposal {meta['proposal']}, occ_aabb {meta['occ_aabb']}", flush=True)
+    check(resumed == (50, 50) and f"from step {OCC_ITERS}" in out.getvalue()
+          and meta["proposal"] == "occupancy" and len(meta["occ_aabb"]) == 2,
+          "the occupancy run resumes: K6 once a step for the last 50, on the tensor cores")
+    gap = abs(occ_runs["fused"]["heldout"] - occ_runs["eager"]["heldout"])
+    print(f"[occupancy] held-out PSNR fused vs eager: {gap:.3f} dB apart", flush=True)
+    check(gap <= 1.5, "occupancy fused and eager held-out PSNR within 1.5 dB")
+    imgs = {}
+    for fused in (True, False):
+        model, ren, _ = load_model_and_renderer(occ.ckpt_path, H=H, W=W, focal=focal, fused=fused,
+                                                device=dev)
+        reset()
+        imgs[fused] = ren(model, poses[-1])
+        torch.cuda.synchronize()
+        if fused:
+            k5_launches = counts(k5)[0]
+    err = ray_errors(imgs[True].reshape(-1, 3), imgs[False].reshape(-1, 3))
+    print(f"[occupancy] 100x100 image through K5 (launches, on the tensor cores) {k5_launches} "
+          f"against the eager render: {json.dumps(err)}", flush=True)
+    check(k5_launches[0] == 3 and k5_launches[1] == 3 and within(err, torch.bfloat16),
+          "the occupancy image: K5 once a chunk on the tensor cores, within the bf16 render gates")
+    # Timing, in turns: the occupancy step against the hierarchical one
+    # (fused, 2048 rays, 192 samples a ray through one MLP against 64 + 192
+    # through two), the grid rebuild alone, the images.
+    ncfg = Config(model="nerf", hidden=256).nerf_cfg()
+    hier_s = Config(model="nerf", hidden=256, n_fine=128).train_settings()
+    occ_s = dataclasses.replace(hier_s, n_samples=192)
+    train_poses = poses[: n_images - 4]
+    rays_o_all, rays_d_all = get_rays_for_poses(H, W, focal, train_poses)
+    pixels = images[: n_images - 4].reshape(len(train_poses), H * W, 3)
+    box = aabb_from_rays(*get_rays_for_poses(H, W, focal, poses), 2.0, 6.0)
+    hier = NeRF(ncfg, generator=torch.Generator().manual_seed(0), device=dev)
+    occm = NeRF(ncfg, generator=torch.Generator().manual_seed(0), device=dev, parts=("fine",))
+    hier_opt = settings_optimizer(hier.parameters(), hier_s)
+    occ_opt = settings_optimizer(occm.parameters(), occ_s)
+    hier_step = make_train_step(hier_s, grad_fn=make_fused_nerf_grad_fn(hier_s, ncfg, n_fine=128))
+    occ_fn = make_occupancy_fused_grad_fn(ncfg, aabb=box)
+    grid = density_grid(occm.fine, ncfg, resolution=64, aabb=box)
+    counter = iter(range(10**6))
+
+    def occ_step():
+        step = next(counter)
+        gen = step_generator(0, step, dev)
+        o, dd, tt = draw_ray_batch(occ_s, gen, step, rays_o_all, rays_d_all, pixels)
+        occ_opt.zero_grad(set_to_none=True)
+        occ_fn(occm, grid, o, dd, tt, gen, occ_s)
+        occ_opt.step()
+
+    hier_ren = make_hierarchical_image_renderer(H=H, W=W, focal=focal, n_coarse=64, n_fine=128,
+                                                nerf_cfg=ncfg, use_fused=True)
+    occ_ren = make_occupancy_image_renderer(H=H, W=W, focal=focal, n_samples=192, nerf_cfg=ncfg,
+                                            use_fused=True, aabb=box)
+    cases = {
+        "hierarchical step": lambda: hier_step(hier, hier_opt, 0, next(counter), rays_o_all,
+                                               rays_d_all, pixels),
+        "occupancy step": occ_step,
+        "grid rebuild": lambda: density_grid(occm.fine, ncfg, resolution=64, aabb=box,
+                                             generator=grid_generator(0, 0, dev)),
+        "hierarchical image": lambda: hier_ren(hier, poses[-1]),
+        "occupancy image": lambda: occ_ren(occm, poses[-1]),
+    }
+    times = {}
+    for name in ("hierarchical step", "occupancy step", "occupancy step", "hierarchical step",
+                 "grid rebuild", "grid rebuild", "hierarchical image", "occupancy image",
+                 "occupancy image", "hierarchical image"):
+        times.setdefault(name, []).append(cuda_ms(cases[name], iters=5))
+    ms = {k: min(v) for k, v in times.items()}
+    print(f"[timing] {card}: flagship, bf16, fused: the occupancy step (2048 rays, 192 grid-"
+          f"proposed samples, K6) {ms['occupancy step']:.4f} ms against the hierarchical step "
+          f"{ms['hierarchical step']:.4f} ms; the 64^3 grid rebuild {ms['grid rebuild']:.4f} ms; a "
+          f"100x100 image, occupancy (grid + K5) {ms['occupancy image']:.4f} ms against "
+          f"hierarchical (K3 twice a chunk) {ms['hierarchical image']:.4f} ms (all runs "
+          f"{json.dumps(times)})", flush=True)
+    print(f"[occupancy] ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 33. --data-parallel --proposal occupancy on two ranks sharing the card,
+    #     10 steps; then a short --proposal occupancy --ndc run.
+    t0 = time.time()
+    dp = torchrun_train("occ_dp", "--proposal", "occupancy", "--iters", str(OCC_DP_ITERS),
+                        "--no-resume")
+    dp_launches = [(r.get("fused_nerf_pass_grads_streamed", 0),
+                    r.get("fused_nerf_pass_grads_streamed.mma_launches", 0),
+                    r.get("fused_nerf_pass_grads", 0)) for r in dp["launches"]]
+    print(f"[occupancy] --data-parallel on 2 ranks, {OCC_DP_ITERS} steps: (K6, on the tensor "
+          f"cores, K4) per rank {dp_launches}", flush=True)
+    check(all(x == (OCC_DP_ITERS, OCC_DP_ITERS, 0) for x in dp_launches),
+          "each rank's K6 once a step, on the tensor cores (replicas bit-identical: torchrun_train)")
+    sp = torchrun_train("ndc_sp", "--ndc", "--data-path", ff_path, "--sample-parallel", "2",
+                        "--iters", str(NDC_SP_ITERS), "--log-every", str(NDC_SP_ITERS),
+                        "--no-resume")
+    sp_launches = [tuple(r.get(k, 0) for k in ("fused_block_partials_fwd",
+                                               "fused_block_partials_fwd.mma_launches",
+                                               "fused_block_partials_bwd",
+                                               "fused_block_partials_bwd.mma_launches"))
+                   for r in sp["launches"]]
+    print(f"[ndc] --ndc --data-parallel --sample-parallel 2 on 2 ranks, {NDC_SP_ITERS} steps: K7 "
+          f"(forward, on the tensor cores, backward, on the tensor cores) per rank {sp_launches}",
+          flush=True)
+    check("[ndc] rays reprojected" in sp["out"]
+          and all(x == (2 * NDC_SP_ITERS,) * 4 for x in sp_launches),
+          "--ndc sample-parallel: each rank's K7 twice a step (coarse and fine shards), on the "
+          "tensor cores (replicas bit-identical: torchrun_train)")
+    ondc = Config(model="nerf", hidden=256, n_fine=128, proposal="occupancy", ndc=True,
+                  data_path=ff_path, iters=OCC_SHORT_ITERS, holdout=4, resume=False, log_every=10,
+                  out_dir=os.path.join(OUT_DIR, "occ_ndc"),
+                  ckpt_path=os.path.join(OUT_DIR, "occ_ndc.npz"),
+                  metrics_path=os.path.join(OUT_DIR, "occ_ndc.jsonl"))
+    if os.path.exists(ondc.metrics_path):
+        os.unlink(ondc.metrics_path)
+    reset()
+    res = train_mod.main(ondc)
+    launches = counts(k6, k5)
+    losses = [r["loss"] for r in map(json.loads, open(ondc.metrics_path)) if "loss" in r]
+    meta = read_meta(ondc.ckpt_path)["meta"]["cfg"]
+    print(f"[occupancy] --proposal occupancy --ndc, {OCC_SHORT_ITERS} steps: (K6, K5) (launches, "
+          f"on the tensor cores) {launches}, losses {losses}, held-out "
+          f"{res['eval']['psnr_mean']:.2f} dB, occ_aabb {meta['occ_aabb']}", flush=True)
+    check(launches[0] == (OCC_SHORT_ITERS, OCC_SHORT_ITERS) and launches[1][0] > 0
+          and launches[1][0] == launches[1][1] and all(math.isfinite(x) for x in losses)
+          and meta["ndc"] is True and meta["occ_aabb"] == [[-1.0] * 3, [1.0] * 3],
+          "occupancy + NDC: K6 once a step and K5 serving on the tensor cores, the NDC cube as "
+          "the grid's box")
+    print(f"[occupancy] ok in {time.time() - t0:.2f}s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2333,7 +2900,8 @@ def main() -> int:
                    *run_nerf(builds["fused_nerf"]), *run_nerf_train(builds["fused_nerf_train"]),
                    *run_partials(builds["fused_partials"])]
         run_levers(builds["fused_nerf_train"], builds["fused_partials"])
-    print(f"[phases] 1-28 in {time.time() - t_start:.2f}s", flush=True)
+        run_slice()
+    print(f"[phases] 1-33 in {time.time() - t_start:.2f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

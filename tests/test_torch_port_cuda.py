@@ -989,3 +989,172 @@ def test_partials_two_shards_equal_the_streamed_pass_on_card(cuda_device):
     assert abs(float(loss) - float(l6)) <= 1e-6 * float(l6)
     for a, b in zip(grads, g6):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-9
+
+
+# F3: widths whose rgb_hidden does not divide hidden's thread mapping
+# (hidden 48 with the default rgb_hidden 64) and widths that are not
+# multiples of 8 (36 / 20, zero-padded to 40 / 24 by the wrappers).
+F3_WIDTHS = [(48, 64), (36, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,rgb_hidden", F3_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nerf_kernels_take_any_width_on_card(cuda_device, hidden, rgb_hidden, dtype):
+    """K3 (weights out), K5, K4, K6 and the K7 pair at the F3 widths (L 10,
+    L_dir 4, depth 8, skip 4) on the CUDA cores: one launch each, none on
+    the tensor cores, within the render gates and the NeRF pass gates of
+    their plain versions (K7 on one-signed cotangents)."""
+    import copy
+
+    from tinynerf_tpu_torch.kernels.fused_nerf import (
+        fused_nerf_render_rays,
+        fused_nerf_render_rays_plain,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed,
+        fused_nerf_pass_grads_streamed_plain,
+        fused_nerf_render_rays_streamed,
+        fused_nerf_render_rays_streamed_plain,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+        fused_nerf_pass_grads,
+        fused_nerf_pass_grads_plain,
+        uses_tensor_cores,
+    )
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        block_partials_grads_plain,
+        block_partials_plain,
+        fused_block_partials_bwd,
+        fused_block_partials_fwd,
+        make_fused_block_partials_fn,
+    )
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+    from tinynerf_tpu_torch.ops.volume import global_deltas
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = NeRFConfig(hidden=hidden, rgb_hidden=rgb_hidden, compute_dtype=dtype)
+    assert not uses_tensor_cores(cfg)
+    mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(3), device=cuda_device)
+    names = [n for n, _ in mlp.named_parameters()]
+    n = 300
+    ro, rd = _rays(n, 50, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(51).rand(n, 3).astype(np.float32)).to(cuda_device)
+    z = _sorted_z(n, 48, 52, cuda_device)
+    kernels = (fused_nerf_render_rays, fused_nerf_render_rays_streamed, fused_nerf_pass_grads,
+               fused_nerf_pass_grads_streamed, fused_block_partials_fwd, fused_block_partials_bwd)
+    before = [(k.launches, k.mma_launches) for k in kernels]
+
+    with torch.no_grad():
+        got, got_w = fused_nerf_render_rays(mlp, ro, rd, n_samples=64, cfg=cfg, return_weights=True)
+        want, want_w = fused_nerf_render_rays_plain(mlp, ro, rd, n_samples=64, cfg=cfg,
+                                                    return_weights=True)
+        got5 = fused_nerf_render_rays_streamed(mlp, ro, rd, z, cfg=cfg, sample_block=16)
+        want5 = fused_nerf_render_rays_streamed_plain(mlp, ro, rd, z, cfg=cfg, sample_block=16)
+    for a, b in ((got, want), (got_w, want_w), (got5, want5)):
+        assert bool(torch.isfinite(a).all())
+        _within_render_gates(a, b, dtype)
+
+    kw4 = dict(n_samples=48, randomized=False, cfg=cfg)
+    loss, grads = fused_nerf_pass_grads(mlp, ro, rd, target, 0, z, **kw4)
+    ref = _plain(fused_nerf_pass_grads_plain, mlp, ro, rd, target, 0, z, dtype=dtype, **kw4)
+    _leaf_check(loss, grads, ref, dtype, names=names)
+    kw6 = dict(cfg=cfg, sample_block=8)
+    loss, grads = fused_nerf_pass_grads_streamed(mlp, ro, rd, target, z, **kw6)
+    ref = _plain(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, target, z, dtype=dtype, **kw6)
+    _leaf_check(loss, grads, ref, dtype, names=names)
+
+    deltas = global_deltas(z, rd)
+    z_sh, d_sh = z[:, 24:].contiguous(), deltas[:, 24:].contiguous()
+    cot, _ = _partials_cotangents(n, 24, cuda_device, seed=53, signed=False)
+    fn = make_fused_block_partials_fn(cfg, sample_block=8)
+    partials, _ = fn(mlp, ro, rd, z_sh, d_sh)
+    keys = ("C", "A", "T", "D")
+    grads = torch.autograd.grad([partials[k] for k in keys], list(mlp.parameters()),
+                                grad_outputs=[cot[k] for k in keys])
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want7, _ = block_partials_plain(mlp, ro, rd, z_sh, d_sh, None, cfg=cfg, sample_block=8)
+    for k in keys:
+        scale = 6.0 if k == "D" else 1.0
+        _within_render_gates(partials[k].detach().reshape(n, -1) / scale,
+                             want7[k].reshape(n, -1) / scale, dtype)
+    args = (ro, rd, z_sh, d_sh, None, cot, None)
+    if dtype == torch.bfloat16:
+        ref = block_partials_grads_plain(mlp, *args, cfg=cfg, sample_block=8)
+        assert min(_cosine(g, r) for g, r in zip(grads, ref)) > 0.98
+        _scale_check(names, grads, ref)
+    else:
+        want64 = [g.float() for g in block_partials_grads_plain(
+            copy.deepcopy(mlp).double(), *args, cfg=cfg, sample_block=8)]
+        plain32 = block_partials_grads_plain(mlp, *args, cfg=cfg, sample_block=8)
+        for g, r, p in zip(grads, want64, plain32):
+            tol = 3e-4 * float(r.abs().max())
+            assert float((g - r).abs().max()) <= tol + min(float((p - r).abs().max()), tol) + 1e-8
+    moved = [(k.launches - a, k.mma_launches - b) for k, (a, b) in zip(kernels, before)]
+    assert moved == [(1, 0)] * len(kernels)
+
+
+@pytest.mark.cuda
+def test_nerf_kernels_refuse_unpadded_widths_in_c_on_card(cuda_device):
+    """The C entries take the CUDA-core route only at hidden and rgb_hidden
+    multiples of 8 (the wrappers pad): hidden 36 handed over as it is comes
+    back as cudaErrorInvalidValue, nothing launched; so does rgb_hidden 0."""
+    from tinynerf_tpu_torch.kernels.fused_nerf import _lib
+
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    args = (None,) * 7 + (128, 1, 64, 10, 4, 1)
+    tail = (2.0, 6.0, 0, cuda_device.index, stream)
+    err = _lib().tinynerf_fused_nerf(*args, 36, 8, 4, 20, *tail)
+    assert err == 1  # cudaErrorInvalidValue
+    assert _lib().tinynerf_fused_nerf(*args, 40, 8, 4, 0, *tail) == 1  # rgb_hidden 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_kernels_on_grid_proposed_depths_on_card(cuda_device, dtype):
+    """The occupancy proposal's depths (ops/occupancy.py: a 32^3 grid of
+    the MLP over the rays' box, 96 samples over 64 segments, jittered as
+    in training) through K6 and the deterministic ones through K5, in
+    blocks of pick_sample_block(96), against their plain versions: the
+    NeRF pass gates and the render gates; bf16 at hidden 128 on the
+    tensor cores (one .mma_launches each), f32 on the CUDA cores."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed,
+        fused_nerf_pass_grads_streamed_plain,
+        fused_nerf_render_rays_streamed,
+        fused_nerf_render_rays_streamed_plain,
+        pick_sample_block,
+    )
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+    from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays, density_grid, occupancy_samples
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = NeRFConfig(hidden=128, compute_dtype=dtype)
+    mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(60), device=cuda_device)
+    with torch.no_grad():
+        mlp.sigma.bias.add_(1.0)  # opacity along the rays
+    n = 300
+    ro, rd = _rays(n, 61, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(62).rand(n, 3).astype(np.float32)).to(cuda_device)
+    box = aabb_from_rays(ro, rd, 2.0, 6.0)
+    grid = density_grid(mlp, cfg, resolution=32, aabb=box,
+                        generator=torch.Generator(device=cuda_device).manual_seed(63))
+    kw = dict(n_segments=64, aabb=box)
+    z_train = occupancy_samples(grid, ro, rd, 2.0, 6.0, 96, randomized=True,
+                                generator=torch.Generator(device=cuda_device).manual_seed(64), **kw)
+    z_render = occupancy_samples(grid, ro, rd, 2.0, 6.0, 96, **kw)
+    sb = pick_sample_block(96)
+    mma = int(dtype == torch.bfloat16)
+    k5, k6 = fused_nerf_render_rays_streamed, fused_nerf_pass_grads_streamed
+    before = [(k.launches, k.mma_launches) for k in (k5, k6)]
+    with torch.no_grad():
+        got = k5(mlp, ro, rd, z_render, cfg=cfg, sample_block=sb)
+        want = fused_nerf_render_rays_streamed_plain(mlp, ro, rd, z_render, cfg=cfg, sample_block=sb)
+    _within_render_gates(got, want, dtype)
+    loss, grads = k6(mlp, ro, rd, target, z_train, cfg=cfg, sample_block=sb)
+    torch.cuda.synchronize()
+    ref = _plain(fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, target, z_train, dtype=dtype,
+                 cfg=cfg, sample_block=sb)
+    _leaf_check(loss, grads, ref, dtype, names=[n for n, _ in mlp.named_parameters()])
+    assert [(k.launches - a, k.mma_launches - b) for k, (a, b) in zip((k5, k6), before)] == [(1, mma)] * 2

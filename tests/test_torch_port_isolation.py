@@ -25,6 +25,7 @@ import tinynerf_tpu_torch.kernels.fused_partials
 import tinynerf_tpu_torch.parallel.mesh, tinynerf_tpu_torch.parallel.train
 import tinynerf_tpu_torch.parallel.render
 import tinynerf_tpu_torch.ops.regularizers, tinynerf_tpu_torch.ops.occupancy
+import tinynerf_tpu_torch.render, tinynerf_tpu_torch.synthetic, tinynerf_tpu_torch.ops.rays
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tinynerf_tpu"))
 print(bad)
 sys.exit(1 if bad else 0)
@@ -40,8 +41,8 @@ def test_port_never_imports_jax():
 
 # The modules of the bf16 tensor-core wrappers (K1 and K2 and their
 # packer, K3 and the packer, K4, K5, K6, K7), the trainer that reports
-# its launch counts, and the sparsity prior with its scene box, each alone
-# in a fresh interpreter.
+# its launch counts, the sparsity prior and the occupancy proposal, each
+# alone in a fresh interpreter.
 ALONE = """
 import sys
 import {module}

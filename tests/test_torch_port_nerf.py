@@ -185,14 +185,17 @@ def test_render_rays_hierarchical_matches_jax():
 
 
 def test_render_rays_hierarchical_training_options_raise():
-    """The randomized render needs its generator; the aux channels are
-    not ported yet."""
+    """The randomized render needs its generator; the aux channels (ported,
+    tests/test_torch_port_ndc_aux.py) add the fine depth and opacity."""
     _, _, model, tcfg = pair(0)
     ro, rd = (torch.from_numpy(a) for a in rays(4, 0))
     with pytest.raises(ValueError, match="requires a generator"):
         render_rays_hierarchical(model, ro, rd, cfg=tcfg, randomized=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        render_rays_hierarchical(model, ro, rd, cfg=tcfg, return_aux=True)
+    with torch.no_grad():
+        out = render_rays_hierarchical(model, ro, rd, cfg=tcfg, return_aux=True)
+        plain = render_rays_hierarchical(model, ro, rd, cfg=tcfg)
+    assert len(out) == 4 and out[2].shape == (4, 1) and out[3].shape == (4, 1)
+    assert torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1])
 
 
 def test_nerf_cfg_matches_jax_config():
@@ -297,11 +300,13 @@ def test_model_io_n_fine_override(jax_nerf_ckpt, monkeypatch):
 
 
 def test_train_refuses_nerf_model(tmp_path):
-    """The NeRF trains (tests/test_torch_port_nerf_train_drivers.py); what
-    it refuses is the occupancy proposal (queue 1, item 11), and the grid
-    family stays refused (item 12)."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train.main(Config(model="nerf", proposal="occupancy", device="cpu", out_dir=str(tmp_path)))
+    """The NeRF trains (tests/test_torch_port_nerf_train_drivers.py), with
+    the occupancy proposal too (tests/test_torch_port_occupancy.py); what
+    it refuses is the proposal with --sample-parallel (as the JAX package),
+    the proposal for the TinyNeRF, and the grid family (item 12)."""
+    with pytest.raises(ValueError, match="does not compose with --sample-parallel"):
+        train.main(Config(model="nerf", proposal="occupancy", data_parallel=True,
+                          sample_parallel=2, device="cpu", out_dir=str(tmp_path)))
     with pytest.raises(ValueError, match="requires --model nerf"):
         train.main(Config(proposal="occupancy", device="cpu", out_dir=str(tmp_path)))
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -96,9 +96,21 @@ def test_eval_reads_port_checkpoint_in_both_packages(tiny_npz, tmp_path):
     # Same weights and views; the port renders through its (plain) fused
     # route, the JAX package through XLA, both bf16.
     assert abs(jres["psnr_mean"] - res["psnr_mean"]) < 0.05
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eval_mod.main(eval_mod.EvalConfig(ckpt_path=cfg.ckpt_path, data_path=tiny_npz,
-                                          save_depth=True, device="cpu"))
+    # --save-depth (ported, ROADMAP item 10): both packages write the depth
+    # and opacity maps of the same view, and they agree.
+    maps = {}
+    for pkg, run in (("port", lambda o: eval_mod.main(eval_mod.EvalConfig(
+            ckpt_path=cfg.ckpt_path, data_path=tiny_npz, out_dir=o, holdout_views=True,
+            n_samples=8, save_images=False, save_depth=True, device="cpu"))),
+                     ("jax", lambda o: jax_eval.main(jax_eval.EvalConfig(
+            ckpt_path=cfg.ckpt_path, data_path=tiny_npz, out_dir=o, holdout_views=True,
+            n_samples=8, save_images=False, save_depth=True)))):
+        o = tmp_path / f"depth_{pkg}"
+        run(str(o))
+        maps[pkg] = [np.asarray(Image.open(o / f"{m}_003.png"), dtype=np.float32) / 255.0
+                     for m in ("depth", "acc")]
+    for a, b in zip(maps["port"], maps["jax"]):
+        assert a.shape == b.shape == (16, 16, 3) and float(np.abs(a - b).mean()) < 0.02
 
 
 def test_train_cli_flags():

@@ -17,9 +17,12 @@ fused grad_fn). The training levers (ray_sampling, precrop, the
 sigma-noise schedule, the lr schedule, weight decay, the EMA, the
 sparsity prior), the sigma-death watchdog, the holdout modes, eval_every
 and ckpt_keep are the JAX package's, every one off by default but the
-watchdog (death_check), as there. Fields that only the grid family, the
-occupancy proposal, NDC or profiling use are not ported yet (ROADMAP.md,
-queue 1). data_parallel, sample_parallel and distributed
+watchdog (death_check), as there. proposal="occupancy" trains and serves
+the single-MLP occupancy-grid proposal (ops/occupancy.py); ndc
+reprojects a forward-facing capture's rays to NDC space and samples t in
+[0, 1] (train_settings() swaps near/far, tinynerf_tpu/config.py:133,
+219-220). Fields that only the grid family or profiling use are not
+ported yet (ROADMAP.md, queue 1). data_parallel, sample_parallel and distributed
 (tinynerf_tpu/config.py:144-149) select parallel/: a rank of a
 torch.distributed process group is one device of the mesh.
 """
@@ -62,7 +65,7 @@ class Config:
     chunk: int = 8192  # rays per render chunk
     model: str = "tinynerf"  # "tinynerf" | "nerf" (viewdirs + coarse/fine)
     n_fine: int = 64  # fine samples per ray (nerf model only)
-    proposal: str = "coarse"  # nerf proposal: "coarse" MLP | "occupancy" grid (not ported)
+    proposal: str = "coarse"  # nerf proposal: "coarse" MLP | "occupancy" grid (one MLP)
     nerf_depth: int = 8
     nerf_skip_at: int = 4
     num_freqs_dir: int = 4
@@ -82,6 +85,7 @@ class Config:
     sigma_sparsity: float = 0.0  # >0: free-space density prior lam (e.g. 1e-3)
     sigma_sparsity_points: int = 8192  # the prior's points per step
     ema_decay: float = 0.0  # >0: Polyak average of the params, twin <ckpt>.ema.npz
+    ndc: bool = False  # forward-facing capture: rays in NDC space, t in [0, 1] (--near/--far ignored)
     data_path: str = "data/tiny_nerf_data.npz"
     allow_synthetic: bool = True  # fall back to the procedural scene offline
     bf16: bool = True  # bfloat16 matmul inputs (f32 params and accumulation)
@@ -125,8 +129,8 @@ class Config:
         return TrainSettings(
             n_rand=self.n_rand,
             n_samples=self.n_samples,
-            near=self.near,
-            far=self.far,
+            near=0.0 if self.ndc else self.near,
+            far=1.0 if self.ndc else self.far,
             ray_sampling=self.ray_sampling,
             precrop_iters=self.precrop_iters,
             precrop_frac=self.precrop_frac,

@@ -53,9 +53,13 @@
 // the chunk, not the ray, is the unit of the MLP, and per-point
 // (rgb, sigma) go to a small head buffer that the composite reads.
 // On the CUDA cores each dense layer is a register-tiled product: a
-// thread owns an 8-row x 8-column block (2*hidden threads, 512 at hidden
-// 256) and holds the whole sum in registers, so the output can be written
-// over its input after a barrier; one buffer serves every layer. The
+// thread owns an 8-row x 8-column block (2*max(hidden, rgb_hidden)
+// threads, 512 at hidden 256; rgb_in's rows per thread fit its width, and
+// threads past a layer's blocks idle) and holds the whole sum in
+// registers, so the output can be written over its input after a
+// barrier; one buffer serves every layer. Widths that are not multiples
+// of 8 reach the kernel zero-padded by the wrappers (exact: a padded
+// column is ReLU(0) = 0 and the next layer's padded rows are 0). The
 // point group is the fast thread index, so the block reads each weight row
 // about once per chunk (weights stay in L2: 2 MB per MLP in f32). Row
 // strides are odd, so the rows a warp reads at one column fall in
@@ -124,7 +128,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int TR = a.tile_rays, SEG = a.seg, H = a.hidden;
   const int E = enc_dim(a.num_freqs), Dd = dir_dim(a.dir_freqs, a.use_viewdirs);
-  const int ld = row_stride(H, a.num_freqs, a.dir_freqs, a.use_viewdirs);
+  const int ld = row_stride(H, a.num_freqs, a.dir_freqs, a.use_viewdirs, a.rgb_hidden);
   const bool bf16 = a.bf16 != 0;
   float* X = smem;                             // (PT, ld)
   float* pts = X + kTilePoints * ld;           // (PT, 3)
@@ -221,8 +225,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
 
       // rgb_in: [h, d_enc] -> rgb_hidden. Tensor cores: 2 warps over the
       // rows, H / 32 over the columns, 8 * (4 * rgb_hidden / H) each; CUDA
-      // cores: as many rows per thread as keep every thread busy
-      // (8 * rgb_hidden / hidden).
+      // cores: the fewest rows per thread with which the block's threads
+      // cover the output (dense_relu_fit), at any rgb_hidden.
       const float* b_in = w_rgb_in + (H + Dd) * a.rgb_hidden;
       if constexpr (kMma) {
         const uint2* wm = w_mma + mma_fwd_off(a.depth, E, H, a.skip_at) / 4;
@@ -232,12 +236,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
           default: mma_dense_relu<4>(X, ld, 0, H + Dd, a.rgb_hidden, wm, b_in, nullptr); break;
         }
       } else {
-        switch (8 * a.rgb_hidden / H) {
-          case 1: dense_relu<kTilePoints, 1>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-          case 2: dense_relu<kTilePoints, 2>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-          case 4: dense_relu<kTilePoints, 4>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-          default: dense_relu<kTilePoints, 8>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16); break;
-        }
+        dense_relu_fit<kTilePoints>(X, ld, 0, H + Dd, a.rgb_hidden, w_rgb_in, b_in, bf16);
       }
 
       // rgb = sigmoid(g1 @ W + b).
@@ -281,8 +280,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) fused_nerf_kernel(Args a) {
 }
 
 int smem_bytes(int tile_rays, int seg, int num_freqs, int dir_freqs, int use_viewdirs,
-               int hidden) {
-  const int ld = row_stride(hidden, num_freqs, dir_freqs, use_viewdirs);
+               int hidden, int rgb_hidden) {
+  const int ld = row_stride(hidden, num_freqs, dir_freqs, use_viewdirs, rgb_hidden);
   const int floats = kTilePoints * (ld + 3) + tile_rays * seg * 4 +
                      tile_rays * dir_dim(dir_freqs, use_viewdirs);
   return floats * (int)sizeof(float);
@@ -293,19 +292,27 @@ int launch_kernel(const Args& a, int n_rays, int smem, void* stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       fused_nerf_kernel<kMma>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_nerf_kernel<kMma><<<n_rays / a.tile_rays, 2 * a.hidden, smem, (cudaStream_t)stream>>>(a);
+  fused_nerf_kernel<kMma><<<n_rays / a.tile_rays, block_threads(a.hidden, a.rgb_hidden), smem,
+                            (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The route is the caller's: w_mma null runs the CUDA-core kernel; w_mma
-// set runs the tensor-core kernel, and only a bf16 launch at the widths
-// mma_dense_relu takes may set it (else cudaErrorInvalidValue, no launch).
+// The route is the caller's: w_mma null runs the CUDA-core kernel, at
+// hidden and rgb_hidden multiples of 8 (the wrappers zero-pad other
+// widths) within kMaxThreads; w_mma set runs the tensor-core kernel, and
+// only a bf16 launch at the widths mma_dense_relu takes may set it. Off
+// those: cudaErrorInvalidValue, no launch.
 int launch(const Args& a, int n_rays, int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int smem = smem_bytes(a.tile_rays, a.seg, a.num_freqs, a.dir_freqs, a.use_viewdirs,
-                              a.hidden);
-  if (a.w_mma == nullptr) return launch_kernel<false>(a, n_rays, smem, stream);
+                              a.hidden, a.rgb_hidden);
+  if (a.w_mma == nullptr) {
+    if (a.hidden <= 0 || a.hidden % kCols != 0 || a.rgb_hidden <= 0 || a.rgb_hidden % kCols != 0
+        || block_threads(a.hidden, a.rgb_hidden) > kMaxThreads)
+      return (int)cudaErrorInvalidValue;
+    return launch_kernel<false>(a, n_rays, smem, stream);
+  }
   const int nt_rgb = a.hidden > 0 ? 4 * a.rgb_hidden / a.hidden : 0;
   if (!a.bf16 || a.hidden % 32 != 0 || (4 * a.rgb_hidden) % a.hidden != 0 ||
       (nt_rgb != 1 && nt_rgb != 2 && nt_rgb != 4))
@@ -320,12 +327,14 @@ extern "C" {
 // Shared memory of one block, in bytes, for tile_rays rays and segments
 // of `seg` samples (seg = S for K3, the sample block for K5).
 int tinynerf_fused_nerf_smem_bytes(int tile_rays, int seg, int num_freqs, int dir_freqs,
-                                   int use_viewdirs, int hidden) {
-  return smem_bytes(tile_rays, seg, num_freqs, dir_freqs, use_viewdirs, hidden);
+                                   int use_viewdirs, int hidden, int rgb_hidden) {
+  return smem_bytes(tile_rays, seg, num_freqs, dir_freqs, use_viewdirs, hidden, rgb_hidden);
 }
 
-// Threads of one block: one per 8x8 block of the (128, hidden) chunk.
-int tinynerf_fused_nerf_threads(int hidden) { return 2 * hidden; }
+// Threads of one block: one per 8x8 block of the widest (128, n) product.
+int tinynerf_fused_nerf_threads(int hidden, int rgb_hidden) {
+  return block_threads(hidden, rgb_hidden);
+}
 
 int tinynerf_fused_nerf_max_threads() { return kMaxThreads; }
 

@@ -50,9 +50,10 @@ extern "C" {
 // Shared memory of one block, in bytes, for tile_rays rays and segments
 // of `seg` samples (seg = S for K4, the sample block for K6).
 int tinynerf_fused_nerf_train_smem_bytes(int tile_rays, int seg, int n_samples, int num_freqs,
-                                         int dir_freqs, int use_viewdirs, int hidden) {
+                                         int dir_freqs, int use_viewdirs, int hidden,
+                                         int rgb_hidden) {
   return walk_smem_bytes(tile_rays, seg, n_samples, num_freqs, dir_freqs, use_viewdirs,
-                         hidden);
+                         hidden, rgb_hidden);
 }
 
 // Workspace floats of one block: every activation of one segment.

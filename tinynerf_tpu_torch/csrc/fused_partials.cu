@@ -41,9 +41,10 @@ extern "C" {
 
 // Shared memory of one block, in bytes (both entry points).
 int tinynerf_partials_smem_bytes(int tile_rays, int sample_block, int n_samples, int num_freqs,
-                                 int dir_freqs, int use_viewdirs, int hidden) {
+                                 int dir_freqs, int use_viewdirs, int hidden,
+                                 int rgb_hidden) {
   return walk_smem_bytes(tile_rays, sample_block, n_samples, num_freqs, dir_freqs, use_viewdirs,
-                         hidden);
+                         hidden, rgb_hidden);
 }
 
 // Workspace floats of one block of the backward.

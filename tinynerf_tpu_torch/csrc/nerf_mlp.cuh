@@ -37,21 +37,32 @@ __device__ __forceinline__ float to_compute(float x, bool bf16) {
 __host__ __device__ inline int enc_dim(int L) { return 3 + 6 * L; }
 __host__ __device__ inline int dir_dim(int Ld, int use) { return use ? 3 + 6 * Ld : 0; }
 
-// Row stride of X: hidden + the wider of the two encodings, made odd.
-__host__ __device__ inline int row_stride(int hidden, int L, int Ld, int use) {
+// Row stride of X: hidden + the wider of the two encodings (at least
+// rgb_hidden, rgb_in's output), made odd.
+__host__ __device__ inline int row_stride(int hidden, int L, int Ld, int use, int rgb_hidden) {
   const int e = enc_dim(L), dd = dir_dim(Ld, use);
   const int ld = hidden + (e > dd ? e : dd);
-  return ld | 1;
+  return (ld > rgb_hidden ? ld : rgb_hidden) | 1;
+}
+
+// Threads of a NeRF kernel's block: one per 8-row x 8-column register
+// block of the widest (128, n) product, 2 * max(hidden, rgb_hidden).
+// The CUDA-core products take any hidden and rgb_hidden that are
+// multiples of 8 (the wrappers zero-pad other widths).
+__host__ __device__ inline int block_threads(int hidden, int rgb_hidden) {
+  return 2 * (hidden > rgb_hidden ? hidden : rgb_hidden);
 }
 
 // X[p][0, n_out) = to_compute(relu(X[p][in_col, in_col + n_in) @ W + b))
-// for the PT rows. W is (n_in, n_out) row-major. Item = (point group pg,
-// column group): rows pg + n_pg*i, columns col0 + j; blockDim.x must be
-// (PT / MT) * (n_out / kCols). The point group is the fast thread index,
-// so the block reads each weight row about once per chunk. Each thread
-// holds its whole block in registers, so the output is written over the
-// input after a barrier. kStore also writes the output rows to `store`
-// (row stride n_out) in device memory.
+// for the PT rows. W is (n_in, n_out) row-major, n_out a multiple of
+// kCols. Item = (point group pg, column group): rows pg + n_pg*i, columns
+// col0 + j; thread t takes item t, and the threads past the
+// (PT / MT) * (n_out / kCols) items idle (blockDim.x must cover them).
+// The point group is the fast thread index, so the block reads each
+// weight row about once per chunk. Each thread holds its whole block in
+// registers, so the output is written over the input after a barrier.
+// kStore also writes the output rows to `store` (row stride n_out) in
+// device memory.
 template <int PT, int MT, bool kStore = false>
 __device__ void dense_relu(float* X, int ld, int in_col, int n_in, int n_out,
                            const float* __restrict__ W, const float* __restrict__ b, bool bf16,
@@ -59,6 +70,7 @@ __device__ void dense_relu(float* X, int ld, int in_col, int n_in, int n_out,
   constexpr int n_pg = PT / MT;
   const int pg = threadIdx.x % n_pg;
   const int col0 = (threadIdx.x / n_pg) * kCols;
+  const bool active = col0 < n_out;
 
   float acc[MT][kCols];
 #pragma unroll
@@ -68,35 +80,59 @@ __device__ void dense_relu(float* X, int ld, int in_col, int n_in, int n_out,
 
   const float* xin = X + pg * ld + in_col;
   const float* wrow = W + col0;
+  if (active) {
 #pragma unroll 2
-  for (int k = 0; k < n_in; ++k, wrow += n_out) {
-    const float4 w0 = __ldg(reinterpret_cast<const float4*>(wrow));
-    const float4 w1 = __ldg(reinterpret_cast<const float4*>(wrow) + 1);
-    const float w[kCols] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    for (int k = 0; k < n_in; ++k, wrow += n_out) {
+      const float4 w0 = __ldg(reinterpret_cast<const float4*>(wrow));
+      const float4 w1 = __ldg(reinterpret_cast<const float4*>(wrow) + 1);
+      const float w[kCols] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const float x = xin[i * n_pg * ld + k];
+      for (int i = 0; i < MT; ++i) {
+        const float x = xin[i * n_pg * ld + k];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
+        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
+      }
     }
   }
   __syncthreads();  // every read of the input columns is done
+  if (active) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    float* row = X + (pg + n_pg * i) * ld + col0;
-    float v[kCols];
+    for (int i = 0; i < MT; ++i) {
+      float* row = X + (pg + n_pg * i) * ld + col0;
+      float v[kCols];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      v[j] = to_compute(fmaxf(acc[i][j] + __ldg(b + col0 + j), 0.f), bf16);
-      row[j] = v[j];
-    }
-    if (kStore) {
-      float4* dst = reinterpret_cast<float4*>(store + (size_t)(pg + n_pg * i) * n_out + col0);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      for (int j = 0; j < kCols; ++j) {
+        v[j] = to_compute(fmaxf(acc[i][j] + __ldg(b + col0 + j), 0.f), bf16);
+        row[j] = v[j];
+      }
+      if (kStore) {
+        float4* dst = reinterpret_cast<float4*>(store + (size_t)(pg + n_pg * i) * n_out + col0);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
     }
   }
   __syncthreads();
+}
+
+// dense_relu at any n_out (a multiple of kCols): the fewest rows a thread
+// (MT) with which the block's threads cover the (PT, n_out) output once.
+// With blockDim.x >= 2 * n_out (block_threads) and PT = 128, MT = 8
+// always fits. rgb_in's forward takes it: its widths need not divide
+// hidden's.
+template <int PT, bool kStore = false>
+__device__ void dense_relu_fit(float* X, int ld, int in_col, int n_in, int n_out,
+                               const float* __restrict__ W, const float* __restrict__ b, bool bf16,
+                               float* __restrict__ store = nullptr) {
+  const int groups = n_out / kCols, nt = blockDim.x;
+  if (PT * groups <= nt)
+    dense_relu<PT, 1, kStore>(X, ld, in_col, n_in, n_out, W, b, bf16, store);
+  else if (PT / 2 * groups <= nt)
+    dense_relu<PT, 2, kStore>(X, ld, in_col, n_in, n_out, W, b, bf16, store);
+  else if (PT / 4 * groups <= nt)
+    dense_relu<PT, 4, kStore>(X, ld, in_col, n_in, n_out, W, b, bf16, store);
+  else
+    dense_relu<PT, 8, kStore>(X, ld, in_col, n_in, n_out, W, b, bf16, store);
 }
 
 // The tensor-core kernels' sigma head (K3/K5 and the training walk alike,

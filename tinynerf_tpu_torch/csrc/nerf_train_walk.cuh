@@ -36,8 +36,9 @@
 
 // Design. The forward of a segment (TR rays x `seg` samples, a whole
 // number of 128-point chunks) is K3's: nerf_mlp.cuh's dense_relu over one
-// 128-row shared buffer, 2*hidden threads of 8x8 register blocks. The
-// backward needs every trunk layer's post-activation, 8 x 256 x 128 floats
+// 128-row shared buffer, 2*max(hidden, rgb_hidden) threads of 8x8
+// register blocks (rgb_in's rows per thread fit its width). The backward
+// needs every trunk layer's post-activation, 8 x 256 x 128 floats
 // (1 MB) a chunk, more than a block's 227 KB of shared memory, so the
 // forward also writes each layer's output (the encoding, the trunk
 // activations, rgb_in's output) to a per-block workspace in device memory
@@ -206,7 +207,7 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
   const int TR = a.tile_rays, SEG = a.seg, S = a.S, H = a.hidden, D = a.depth;
   const int RH = a.rgb_hidden, L = a.num_freqs;
   const int E = enc_dim(L), Dd = dir_dim(a.dir_freqs, a.use_viewdirs);
-  const int ld = row_stride(H, L, a.dir_freqs, a.use_viewdirs);
+  const int ld = row_stride(H, L, a.dir_freqs, a.use_viewdirs, RH);
   const bool bf16 = a.bf16 != 0;
   const int n_seg = TR * SEG;  // points of one segment: whole 128-point chunks
   const int NB = S / SEG;
@@ -350,12 +351,7 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
           default: mma_dense_relu<4>(X, ld, 0, H + Dd, RH, wm, b_in, sm); break;
         }
       } else {
-        switch (8 * RH / H) {
-          case 1: dense_relu<kTilePoints, 1, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-          case 2: dense_relu<kTilePoints, 2, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-          case 4: dense_relu<kTilePoints, 4, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-          default: dense_relu<kTilePoints, 8, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st); break;
-        }
+        dense_relu_fit<kTilePoints, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st);
       }
       const float* b_rgb = w_rgb + RH * 3;
       for (int idx = tid; idx < kTilePoints * 3; idx += nt) {
@@ -560,7 +556,13 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
   // and the workspace to the partials.
   auto segment_backward = [&]() {
     constexpr int n_pg = kBwdPoints / kBwdRows;
-    const int pg = tid % n_pg, col0 = (tid / n_pg) * kCols;  // the thread's upstream block
+    // The thread's upstream block. The upstream products' output is (64,
+    // H): threads past its 2 * H blocks (block_threads, when rgb_hidden >
+    // hidden) compute block 0 again and write nothing; a branch around the
+    // product instead made ptxas spill far more of the walk's registers.
+    const int pg = tid % n_pg, up_col = (tid / n_pg) * kCols;
+    const bool up_active = up_col < H;
+    const int col0 = up_active ? up_col : 0;
     float acc[kBwdRows][kCols];
     for (int c0 = 0; c0 < n_seg; c0 += kBwdPoints) {
       float* In = X;                     // a layer's input
@@ -661,15 +663,17 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
         }
         upstream_item(G, ld, RH, a.w_bwd + (size_t)(D - 1) * H * H, H, pg, col0, acc);
         __syncthreads();
+        if (up_active) {
 #pragma unroll
-        for (int i = 0; i < kBwdRows; ++i) {
-          const int p = pg + n_pg * i;
+          for (int i = 0; i < kBwdRows; ++i) {
+            const int p = pg + n_pg * i;
 #pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            const int k = col0 + j;
-            const float g_sig = to_compute(__ldg(w_sigma + k) * gs[p], bf16);
-            const float v = to_compute(to_compute(acc[i][j], bf16) + g_sig, bf16);
-            G[p * ld + k] = In[p * ld + k] > 0.f ? v : 0.f;
+            for (int j = 0; j < kCols; ++j) {
+              const int k = col0 + j;
+              const float g_sig = to_compute(__ldg(w_sigma + k) * gs[p], bf16);
+              const float v = to_compute(to_compute(acc[i][j], bf16) + g_sig, bf16);
+              G[p * ld + k] = In[p * ld + k] > 0.f ? v : 0.f;
+            }
           }
         }
         __syncthreads();
@@ -740,11 +744,14 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
         if (i > 0) {
           upstream_item(G, ld, H, a.w_bwd + (size_t)(i - 1) * H * H, H, pg, col0, acc);
           __syncthreads();
+          if (up_active) {
 #pragma unroll
-          for (int ii = 0; ii < kBwdRows; ++ii) {
-            float* row = In + (pg + n_pg * ii) * ld + col0;
+            for (int ii = 0; ii < kBwdRows; ++ii) {
+              float* row = In + (pg + n_pg * ii) * ld + col0;
 #pragma unroll
-            for (int j = 0; j < kCols; ++j) row[j] = row[j] > 0.f ? to_compute(acc[ii][j], bf16) : 0.f;
+              for (int j = 0; j < kCols; ++j)
+                row[j] = row[j] > 0.f ? to_compute(acc[ii][j], bf16) : 0.f;
+            }
           }
           float* t = In;
           In = G;
@@ -803,8 +810,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) nerf_walk_kernel(Args a) {
 // Shared memory of one block, in bytes, for tile_rays rays and segments
 // of `seg` samples out of n_samples.
 inline int walk_smem_bytes(int tile_rays, int seg, int n_samples, int num_freqs, int dir_freqs,
-                           int use_viewdirs, int hidden) {
-  const int ld = row_stride(hidden, num_freqs, dir_freqs, use_viewdirs);
+                           int use_viewdirs, int hidden, int rgb_hidden) {
+  const int ld = row_stride(hidden, num_freqs, dir_freqs, use_viewdirs, rgb_hidden);
   const int floats = kTilePoints * (ld + 3) + kNumScalars * tile_rays * seg +
                      kRayScalars * tile_rays + tile_rays * dir_dim(dir_freqs, use_viewdirs) +
                      (n_samples / seg) * tile_rays;
@@ -817,7 +824,7 @@ inline long long walk_workspace_floats(int tile_rays, int seg, int num_freqs, in
   return (long long)tile_rays * seg * (depth * hidden + rgb_hidden + enc_dim(num_freqs));
 }
 
-// The walk on n_blocks blocks of 2*hidden threads; then, when dst is
+// The walk on n_blocks blocks of block_threads; then, when dst is
 // given, the reduction of the partial rows into out (parameter order, the
 // loss last). kMma takes the tensor-core products. Returns the CUDA error
 // code (0 = ok).
@@ -827,12 +834,12 @@ int launch_walk(const Args& a, int n_blocks, int n_grad, const int* dst, float* 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int smem = walk_smem_bytes(a.tile_rays, a.seg, a.S, a.num_freqs, a.dir_freqs,
-                                   a.use_viewdirs, a.hidden);
+                                   a.use_viewdirs, a.hidden, a.rgb_hidden);
   err = cudaFuncSetAttribute(nerf_walk_kernel<kMode, kMma>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  nerf_walk_kernel<kMode, kMma><<<n_blocks, 2 * a.hidden, smem, st>>>(a);
+  nerf_walk_kernel<kMode, kMma><<<n_blocks, block_threads(a.hidden, a.rgb_hidden), smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || dst == nullptr) return (int)err;
   const int row = n_grad + 1;
@@ -855,9 +862,10 @@ inline bool walk_mma_widths(int hidden, int rgb_hidden) {
 // and the widths): w_mma given (pack_mma_weights) runs the tensor-core walk,
 // which only bf16 at walk_mma_widths may take; w_mma null runs the CUDA-core
 // walk, for f32 and for bf16 widths off that layout (which rounds to bf16 at
-// run time, to_compute). Anything else is refused with
-// cudaErrorInvalidValue and nothing launches: a bf16 launch at a
-// tensor-core width without its fragments never becomes a CUDA-core
+// run time, to_compute), at hidden and rgb_hidden multiples of 8 (the
+// wrappers zero-pad other widths) within kMaxThreads. Anything else is
+// refused with cudaErrorInvalidValue and nothing launches: a bf16 launch
+// at a tensor-core width without its fragments never becomes a CUDA-core
 // launch, and the CUDA-core walk's backward needs w_bwd.
 template <Walk kMode>
 int launch_walk_by_route(Args a, const void* w_mma, int n_blocks, int n_grad, const int* dst,
@@ -866,6 +874,9 @@ int launch_walk_by_route(Args a, const void* w_mma, int n_blocks, int n_grad, co
   if ((w_mma != nullptr) != mma) return (int)cudaErrorInvalidValue;
   if (!mma) {
     if (kMode != Walk::kPartialsFwd && a.w_bwd == nullptr) return (int)cudaErrorInvalidValue;
+    if (a.hidden <= 0 || a.hidden % kCols != 0 || a.rgb_hidden <= 0 || a.rgb_hidden % kCols != 0
+        || block_threads(a.hidden, a.rgb_hidden) > kMaxThreads)
+      return (int)cudaErrorInvalidValue;
     return launch_walk<kMode>(a, n_blocks, n_grad, dst, out, device, stream);
   }
   a.w_mma = w_mma;

@@ -1,15 +1,16 @@
 """Evaluation driver: `python -m tinynerf_tpu_torch.eval --ckpt-path ...`
 
-Port of tinynerf_tpu/eval.py:27-162 (colour views): render a set of
-dataset views from a checkpoint, report per-view and aggregate PSNR and
-SSIM into <out_dir>/metrics.json, and optionally save the renders and
-per-view error maps. --holdout-views scores exactly the poses the
-checkpoint recorded as held out; --ema scores the `<ckpt>.ema.npz`
-Polyak twin where one exists; --n-fine overrides a full NeRF's
-fine-sample budget. Depth and acc maps (--save-depth) are not ported
-yet.
+Port of tinynerf_tpu/eval.py:27-162: render a set of dataset views from
+a checkpoint, report per-view and aggregate PSNR and SSIM into
+<out_dir>/metrics.json, and optionally save the renders, per-view error
+maps and (--save-depth) depth and opacity maps, depth_<i>.png and
+acc_<i>.png, from a twin geometry renderer (render.pack_aux) over the
+same checkpoint; an NDC checkpoint's depths are unpacked over [0, 1].
+--holdout-views scores exactly the poses the checkpoint recorded as held
+out; --ema scores the `<ckpt>.ema.npz` Polyak twin where one exists;
+--n-fine overrides a full NeRF's fine-sample budget.
 
-    python -m tinynerf_tpu_torch.eval --ckpt-path <ckpt.npz> [--views 8] [--n-fine N] [--no-fused]
+    python -m tinynerf_tpu_torch.eval --ckpt-path <ckpt.npz> [--views 8] [--n-fine N] [--no-fused] [--save-depth]
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from tinynerf_tpu_torch.data import ensure_data
 from tinynerf_tpu_torch.evaluation import evaluate_views
+from tinynerf_tpu_torch.render import unpack_aux
 from tinynerf_tpu_torch.utils.cli import cli
 from tinynerf_tpu_torch.utils.image_io import write_png
 from tinynerf_tpu_torch.utils.model_io import load_model_and_renderer
@@ -48,17 +50,12 @@ class EvalConfig:
     fused: bool = True  # render through the fused CUDA kernel
     save_images: bool = True
     save_error_maps: bool = False  # err_<i>.png: |render - gt| averaged over rgb, 0.25 saturates
-    save_depth: bool = False  # not ported yet
+    save_depth: bool = False  # depth_<i>.png (near = bright, acc < 0.1 black) and acc_<i>.png
     allow_synthetic: bool = True
     device: str = "cuda"
 
 
 def main(cfg: EvalConfig = EvalConfig()) -> dict:
-    if cfg.save_depth:
-        raise NotImplementedError(
-            "--save-depth needs the aux (depth/acc) rendering, not ported yet "
-            "(ROADMAP.md, queue 1, item 10)"
-        )
     device = torch.device(cfg.device)
     d = ensure_data(cfg.data_path, allow_synthetic=cfg.allow_synthetic, device=device)
     images, poses = d["images"], torch.from_numpy(d["poses"]).to(device)
@@ -107,7 +104,18 @@ def main(cfg: EvalConfig = EvalConfig()) -> dict:
     os.makedirs(cfg.out_dir, exist_ok=True)
     with open(f"{cfg.out_dir}/metrics.json", "w") as f:
         json.dump({"indices": indices, **res}, f, indent=2)
-    if cfg.save_images or cfg.save_error_maps:
+    aux_renderer = None
+    if cfg.save_depth:
+        # A twin geometry renderer over the same checkpoint (packed depth and
+        # acc pseudo-images, render.pack_aux).
+        _, aux_renderer, _ = load_model_and_renderer(
+            ckpt_path, H=H, W=W, focal=focal, n_samples=cfg.n_samples, near=cfg.near,
+            far=cfg.far, chunk=cfg.chunk, fused=cfg.fused, n_fine=cfg.n_fine, aux=True,
+            device=device,
+        )
+    if cfg.save_images or cfg.save_error_maps or cfg.save_depth:
+        # NDC checkpoints sample t in [0, 1] (model_io remaps near/far).
+        near, far = (0.0, 1.0) if meta.get("cfg", {}).get("ndc") else (cfg.near, cfg.far)
         for i in indices:
             img = renderer(model, poses[i]).cpu().numpy()
             if cfg.save_images:
@@ -115,6 +123,16 @@ def main(cfg: EvalConfig = EvalConfig()) -> dict:
             if cfg.save_error_maps:
                 err = np.clip(np.abs(img - images[i]).mean(axis=-1) / 0.25, 0.0, 1.0)
                 write_png(f"{cfg.out_dir}/err_{i:03d}.png", np.stack([err, err, err], axis=-1))
+            if cfg.save_depth:
+                depth, acc = unpack_aux(aux_renderer(model, poses[i]).cpu().numpy(), near, far)
+                # Disparity-style tone map (near = bright); empty rays (acc
+                # below 0.1) black instead of the arbitrary depth a near-zero
+                # weight sum would imply.
+                d_norm = np.clip((depth - near) / (far - near), 0.0, 1.0)
+                shade = (1.0 - d_norm) * (acc >= 0.1)
+                write_png(f"{cfg.out_dir}/depth_{i:03d}.png", np.stack([shade] * 3, axis=-1))
+                write_png(f"{cfg.out_dir}/acc_{i:03d}.png",
+                          np.stack([np.clip(acc, 0.0, 1.0)] * 3, axis=-1))
         print(f"[eval] wrote renders + metrics.json to {cfg.out_dir}")
     return res
 

@@ -26,10 +26,13 @@ products take (mma_shapes_ok: hidden a multiple of 32, 4 * rgb_hidden /
 hidden in {1, 2, 4}; every recipe of the repo) runs the trunk and rgb_in
 as mma.sync products (csrc/mma_bf16.cuh) from the fragments of
 pack_mma_forward, packed for each launch; f32, and the few bf16 widths
-off that layout, run the CUDA-core kernel. Unlike the training kernels,
-the render refuses no width. .mma_launches counts the tensor-core
-launches beside .launches. The fragment packer (mma_operands, pack_mma_b)
-lives here and serves the training kernels too.
+off that layout, run the CUDA-core kernel, at any width: widths that are
+not multiples of 8 go to it zero-padded (padded_widths; exact, since a
+padded column is ReLU(0) = 0 and the next layer's padded rows are 0), and
+the K3-K7 wrappers drop the padded gradient entries (unpad_grads).
+.mma_launches counts the tensor-core launches beside .launches. The
+fragment packer (mma_operands, pack_mma_b) lives here and serves the
+training kernels too.
 
 fused_nerf_render_rays_plain is the same computation in torch ops: the
 CPU path of the wrapper and the reference the kernel is checked against
@@ -39,6 +42,7 @@ on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import List, Optional
@@ -198,11 +202,11 @@ def _lib() -> ctypes.CDLL:
     lib.tinynerf_fused_nerf.restype = i
     lib.tinynerf_fused_nerf_streamed.argtypes = [p] * 7 + [i] * 13 + [p]
     lib.tinynerf_fused_nerf_streamed.restype = i
-    lib.tinynerf_fused_nerf_smem_bytes.argtypes = [i] * 6
+    lib.tinynerf_fused_nerf_smem_bytes.argtypes = [i] * 7
     lib.tinynerf_fused_nerf_smem_bytes.restype = i
     for name in ("threads", "max_threads", "tile_points"):
         fn = getattr(lib, f"tinynerf_fused_nerf_{name}")
-        fn.argtypes = [i] if name == "threads" else []
+        fn.argtypes = [i, i] if name == "threads" else []
         fn.restype = i
     lib.tinynerf_cuda_error_string.argtypes = [i]
     lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
@@ -215,9 +219,23 @@ def raise_on_error(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
 
 
+def check_mlp(mlp: NeRFMLP, cfg: NeRFConfig) -> None:
+    """Validate the MLP against cfg and the dtype against what the NeRF
+    kernels (K3-K7) take. Any positive width is taken (padded_widths)."""
+    if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got {cfg.compute_dtype}")
+    if ([lin.in_features for lin in mlp.layers] != nerf_layer_in_dims(cfg)
+            or mlp.layers[0].out_features != cfg.hidden
+            or mlp.rgb_in.in_features != cfg.hidden + cfg.dir_dim
+            or mlp.rgb_in.out_features != cfg.rgb_hidden):
+        raise ValueError("params do not match cfg (num_freqs/depth/skip_at/hidden/viewdirs)")
+    if cfg.hidden < 1 or cfg.rgb_hidden < 1 or not 0 <= cfg.skip_at < cfg.depth:
+        raise ValueError(f"kernel needs hidden, rgb_hidden >= 1 and 0 <= skip_at < depth, got {cfg}")
+
+
 def check_inputs(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z) -> None:
     """Validate the rays, the depths and the MLP against what the NeRF
-    kernels (K3-K6) take."""
+    kernels (K3-K7) take."""
     for name, x in (("rays_o", rays_o), ("rays_d", rays_d)):
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -235,20 +253,75 @@ def check_inputs(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z) -> None:
     p = next(mlp.parameters())
     if p.device != rays_o.device:
         raise ValueError(f"params on {p.device}, rays on {rays_o.device}")
-    if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"compute_dtype must be float32 or bfloat16, got {cfg.compute_dtype}")
-    if ([lin.in_features for lin in mlp.layers] != nerf_layer_in_dims(cfg)
-            or mlp.layers[0].out_features != cfg.hidden
-            or mlp.rgb_in.in_features != cfg.hidden + cfg.dir_dim
-            or mlp.rgb_in.out_features != cfg.rgb_hidden):
-        raise ValueError("params do not match cfg (num_freqs/depth/skip_at/hidden/viewdirs)")
-    rows = 8 * cfg.rgb_hidden // cfg.hidden if cfg.hidden else 0
-    if (cfg.hidden % 8 or cfg.rgb_hidden % 8 or (8 * cfg.rgb_hidden) % cfg.hidden
-            or rows not in (1, 2, 4, 8) or not 0 <= cfg.skip_at < cfg.depth):
-        raise ValueError(
-            "kernel needs hidden and rgb_hidden multiples of 8, 8*rgb_hidden/hidden in "
-            f"{{1, 2, 4, 8}} and 0 <= skip_at < depth, got {cfg}"
-        )
+    check_mlp(mlp, cfg)
+
+
+def pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def block_threads(cfg: NeRFConfig) -> int:
+    """Threads of a K3-K7 block (csrc/nerf_mlp.cuh: block_threads), at
+    widths that are multiples of 8: one per 8x8 block of the widest
+    (128, n) product."""
+    return 2 * max(cfg.hidden, cfg.rgb_hidden)
+
+
+def _pad_index(cfg: NeRFConfig, cfg_p: NeRFConfig) -> dict:
+    """Layer name -> (rows, columns) of its weight (out, in) inside the
+    padded layer's: the hidden units keep their index, the encoding's and
+    the direction encoding's columns follow the padded hidden ones."""
+    h, hp, rh = cfg.hidden, cfg_p.hidden, cfg.rgb_hidden
+
+    def after_h(n_extra):
+        return torch.cat([torch.arange(h), hp + torch.arange(n_extra)])
+
+    out = {}
+    for i, n_in in enumerate(nerf_layer_in_dims(cfg)):
+        cols = torch.arange(n_in) if i == 0 else after_h(n_in - h)
+        out[f"layers.{i}"] = (torch.arange(h), cols)
+    out["sigma"] = (torch.arange(1), torch.arange(h))
+    out["rgb_in"] = (torch.arange(rh), after_h(cfg.dir_dim))
+    out["rgb"] = (torch.arange(3), torch.arange(rh))
+    return out
+
+
+def padded_widths(mlp: NeRFMLP, cfg: NeRFConfig):
+    """-> (mlp, cfg) at hidden and rgb_hidden rounded up to multiples of 8,
+    the widths the CUDA-core products take (kCols = 8, float4 loads): the
+    new units' weights and biases are zero, so each padded unit is
+    ReLU(0) = 0 and feeds the next layer through zero rows; the function
+    and the real units' gradients do not change. The same objects when
+    both widths are multiples of 8 already (every tensor-core width)."""
+    cfg_p = dataclasses.replace(cfg, hidden=pad8(cfg.hidden), rgb_hidden=pad8(cfg.rgb_hidden))
+    if cfg_p == cfg:
+        return mlp, cfg
+    check_mlp(mlp, cfg)
+    dev = next(mlp.parameters()).device
+    mlp_p = NeRFMLP(cfg_p, generator=torch.Generator(), device=dev)  # overwritten below
+    idx = _pad_index(cfg, cfg_p)
+    with torch.no_grad():
+        for name, (rows, cols) in idx.items():
+            src, dst = mlp.get_submodule(name), mlp_p.get_submodule(name)
+            dst.weight.zero_()
+            dst.bias.zero_()
+            dst.weight[rows[:, None].to(dev), cols[None, :].to(dev)] = src.weight.detach()
+            dst.bias[rows.to(dev)] = src.bias.detach()
+    return mlp_p, cfg_p
+
+
+def unpad_grads(grads: List[torch.Tensor], cfg: NeRFConfig, cfg_p: NeRFConfig):
+    """Gradients of padded_widths' MLP (parameters() order) -> those of the
+    original MLP: the padded entries dropped."""
+    if cfg_p == cfg:
+        return grads
+    idx = _pad_index(cfg, cfg_p)
+    out, it = [], iter(grads)
+    for name in idx:  # parameters() order: each layer's weight, then bias
+        rows, cols = (t.to(grads[0].device) for t in idx[name])
+        out.append(next(it)[rows[:, None], cols[None, :]])
+        out.append(next(it)[rows])
+    return out
 
 
 def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int) -> int:
@@ -257,15 +330,17 @@ def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int) -> 
     samples, within the block's threads and shared memory."""
     check_inputs(mlp, cfg, rays_o, rays_d, z)
     lib = _lib()
-    threads = lib.tinynerf_fused_nerf_threads(cfg.hidden)
+    threads = lib.tinynerf_fused_nerf_threads(cfg.hidden, cfg.rgb_hidden)
     if threads > lib.tinynerf_fused_nerf_max_threads():
-        raise ValueError(f"hidden {cfg.hidden} needs {threads} threads: too many")
+        raise ValueError(f"hidden {cfg.hidden}, rgb_hidden {cfg.rgb_hidden} need {threads} "
+                         "threads: too many")
     tile = lib.tinynerf_fused_nerf_tile_points() // math.gcd(lib.tinynerf_fused_nerf_tile_points(), seg)
     tile = min(tile, threads)
 
     def smem(t):
         return lib.tinynerf_fused_nerf_smem_bytes(
-            t, seg, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden)
+            t, seg, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
+            cfg.rgb_hidden)
 
     while tile > 1 and smem(tile) > MAX_SMEM_BYTES:
         tile //= 2
@@ -312,6 +387,7 @@ def fused_nerf_render_rays(
     S = z_vals.shape[1] if z_vals is not None else n_samples
     if S < 2:
         raise ValueError(f"the kernel needs at least 2 samples per ray, got {S}")
+    mlp, cfg = padded_widths(mlp, cfg)
     tile = check_launch(mlp, cfg, rays_o, rays_d, z_vals, S)
 
     R = rays_o.shape[0]

@@ -53,8 +53,10 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     pack_mma_forward,
     pack_nerf_weights,
     pad_rays,
+    padded_widths,
     raise_on_error,
     render_uses_tensor_cores,
+    unpad_grads,
 )
 from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     check_train_launch,
@@ -145,6 +147,7 @@ def fused_nerf_render_rays_streamed(
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_nerf_render_rays_streamed_plain(
             mlp, rays_o, rays_d, z_vals, white_bkgd=white_bkgd, cfg=cfg, sample_block=sb)
+    mlp, cfg = padded_widths(mlp, cfg)
     tile = check_launch(mlp, cfg, rays_o, rays_d, z_vals, sb)
 
     pad = -R % tile
@@ -226,13 +229,14 @@ def fused_nerf_pass_grads_streamed(
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_nerf_pass_grads_streamed_plain(mlp, rays_o, rays_d, target, z_vals, cfg=cfg,
                                                     sample_block=sb, **kw)
-    tile = check_train_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
-    mma = uses_tensor_cores(cfg)
-    res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=True, seg=sb, z=z_vals,
-                      **kw)
+    mlp_k, cfg_k = padded_widths(mlp, cfg)
+    tile = check_train_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
+    mma = uses_tensor_cores(cfg_k)
+    loss, grads = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, tile, S, streamed=True,
+                              seg=sb, z=z_vals, **kw)
     fused_nerf_pass_grads_streamed.launches += 1
     fused_nerf_pass_grads_streamed.mma_launches += int(mma)
-    return res
+    return loss, unpad_grads(grads, cfg, cfg_k)
 
 
 fused_nerf_pass_grads_streamed.launches = 0  # kernel launches since the last reset

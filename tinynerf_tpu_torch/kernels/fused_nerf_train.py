@@ -51,6 +51,7 @@ import torch
 
 from tinynerf_tpu_torch.kernels.fused_nerf import (
     MAX_SMEM_BYTES,
+    block_threads,
     check_inputs,
     composite_one_m,
     deltas,
@@ -59,6 +60,8 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     pack_mma_b,
     pack_nerf_weights,
     pad_rays,
+    padded_widths,
+    unpad_grads,
 )
 from tinynerf_tpu_torch.kernels.fused_train import _seed_tensor, stratified_depths
 from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP, nerf_layer_in_dims, run_mlp, view_encoding
@@ -220,7 +223,7 @@ def _lib() -> ctypes.CDLL:
     lib.tinynerf_fused_nerf_train.restype = i
     lib.tinynerf_fused_nerf_train_streamed.argtypes = [p] * 13 + [i] * 12 + [f] + [i] * 5 + [p]
     lib.tinynerf_fused_nerf_train_streamed.restype = i
-    lib.tinynerf_fused_nerf_train_smem_bytes.argtypes = [i] * 7
+    lib.tinynerf_fused_nerf_train_smem_bytes.argtypes = [i] * 8
     lib.tinynerf_fused_nerf_train_smem_bytes.restype = i
     lib.tinynerf_fused_nerf_train_workspace_floats.argtypes = [i] * 6
     lib.tinynerf_fused_nerf_train_workspace_floats.restype = ctypes.c_longlong
@@ -251,11 +254,13 @@ def check_train_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z,
                                     or tuple(sigma_noise.shape) != (R, S)):
         raise ValueError(f"sigma_noise must be float32 ({R}, {S}) on {rays_o.device}")
     lib = _lib()
-    if 2 * cfg.hidden > lib.tinynerf_fused_nerf_train_max_threads():
-        raise ValueError(f"hidden {cfg.hidden} needs {2 * cfg.hidden} threads: too many")
+    if block_threads(cfg) > lib.tinynerf_fused_nerf_train_max_threads():
+        raise ValueError(f"hidden {cfg.hidden}, rgb_hidden {cfg.rgb_hidden} need "
+                         f"{block_threads(cfg)} threads: too many")
     tile = 128 // math.gcd(128, seg)
     smem = lib.tinynerf_fused_nerf_train_smem_bytes(
-        tile, seg, S, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden)
+        tile, seg, S, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
+        cfg.rgb_hidden)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"segments of {seg} samples ({tile} rays a tile) at hidden {cfg.hidden} need "
@@ -381,14 +386,15 @@ def fused_nerf_pass_grads(
         return fused_nerf_pass_grads_plain(mlp, rays_o, rays_d, target, seed, z_vals,
                                            n_samples=n_samples, randomized=randomized, cfg=cfg,
                                            **kw)
-    tile = check_train_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
-    mma = uses_tensor_cores(cfg)
-    res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=False, seg=S,
+    mlp_k, cfg_k = padded_widths(mlp, cfg)
+    tile = check_train_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
+    mma = uses_tensor_cores(cfg_k)
+    res = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, tile, S, streamed=False, seg=S,
                       z=z_vals, seed=seed,
                       randomized=randomized and z_vals is None, **kw)
     fused_nerf_pass_grads.launches += 1
     fused_nerf_pass_grads.mma_launches += int(mma)
-    return res
+    return (res[0], unpad_grads(res[1], cfg, cfg_k), *res[2:])
 
 
 fused_nerf_pass_grads.launches = 0  # kernel launches since the last reset

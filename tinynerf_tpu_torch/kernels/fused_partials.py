@@ -47,10 +47,13 @@ import torch
 
 from tinynerf_tpu_torch.kernels.fused_nerf import (
     MAX_SMEM_BYTES,
+    block_threads,
     check_inputs,
     composite_one_m,
     pack_nerf_weights,
     pad_rays,
+    padded_widths,
+    unpad_grads,
 )
 from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     pack_backward_weights,
@@ -140,7 +143,7 @@ def _lib() -> ctypes.CDLL:
     lib.tinynerf_partials_fwd.restype = i
     lib.tinynerf_partials_bwd.argtypes = [p] * 15 + [i] * 15 + [p]
     lib.tinynerf_partials_bwd.restype = i
-    lib.tinynerf_partials_smem_bytes.argtypes = [i] * 7
+    lib.tinynerf_partials_smem_bytes.argtypes = [i] * 8
     lib.tinynerf_partials_smem_bytes.restype = i
     lib.tinynerf_partials_workspace_floats.argtypes = [i] * 6
     lib.tinynerf_partials_workspace_floats.restype = ctypes.c_longlong
@@ -167,11 +170,13 @@ def _check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, deltas, sigm
                               or x.shape != z.shape):
             raise ValueError(f"{name} must be float32 {tuple(z.shape)} on {rays_o.device}")
     lib = _lib()
-    if 2 * cfg.hidden > lib.tinynerf_partials_max_threads():
-        raise ValueError(f"hidden {cfg.hidden} needs {2 * cfg.hidden} threads: too many")
+    if block_threads(cfg) > lib.tinynerf_partials_max_threads():
+        raise ValueError(f"hidden {cfg.hidden}, rgb_hidden {cfg.rgb_hidden} need "
+                         f"{block_threads(cfg)} threads: too many")
     tile = 128 // math.gcd(128, sb)
     smem = lib.tinynerf_partials_smem_bytes(tile, sb, z.shape[1], cfg.num_freqs,
-                                            cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden)
+                                            cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
+                                            cfg.rgb_hidden)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"blocks of {sb} samples ({tile} rays a tile) at hidden {cfg.hidden} "
                          f"need {smem} B of shared memory: too large")
@@ -282,6 +287,8 @@ class _BlockPartials(torch.autograd.Function):
             ctx.save_for_backward(rays_o, rays_d, z, deltas, noise)
             outs = (partials["C"], partials["A"], partials["T"], partials["D"])
             return outs + ((w,) if emit_weights else ())
+        mlp, cfg = padded_widths(mlp, cfg)  # the kernels' widths (the same objects mostly)
+        ctx.kernel_mlp = (mlp, cfg)
         tile = _check_launch(mlp, cfg, rays_o, rays_d, z, deltas, noise, sb)
         pad = -R % tile
         S = z.shape[1]
@@ -309,14 +316,16 @@ class _BlockPartials(torch.autograd.Function):
                 g_w, cfg=cfg, sample_block=sb)
         else:
             o, d, z_p, delta_p, noise_p, tin, w_fwd, w_mma = ctx.saved_tensors
+            mlp_k, cfg_k = ctx.kernel_mlp
             pad = o.shape[0] - ctx.R
             g_ray = torch.cat([g_c, g_a[:, None], g_t[:, None], g_d[:, None]], dim=1).float()
             g_ray = torch.cat([g_ray, g_ray.new_zeros(pad, 6)]).contiguous()
             g_w_p = None
             if g_w is not None:
                 g_w_p = torch.cat([g_w.float(), g_w.new_zeros(pad, z_p.shape[1])]).contiguous()
-            grads = fused_block_partials_bwd(mlp, cfg, o, d, z_p, delta_p, noise_p, tin, g_ray,
-                                             g_w_p, w_fwd, w_mma, sb, ctx.tile)
+            grads = unpad_grads(
+                fused_block_partials_bwd(mlp_k, cfg_k, o, d, z_p, delta_p, noise_p, tin, g_ray,
+                                         g_w_p, w_fwd, w_mma, sb, ctx.tile), cfg, cfg_k)
         return (None, None, None, None, None, None, *grads)
 
 

@@ -1,13 +1,14 @@
 """Novel-view spiral GIF renderer.
 
-Port of tinynerf_tpu/make_gif.py:32-90 (colour only): load a
-TinyNeRF or full-NeRF checkpoint (rebuilding the model from its stored
-cfg), build a
-60-frame spiral path around pose 0 (radius 0.3), render every frame
-and write <out_path> at fps=15, loop=0. Frames are quantized to uint8
-on the device before the copy to the host.
+Port of tinynerf_tpu/make_gif.py:32-90: load a TinyNeRF or full-NeRF
+checkpoint (rebuilding the model from its stored cfg), build a 60-frame
+spiral path around pose 0 (radius 0.3), render every frame and write
+<out_path> at fps=15, loop=0; --depth renders the depth spiral instead
+(the geometry renderer, render.pack_aux: near bright, rays with acc
+below 0.1 black). Frames are quantized to uint8 on the device before the
+copy to the host.
 
-    python -m tinynerf_tpu_torch.make_gif --ckpt-path <ckpt.npz> [--no-fused]
+    python -m tinynerf_tpu_torch.make_gif --ckpt-path <ckpt.npz> [--no-fused] [--depth]
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ class GifConfig:
     far: float = 6.0
     chunk: int = 8192
     fused: bool = True  # render through the fused CUDA kernel
+    depth: bool = False  # the depth spiral (disparity-style tone map) instead of colour
     allow_synthetic: bool = True
     device: str = "cuda"
 
@@ -52,14 +54,19 @@ def main(cfg: GifConfig = GifConfig()) -> np.ndarray:
     model, renderer, meta = load_model_and_renderer(
         cfg.ckpt_path, H=H, W=W, focal=focal, n_samples=cfg.n_samples,
         near=cfg.near, far=cfg.far, chunk=cfg.chunk, fused=cfg.fused,
-        frames=True, device=device,
+        frames=True, aux=cfg.depth, device=device,
     )
     print(f"[ckpt] loaded {cfg.ckpt_path} (step {meta['step']}, model {meta['model']})")
 
     path = spiral_poses(torch.from_numpy(d["poses"][0]).to(device), n_frames=cfg.n_frames,
                         radius=cfg.radius)
     t0 = time.time()
-    frames = (torch.clamp(renderer(model, path), 0.0, 1.0) * 255).to(torch.uint8)
+    out = renderer(model, path)
+    if cfg.depth:
+        # shade = disparity gated on acc >= 0.1, broadcast to grey rgb.
+        shade = (1.0 - out[..., 0]) * (out[..., 1] >= 0.1)
+        out = shade[..., None].expand(*shade.shape, 3)
+    frames = (torch.clamp(out, 0.0, 1.0) * 255).to(torch.uint8)
     frames = frames.cpu().numpy()  # waits for the device
     dt = time.time() - t0
     write_gif(cfg.out_path, list(frames), fps=cfg.fps, loop=0)

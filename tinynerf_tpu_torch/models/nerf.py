@@ -10,9 +10,11 @@ flagship width (hidden 256, depth 8, skip 4, L=10, L_dir=4, rgb_hidden
 64) one MLP has 511,684 parameters.
 
 Parameter names: NeRFMLP holds layers.{i}, sigma, rgb_in and rgb
-(nn.Linear, weight (out, in)); NeRF holds coarse and fine. The JAX
-package stores w as (in, out) in a {'coarse', 'fine'} tree;
-nerf_params_from_jax / nerf_params_to_jax convert.
+(nn.Linear, weight (out, in)); NeRF holds coarse and fine, or with
+parts=("fine",) the single MLP of the occupancy proposal
+(ops/occupancy.py). The JAX package stores w as (in, out) in a
+{'coarse', 'fine'} (or {'fine'}) tree; nerf_params_from_jax /
+nerf_params_to_jax convert.
 
 Matmul inputs are rounded to compute_dtype and products accumulate in
 float32 (models/tinynerf.dense).
@@ -129,7 +131,8 @@ class NeRFMLP(nn.Module):
 
 class NeRF(nn.Module):
     """The coarse and fine MLPs, initialised in that order from one
-    generator."""
+    generator; parts=("fine",) holds the fine MLP alone (the occupancy
+    proposal's model, the JAX package's {'fine': mlp})."""
 
     def __init__(
         self,
@@ -137,11 +140,15 @@ class NeRF(nn.Module):
         *,
         generator: Optional[torch.Generator] = None,
         device: Optional[torch.device] = None,
+        parts: tuple = ("coarse", "fine"),
     ):
         super().__init__()
+        if parts not in (("coarse", "fine"), ("fine",)):
+            raise ValueError(f"parts must be ('coarse', 'fine') or ('fine',), got {parts}")
         self.cfg = cfg
-        self.coarse = NeRFMLP(cfg, generator=generator, device=device)
-        self.fine = NeRFMLP(cfg, generator=generator, device=device)
+        self.parts = parts
+        for part in parts:
+            setattr(self, part, NeRFMLP(cfg, generator=generator, device=device))
 
 
 def view_encoding(rays_d: torch.Tensor, cfg: NeRFConfig) -> Optional[torch.Tensor]:
@@ -190,12 +197,10 @@ def render_rays_hierarchical(
     package's order (tinynerf_tpu/models/nerf.py:155-163): the coarse and
     the fine sigma-noise (N(0, std) * sigma_noise_scale, pre-ReLU, only
     when sigma_noise_std > 0), then the stratified jitter, then
-    sample_pdf's u. The resampling weights carry no gradient. The depth
-    and acc channels (return_aux) come with the aux rendering."""
-    if return_aux:
-        raise NotImplementedError(
-            "return_aux (depth/acc) is not ported yet (ROADMAP.md, queue 1, item 10)"
-        )
+    sample_pdf's u. The resampling weights carry no gradient.
+    return_aux=True returns (comp_coarse, comp_fine, depth_fine (R, 1),
+    acc_fine (R, 1)): the fine pass's composited depth sum(w z) and
+    opacity (tinynerf_tpu/models/nerf.py:211)."""
     if randomized and generator is None:
         raise ValueError("render_rays_hierarchical(randomized=True) requires a generator")
     cfg = cfg or params.cfg
@@ -222,7 +227,10 @@ def render_rays_hierarchical(
     pts_f = rays_o[:, None, :] + rays_d[:, None, :] * z_union[..., None]
 
     rgb_f, sigma_f = run_mlp(params.fine, pts_f, d_enc_ray, cfg, sigma_noise=noise_f)
-    comp_f, _, _, _ = volume_render(rgb_f, sigma_f, z_union, rays_d, white_bkgd=white_bkgd)
+    comp_f, depth_f, acc_f, _ = volume_render(rgb_f, sigma_f, z_union, rays_d,
+                                              white_bkgd=white_bkgd)
+    if return_aux:
+        return comp_c, comp_f, depth_f, acc_f
     return comp_c, comp_f
 
 
@@ -256,10 +264,12 @@ def _linear_from_jax(tree, prefix: str, out: dict) -> None:
 
 
 def nerf_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX {'coarse', 'fine'} params tree of numpy arrays (w as (in,
-    out)) -> a state_dict for NeRF.load_state_dict."""
+    """JAX {'coarse', 'fine'} (or {'fine'}) params tree of numpy arrays (w
+    as (in, out)) -> a state_dict for NeRF.load_state_dict."""
     out: Dict[str, torch.Tensor] = {}
     for part in ("coarse", "fine"):
+        if part not in tree:
+            continue
         mlp = tree[part]
         for i, layer in enumerate(mlp["layers"]):
             _linear_from_jax(layer, f"{part}.layers.{i}", out)
@@ -291,4 +301,5 @@ def nerf_state_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             "sigma": lin(f"{part}.sigma"),
         }
 
-    return {"coarse": mlp("coarse"), "fine": mlp("fine")}
+    return {part: mlp(part) for part in ("coarse", "fine")
+            if any(k.startswith(f"{part}.") for k in sd)}

@@ -1,8 +1,9 @@
 """Pinhole-camera ray generation.
 
-Port of tinynerf_tpu/ops/rays.py:19-55, 87-99: pixel grid in "xy"
-indexing, camera looks along -z, directions rotated by c2w[:3,:3] and
-unit-normalized, origins broadcast from c2w[:3,3].
+Port of tinynerf_tpu/ops/rays.py:19-99: pixel grid in "xy" indexing,
+camera looks along -z, directions rotated by c2w[:3,:3] and
+unit-normalized, origins broadcast from c2w[:3,3]; ndc_rays reprojects
+rays of a forward-facing capture to NDC space.
 """
 
 from __future__ import annotations
@@ -40,6 +41,31 @@ def get_rays(H: int, W: int, focal, c2w: torch.Tensor):
     rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
     rays_o = c2w[:3, 3].expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def ndc_rays(H: int, W: int, focal, near, rays_o: torch.Tensor, rays_d: torch.Tensor):
+    """Rays of a forward-facing capture in NDC space (the NeRF paper's
+    appendix C; tinynerf_tpu/ops/rays.py:58-84): origins shifted to the
+    z = -near plane, then the projective map that sends the viewing
+    frustum to the [-1, 1]^3 cube, so uniform t in [0, 1] is uniform
+    disparity in world space. Needs dz < 0 on every ray. The directions
+    come out unnormalised: their norm scales the deltas, as in the JAX
+    package. Works on any leading shape (..., 3); float32, elementwise in
+    the JAX package's order."""
+    rays_o = torch.as_tensor(rays_o, dtype=torch.float32)
+    rays_d = torch.as_tensor(rays_d, dtype=torch.float32)
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    ox, oy, oz = rays_o[..., 0], rays_o[..., 1], rays_o[..., 2]
+    dx, dy, dz = rays_d[..., 0], rays_d[..., 1], rays_d[..., 2]
+    o0 = -focal / (0.5 * W) * ox / oz
+    o1 = -focal / (0.5 * H) * oy / oz
+    o2 = 1.0 + 2.0 * near / oz
+    d0 = -focal / (0.5 * W) * (dx / dz - ox / oz)
+    d1 = -focal / (0.5 * H) * (dy / dz - oy / oz)
+    d2 = -2.0 * near / oz
+    return torch.stack([o0, o1, o2], dim=-1), torch.stack([d0, d1, d2], dim=-1)
 
 
 def get_rays_for_poses(H: int, W: int, focal, c2ws: torch.Tensor):

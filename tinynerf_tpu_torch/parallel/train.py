@@ -214,6 +214,19 @@ def mean_over(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     return x
 
 
+def mean_grads(model, mesh: Mesh, axes) -> None:
+    """Each parameter's .grad (zero where there is none) averaged over the
+    ranks of each axis in turn, in one collective over the flat gradient."""
+    params = list(model.parameters())
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    flat = mean_over(flat, mesh, axes)
+    off = 0
+    for p in params:
+        p.grad = flat[off:off + p.numel()].view_as(p)
+        off += p.numel()
+
+
 def make_sharded_train_block(
     s: TrainSettings,
     block_size: int,
@@ -282,14 +295,7 @@ def make_sharded_train_block(
                     value, metrics = _sharded_loss(model, ro, rd, target, gen, s, mesh, key,
                                                    scale)
                 value.backward()
-        params = list(model.parameters())
-        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                          for p in params])
-        flat = mean_over(flat, mesh, (SAMPLE_AXIS, DATA_AXIS))
-        off = 0
-        for p in params:
-            p.grad = flat[off:off + p.numel()].view_as(p)
-            off += p.numel()
+        mean_grads(model, mesh, (SAMPLE_AXIS, DATA_AXIS))
         if extra_grad_fn is not None:
             add_extra_grads(model, seed, step, rays_o_all.device, extra_grad_fn)
         optimizer.step()

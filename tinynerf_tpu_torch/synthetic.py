@@ -1,11 +1,12 @@
 """Procedural synthetic NeRF dataset (offline stand-in for tiny_nerf_data.npz).
 
 Port of the default sphere scene of tinynerf_tpu/synthetic.py:30-90,
-193-217, 250-337: colored soft-edged spheres with an analytic
+193-337: colored soft-edged spheres with an analytic
 emission/absorption field, ground truth rendered with the same
 volume-rendering equation (dense 256-sample quadrature). Camera
 geometry mimics the real dataset: 106 poses on the upper hemisphere at
-radius ~4.03 looking at the origin, 100x100 images, focal ~138.9 px.
+radius ~4.03 looking at the origin, 100x100 images, focal ~138.9 px; or
+(forward_facing=True, the --ndc scene) an LLFF-style one-sided capture.
 Poses are made with numpy, exactly as in the JAX package; the images
 are rendered with torch on the requested device.
 """
@@ -90,6 +91,28 @@ def hemisphere_poses(n: int = N_POSES, radius: float = RADIUS) -> np.ndarray:
     return np.stack(poses).astype(np.float32)
 
 
+def forward_facing_poses(n: int = 20, distance: float = 2.2, spread: float = 0.5,
+                         seed: int = 0) -> np.ndarray:
+    """LLFF-style forward-facing capture: cameras clustered on the +z side
+    of the scene, all looking toward the origin, so every ray has dz < 0
+    (the precondition of ops/rays.ndc_rays). distance 2.2 puts the sphere
+    cluster at camera depth ~1.5-3, NDC t ~0.3-0.7 (near plane 1.0).
+    np.random.RandomState(seed) draws the eyes, as in
+    tinynerf_tpu/synthetic.py:220-247, so the poses match bit for bit."""
+    rng = np.random.RandomState(seed)
+    poses = []
+    for _ in range(n):
+        eye = np.array(
+            [
+                spread * (rng.rand() - 0.5) * 2.0,
+                spread * (rng.rand() - 0.5) * 2.0,
+                distance + 0.4 * (rng.rand() - 0.5),
+            ]
+        )
+        poses.append(look_at_pose(eye))
+    return np.stack(poses).astype(np.float32)
+
+
 @torch.no_grad()
 def render_ground_truth(
     pose: torch.Tensor,
@@ -117,11 +140,14 @@ def render_ground_truth(
 
 
 def generate_synthetic_dataset(
-    n_poses: int = N_POSES, h: int = H, w: int = W, device="cpu"
+    n_poses: int = N_POSES, h: int = H, w: int = W, device="cpu", forward_facing: bool = False
 ) -> Dict[str, np.ndarray]:
-    """Dataset dict {images, poses, focal} with the npz schema (numpy)."""
+    """Dataset dict {images, poses, focal} with the npz schema (numpy).
+    forward_facing=True takes forward_facing_poses (seed 0) instead of the
+    hemisphere orbit: the --ndc training scene, its ground truth still
+    rendered in world space (NDC is a training-time reparameterization)."""
     focal = FOCAL * (h / H)
-    poses = hemisphere_poses(n_poses)
+    poses = forward_facing_poses(n_poses, seed=0) if forward_facing else hemisphere_poses(n_poses)
     images = np.stack(
         [
             render_ground_truth(torch.from_numpy(p).to(device), h=h, w=w, focal=focal).cpu().numpy()

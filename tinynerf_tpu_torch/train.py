@@ -1,11 +1,13 @@
 """Training driver: `python -m tinynerf_tpu_torch.train --iters 20000 ...`
 
-Port of the TinyNeRF and full-NeRF (coarse proposal) branches of
-tinynerf_tpu/train.py:36-738: seed and data, model and optimizer
+Port of the TinyNeRF and full-NeRF (coarse or occupancy proposal)
+branches of tinynerf_tpu/train.py:36-738: seed and data, model and optimizer
 (training.make_optimizer's levers: the lr schedule, AdamW, the EMA),
 resume of params, optimizer and step from the checkpoint, rays
-precomputed for every pose, an optional tail or strided holdout, the
-sparsity prior over the capture's box, steps in blocks cut at every
+precomputed for every pose (reprojected to NDC space with --ndc, before
+the holdout: a forward-facing capture samples t in [0, 1]), an optional
+tail or strided holdout, the sparsity prior over the capture's box (the
+NDC cube [-1, 1]^3 with --ndc), steps in blocks cut at every
 log/preview/checkpoint/eval boundary, a log line and a JSONL record every
 log_every, the sigma-death watchdog (a run pinned at the background's
 PSNR saves its checkpoint and exits with code 3), held-out evaluations
@@ -23,8 +25,13 @@ models/nerf.make_hierarchical_loss for --model nerf) with autograd:
 TinyNeRF through K2 (kernels/fused_train.py), the full NeRF through K4
 for the coarse pass and K4 or the streamed K6 for the fine pass
 (kernels/fused_nerf_train.py). The NeRF's previews and evaluation render
-through the hierarchical renderer (K3/K5 with --fused). Metrics stay on
-the device inside a block; the host reads them only at a log point.
+through the hierarchical renderer (K3/K5 with --fused). --proposal
+occupancy trains one MLP on n_samples + n_fine depths proposed by a
+density grid over the capture's box (ops/occupancy.py; the grid rebuilt
+once per block), its gradients through the streamed K6 (or autograd with
+--no-fused-train), and renders through the occupancy renderer (K5 with
+--fused); it takes --data-parallel, not --sample-parallel. Metrics stay
+on the device inside a block; the host reads them only at a log point.
 
 Parallel training (tinynerf_tpu/train.py:53-62, 219-258, 361-381):
 --data-parallel (or --distributed) joins the launcher's process group
@@ -60,9 +67,14 @@ from tinynerf_tpu_torch.config import Config
 from tinynerf_tpu_torch.data import ensure_data
 from tinynerf_tpu_torch.evaluation import evaluate_views
 from tinynerf_tpu_torch.main import _sync
-from tinynerf_tpu_torch.ops.rays import get_rays_for_poses
+from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays, default_aabb
+from tinynerf_tpu_torch.ops.rays import get_rays_for_poses, ndc_rays
 from tinynerf_tpu_torch.models.nerf import NeRF, make_hierarchical_loss
-from tinynerf_tpu_torch.render import make_hierarchical_image_renderer, make_image_renderer
+from tinynerf_tpu_torch.render import (
+    make_hierarchical_image_renderer,
+    make_image_renderer,
+    make_occupancy_image_renderer,
+)
 from tinynerf_tpu_torch.training import (
     SigmaDeathDetector,
     background_psnr,
@@ -116,13 +128,11 @@ def main(cfg: Config = Config()) -> dict:
         )
     if cfg.proposal not in ("coarse", "occupancy"):
         raise ValueError(f"unknown proposal {cfg.proposal!r} (coarse|occupancy)")
-    if cfg.proposal == "occupancy":
-        if cfg.model != "nerf":
-            raise ValueError("--proposal occupancy requires --model nerf")
-        raise NotImplementedError(
-            "the occupancy proposal is not ported yet (ROADMAP.md, queue 1, item 11)"
-        )
+    if cfg.proposal == "occupancy" and cfg.model != "nerf":
+        raise ValueError("--proposal occupancy requires --model nerf (the grid proposes samples "
+                         "for the single NeRF MLP)")
     nerf = cfg.model == "nerf"
+    occupancy = nerf and cfg.proposal == "occupancy"
     t_start = time.time()
     device = torch.device(cfg.device)
     owns_group = False  # this run joined the process group, and leaves it
@@ -147,6 +157,10 @@ def main(cfg: Config = Config()) -> dict:
     # Parallelism flag validation: a misconfiguration fails loud, never
     # silently trains another layout than the one requested.
     if cfg.sample_parallel > 1:
+        if occupancy:
+            raise ValueError(
+                "--proposal occupancy does not compose with --sample-parallel (the grid proposal "
+                "has no per-pass composite to shard); it does support --data-parallel")
         if cfg.fused_train and not nerf:
             raise ValueError(
                 "--fused-train with --sample-parallel > 1 is only implemented for --model nerf "
@@ -203,10 +217,13 @@ def main(cfg: Config = Config()) -> dict:
     loss = init_fn = None
     if nerf:
         ncfg = cfg.nerf_cfg()
-        loss = make_hierarchical_loss(ncfg, n_fine=cfg.n_fine)
+        # The occupancy proposal's model is the fine MLP alone; its loss
+        # lives in the block (the grid is rebuilt once per block).
+        parts = ("fine",) if occupancy else ("coarse", "fine")
+        loss = None if occupancy else make_hierarchical_loss(ncfg, n_fine=cfg.n_fine)
 
         def init_fn(generator, dev):
-            return NeRF(ncfg, generator=generator, device=dev)
+            return NeRF(ncfg, generator=generator, device=dev, parts=parts)
 
     model, optimizer = init_train_state(
         torch.Generator().manual_seed(cfg.seed), settings, device=device, init_fn=init_fn
@@ -218,9 +235,15 @@ def main(cfg: Config = Config()) -> dict:
         print(f"[resume] loaded {cfg.ckpt_path} from step {start_step}")
 
     rays_o_all, rays_d_all = get_rays_for_poses(H, W, focal, poses)
+    if cfg.ndc:
+        # A forward-facing capture: every ray in NDC space (near plane 1.0),
+        # before the holdout and any sharding; sampling runs over t in [0, 1]
+        # (train_settings() swaps near/far).
+        rays_o_all, rays_d_all = ndc_rays(H, W, focal, 1.0, rays_o_all, rays_d_all)
+        print("[ndc] rays reprojected to NDC space (sampling t in [0,1])")
     pixels = images.reshape(n_images, H * W, 3)
-    # The sparsity prior's box bounds every pose's sample points, the
-    # held-out ones included.
+    # The sparsity prior's and the occupancy grid's box bounds every pose's
+    # sample points, the held-out ones included.
     rays_o_full, rays_d_full = rays_o_all, rays_d_all
 
     n_train = n_images - cfg.holdout
@@ -248,21 +271,33 @@ def main(cfg: Config = Config()) -> dict:
         raise ValueError("--eval-every > 0 requires --holdout > 0 (nothing held out to evaluate; "
                          "it would silently score training views)")
 
+    # The scene box: the NDC cube under --ndc, else the box of every ray's
+    # [near, far] segment.
+    scene_aabb = (default_aabb(1.0, device=device) if cfg.ndc
+                  else aabb_from_rays(rays_o_full, rays_d_full, cfg.near, cfg.far))
     extra_grad_fn = None
     if cfg.sigma_sparsity > 0:
-        from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays
         from tinynerf_tpu_torch.ops.regularizers import make_sparsity_grad_fn
 
         extra_grad_fn = make_sparsity_grad_fn(
             settings, cfg.model, nerf_cfg=ncfg if nerf else None, lam=cfg.sigma_sparsity,
-            n_points=cfg.sigma_sparsity_points,
-            aabb=aabb_from_rays(rays_o_full, rays_d_full, cfg.near, cfg.far))
+            n_points=cfg.sigma_sparsity_points, aabb=scene_aabb)
         print(f"[train] free-space sparsity prior: lam={cfg.sigma_sparsity} over "
               f"{cfg.sigma_sparsity_points} pts/step")
 
     grad_fn = None
-    if cfg.fused_train and cfg.sample_parallel <= 1:
-        on_card = device.type == "cuda"
+    on_card = device.type == "cuda"
+    if occupancy:
+        # One MLP takes the whole quadrature budget, n_samples + n_fine
+        # depths from the grid.
+        occ_settings = dataclasses.replace(settings, n_samples=cfg.n_samples + cfg.n_fine)
+        if cfg.fused_train:
+            where = "CUDA kernel" if on_card else "its plain version on the CPU"
+            print(f"[train] occupancy proposal + the streamed fused kernel K6 ({where}; grid "
+                  "rebuilt once per block)")
+        else:
+            print("[train] occupancy proposal (grid rebuilt once per block)")
+    elif cfg.fused_train and cfg.sample_parallel <= 1:
         route = "CUDA kernel" if on_card else "its plain version on the CPU"
         if nerf:
             from tinynerf_tpu_torch.kernels.fused_nerf_train import (
@@ -283,25 +318,37 @@ def main(cfg: Config = Config()) -> dict:
             grad_fn = make_fused_grad_fn(settings)
         print(f"[train] fused fwd+bwd train route: {route}")
 
-    if nerf:
+    eff_near, eff_far = (0.0, 1.0) if cfg.ndc else (cfg.near, cfg.far)
+    if occupancy:
+        renderer = make_occupancy_image_renderer(
+            H=H, W=W, focal=focal, chunk=min(cfg.chunk, 4096),
+            n_samples=cfg.n_samples + cfg.n_fine, near=eff_near, far=eff_far, nerf_cfg=ncfg,
+            use_fused=cfg.fused, ndc=cfg.ndc, aabb=scene_aabb,
+        )
+    elif nerf:
         renderer = make_hierarchical_image_renderer(
             H=H, W=W, focal=focal, chunk=min(cfg.chunk, 4096), n_coarse=cfg.n_samples,
-            n_fine=cfg.n_fine, near=cfg.near, far=cfg.far, nerf_cfg=ncfg, use_fused=cfg.fused,
+            n_fine=cfg.n_fine, near=eff_near, far=eff_far, nerf_cfg=ncfg, use_fused=cfg.fused,
+            ndc=cfg.ndc,
         )
-        mcfg = {
-            "hidden": cfg.hidden, "depth": cfg.nerf_depth, "skip_at": cfg.nerf_skip_at,
-            "num_freqs": cfg.num_freqs, "num_freqs_dir": cfg.num_freqs_dir,
-            "rgb_hidden": cfg.rgb_hidden, "n_fine": cfg.n_fine, "ndc": False,
-            "proposal": cfg.proposal,
-        }
     else:
         renderer = make_image_renderer(
             H=H, W=W, focal=focal, chunk=cfg.chunk, n_samples=cfg.n_samples,
-            near=cfg.near, far=cfg.far, num_freqs=cfg.num_freqs,
-            model_cfg=cfg.model_cfg(), use_fused=cfg.fused,
+            near=eff_near, far=eff_far, num_freqs=cfg.num_freqs,
+            model_cfg=cfg.model_cfg(), use_fused=cfg.fused, ndc=cfg.ndc,
         )
+    if nerf:
+        mcfg = {
+            "hidden": cfg.hidden, "depth": cfg.nerf_depth, "skip_at": cfg.nerf_skip_at,
+            "num_freqs": cfg.num_freqs, "num_freqs_dir": cfg.num_freqs_dir,
+            "rgb_hidden": cfg.rgb_hidden, "n_fine": cfg.n_fine, "ndc": cfg.ndc,
+            "proposal": cfg.proposal,
+            # The grid's box: a renderer must rebuild the sampler over it.
+            **({"occ_aabb": scene_aabb.cpu().tolist()} if occupancy else {}),
+        }
+    else:
         mcfg = {"hidden": cfg.hidden, "depth": cfg.depth, "skip_at": cfg.skip_at,
-                "num_freqs": cfg.num_freqs, "ndc": False}
+                "num_freqs": cfg.num_freqs, "ndc": cfg.ndc}
 
     meta = {
         "in_dim": cfg.model_cfg().in_dim,
@@ -354,7 +401,21 @@ def main(cfg: Config = Config()) -> dict:
                   f"train PSNR pins within {cfg.death_margin} dB of it for {cfg.death_window} "
                   f"log points after step {cfg.death_grace})")
 
-    if cfg.data_parallel and world > 1:
+    if occupancy:
+        from tinynerf_tpu_torch.ops.occupancy import make_occupancy_train_block
+
+        occ_mesh = None
+        if cfg.data_parallel and world > 1:
+            from tinynerf_tpu_torch.parallel.mesh import make_mesh
+
+            occ_mesh = make_mesh()
+            print(f"[train] mesh: data {occ_mesh.n_data} x sample 1 over {world} ranks")
+
+        def block_factory(n):
+            return make_occupancy_train_block(occ_settings, n, ncfg, fused=cfg.fused_train,
+                                              aabb=scene_aabb, mesh=occ_mesh,
+                                              extra_grad_fn=extra_grad_fn)
+    elif cfg.data_parallel and world > 1:
         from tinynerf_tpu_torch.parallel.mesh import make_mesh
         from tinynerf_tpu_torch.parallel.train import make_sharded_train_block
 

@@ -1,10 +1,12 @@
 """Checkpoint-driven model reconstruction for the render drivers.
 
-Port of the TinyNeRF and NeRF (coarse proposal) branches of
+Port of the TinyNeRF and NeRF (coarse or occupancy proposal) branches of
 tinynerf_tpu/utils/model_io.py:18-152: rebuild the model from the
 checkpoint's stored cfg (with the reference's defaults), load its
-parameters and build a matching image renderer. The occupancy proposal
-and the grid family are not ported yet.
+parameters and build a matching image renderer. An NDC checkpoint
+renders with reprojected rays over t in [0, 1]; an occupancy checkpoint
+holds the fine MLP alone and rebuilds its sampler over the stored
+occ_aabb. The grid family is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +18,12 @@ import torch
 from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import encoding_dim
-from tinynerf_tpu_torch.render import make_hierarchical_image_renderer, make_image_renderer
+from tinynerf_tpu_torch.ops.occupancy import default_aabb
+from tinynerf_tpu_torch.render import (
+    make_hierarchical_image_renderer,
+    make_image_renderer,
+    make_occupancy_image_renderer,
+)
 from tinynerf_tpu_torch.utils import checkpoint as ckpt_lib
 
 
@@ -33,14 +40,19 @@ def load_model_and_renderer(
     fused: bool = True,
     frames: bool = False,
     n_fine: Optional[int] = None,
+    aux: bool = False,
     device="cuda",
 ):
     """-> (model, renderer, meta); renderer is (model, pose) -> image, or
-    with frames=True (model, poses (F,4,4)) -> (F,H,W,3).
+    with frames=True (model, poses (F,4,4)) -> (F,H,W,3); aux=True builds
+    the geometry renderer (packed (depth, acc) pseudo-images,
+    render.pack_aux).
 
     n_fine (None = the checkpoint's fine-sample count) overrides the
-    full NeRF's fine-sample budget; an explicit 0 means zero fine
-    samples. The NeRF renders in chunks of min(chunk, 4096) rays."""
+    full NeRF's fine-sample budget (for the occupancy proposal: its
+    budget is n_samples + n_fine); an explicit 0 means zero fine
+    samples. The NeRF renders in chunks of min(chunk, 4096) rays. An NDC
+    checkpoint samples near 0, far 1 whatever near and far say."""
     meta = ckpt_lib.read_meta(ckpt_path)["meta"]
     mcfg = meta.get("cfg", {"hidden": 128, "depth": 4, "skip_at": 2, "num_freqs": 10})
     model_kind = meta.get("model", "tinynerf")
@@ -48,17 +60,15 @@ def load_model_and_renderer(
         raise NotImplementedError(
             f"model {model_kind!r} is not ported yet (ROADMAP.md, queue 1, item 12)"
         )
-    if mcfg.get("ndc", False):
-        raise NotImplementedError("NDC checkpoints are not ported yet (ROADMAP.md, queue 1, item 10)")
+    # NDC training bakes the ray parameterization into the weights: the
+    # renderer reprojects the same way and samples t in [0, 1].
+    ndc = bool(mcfg.get("ndc", False))
+    if ndc:
+        near, far = 0.0, 1.0
     num_freqs = mcfg.get("num_freqs", 10)
     # The fixed-seed init is a template only: restore_params overwrites it.
     template = torch.Generator().manual_seed(0)
     if model_kind == "nerf":
-        if mcfg.get("proposal", "coarse") == "occupancy":
-            raise NotImplementedError(
-                "occupancy-proposal NeRF checkpoints are not ported yet "
-                "(ROADMAP.md, queue 1, item 11)"
-            )
         ncfg = NeRFConfig(
             num_freqs=num_freqs,
             num_freqs_dir=mcfg.get("num_freqs_dir", 4),
@@ -67,12 +77,27 @@ def load_model_and_renderer(
             skip_at=mcfg["skip_at"],
             rgb_hidden=mcfg.get("rgb_hidden", 64),
         )
-        model = NeRF(ncfg, generator=template, device=device)
-        renderer = make_hierarchical_image_renderer(
-            H=H, W=W, focal=focal, chunk=min(chunk, 4096), n_coarse=n_samples,
-            n_fine=n_fine if n_fine is not None else mcfg.get("n_fine", 64),
-            near=near, far=far, nerf_cfg=ncfg, use_fused=fused, frames=frames,
-        )
+        n_fine = n_fine if n_fine is not None else mcfg.get("n_fine", 64)
+        if mcfg.get("proposal", "coarse") == "occupancy":
+            # One MLP; the sampler (the density grid) is rebuilt from it in
+            # the renderer over the box training stored.
+            if mcfg.get("occ_aabb") is not None:
+                aabb = torch.tensor(mcfg["occ_aabb"], dtype=torch.float32)
+            else:
+                aabb = default_aabb(1.0) if ndc else None
+            model = NeRF(ncfg, generator=template, device=device, parts=("fine",))
+            renderer = make_occupancy_image_renderer(
+                H=H, W=W, focal=focal, chunk=min(chunk, 4096), n_samples=n_samples + n_fine,
+                near=near, far=far, nerf_cfg=ncfg, use_fused=fused, frames=frames, ndc=ndc,
+                aabb=aabb, aux=aux,
+            )
+        else:
+            model = NeRF(ncfg, generator=template, device=device)
+            renderer = make_hierarchical_image_renderer(
+                H=H, W=W, focal=focal, chunk=min(chunk, 4096), n_coarse=n_samples,
+                n_fine=n_fine, near=near, far=far, nerf_cfg=ncfg, use_fused=fused,
+                frames=frames, ndc=ndc, aux=aux,
+            )
     else:
         model_cfg = TinyNeRFConfig(
             in_dim=encoding_dim(num_freqs),
@@ -84,7 +109,7 @@ def load_model_and_renderer(
         renderer = make_image_renderer(
             H=H, W=W, focal=focal, chunk=chunk, n_samples=n_samples, near=near,
             far=far, num_freqs=num_freqs, model_cfg=model_cfg, use_fused=fused,
-            frames=frames,
+            frames=frames, ndc=ndc, aux=aux,
         )
     step, _ = ckpt_lib.restore_params(ckpt_path, model)
     meta["step"] = step

@@ -201,6 +201,27 @@ Phases, each printed with its result and time:
                 --data-parallel --sample-parallel 2`, 5 steps (K7 on the
                 tensor cores); then a short `--proposal occupancy --ndc` run
                 (the NDC cube as the box).
+ 34. grid     - the grid family (models/grid_nerf.py, eager torch, no
+                kernel) at the JAX package's default width (8 levels 16-128,
+                4 dense, tables of 2^17, hidden 64; 1,273,971 parameters),
+                bf16, the README recipe (pool, lr 0.01, noise decay 1000):
+                1000 steps, train PSNR up >= 3 dB (the JAX package's 25.30
+                dB at step 1000 printed beside it), a resume to 1200
+                bit-identical to an uninterrupted 1200, `eval
+                --holdout-views --save-depth` and `make_gif --depth`; 2-rank
+                `--data-parallel` (bit-identical), `--ndc` 20 steps (the NDC
+                cube as the box), the regularized levers with the prior 50
+                steps; none of K1-K7 launched; the step, a 100x100 image and
+                the step's device share (torch.profiler) timed.
+ 35. scenes   - `python -m tinynerf_tpu_torch.synthetic --scene lattice` on
+                the card, timed, three of its poses rendered again on the
+                CPU within 1e-4, its white share; seeds 1 and 2 distinct and
+                finite; the lattice's flagship precrop probe (hidden 256, 64
+                + 128 samples, pool, precrop 500, noise decay 2000), 2000
+                steps: K4 and K6 once a step on the tensor cores, no
+                sigma_death record, train PSNR >= 14.5 dB, held-out through
+                K3 printed beside the JAX package's 31.05 dB; as a reading,
+                the same probe without precrop under a tightened watchdog.
 
 Weights are random from a seed throughout. The line before the kernels
 line gives the seconds of all phases.
@@ -247,6 +268,7 @@ FLIP_ERR = 3e-2
 # the rate for the kernels' bf16 inputs and the device memory's rate.
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores (the CUDA-core walks)
 
 
 def macs_per_point(module: torch.nn.Module) -> int:
@@ -2593,6 +2615,24 @@ def run_slice() -> None:
             print(f"[timing] {card}: bf16 at hidden 48, rgb_hidden 64, on the CUDA cores, {R} "
                   f"rays: {json.dumps(f3_times)} (all runs "
                   f"{json.dumps({f'{w} {i}': v for (w, i), v in times.items()})})", flush=True)
+            # Their bounds: operations (the forward MACs of a point for a
+            # render, train_macs_per_point for a training pass) over the
+            # bf16 peak, as the kernels line counts them, and over the f32
+            # peak outside the tensor cores (the walk these widths take);
+            # bytes: rays, depths, target, parameters in, gradients or
+            # weights out, once.
+            m_f, m_t = macs_per_point(mlp), train_macs_per_point(mlp)
+            n_p = sum(p.numel() for p in mlp.parameters())
+            work = {"K3": (2 * R * 64 * m_f, R * (6 + 64) + n_p + R * (3 + 64)),
+                    "K5": (2 * R * 192 * m_f, R * (6 + 192) + n_p + R * 3),
+                    "K4": (2 * R * 64 * m_t, R * (9 + 64) + 2 * n_p + R * 64 * 2),
+                    "K6": (2 * R * 192 * m_t, R * (9 + 192) + 2 * n_p),
+                    "K7 pair": (2 * R * 96 * m_t, R * (6 + 2 * 96 + 6) + 2 * n_p + R * 6)}
+            bounds = {k: {"GFLOP": f / 1e9, "bf16_peak_ms": f / PEAK_FLOPS * 1e3,
+                          "f32_peak_ms": f / PEAK_F32_FLOPS * 1e3,
+                          "bytes_ms": 4 * b / PEAK_BYTES * 1e3} for k, (f, b) in work.items()}
+            print(f"[timing] their bounds at hidden 48, rgb_hidden 64 ({m_f} forward MAC a point, "
+                  f"{m_t} training): {json.dumps(bounds)}", flush=True)
     h48 = Config(model="nerf", hidden=48, n_fine=64, iters=F3_TRAIN_ITERS, log_every=10,
                  data_path=data_path, resume=False, out_dir=os.path.join(OUT_DIR, "nerf48_64"),
                  ckpt_path=os.path.join(OUT_DIR, "nerf48_64.npz"),
@@ -2888,6 +2928,387 @@ def run_slice() -> None:
     print(f"[occupancy] ok in {time.time() - t0:.2f}s", flush=True)
 
 
+GRID_ITERS = 1000  # phase 34: the grid recipe, then a resume to +200
+GRID_DP_ITERS = 10  # phase 34: the 2-rank data-parallel grid run
+GRID_NDC_ITERS = 20  # phase 34: --model grid --ndc
+GRID_REG_ITERS = 50  # phase 34: the regularized grid levers
+LATTICE_ITERS = 2000  # phase 35: the lattice's flagship precrop probe
+LATTICE_NO_PRECROP_ITERS = 600  # phase 35: the same recipe without precrop (a reading)
+LATTICE_SHAPE = (106, 100, 100)  # phase 35: the lattice capture, the JAX package's default
+LATTICE_CPU_POSES = (0, 53, 105)  # phase 35: lattice poses rendered again on the CPU
+# The grid recipe (README's, as the JAX package's r4 grid legs ran it,
+# benchmarks/grid_r4.sh) and the lattice's flagship precrop probe
+# (benchmarks/hardscene_r5.sh p1_precrop).
+GRID_RECIPE = dict(model="grid", lr=0.01, lr_decay_steps=20000, ray_sampling="pool",
+                   sigma_noise_std=1.0, sigma_noise_decay_steps=1000, holdout=4)
+LATTICE_RECIPE = dict(model="nerf", hidden=256, n_fine=128, ray_sampling="pool",
+                      sigma_noise_std=1.0, sigma_noise_decay_steps=2000, precrop_iters=500,
+                      precrop_frac=0.5, lr_decay_steps=20000, holdout=4)
+JAX_GRID_PSNR_1000 = 25.30  # benchmarks/r4/grid20k_train.jsonl, step 1000 (a TPU run)
+JAX_LATTICE_HELDOUT_2000 = 31.05  # benchmarks/r5/p1_precrop_train.jsonl, step 2000 (a TPU run)
+LATTICE_MIN_PSNR = 14.5  # benchmarks/pick_hard_winner.py:19: the background floor + ~3 dB
+
+
+def _all_kernels():
+    from tinynerf_tpu_torch.kernels.fused_nerf import fused_nerf_render_rays
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed, fused_nerf_render_rays_streamed,
+    )
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import fused_nerf_pass_grads
+    from tinynerf_tpu_torch.kernels.fused_partials import (
+        fused_block_partials_bwd, fused_block_partials_fwd,
+    )
+    from tinynerf_tpu_torch.kernels.fused_render import fused_render_rays
+    from tinynerf_tpu_torch.kernels.fused_train import fused_loss_grads
+
+    return {"K1": fused_render_rays, "K2": fused_loss_grads, "K3": fused_nerf_render_rays,
+            "K4": fused_nerf_pass_grads, "K5": fused_nerf_render_rays_streamed,
+            "K6": fused_nerf_pass_grads_streamed, "K7 fwd": fused_block_partials_fwd,
+            "K7 bwd": fused_block_partials_bwd}
+
+
+def run_grid() -> None:
+    """Phase 34: the grid family (no kernel, eager torch) at the JAX
+    package's default width."""
+    import dataclasses
+
+    import numpy as np
+
+    from tinynerf_tpu_torch import eval as eval_mod
+    from tinynerf_tpu_torch import make_gif as gif_mod
+    from tinynerf_tpu_torch import train as train_mod
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.data import ensure_data
+    from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, make_grid_loss
+    from tinynerf_tpu_torch.models.tinynerf import count_params
+    from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays
+    from tinynerf_tpu_torch.ops.rays import get_rays_for_poses
+    from tinynerf_tpu_torch.render import make_grid_image_renderer
+    from tinynerf_tpu_torch.training import make_train_step, settings_optimizer, step_generator
+    from tinynerf_tpu_torch.utils.checkpoint import read_meta, restore_params
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kernels = _all_kernels()
+
+    def reset():
+        for k in kernels.values():
+            k.launches = k.mma_launches = 0
+
+    def counts():
+        return {n: (k.launches, k.mma_launches) for n, k in kernels.items()}
+
+    none = {n: (0, 0) for n in kernels}
+    data_path = os.path.join(OUT_DIR, "absent.npz")  # phase 3's synthetic scene
+    d = ensure_data(data_path, device=dev)
+    images = torch.from_numpy(d["images"]).to(dev)
+    poses = torch.from_numpy(d["poses"]).to(dev)
+    focal = float(d["focal"])
+    n_images, H, W, _ = images.shape
+
+    # 34. (a) the recipe, 1000 steps, a resume to 1200 and an uninterrupted
+    #     1200 (bit-identical); eval and the depth GIF
+    #     from the checkpoint; no kernel launched anywhere in the phase.
+    t0 = time.time()
+    reset()
+
+    def grid_cfg(tag, **kw):
+        base = dict(GRID_RECIPE, data_path=data_path, iters=GRID_ITERS, resume=False,
+                    out_dir=os.path.join(OUT_DIR, tag), ckpt_path=os.path.join(OUT_DIR, f"{tag}.npz"),
+                    metrics_path=os.path.join(OUT_DIR, f"{tag}.jsonl"))
+        base.update(kw)
+        cfg = Config(**base)
+        if os.path.exists(cfg.metrics_path) and not cfg.resume:
+            os.unlink(cfg.metrics_path)
+        return cfg
+
+    gcfg = grid_cfg("grid")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train_mod.main(gcfg)
+    text = out.getvalue()
+    print("\n".join(line for line in text.splitlines()
+                    if line.startswith(("[model]", "[train] grid", "[eval]", "[done]"))), flush=True)
+    psnrs = logged_psnrs(gcfg.metrics_path)
+    model = res["model"]
+    print(f"[grid] train --model grid (the README recipe), {GRID_ITERS} steps of {gcfg.n_rand} rays "
+          f"x {gcfg.n_samples} samples, bf16, {count_params(model):,} parameters, levels "
+          f"{model.cfg.level_resolutions()}: train PSNR {psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB (the JAX "
+          f"package's r4 leg read {JAX_GRID_PSNR_1000} dB at step {GRID_ITERS}, a TPU run), held-out "
+          f"{res['eval']['psnr_mean']:.2f} dB, {res['rays_per_sec']:,.0f} rays/s", flush=True)
+    check(isinstance(model, GridNeRF) and count_params(model) == 1273971
+          and sum(model.cfg.level_is_dense()) == 4 and "eager torch, no kernel" in text,
+          "the grid family at the JAX package's default width (1,273,971 parameters, 4 dense "
+          "levels), on the eager route")
+    check(psnrs[-1] - psnrs[0] >= 3.0, "grid train PSNR rises >= 3 dB")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_mod.main(dataclasses.replace(gcfg, iters=GRID_ITERS + 200, resume=True))
+    check(f"from step {GRID_ITERS}" in out.getvalue(), "the grid run resumes from its checkpoint")
+    whole = grid_cfg("grid_whole", iters=GRID_ITERS + 200, log_every=GRID_ITERS + 200)
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_mod.main(whole)
+    a, b = (GridNeRF(model.cfg, device=dev) for _ in range(2))
+    restore_params(gcfg.ckpt_path, a)
+    restore_params(whole.ckpt_path, b)
+    a.requires_grad_(False)
+    diffs = {n: float((x - y).abs().max()) for (n, x), y in
+             zip(a.named_parameters(), b.parameters())}
+    print(f"[grid] resumed 1000 -> 1200 against an uninterrupted 1200: max |difference| per leaf "
+          f"{json.dumps(diffs)}", flush=True)
+    check(all(v == 0 for v in diffs.values()),
+          "the resumed grid run is bit-identical to an uninterrupted one (the tables' gradient "
+          "sums in a fixed order: index_put_ sorts the ids)")
+    ev_dir = os.path.join(OUT_DIR, "grid_eval")
+    ev = eval_mod.main(eval_mod.EvalConfig(ckpt_path=gcfg.ckpt_path, data_path=data_path, views=2,
+                                           holdout_views=True, save_depth=True, out_dir=ev_dir))
+    frames = gif_mod.main(gif_mod.GifConfig(ckpt_path=gcfg.ckpt_path, data_path=data_path,
+                                            n_frames=8, depth=True,
+                                            out_path=os.path.join(OUT_DIR, "grid_depth.gif")))
+    written = sorted(f for f in os.listdir(ev_dir) if f.startswith(("depth_", "acc_")))
+    print(f"[grid] eval --holdout-views --save-depth: PSNR {ev['psnr_mean']:.2f} dB, {written}; "
+          f"make_gif --depth: frames {list(frames.shape)}, std {float(frames.std()):.2f}", flush=True)
+    check(math.isfinite(ev["psnr_mean"]) and len(written) == 2 * gcfg.holdout
+          and frames.shape == (8, H, W, 3)
+          and float(frames.std()) > 0, "eval and make_gif --depth from the grid checkpoint")
+    launched = counts()
+    print(f"[grid] K1-K7 (launches, on the tensor cores) over the trains, the resume, eval and "
+          f"the GIF: {json.dumps(launched)}", flush=True)
+    check(launched == none, "the grid path launches none of K1-K7")
+    print(f"[grid] (a) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 34. (b) --data-parallel on 2 ranks sharing the card; --ndc on the
+    #     forward-facing scene; the regularized levers (AdamW, EMA, prior).
+    t0 = time.time()
+    dp = torchrun_train("grid_dp", *[a for k, v in GRID_RECIPE.items() for a in
+                                      (f"--{k.replace('_', '-')}", str(v))],
+                        "--iters", str(GRID_DP_ITERS), "--no-resume")
+    dp_launches = [sum(v for k, v in r.items()) for r in dp["launches"]]
+    print(f"[grid] --data-parallel on 2 ranks, {GRID_DP_ITERS} steps: kernel launches per rank "
+          f"{dp_launches}, {dp['rays_per_sec']:,.0f} rays/s (two processes on one card)", flush=True)
+    check(dp_launches == [0, 0] and "[model] grid" in dp["out"],
+          "grid data-parallel: no kernel on either rank (replicas bit-identical: torchrun_train)")
+    ff_path = forward_facing_data(dev)
+    reset()
+    ndc = grid_cfg("grid_ndc", ndc=True, data_path=ff_path, iters=GRID_NDC_ITERS, log_every=10)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_mod.main(ndc)
+    losses = [r["loss"] for r in map(json.loads, open(ndc.metrics_path)) if "loss" in r]
+    box = read_meta(ndc.ckpt_path)["meta"]["cfg"]["grid"]["aabb"]
+    print(f"[grid] --ndc, {GRID_NDC_ITERS} steps on the forward-facing scene: losses {losses}, box "
+          f"{box}, held-out {res['eval']['psnr_mean']:.2f} dB", flush=True)
+    check(all(math.isfinite(x) for x in losses) and box == [-1.0] * 3 + [1.0] * 3
+          and counts() == none, "grid --ndc: finite, the NDC cube as the box, no kernel")
+    reg = grid_cfg("grid_reg", iters=GRID_REG_ITERS, log_every=10, weight_decay=1e-4,
+                   ema_decay=0.999, sigma_sparsity=1e-3, sigma_noise_floor=0.1,
+                   sigma_noise_decay_steps=8000)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_mod.main(reg)
+    losses = [r["loss"] for r in map(json.loads, open(reg.metrics_path)) if "loss" in r]
+    print(f"[grid] the regularized levers (benchmarks/gridreg_r5.sh: AdamW 1e-4, EMA 0.999, noise "
+          f"decay 8000 to 0.1) and the sparsity prior 1e-3, {GRID_REG_ITERS} steps: losses {losses}, "
+          f"held-out {res['eval']['psnr_mean']:.2f} dB, EMA {res['eval_ema']['psnr_mean']:.2f} dB",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses) and os.path.exists(reg.ckpt_path + ".ema.npz")
+          and counts() == none, "grid levers: finite, the EMA twin written, no kernel")
+    print(f"[grid] (b) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 34. (c) timing: a step (2048 rays x 64 samples), a 100x100 image; the
+    #     step's device time and launches by torch.profiler; the tables'
+    #     gradient twice from one state, bit-identical.
+    t0 = time.time()
+    s = gcfg.train_settings()
+    box = aabb_from_rays(*get_rays_for_poses(H, W, focal, poses), 2.0, 6.0)
+    mcfg = gcfg.grid_cfg(aabb=box)
+    timed = GridNeRF(mcfg, generator=torch.Generator().manual_seed(0), device=dev)
+    opt = settings_optimizer(timed.parameters(), s)
+    rays_o_all, rays_d_all = get_rays_for_poses(H, W, focal, poses[: n_images - 4])
+    pixels = images[: n_images - 4].reshape(n_images - 4, H * W, 3)
+    step_fn = make_train_step(s, loss=make_grid_loss(mcfg))
+    counter = iter(range(10**6))
+    ren = make_grid_image_renderer(H=H, W=W, focal=focal, grid_cfg=mcfg)
+    times = {}
+    for name in ("step", "image", "image", "step"):
+        fn = ((lambda: step_fn(timed, opt, 0, next(counter), rays_o_all, rays_d_all, pixels))
+              if name == "step" else (lambda: ren(timed, poses[-1])))
+        times.setdefault(name, []).append(cuda_ms(fn, iters=20))
+    ms = {k: min(v) for k, v in times.items()}
+    loss = make_grid_loss(mcfg)
+    grads = []
+    for _ in range(2):
+        timed.zero_grad()
+        with torch.enable_grad():
+            value, _ = loss(timed, *draw_batch(s, 7, rays_o_all, rays_d_all, pixels),
+                            step_generator(0, 7, dev), s)
+            value.backward()
+        grads.append([p.grad.clone() for p in timed.tables.values()])
+    same = all(torch.equal(x, y) for x, y in zip(*grads))
+    print(f"[timing] {card}: the grid family, bf16, eager torch: a step ({s.n_rand} rays x "
+          f"{s.n_samples} samples) {ms['step']:.4f} ms = {1e3 / ms['step']:.2f} steps/s = "
+          f"{s.n_rand * 1e3 / ms['step']:,.0f} rays/s; a 100x100 image {ms['image']:.4f} ms (all "
+          f"runs {json.dumps(times)}); the tables' gradient bit-identical across two backward "
+          f"passes from one state: {same}", flush=True)
+    check(same, "the tables' gradient is bit-identical across two backward passes on the card")
+    prof = profile_steps(lambda: step_fn(timed, opt, 0, next(counter), rays_o_all, rays_d_all,
+                                         pixels))
+    print(f"[timing] the grid step under torch.profiler: {json.dumps(prof)}", flush=True)
+    print(f"[grid] (c) ok in {time.time() - t0:.2f}s", flush=True)
+
+
+def profile_steps(fn, n: int = 10) -> dict:
+    """n calls of fn under torch.profiler (CPU and CUDA activities): the
+    wall ms a call (profiling on), the device ms a call (the device events'
+    time), their ratio (the device's busy share; the rest is idle), the
+    kernel launches a call and the five kernels of most device time. The
+    device fields read "not measured" when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3 / n
+    avgs = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    # The device's own events (kernels, copies, fills): an operator's row
+    # repeats the time of the kernels it launched.
+    on_device = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(dev_us(e) for e in on_device) / 1e3 / n
+    launches = sum(e.count for e in avgs if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                     "cudaLaunchKernelExC")) / n
+    top = sorted(on_device, key=dev_us, reverse=True)[:5]
+    if device <= 0:
+        return {"wall_ms": wall, "device_ms": "not measured", "launches": launches}
+    return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
+            "launches": launches, "top": {e.key[:60]: dev_us(e) / 1e3 / n for e in top}}
+
+
+def draw_batch(s, step, rays_o_all, rays_d_all, pixels):
+    """One step's (rays_o, rays_d, target) drawn as training.draw_ray_batch
+    draws it, from a fresh step generator."""
+    from tinynerf_tpu_torch.training import draw_ray_batch, step_generator
+
+    gen = step_generator(0, step, rays_o_all.device)
+    return draw_ray_batch(s, gen, step, rays_o_all, rays_d_all, pixels)
+
+
+def run_scenes() -> None:
+    """Phase 35: the rest of synthetic.py (the lattice and the seeded
+    scenes) and the lattice's flagship precrop probe through K4/K6/K3."""
+    import dataclasses
+
+    import numpy as np
+
+    from tinynerf_tpu_torch import train as train_mod
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.data import load_tiny_nerf_npz
+    from tinynerf_tpu_torch.synthetic import generate_synthetic_dataset, render_ground_truth
+
+    dev = torch.device("cuda", 0)
+    kernels = _all_kernels()
+
+    def reset():
+        for k in kernels.values():
+            k.launches = k.mma_launches = 0
+
+    # 35. (a) the writer on the card, timed; its images against the same
+    #     poses on the CPU; the white share; seeds 1 and 2.
+    t0 = time.time()
+    lattice_path = os.path.join(OUT_DIR, "lattice.npz")
+    t_gen = time.time()
+    n, h, w = LATTICE_SHAPE
+    proc = subprocess.run([sys.executable, "-m", "tinynerf_tpu_torch.synthetic", "--out",
+                           lattice_path, "--scene", "lattice", "--n-poses", str(n), "--h", str(h),
+                           "--w", str(w)], capture_output=True, text=True,
+                          timeout=600, env={**os.environ, "PYTHONPATH": os.getcwd()})
+    t_gen = time.time() - t_gen
+    print(proc.stdout.strip(), proc.stderr.strip()[-2000:], flush=True)
+    check(proc.returncode == 0, "python -m tinynerf_tpu_torch.synthetic --scene lattice exits 0")
+    lat = load_tiny_nerf_npz(lattice_path)
+    imgs = lat["images"]
+    errs = []
+    for i in LATTICE_CPU_POSES:
+        cpu = render_ground_truth(torch.from_numpy(lat["poses"][i]), h=h, w=w,
+                                  scene="lattice").numpy()
+        errs.append(float(np.abs(cpu - imgs[i]).max()))
+    white = float((imgs.min(axis=-1) >= 1.0 - 1.0 / 255).mean())
+    print(f"[scenes] the lattice ({imgs.shape[0]} poses of {imgs.shape[1]}x{imgs.shape[2]}, 256 "
+          f"samples a ray) written on the card in {t_gen:.2f} s (the process included); poses "
+          f"{list(LATTICE_CPU_POSES)} rendered again on the CPU: max |difference| {errs}; white "
+          f"share (every channel within 1/255 of 1) {white:.4f}", flush=True)
+    check(imgs.shape == (*LATTICE_SHAPE, 3) and bool(np.isfinite(imgs).all())
+          and max(errs) <= 1e-4, "the lattice's card images match the CPU's within 1e-4")
+    seeded = [generate_synthetic_dataset(n_poses=8, seed=k, device=dev)["images"] for k in (1, 2)]
+    gap = float(np.abs(seeded[0] - seeded[1]).max())
+    print(f"[scenes] seeds 1 and 2 (8 poses each): finite {all(np.isfinite(x).all() for x in seeded)}, "
+          f"max |difference| {gap:.4f}", flush=True)
+    check(all(np.isfinite(x).all() for x in seeded) and gap > 0.05,
+          "seeds 1 and 2 give distinct finite scenes")
+
+    # 35. (b) the lattice's flagship precrop probe, 2000 steps fused: K4
+    #     and K6 once a step on the tensor cores, the watchdog quiet, the
+    #     train PSNR past the background floor + 3 dB; held-out through K3.
+    probe = Config(**LATTICE_RECIPE, data_path=lattice_path, allow_synthetic=False,
+                   iters=LATTICE_ITERS, resume=False, out_dir=os.path.join(OUT_DIR, "lattice_p1"),
+                   ckpt_path=os.path.join(OUT_DIR, "lattice_p1.npz"),
+                   metrics_path=os.path.join(OUT_DIR, "lattice_p1.jsonl"))
+    if os.path.exists(probe.metrics_path):
+        os.unlink(probe.metrics_path)
+    reset()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = train_mod.main(probe)
+    except SystemExit as e:
+        print(out.getvalue()[-3000:], flush=True)
+        raise RuntimeError(f"check failed: the lattice probe exited {e.code} (the watchdog)")
+    text = out.getvalue()
+    print("\n".join(line for line in text.splitlines()
+                    if line.startswith(("[train] precrop", "[train] sigma-death", "[train] fused",
+                                        "[eval]", "[done]"))), flush=True)
+    launches = {n: (k.launches, k.mma_launches) for n, k in kernels.items()
+                if n in ("K3", "K4", "K6")}
+    psnrs = logged_psnrs(probe.metrics_path)
+    records = [json.loads(x) for x in open(probe.metrics_path)]
+    print(f"[scenes] the lattice's flagship precrop probe (hidden 256, 64 + 128 samples, pool, "
+          f"precrop 500 at 0.5, noise decay 2000), {LATTICE_ITERS} steps fused: (launches, on the "
+          f"tensor cores) {json.dumps(launches)}; train PSNR {psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB "
+          f"(bar {LATTICE_MIN_PSNR}); held-out through K3 {res['eval']['psnr_mean']:.2f} dB (the JAX "
+          f"package's p1_precrop read {JAX_LATTICE_HELDOUT_2000} dB at step {LATTICE_ITERS}, a TPU "
+          f"run); {res['rays_per_sec']:,.0f} rays/s", flush=True)
+    check(launches["K4"] == launches["K6"] == (LATTICE_ITERS, LATTICE_ITERS)
+          and launches["K3"][0] > 0 and launches["K3"][0] == launches["K3"][1],
+          "the lattice probe: K4 and K6 once a step and K3 serving, every launch on the tensor cores")
+    check(not any(r.get("sigma_death") for r in records) and psnrs[-1] >= LATTICE_MIN_PSNR,
+          f"the lattice probe escapes: no sigma_death record, final train PSNR >= {LATTICE_MIN_PSNR}")
+    # 35. (c) a reading: the same recipe without the precrop warmup, the
+    #     watchdog tightened (grace 300 steps, 20 log points of 10 steps).
+    dead = dataclasses.replace(probe, precrop_iters=0, iters=LATTICE_NO_PRECROP_ITERS,
+                               log_every=10, death_grace=300,
+                               out_dir=os.path.join(OUT_DIR, "lattice_noprecrop"),
+                               ckpt_path=os.path.join(OUT_DIR, "lattice_noprecrop.npz"),
+                               metrics_path=os.path.join(OUT_DIR, "lattice_noprecrop.jsonl"))
+    if os.path.exists(dead.metrics_path):
+        os.unlink(dead.metrics_path)
+    rc = 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_mod.main(dead)
+    except SystemExit as e:
+        rc = e.code
+    psnrs = logged_psnrs(dead.metrics_path)
+    print(f"[scenes] the same probe without precrop, at most {LATTICE_NO_PRECROP_ITERS} steps "
+          f"(watchdog grace 300, window 20 x 10 steps): exit code {rc}, train PSNR {psnrs[0]:.2f} "
+          f"-> {psnrs[-1]:.2f} dB over {10 * len(psnrs)} steps (a reading)", flush=True)
+    print(f"[scenes] ok in {time.time() - t0:.2f}s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2901,7 +3322,9 @@ def main() -> int:
                    *run_partials(builds["fused_partials"])]
         run_levers(builds["fused_nerf_train"], builds["fused_partials"])
         run_slice()
-    print(f"[phases] 1-33 in {time.time() - t_start:.2f}s", flush=True)
+        run_grid()
+        run_scenes()
+    print(f"[phases] 1-35 in {time.time() - t_start:.2f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

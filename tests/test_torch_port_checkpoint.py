@@ -76,9 +76,11 @@ def test_restore_rejects_a_different_model(tmp_path):
     ({"model": "tinynerf", "cfg": {**META["cfg"], "ndc": True}}, "item 10"),
 ])
 def test_model_io_names_the_roadmap_item_for_unported_models(tmp_path, meta, item):
-    """The grid family names its ROADMAP item. Items 10 (NDC) and 11 (the
-    occupancy proposal) are ported: such checkpoints load, an occupancy one
-    as the single fine MLP."""
+    """Items 10 (NDC), 11 (the occupancy proposal) and 12 (the grid family)
+    are ported: such checkpoints load, an occupancy one as the single fine
+    MLP, a grid one as the GridNeRF of its meta's grid entry (here none:
+    the JAX package's defaults); an unknown model is refused by name."""
+    from tinynerf_tpu_torch.models.grid_nerf import GridNeRF
     from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig
 
     path = str(tmp_path / "other.npz")
@@ -88,15 +90,17 @@ def test_model_io_names_the_roadmap_item_for_unported_models(tmp_path, meta, ite
         model = NeRF(NeRFConfig(num_freqs=c["num_freqs"], hidden=c["hidden"], depth=c["depth"],
                                 skip_at=c["skip_at"]), parts=("fine",),
                      generator=torch.Generator().manual_seed(0))
-    checkpoint.save_params(path, model, 0, meta)
     if item == "item 12":
-        with pytest.raises(NotImplementedError, match=item):
-            load_model_and_renderer(path, H=8, W=8, focal=10.0, device="cpu")
-        return
+        model = GridNeRF(generator=torch.Generator().manual_seed(0))
+    checkpoint.save_params(path, model, 0, meta)
     loaded, renderer, got = load_model_and_renderer(path, H=8, W=8, focal=10.0, device="cpu")
     assert got["cfg"] == meta["cfg"] and type(loaded) is type(model)
     for a, b in zip(loaded.state_dict().values(), model.state_dict().values()):
         assert torch.equal(a, b)
+    if item == "item 12":
+        checkpoint.save_params(path, model, 0, {**meta, "model": "mlp"})
+        with pytest.raises(ValueError, match="unknown model 'mlp'"):
+            load_model_and_renderer(path, H=8, W=8, focal=10.0, device="cpu")
     if item == "item 10":
         img = renderer(loaded, torch.eye(4))
         assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())

@@ -1158,3 +1158,49 @@ def test_streamed_kernels_on_grid_proposed_depths_on_card(cuda_device, dtype):
                  cfg=cfg, sample_block=sb)
     _leaf_check(loss, grads, ref, dtype, names=[n for n, _ in mlp.named_parameters()])
     assert [(k.launches - a, k.mma_launches - b) for k, (a, b) in zip((k5, k6), before)] == [(1, mma)] * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_family_on_card_matches_the_cpu(cuda_device, dtype):
+    """The grid family (models/grid_nerf.py, eager torch, no kernel) on the
+    card against the CPU at the same weights, 4096 points over the box and
+    beyond it, two dense levels and one hashed: f32 rgb and sigma within
+    1e-5 and every leaf's gradient within 1e-4 of its max; bf16 rgb under
+    the render gates. The tables' gradient (the gather's backward) is
+    bit-identical across two backward passes on the card."""
+    from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, GridNeRFConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GridNeRFConfig(n_levels=3, base_res=4, max_res=16, table_size=1 << 10, hidden=16,
+                         geo_features=7, num_freqs_dir=2, aabb=(-1.0,) * 3 + (1.0,) * 3,
+                         compute_dtype=dtype)
+    cpu = GridNeRF(cfg, generator=torch.Generator().manual_seed(70))
+    with torch.no_grad():
+        for t in cpu.tables.values():
+            t.uniform_(-0.5, 0.5, generator=torch.Generator().manual_seed(71))
+    card = GridNeRF(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(72)
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (4096, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.randn(4096, 3).astype(np.float32))
+    d = d / d.norm(dim=-1, keepdim=True)
+    grads = {}
+    runs = (("cpu", cpu, "cpu"), ("card", card, cuda_device), ("again", card, cuda_device))
+    for name, model, dev in runs:
+        model.zero_grad()
+        with torch.enable_grad():
+            rgb, sigma = model(pts.to(dev), d.to(dev))
+            (rgb.square().mean() + sigma.mean()).backward()
+        grads[name] = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        grads[name + " out"] = (rgb.detach().cpu(), sigma.detach().cpu())
+    (rc, sc), (rg, sg) = grads["cpu out"], grads["card out"]
+    if dtype == torch.float32:
+        assert float((rc - rg).abs().max()) < 1e-5 and float((sc - sg).abs().max()) < 1e-5
+        for n, g in grads["cpu"].items():
+            assert float((grads["card"][n] - g).abs().max()) <= 1e-4 * float(g.abs().max()), n
+    else:
+        _within_render_gates(rg, rc, dtype)
+    for n in grads["card"]:
+        if n.startswith("tables."):
+            assert torch.equal(grads["card"][n], grads["again"][n]), n

@@ -26,6 +26,7 @@ import tinynerf_tpu_torch.parallel.mesh, tinynerf_tpu_torch.parallel.train
 import tinynerf_tpu_torch.parallel.render
 import tinynerf_tpu_torch.ops.regularizers, tinynerf_tpu_torch.ops.occupancy
 import tinynerf_tpu_torch.render, tinynerf_tpu_torch.synthetic, tinynerf_tpu_torch.ops.rays
+import tinynerf_tpu_torch.models.grid_nerf
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tinynerf_tpu"))
 print(bad)
 sys.exit(1 if bad else 0)
@@ -41,8 +42,8 @@ def test_port_never_imports_jax():
 
 # The modules of the bf16 tensor-core wrappers (K1 and K2 and their
 # packer, K3 and the packer, K4, K5, K6, K7), the trainer that reports
-# its launch counts, the sparsity prior and the occupancy proposal, each
-# alone in a fresh interpreter.
+# its launch counts, the sparsity prior, the occupancy proposal, the grid
+# family and the synthetic scenes, each alone in a fresh interpreter.
 ALONE = """
 import sys
 import {module}
@@ -62,6 +63,8 @@ sys.exit(1 if bad else 0)
     "tinynerf_tpu_torch.train",
     "tinynerf_tpu_torch.ops.regularizers",
     "tinynerf_tpu_torch.ops.occupancy",
+    "tinynerf_tpu_torch.models.grid_nerf",
+    "tinynerf_tpu_torch.synthetic",
 ])
 def test_tensor_core_wrappers_alone_never_import_jax(module):
     proc = subprocess.run([sys.executable, "-c", ALONE.format(module=module)], cwd=ROOT,

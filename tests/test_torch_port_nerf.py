@@ -303,14 +303,17 @@ def test_train_refuses_nerf_model(tmp_path):
     """The NeRF trains (tests/test_torch_port_nerf_train_drivers.py), with
     the occupancy proposal too (tests/test_torch_port_occupancy.py); what
     it refuses is the proposal with --sample-parallel (as the JAX package),
-    the proposal for the TinyNeRF, and the grid family (item 12)."""
+    the proposal for the TinyNeRF and for the grid family (item 12, ported:
+    tests/test_torch_port_grid.py), whose fine levels concentrate capacity
+    themselves, as the JAX package refuses it."""
     with pytest.raises(ValueError, match="does not compose with --sample-parallel"):
         train.main(Config(model="nerf", proposal="occupancy", data_parallel=True,
                           sample_parallel=2, device="cpu", out_dir=str(tmp_path)))
     with pytest.raises(ValueError, match="requires --model nerf"):
         train.main(Config(proposal="occupancy", device="cpu", out_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train.main(Config(model="grid", device="cpu", out_dir=str(tmp_path)))
+    with pytest.raises(ValueError, match="nerf-family sampler"):
+        train.main(Config(model="grid", proposal="occupancy", device="cpu",
+                          out_dir=str(tmp_path)))
 
 
 def test_eval_driver_n_fine_and_make_gif(tiny_npz, jax_nerf_ckpt, tmp_path):

@@ -124,5 +124,7 @@ def test_sparsity_grad_fn_draws_in_the_box_and_adds_into_grads():
     assert torch.equal(params[0].grad, 1.0 + a[0])
     assert torch.equal(params[1].grad, a[1])
     assert all(p.grad is None for p, g in zip(params, a) if g is None)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # The grid family (item 12) is ported (tests/test_torch_port_grid.py):
+    # it needs its GridNeRFConfig.
+    with pytest.raises(ValueError, match="requires the GridNeRFConfig"):
         make_sparsity_grad_fn(None, "grid", lam=1e-3)

@@ -21,8 +21,10 @@ watchdog (death_check), as there. proposal="occupancy" trains and serves
 the single-MLP occupancy-grid proposal (ops/occupancy.py); ndc
 reprojects a forward-facing capture's rays to NDC space and samples t in
 [0, 1] (train_settings() swaps near/far, tinynerf_tpu/config.py:133,
-219-220). Fields that only the grid family or profiling use are not
-ported yet (ROADMAP.md, queue 1). data_parallel, sample_parallel and distributed
+219-220). The grid family's fields (grid_*, model="grid") and grid_cfg()
+follow tinynerf_tpu/config.py:65-75, 186-210; the family runs in eager
+torch whatever fused and fused_train say (it has no kernel). Profiling's
+field is not ported yet (ROADMAP.md, queue 1). data_parallel, sample_parallel and distributed
 (tinynerf_tpu/config.py:144-149) select parallel/: a rank of a
 torch.distributed process group is one device of the mesh.
 """
@@ -34,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from tinynerf_tpu_torch.models.grid_nerf import GridNeRFConfig
 from tinynerf_tpu_torch.models.nerf import NeRFConfig
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import encoding_dim
@@ -63,13 +66,20 @@ class Config:
     num_freqs: int = 10
     seed: int = 0
     chunk: int = 8192  # rays per render chunk
-    model: str = "tinynerf"  # "tinynerf" | "nerf" (viewdirs + coarse/fine)
+    model: str = "tinynerf"  # "tinynerf" | "nerf" (viewdirs + coarse/fine) | "grid"
     n_fine: int = 64  # fine samples per ray (nerf model only)
     proposal: str = "coarse"  # nerf proposal: "coarse" MLP | "occupancy" grid (one MLP)
     nerf_depth: int = 8
     nerf_skip_at: int = 4
     num_freqs_dir: int = 4
     rgb_hidden: int = 64
+    grid_levels: int = 8  # grid family: feature-pyramid levels
+    grid_features: int = 2  # features per level
+    grid_base_res: int = 16  # coarsest grid resolution
+    grid_max_res: int = 128  # finest grid resolution
+    grid_table_size: int = 1 << 17  # entries per level cap (finer levels hash)
+    grid_hidden: int = 64  # grid-MLP width (both branches)
+    grid_encode_impl: str = "loop"  # the JAX package's gather strategy (the port has one)
     ray_sampling: str = "image"  # "image": one image a step | "pool": every train pixel
     precrop_iters: int = 0  # >0: the first N steps draw from the central window
     precrop_frac: float = 0.5  # side fraction of that window
@@ -121,6 +131,27 @@ class Config:
             skip_at=self.nerf_skip_at,
             rgb_hidden=self.rgb_hidden,
             compute_dtype=torch.bfloat16 if self.bf16 else torch.float32,
+        )
+
+    def grid_cfg(self, aabb=None) -> GridNeRFConfig:
+        """GridNeRFConfig; aabb ((2, 3) array-like) replaces the default scene
+        box: the driver derives it from the capture's rays and persists it in
+        the checkpoint's meta."""
+        kw = {}
+        if aabb is not None:
+            box = torch.as_tensor(aabb, dtype=torch.float64).reshape(6)
+            kw["aabb"] = tuple(float(v) for v in box)
+        return GridNeRFConfig(
+            n_levels=self.grid_levels,
+            features=self.grid_features,
+            base_res=self.grid_base_res,
+            max_res=self.grid_max_res,
+            table_size=self.grid_table_size,
+            hidden=self.grid_hidden,
+            num_freqs_dir=self.num_freqs_dir,
+            compute_dtype=torch.bfloat16 if self.bf16 else torch.float32,
+            encode_impl=self.grid_encode_impl,
+            **kw,
         )
 
     def train_settings(self) -> TrainSettings:

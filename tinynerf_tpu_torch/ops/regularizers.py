@@ -31,13 +31,11 @@ def make_sparsity_grad_fn(s, model_kind: str, *, nerf_cfg=None, lam: float,
 
     s: TrainSettings (num_freqs, model_cfg). model_kind: "tinynerf" |
     "nerf" (the prior applies to every MLP of the NeRF, coarse and fine,
-    averaged; nerf_cfg required). aabb (2, 3) bounds the points (default:
-    ops/occupancy.default_aabb). The points are drawn from `generator` on
-    its device; fn.at_points(model, pts) gives the gradients at given
-    points."""
-    if model_kind == "grid":
-        raise NotImplementedError(
-            "the grid model family is not ported yet (ROADMAP.md, queue 1, item 12)")
+    averaged; nerf_cfg required) | "grid" (nerf_cfg: the GridNeRFConfig;
+    the prior reaches the tables through the gather's backward). aabb
+    (2, 3) bounds the points (default: ops/occupancy.default_aabb). The
+    points are drawn from `generator` on its device; fn.at_points(model,
+    pts) gives the gradients at given points."""
     if aabb is None:
         from tinynerf_tpu_torch.ops.occupancy import default_aabb
 
@@ -68,6 +66,17 @@ def make_sparsity_grad_fn(s, model_kind: str, *, nerf_cfg=None, lam: float,
                 _, sigma = mlps[name](x, d, nerf_cfg)
                 total = total + sigma.mean()
             return total / len(mlps)
+
+    elif model_kind == "grid":
+        if nerf_cfg is None:
+            raise ValueError("model_kind='grid' requires the GridNeRFConfig")
+
+        def mean_sigma(model, pts):
+            # The density ignores the view direction entirely.
+            d = torch.zeros_like(pts)
+            d[:, 2] = -1.0
+            _, sigma = model(pts, d, nerf_cfg)
+            return sigma.mean()
 
     else:
         raise ValueError(f"unknown model_kind={model_kind!r}")

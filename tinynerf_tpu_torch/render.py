@@ -1,13 +1,13 @@
 """Full-image rendering: the encode->MLP->composite chain over ray chunks.
 
-Port of tinynerf_tpu/render.py:30-353, 393-430 (TinyNeRF, the full
-NeRF's hierarchical renderer and the occupancy-proposal renderer). Rays
-for a pose are processed in fixed-size chunks (default 8192) with
-un-jittered samples; chunking never changes the result (rays are
-independent). PyTorch runs eagerly, so the chunk loop is a Python loop;
-the chunk shapes stay those of the JAX package (the 128-aligned shrink
-and unit-z padding of the last chunk), which is what the fused kernels
-see on the card.
+Port of tinynerf_tpu/render.py:30-430 (TinyNeRF, the full NeRF's
+hierarchical renderer, the occupancy-proposal renderer and the grid
+family's renderer). Rays for a pose are processed in fixed-size chunks
+(default 8192) with un-jittered samples; chunking never changes the
+result (rays are independent). PyTorch runs eagerly, so the chunk loop
+is a Python loop; the chunk shapes stay those of the JAX package (the
+128-aligned shrink and unit-z padding of the last chunk), which is what
+the fused kernels see on the card.
 
 ndc=True reprojects each pose's rays to NDC space (ops/rays.ndc_rays,
 near plane 1.0) before the chunks; the caller samples near=0, far=1.
@@ -293,6 +293,45 @@ def make_occupancy_image_renderer(
             pts = ro[:, None, :] + rd[:, None, :] * z[..., None]
             rgb, sigma = run_mlp(params.fine, pts, view_encoding(rd, nerf_cfg), nerf_cfg)
             comp, depth, acc, _ = volume_render(rgb, sigma, z, rd, white_bkgd=white_bkgd)
+            return pack_aux(depth, acc, near, far) if aux else comp
+
+        return chunked_over_rays(one_chunk, H, W, float(focal), pose, chunk, ndc=ndc)
+
+    return _frames(fn) if frames else fn
+
+
+def make_grid_image_renderer(
+    *,
+    H: int,
+    W: int,
+    focal: float,
+    grid_cfg,
+    chunk: int = 8192,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    white_bkgd: bool = True,
+    frames: bool = False,
+    ndc: bool = False,
+    aux: bool = False,
+):
+    """`(params, pose) -> (H, W, 3)` renderer for the grid family (params: a
+    models/grid_nerf.GridNeRF), port of tinynerf_tpu/render.py:356-386:
+    one deterministic stratified pass a chunk (models/grid_nerf.
+    render_rays_grid, eager torch: the family has no kernel); aux=True
+    renders the packed (depth, acc) channels; frames=True returns the
+    batched `(params, poses (F, 4, 4)) -> (F, H, W, 3)` variant."""
+    from tinynerf_tpu_torch.models.grid_nerf import render_rays_grid
+
+    @torch.no_grad()
+    def fn(params, pose):
+        device = next(params.parameters()).device
+        pose = torch.as_tensor(pose, dtype=torch.float32).to(device)
+
+        def one_chunk(ro, rd):
+            comp, depth, acc, _, _ = render_rays_grid(params, ro, rd, None, cfg=grid_cfg,
+                                                      n_samples=n_samples, near=near, far=far,
+                                                      white_bkgd=white_bkgd)
             return pack_aux(depth, acc, near, far) if aux else comp
 
         return chunked_over_rays(one_chunk, H, W, float(focal), pose, chunk, ndc=ndc)

@@ -1,9 +1,9 @@
 """Training driver: `python -m tinynerf_tpu_torch.train --iters 20000 ...`
 
-Port of the TinyNeRF and full-NeRF (coarse or occupancy proposal)
-branches of tinynerf_tpu/train.py:36-738: seed and data, model and optimizer
-(training.make_optimizer's levers: the lr schedule, AdamW, the EMA),
-resume of params, optimizer and step from the checkpoint, rays
+Port of tinynerf_tpu/train.py:36-738 (TinyNeRF, the full NeRF with the
+coarse or the occupancy proposal, the grid family): seed and data, model
+and optimizer (training.make_optimizer's levers: the lr schedule, AdamW,
+the EMA), resume of params, optimizer and step from the checkpoint, rays
 precomputed for every pose (reprojected to NDC space with --ndc, before
 the holdout: a forward-facing capture samples t in [0, 1]), an optional
 tail or strided holdout, the sparsity prior over the capture's box (the
@@ -30,8 +30,14 @@ occupancy trains one MLP on n_samples + n_fine depths proposed by a
 density grid over the capture's box (ops/occupancy.py; the grid rebuilt
 once per block), its gradients through the streamed K6 (or autograd with
 --no-fused-train), and renders through the occupancy renderer (K5 with
---fused); it takes --data-parallel, not --sample-parallel. Metrics stay
-on the device inside a block; the host reads them only at a log point.
+--fused); it takes --data-parallel, not --sample-parallel. --model grid
+(models/grid_nerf.py) trains and renders in eager torch whatever --fused
+and --fused-train say, by configuration: the family has no kernel (the
+JAX package's XLA path); its scene box is the capture's (the NDC cube
+under --ndc), persisted in the meta's `grid` entry; it takes
+--data-parallel, and refuses --sample-parallel and --proposal occupancy
+as the JAX package does. Metrics stay on the device inside a block; the
+host reads them only at a log point.
 
 Parallel training (tinynerf_tpu/train.py:53-62, 219-258, 361-381):
 --data-parallel (or --distributed) joins the launcher's process group
@@ -69,8 +75,10 @@ from tinynerf_tpu_torch.evaluation import evaluate_views
 from tinynerf_tpu_torch.main import _sync
 from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays, default_aabb
 from tinynerf_tpu_torch.ops.rays import get_rays_for_poses, ndc_rays
+from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, make_grid_loss
 from tinynerf_tpu_torch.models.nerf import NeRF, make_hierarchical_loss
 from tinynerf_tpu_torch.render import (
+    make_grid_image_renderer,
     make_hierarchical_image_renderer,
     make_image_renderer,
     make_occupancy_image_renderer,
@@ -122,12 +130,18 @@ def strided_holdout(n_images: int, count: int) -> list:
 
 
 def main(cfg: Config = Config()) -> dict:
-    if cfg.model not in ("tinynerf", "nerf"):
-        raise NotImplementedError(
-            f"training --model {cfg.model} is not ported yet (ROADMAP.md, queue 1, item 12)"
-        )
+    if cfg.model not in ("tinynerf", "nerf", "grid"):
+        raise ValueError(f"unknown model {cfg.model!r} (tinynerf|nerf|grid)")
     if cfg.proposal not in ("coarse", "occupancy"):
         raise ValueError(f"unknown proposal {cfg.proposal!r} (coarse|occupancy)")
+    grid = cfg.model == "grid"
+    if grid and cfg.proposal == "occupancy":
+        raise ValueError("--proposal occupancy is a nerf-family sampler; the grid model's fine "
+                         "levels already concentrate capacity")
+    if grid and cfg.sample_parallel > 1:
+        raise ValueError("--sample-parallel > 1 is not implemented for --model grid (no "
+                         "block-partials path for the gather encoder); grid supports "
+                         "--data-parallel ray sharding")
     if cfg.proposal == "occupancy" and cfg.model != "nerf":
         raise ValueError("--proposal occupancy requires --model nerf (the grid proposes samples "
                          "for the single NeRF MLP)")
@@ -224,6 +238,11 @@ def main(cfg: Config = Config()) -> dict:
 
         def init_fn(generator, dev):
             return NeRF(ncfg, generator=generator, device=dev, parts=parts)
+    elif grid:
+        # The tables' and the MLP's shapes do not depend on the box: the
+        # capture's box (below) goes to the loss, the renderer and the meta.
+        def init_fn(generator, dev):
+            return GridNeRF(cfg.grid_cfg(), generator=generator, device=dev)
 
     model, optimizer = init_train_state(
         torch.Generator().manual_seed(cfg.seed), settings, device=device, init_fn=init_fn
@@ -275,12 +294,25 @@ def main(cfg: Config = Config()) -> dict:
     # [near, far] segment.
     scene_aabb = (default_aabb(1.0, device=device) if cfg.ndc
                   else aabb_from_rays(rays_o_full, rays_d_full, cfg.near, cfg.far))
+    gcfg = None
+    if grid:
+        # The encoder normalizes over the box of every reachable sample
+        # point, the held-out poses' included.
+        gcfg = cfg.grid_cfg(aabb=scene_aabb)
+        loss = make_grid_loss(gcfg)
+        box = scene_aabb.cpu().numpy()
+        print(f"[model] grid: levels={gcfg.level_resolutions()} "
+              f"dense={sum(gcfg.level_is_dense())}/{gcfg.n_levels} "
+              f"aabb=[{box[0].round(2)}, {box[1].round(2)}]")
+        print("[train] grid family: eager torch, no kernel: the JAX package's XLA path (--fused "
+              "and --fused-train do not apply)")
     extra_grad_fn = None
     if cfg.sigma_sparsity > 0:
         from tinynerf_tpu_torch.ops.regularizers import make_sparsity_grad_fn
 
         extra_grad_fn = make_sparsity_grad_fn(
-            settings, cfg.model, nerf_cfg=ncfg if nerf else None, lam=cfg.sigma_sparsity,
+            settings, cfg.model, nerf_cfg=gcfg if grid else ncfg if nerf else None,
+            lam=cfg.sigma_sparsity,
             n_points=cfg.sigma_sparsity_points, aabb=scene_aabb)
         print(f"[train] free-space sparsity prior: lam={cfg.sigma_sparsity} over "
               f"{cfg.sigma_sparsity_points} pts/step")
@@ -297,7 +329,7 @@ def main(cfg: Config = Config()) -> dict:
                   "rebuilt once per block)")
         else:
             print("[train] occupancy proposal (grid rebuilt once per block)")
-    elif cfg.fused_train and cfg.sample_parallel <= 1:
+    elif cfg.fused_train and cfg.sample_parallel <= 1 and not grid:
         route = "CUDA kernel" if on_card else "its plain version on the CPU"
         if nerf:
             from tinynerf_tpu_torch.kernels.fused_nerf_train import (
@@ -325,6 +357,11 @@ def main(cfg: Config = Config()) -> dict:
             n_samples=cfg.n_samples + cfg.n_fine, near=eff_near, far=eff_far, nerf_cfg=ncfg,
             use_fused=cfg.fused, ndc=cfg.ndc, aabb=scene_aabb,
         )
+    elif grid:
+        renderer = make_grid_image_renderer(
+            H=H, W=W, focal=focal, grid_cfg=gcfg, chunk=cfg.chunk, n_samples=cfg.n_samples,
+            near=eff_near, far=eff_far, ndc=cfg.ndc,
+        )
     elif nerf:
         renderer = make_hierarchical_image_renderer(
             H=H, W=W, focal=focal, chunk=min(cfg.chunk, 4096), n_coarse=cfg.n_samples,
@@ -337,7 +374,7 @@ def main(cfg: Config = Config()) -> dict:
             near=eff_near, far=eff_far, num_freqs=cfg.num_freqs,
             model_cfg=cfg.model_cfg(), use_fused=cfg.fused, ndc=cfg.ndc,
         )
-    if nerf:
+    if nerf or grid:
         mcfg = {
             "hidden": cfg.hidden, "depth": cfg.nerf_depth, "skip_at": cfg.nerf_skip_at,
             "num_freqs": cfg.num_freqs, "num_freqs_dir": cfg.num_freqs_dir,
@@ -345,6 +382,11 @@ def main(cfg: Config = Config()) -> dict:
             "proposal": cfg.proposal,
             # The grid's box: a renderer must rebuild the sampler over it.
             **({"occ_aabb": scene_aabb.cpu().tolist()} if occupancy else {}),
+            # The grid family's shapes and the box its tables were trained in.
+            **({"grid": {"levels": cfg.grid_levels, "features": cfg.grid_features,
+                         "base_res": cfg.grid_base_res, "max_res": cfg.grid_max_res,
+                         "table_size": cfg.grid_table_size, "hidden": cfg.grid_hidden,
+                         "aabb": list(gcfg.aabb)}} if grid else {}),
         }
     else:
         mcfg = {"hidden": cfg.hidden, "depth": cfg.depth, "skip_at": cfg.skip_at,
@@ -483,9 +525,9 @@ def main(cfg: Config = Config()) -> dict:
                             "raw sigma has collapsed below the ReLU, gradients are zero, and "
                             "the run cannot recover. Rescue levers: --precrop-iters 500 "
                             "(center-crop warmup), --sigma-noise-std/--sigma-noise-decay-steps "
-                            "sized to the scene, or --ray-sampling image. Aborting instead of "
-                            f"burning the remaining {cfg.iters - step_end} steps (checkpoint "
-                            "saved; --no-death-check disables).", flush=True)
+                            "sized to the scene, --ray-sampling image, or --model grid. Aborting "
+                            f"instead of burning the remaining {cfg.iters - step_end} steps "
+                            "(checkpoint saved; --no-death-check disables).", flush=True)
                     raise SystemExit(3)
 
             if cfg.eval_every > 0 and step_end % cfg.eval_every == 0 and step_end != cfg.iters:
@@ -587,4 +629,5 @@ def main(cfg: Config = Config()) -> dict:
 
 
 if __name__ == "__main__":
-    main(cli(Config, description="Train TinyNeRF or the full NeRF (PyTorch + CUDA)"))
+    main(cli(Config,
+             description="Train TinyNeRF, the full NeRF or the grid family (PyTorch + CUDA)"))

@@ -10,10 +10,14 @@ order is
 and for the full NeRF ({'coarse', 'fine'}) each MLP in turn gives its
 2 * depth + 6 leaves
   layers[0].b, ..., layers[D-1].w, rgb.b, rgb.w, rgb_in.b, rgb_in.w, sigma.b, sigma.w
+and for the grid family ({'mlp', 'tables'})
+  mlp.geo0.b, mlp.geo0.w, ..., mlp.rgb2.w, then the tables by their
+  sorted names (l0, l1, l10, l11, ..., l2 past ten levels)
 
 Training checkpoints (save_checkpoint / restore_checkpoint, port of
-:32-111; TinyNeRF or NeRF) also carry the optimizer's state in the tree
-the JAX package's make_optimizer gives it (optax_struct), leaf by leaf:
+:32-111; TinyNeRF, NeRF or GridNeRF) also carry the optimizer's state in
+the tree the JAX package's make_optimizer gives it (optax_struct), leaf
+by leaf:
   opt_0                       Adam's count, an int32 scalar
   opt_1 .. opt_{n}            mu, in the params' flatten order, w as (in, out)
   opt_{n+1} .. opt_{2n}       nu, likewise
@@ -24,7 +28,7 @@ torch optimizer's per-parameter state "step", "exp_avg" and "exp_avg_sq"
 and to training.TrainOptimizer's `ema` (weights transposed). A
 checkpoint written by either package resumes in the other. Render
 consumers read the parameters only (restore_params) and accept
-params-only checkpoints (save_params) of either model family, the EMA
+params-only checkpoints (save_params) of every model family, the EMA
 twin `<ckpt>.ema.npz` among them. save_checkpoint_rotating also keeps
 the last few step-stamped copies. Writes are atomic (temp file +
 rename).
@@ -43,8 +47,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from tinynerf_tpu_torch.models.nerf import NeRF, nerf_params_from_jax, nerf_params_to_jax, nerf_state_to_jax
-from tinynerf_tpu_torch.models.tinynerf import params_from_jax, params_to_jax, state_to_jax
+from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, grid_params_from_jax, grid_state_to_jax
+from tinynerf_tpu_torch.models.nerf import NeRF, nerf_params_from_jax, nerf_state_to_jax
+from tinynerf_tpu_torch.models.tinynerf import params_from_jax, state_to_jax
 
 
 def _struct(tree) -> str:
@@ -130,18 +135,27 @@ def _unflatten(leaves: list, template):
     return build(template)
 
 
+def _converters(model: nn.Module):
+    """(state -> JAX tree, JAX tree -> state_dict) of the model's family."""
+    if isinstance(model, GridNeRF):
+        return grid_state_to_jax, grid_params_from_jax
+    if isinstance(model, NeRF):
+        return nerf_state_to_jax, nerf_params_from_jax
+    return state_to_jax, params_from_jax
+
+
 def _to_jax(model: nn.Module):
-    """The model's parameters as a JAX-layout tree (TinyNeRF or NeRF)."""
-    return nerf_params_to_jax(model) if isinstance(model, NeRF) else params_to_jax(model)
+    """The model's parameters as a JAX-layout tree (TinyNeRF, NeRF or GridNeRF)."""
+    return _state_to_jax(model, model.state_dict())
 
 
 def _from_jax(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
-    return nerf_params_from_jax(tree) if isinstance(model, NeRF) else params_from_jax(tree)
+    return _converters(model)[1](tree)
 
 
 def _state_to_jax(model: nn.Module, state: Dict[str, torch.Tensor]):
     """Per-parameter tensors keyed by parameter name -> the JAX tree."""
-    return nerf_state_to_jax(state) if isinstance(model, NeRF) else state_to_jax(state)
+    return _converters(model)[0](state)
 
 
 def _write(path: str, payload: Dict[str, np.ndarray]) -> None:
@@ -182,9 +196,9 @@ def _payload(model: nn.Module, opt_leaves: list, o_struct: str, step: int, meta,
 def save_params(path: str, model: nn.Module, step: int, meta: Optional[Dict[str, Any]] = None,
                 params: Optional[list] = None) -> None:
     """Atomically write a params-only checkpoint (empty optimizer state)
-    of a TinyNeRF or a NeRF: the model's parameters, or `params` (tensors
-    aligned to model.parameters(), e.g. the optimizer's EMA: the
-    `<ckpt>.ema.npz` twin) in their place."""
+    of a TinyNeRF, a NeRF or a GridNeRF: the model's parameters, or
+    `params` (tensors aligned to model.parameters(), e.g. the optimizer's
+    EMA: the `<ckpt>.ema.npz` twin) in their place."""
     tree = None
     if params is not None:
         tree = _state_to_jax(model, dict(zip(dict(model.named_parameters()), params)))
@@ -199,7 +213,8 @@ def save_checkpoint(
     meta: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Atomically write params, the optimizer's state (optax's tree, see
-    the module docstring), step and meta of a TinyNeRF or a NeRF. Before
+    the module docstring), step and meta of a TinyNeRF, a NeRF or a
+    GridNeRF. Before
     the first update the state is count 0 and zero moments."""
     named = dict(model.named_parameters())
     states = [optimizer.state.get(p, {}) for p in named.values()]
@@ -240,8 +255,8 @@ def read_meta(path: str) -> Dict[str, Any]:
 
 
 def restore_params(path: str, model: nn.Module) -> Tuple[int, Dict[str, Any]]:
-    """Load a checkpoint's parameters into `model` (TinyNeRF or NeRF) in
-    place.
+    """Load a checkpoint's parameters into `model` (TinyNeRF, NeRF or
+    GridNeRF) in place.
 
     Returns (step, meta). Raises ValueError when the stored structure or
     a leaf's shape does not match the model."""

@@ -1,12 +1,15 @@
 """Checkpoint-driven model reconstruction for the render drivers.
 
-Port of the TinyNeRF and NeRF (coarse or occupancy proposal) branches of
-tinynerf_tpu/utils/model_io.py:18-152: rebuild the model from the
-checkpoint's stored cfg (with the reference's defaults), load its
-parameters and build a matching image renderer. An NDC checkpoint
+Port of tinynerf_tpu/utils/model_io.py:18-152 (TinyNeRF, NeRF with the
+coarse or the occupancy proposal, the grid family): rebuild the model
+from the checkpoint's stored cfg (with the reference's defaults), load
+its parameters and build a matching image renderer. An NDC checkpoint
 renders with reprojected rays over t in [0, 1]; an occupancy checkpoint
 holds the fine MLP alone and rebuilds its sampler over the stored
-occ_aabb. The grid family is not ported yet.
+occ_aabb; a grid checkpoint rebuilds its GridNeRFConfig from the meta's
+`grid` entry, over the box its tables were trained in, with the bf16
+compute dtype (as the JAX loader), and renders in eager torch (`fused`
+does not apply: the family has no kernel).
 """
 
 from __future__ import annotations
@@ -15,11 +18,13 @@ from typing import Optional
 
 import torch
 
+from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, GridNeRFConfig
 from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import encoding_dim
 from tinynerf_tpu_torch.ops.occupancy import default_aabb
 from tinynerf_tpu_torch.render import (
+    make_grid_image_renderer,
     make_hierarchical_image_renderer,
     make_image_renderer,
     make_occupancy_image_renderer,
@@ -56,10 +61,6 @@ def load_model_and_renderer(
     meta = ckpt_lib.read_meta(ckpt_path)["meta"]
     mcfg = meta.get("cfg", {"hidden": 128, "depth": 4, "skip_at": 2, "num_freqs": 10})
     model_kind = meta.get("model", "tinynerf")
-    if model_kind not in ("tinynerf", "nerf"):
-        raise NotImplementedError(
-            f"model {model_kind!r} is not ported yet (ROADMAP.md, queue 1, item 12)"
-        )
     # NDC training bakes the ray parameterization into the weights: the
     # renderer reprojects the same way and samples t in [0, 1].
     ndc = bool(mcfg.get("ndc", False))
@@ -98,7 +99,26 @@ def load_model_and_renderer(
                 n_fine=n_fine, near=near, far=far, nerf_cfg=ncfg, use_fused=fused,
                 frames=frames, ndc=ndc, aux=aux,
             )
-    else:
+    elif model_kind == "grid":
+        g = mcfg.get("grid", {})
+        gcfg = GridNeRFConfig(
+            n_levels=g.get("levels", 8),
+            features=g.get("features", 2),
+            base_res=g.get("base_res", 16),
+            max_res=g.get("max_res", 128),
+            table_size=g.get("table_size", 1 << 17),
+            hidden=g.get("hidden", 64),
+            num_freqs_dir=mcfg.get("num_freqs_dir", 4),
+            # The box the tables were trained in: another box moves every
+            # lookup into another cell.
+            **({"aabb": tuple(float(v) for v in g["aabb"])} if g.get("aabb") is not None else {}),
+        )
+        model = GridNeRF(gcfg, generator=template, device=device)
+        renderer = make_grid_image_renderer(
+            H=H, W=W, focal=focal, grid_cfg=gcfg, chunk=chunk, n_samples=n_samples, near=near,
+            far=far, frames=frames, ndc=ndc, aux=aux,
+        )
+    elif model_kind == "tinynerf":
         model_cfg = TinyNeRFConfig(
             in_dim=encoding_dim(num_freqs),
             hidden=mcfg["hidden"],
@@ -111,6 +131,8 @@ def load_model_and_renderer(
             far=far, num_freqs=num_freqs, model_cfg=model_cfg, use_fused=fused,
             frames=frames, ndc=ndc, aux=aux,
         )
+    else:
+        raise ValueError(f"unknown model {model_kind!r} in {ckpt_path} (tinynerf|nerf|grid)")
     step, _ = ckpt_lib.restore_params(ckpt_path, model)
     meta["step"] = step
     meta["model"] = model_kind

@@ -222,6 +222,24 @@ Phases, each printed with its result and time:
                 sigma_death record, train PSNR >= 14.5 dB, held-out through
                 K3 printed beside the JAX package's 31.05 dB; as a reading,
                 the same probe without precrop under a tightened watchdog.
+ 36. multiscene - multi-scene training (multiscene.py, train_multiscene.py):
+                (a) the scene-axis kernels' HMMA per route; batched K2 (8
+                TinyNeRFs x 1024 rays x 64, hidden 128, f32 and bf16), K4 at hidden 128 (coarse S=64 jittered, fine on the
+                128-sample union) and the flagship K4 + K6 (union 192, block
+                64), K = 8: one launch a pass, each scene bit-identical to its
+                one-scene launches, K4's depths to jitter_probe(seed k), the
+                plain versions' gates per scene; (b) `train_multiscene` with
+                its defaults (8 scenes, 400x400, 16 poses, 2000 steps) fused:
+                K2 once a step for all scenes on the tensor cores, every
+                scene's train PSNR up >= 3 dB, four K1 previews, the batched
+                checkpoint; 200 eager steps; (c) --model nerf 200 steps (K4
+                twice a step, batched, mean rise >= 2 dB, K3 previews); (d)
+                --hidden 256 --n-fine 128, 20 steps (K4 + K6 once a step);
+                (e) 2 ranks sharing the card, 50 steps: every scene's
+                parameters and Adam state bit-identical to world 1; (f) the
+                batched calls against 8 one-scene launches and the plain
+                versions, with their bounds, the flagship launch's buffers,
+                the 8-scene loop fused against eager, the per-step host work.
 
 Weights are random from a seed throughout. The line before the kernels
 line gives the seconds of all phases.
@@ -3309,6 +3327,434 @@ def run_scenes() -> None:
     print(f"[scenes] ok in {time.time() - t0:.2f}s", flush=True)
 
 
+MS_SCENES = 8  # phase 36: BASELINE config 5's scene count (train_multiscene's default)
+MS_RAYS = 1024  # rays a scene a step (the driver's default)
+MS_EAGER_ITERS = 200  # phase 36 (b): the eager TinyNeRF run
+MS_NERF_ITERS = 200  # phase 36 (c): --model nerf at hidden 128
+MS_FLAGSHIP_ITERS = 20  # phase 36 (d): --model nerf --hidden 256 --n-fine 128
+MS_DP_ITERS = 50  # phase 36 (e): the 2-rank run against world 1
+JAX_MS_PSNR = (30.4, 21.7)  # BASELINE.md:201-206: mean (min) PSNR after 10,000 steps (a TPU run)
+
+
+def _ms_case(kind: str, dev, K: int = MS_SCENES, R: int = MS_RAYS, dtype=torch.bfloat16):
+    """K stacked models of a phase 36 shape on the card (scene k from seed
+    k) and K scenes' rays, targets and int32 seeds."""
+    import numpy as np
+
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+    from tinynerf_tpu_torch.models.stacked import stack_models
+    from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
+    from tinynerf_tpu_torch.ops.encoding import encoding_dim
+
+    if kind == "tinynerf":
+        cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=128, compute_dtype=dtype)
+        make = lambda g: TinyNeRF(cfg, generator=g, device=dev)  # noqa: E731
+    else:
+        hidden = 256 if kind == "flagship" else 128
+        cfg = NeRFConfig(hidden=hidden, compute_dtype=dtype)
+        make = lambda g: NeRFMLP(cfg, generator=g, device=dev)  # noqa: E731
+    model = stack_models([make(torch.Generator().manual_seed(k)) for k in range(K)])
+    rng = np.random.RandomState(36)
+    ro = torch.from_numpy((rng.randn(K, R, 3) * 0.1 + [0.0, 0.0, 4.0]).astype(np.float32))
+    rd = rng.randn(K, R, 3).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    tgt = torch.from_numpy(rng.rand(K, R, 3).astype(np.float32))
+    seeds = torch.arange(101, 101 + K, dtype=torch.int32, device=dev)
+    return model, cfg, ro.to(dev), torch.from_numpy(rd).to(dev), tgt.to(dev), seeds
+
+
+def _union(weights, z_c, n_fine: int):
+    """The deterministic fine union of coarse weights and depths (K, R, S)."""
+    from tinynerf_tpu_torch.ops.sampling import sample_pdf
+
+    K, R, S = z_c.shape
+    z_mids = 0.5 * (z_c[..., 1:] + z_c[..., :-1]).reshape(K * R, S - 1)
+    z_f = sample_pdf(z_mids, weights[..., 1:-1].reshape(K * R, S - 2), n_fine, randomized=False)
+    return torch.sort(torch.cat([z_c, z_f.reshape(K, R, n_fine)], -1), -1).values.contiguous()
+
+
+def run_multiscene() -> None:
+    """Phase 36: multi-scene training, K2/K4/K6 with a scene axis."""
+    import numpy as np
+
+    from tinynerf_tpu_torch import train_multiscene as ms_mod
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k6_mod
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4_mod
+    from tinynerf_tpu_torch.kernels import fused_train as k2_mod
+    from tinynerf_tpu_torch.kernels.fused_render import pack_tiny_weights
+    from tinynerf_tpu_torch.models.stacked import scene_module
+    from tinynerf_tpu_torch.multiscene import init_multiscene_state, make_multiscene_train_block
+    from tinynerf_tpu_torch.ops.rays import get_rays_for_poses
+    from tinynerf_tpu_torch.training import TrainSettings, draw_ray_batch, step_generator
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kernels = _all_kernels()
+    k2, k4, k6 = kernels["K2"], kernels["K4"], kernels["K6"]
+
+    def reset():
+        for k in kernels.values():
+            k.launches = k.mma_launches = 0
+            if hasattr(k, "scene_launches"):
+                k.scene_launches = 0
+
+    def counts(*names):
+        return {n: (kernels[n].launches, kernels[n].mma_launches,
+                    getattr(kernels[n], "scene_launches", 0)) for n in names}
+
+    # 36. (a) the scene-axis kernels (fused_train_kernel<kMma, true>,
+    #     nerf_walk_scenes_kernel; one-scene launches run the kernels
+    #     without scene offsets): HMMA in the tensor-core instantiation
+    #     (kMma) only. Then every batched kernel at K = 8 against 8
+    #     one-scene launches (bit-identical per scene) and its plain
+    #     version (per scene).
+    t0 = time.time()
+    import re
+
+    from tinynerf_tpu_torch.kernels import _build
+
+    for source, kernel in (("fused_train", r"fused_train_kernelILb([01])ELb1E"),
+                           ("fused_nerf_train", r"nerf_walk_scenes_kernelI.*?Lb([01])E")):
+        hmma = {}
+        for fn, n in sass_counts(_build.build(source), "HMMA").items():
+            m = re.search(kernel, fn)
+            if m:
+                hmma[fn] = (m.group(1) == "1", n)
+        print(f"[multiscene] (kMma, HMMA instructions) per scene-axis kernel: {json.dumps(hmma)}",
+              flush=True)
+        check(len(hmma) == 2 and all((n > 0) == mma for mma, n in hmma.values()),
+              f"{source}: the scene-axis kernel on the tensor cores holds HMMA instructions, the "
+              "CUDA-core one none")
+    names_tiny = None
+    for dtype in (torch.float32, torch.bfloat16):
+        model, cfg, ro, rd, tgt, seeds = _ms_case("tinynerf", dev, dtype=dtype)
+        names_tiny = [n for n, _ in model.named_parameters()]
+        reset()
+        loss, grads = k2_mod.fused_loss_grads_scenes(model, ro, rd, tgt, seeds)
+        check(counts("K2")["K2"] == (1, int(dtype == torch.bfloat16), 1),
+              "one batched K2 launch for 8 scenes, one scene launch")
+        same = True
+        for k in range(MS_SCENES):
+            l1, g1 = k2_mod.fused_loss_grads(scene_module(model, k), ro[k], rd[k], tgt[k],
+                                             int(seeds[k]))
+            same = same and float(l1) == float(loss[k]) and all(
+                torch.equal(a[k], b) for a, b in zip(grads, g1))
+        loss, grads = k2_mod.fused_loss_grads_scenes(model, ro, rd, tgt, seeds, randomized=False)
+        want_loss, want = k2_mod.fused_loss_grads_scenes_plain(model, ro, rd, tgt, seeds,
+                                                               randomized=False)
+        worst = {"loss_rel": 0.0, "min_cosine": 1.0, "mma_scale_err": 0.0, "max_rel_to_leaf": 0.0}
+        for k in range(MS_SCENES):
+            gk, wk = [g[k] for g in grads], [w[k] for w in want]
+            e = leaf_errors(gk, wk)
+            worst["loss_rel"] = max(worst["loss_rel"], abs(float(loss[k]) - float(want_loss[k]))
+                                    / float(want_loss[k]))
+            worst["min_cosine"] = min(worst["min_cosine"], e["min_cosine"])
+            worst["max_rel_to_leaf"] = max(worst["max_rel_to_leaf"], e["max_rel_to_leaf"])
+            worst["mma_scale_err"] = max(worst["mma_scale_err"],
+                                         mma_scale_error(names_tiny, gk, wk))
+        ok = (worst["loss_rel"] < 1e-5 and worst["max_rel_to_leaf"] <= 2e-4
+              if dtype == torch.float32 else
+              worst["loss_rel"] < 1e-3 and worst["min_cosine"] > 0.98
+              and worst["mma_scale_err"] < MMA_SCALE)
+        print(f"[multiscene] K2 x{MS_SCENES} scenes x {MS_RAYS} rays x 64, hidden 128, "
+              f"{str(dtype)[6:]}: each scene bit-identical to its one-scene launch: {same}; "
+              f"against the plain version (grid depths), worst over the scenes "
+              f"{json.dumps(worst)}", flush=True)
+        check(same and ok, f"batched K2 ({dtype}): per scene bit-identical, within the K2 gates")
+
+    def nerf_checks(kind, n_fine):
+        model, cfg, ro, rd, tgt, seeds = _ms_case(kind, dev)
+        names = [n for n, _ in model.named_parameters()]
+        reset()
+        loss, grads, w, z = k4_mod.fused_nerf_pass_grads_scenes(
+            model, ro, rd, tgt, seeds, n_samples=64, emit_sampling=True, cfg=cfg)
+        zu = _union(w, z, n_fine)
+        streamed = kind == "flagship"
+        if streamed:
+            lf, gf = k6_mod.fused_nerf_pass_grads_streamed_scenes(model, ro, rd, tgt, zu, cfg=cfg,
+                                                                   sample_block=64)
+        else:
+            lf, gf = k4_mod.fused_nerf_pass_grads_scenes(model, ro, rd, tgt, seeds, zu,
+                                                         randomized=False, cfg=cfg)
+        c = counts("K4", "K6")
+        n4 = 1 if streamed else 2  # the coarse pass, and the fine one on K4 at hidden 128
+        want = {"K4": (n4, n4, n4), "K6": (1, 1, 1) if streamed else (0, 0, 0)}
+        check(c == want, f"{kind}: one batched launch a pass for 8 scenes, on the tensor cores")
+        same, worst = True, {}
+        for k in range(MS_SCENES):
+            one = scene_module(model, k)
+            l1, g1, w1, z1 = k4_mod.fused_nerf_pass_grads(one, ro[k], rd[k], tgt[k], int(seeds[k]),
+                                                          n_samples=64, emit_sampling=True, cfg=cfg)
+            jit = k2_mod.jitter_probe(int(seeds[k]), MS_RAYS, 64, 2.0, 6.0, tile=1, device=dev)
+            if streamed:
+                l2, g2 = k6_mod.fused_nerf_pass_grads_streamed(one, ro[k], rd[k], tgt[k], zu[k],
+                                                               cfg=cfg, sample_block=64)
+            else:
+                l2, g2 = k4_mod.fused_nerf_pass_grads(one, ro[k], rd[k], tgt[k], int(seeds[k]),
+                                                      zu[k], randomized=False, cfg=cfg)
+            same = same and float(l1) == float(loss[k]) and float(l2) == float(lf[k]) and all(
+                torch.equal(a[k], b) for a, b in zip(grads + gf, g1 + g2)) and torch.equal(
+                w[k], w1) and torch.equal(z[k], z1) and torch.equal(z[k], jit)
+            if k < 2:  # the plain versions on two scenes (each a full autograd pass)
+                for tag, lo, gr, fn, args, kw in (
+                        ("coarse", loss[k], [g[k] for g in grads], k4_mod.fused_nerf_pass_grads_plain,
+                         (one, ro[k], rd[k], tgt[k], 0, z[k]), dict(randomized=False, cfg=cfg)),
+                        ("fine", lf[k], [g[k] for g in gf],
+                         (k6_mod.fused_nerf_pass_grads_streamed_plain if streamed
+                          else k4_mod.fused_nerf_pass_grads_plain),
+                         (one, ro[k], rd[k], tgt[k], zu[k]) if streamed
+                         else (one, ro[k], rd[k], tgt[k], 0, zu[k]),
+                         dict(cfg=cfg, sample_block=64) if streamed
+                         else dict(randomized=False, cfg=cfg))):
+                    e = pass_errors(lo, gr, fn, args, kw, torch.bfloat16, names)
+                    worst[f"{tag}{k}"] = {x: e[x] for x in ("loss_rel", "min_cosine",
+                                                            "mma_scale_err", "ok")}
+        print(f"[multiscene] {kind} (hidden {cfg.hidden}) x{MS_SCENES} scenes x {MS_RAYS} rays: "
+              f"coarse K4 S=64 jittered, fine {'K6' if streamed else 'K4'} on the {64 + n_fine}"
+              f"-sample union, bf16, (launches, on the tensor cores, scene launches) "
+              f"{json.dumps(c)}; each scene bit-identical to its one-scene launches and its depths "
+              f"to jitter_probe(seed k): {same}; against the plain versions (scenes 0, 1) "
+              f"{json.dumps(worst)}", flush=True)
+        check(same and all(v["ok"] for v in worst.values()),
+              f"{kind}: per scene bit-identical, within the NeRF pass gates")
+        return model, cfg, ro, rd, tgt, seeds, zu
+
+    nerf_checks("nerf", 64)
+    flagship = nerf_checks("flagship", 128)
+    print(f"[multiscene] (a) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 36. (b) train_multiscene's defaults, fused: K2 once a step for all 8
+    #     scenes, every scene's train PSNR up >= 3 dB, four K1 previews;
+    #     then 200 eager steps whose losses fall.
+    t0 = time.time()
+    base = dict(out_dir=os.path.join(OUT_DIR, "ms"), ckpt_path=os.path.join(OUT_DIR, "ms.npz"),
+                data_dir=os.path.join(OUT_DIR, "ms_data"))
+    reset()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = ms_mod.main(ms_mod.MultiSceneConfig(**base))
+    text = out.getvalue()
+    print("\n".join(l for l in text.splitlines() if not l.startswith("[train] step")
+                    or "/2000" in l), flush=True)
+    c = counts("K1", "K2")
+    rise = [b - a for a, b in zip(res["psnr_first"], res["psnr_last"])]
+    print(f"[multiscene] train_multiscene defaults (8 scenes, 400x400, 16 poses, 2000 steps, "
+          f"fused): (launches, on the tensor cores, scene launches) {json.dumps(c)}; per-scene "
+          f"train PSNR {np.round(res['psnr_first'], 2).tolist()} -> "
+          f"{np.round(res['psnr_last'], 2).tolist()} (rise min {min(rise):.2f} dB); mean "
+          f"{res['psnr_mean']:.2f}, min {res['psnr_min']:.2f} dB; {res['rays_per_sec']:,.0f} rays/s "
+          f"aggregate", flush=True)
+    check(c["K2"] == (2000, 2000, 2000), "K2 once a step for all 8 scenes, on the tensor cores")
+    check(c["K1"][0] > 0 and c["K1"][0] == c["K1"][1], "the previews through K1, tensor cores")
+    check(min(rise) >= 3.0, "every scene's train PSNR rises >= 3 dB")
+    check(sorted(os.listdir(base["out_dir"]))[:4] == [f"scene_{k:03d}.png" for k in range(4)],
+          "four previews written")
+    with np.load(base["ckpt_path"]) as zf:
+        meta = json.loads(str(zf["meta"]))
+        check(zf["opt_0"].shape == (MS_SCENES,) and meta["meta"]["model"] == "tinynerf-multiscene",
+              "the batched checkpoint: (8,) count, the multiscene meta")
+    reset()
+    eager = dict(base, out_dir=os.path.join(OUT_DIR, "ms_eager"),
+                 ckpt_path=os.path.join(OUT_DIR, "ms_eager.npz"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        res_e = ms_mod.main(ms_mod.MultiSceneConfig(**eager, iters=MS_EAGER_ITERS, log_every=50,
+                                                    fused_train=False, preview=False))
+    print(f"[multiscene] eager, {MS_EAGER_ITERS} steps: per-scene train PSNR "
+          f"{np.round(res_e['psnr_first'], 2).tolist()} -> "
+          f"{np.round(res_e['psnr_last'], 2).tolist()}; K2 launches {counts('K2')['K2']}; "
+          f"{res_e['rays_per_sec']:,.0f} rays/s aggregate", flush=True)
+    check(counts("K2")["K2"][0] == 0 and res_e["psnr_mean"] > float(np.mean(res_e["psnr_first"])),
+          "the eager run launches no K2 and its loss falls")
+    print(f"[multiscene] (b) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 36. (c) --model nerf at hidden 128, 200 steps: K4 twice a step; (d) the
+    #     flagship widths, 20 steps: K4 + K6 once each a step.
+    t0 = time.time()
+    for tag, iters, kw, want in (
+            ("nerf", MS_NERF_ITERS, {}, {"K4": (400, 400, 400), "K6": (0, 0, 0)}),
+            ("flagship", MS_FLAGSHIP_ITERS, dict(hidden=256, n_fine=128),
+             {"K4": (20, 20, 20), "K6": (20, 20, 20)})):
+        reset()
+        cfg_n = dict(base, out_dir=os.path.join(OUT_DIR, f"ms_{tag}"),
+                     ckpt_path=os.path.join(OUT_DIR, f"ms_{tag}.npz"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = ms_mod.main(ms_mod.MultiSceneConfig(**cfg_n, model="nerf", iters=iters,
+                                                    log_every=min(50, iters), **kw))
+        c = counts("K3", "K4", "K5", "K6")
+        rise = float(np.mean(r["psnr_last"]) - np.mean(r["psnr_first"]))
+        print(f"[multiscene] --model nerf {kw or '(hidden 128, n_fine 64)'}, {iters} steps: "
+              f"(launches, on the tensor cores, scene launches) {json.dumps(c)}; mean train PSNR "
+              f"{np.mean(r['psnr_first']):.2f} -> {r['psnr_mean']:.2f} dB (rise {rise:.2f}); "
+              f"{r['rays_per_sec']:,.0f} rays/s aggregate", flush=True)
+        check(all(c[n] == want[n] for n in want), f"{tag}: one batched launch a pass a step")
+        check(c["K3"][0] > 0 and c["K3"][0] == c["K3"][1], f"{tag}: previews through K3")
+        if tag == "nerf":
+            check(rise >= 2.0, "--model nerf: mean train PSNR rises >= 2 dB")
+    print(f"[multiscene] (c, d) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 36. (e) two ranks sharing the card, 8 scenes, 50 steps: every scene's
+    #     parameters bit-identical to a world-1 run.
+    t0 = time.time()
+    dp = dict(base, iters=MS_DP_ITERS, log_every=25, preview=False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ms_mod.main(ms_mod.MultiSceneConfig(**{**dp, "ckpt_path": os.path.join(OUT_DIR, "ms_w1.npz")}))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           "-m", "tinynerf_tpu_torch.train_multiscene", "--iters", str(MS_DP_ITERS),
+           "--log-every", "25", "--no-preview", "--data-dir", base["data_dir"],
+           "--out-dir", os.path.join(OUT_DIR, "ms_w2"),
+           "--ckpt-path", os.path.join(OUT_DIR, "ms_w2.npz")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": os.getcwd()})
+    with open(os.path.join(OUT_DIR, "ms_w2.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    print("\n".join(l for l in (proc.stdout + proc.stderr).splitlines()
+                    if l.startswith(("[mesh]", "[distributed]", "[done]")) or "Error" in l),
+          flush=True)
+    check(proc.returncode == 0, f"the 2-rank run exits 0 (rc {proc.returncode})")
+    with np.load(os.path.join(OUT_DIR, "ms_w1.npz")) as a, \
+            np.load(os.path.join(OUT_DIR, "ms_w2.npz")) as b:
+        keys = [k for k in a.files if k.startswith(("param_", "opt_"))]
+        same = sorted(keys) == sorted(k for k in b.files if k.startswith(("param_", "opt_"))) \
+            and all(np.array_equal(a[k], b[k]) for k in keys)
+    print(f"[multiscene] 2 ranks sharing the card (gloo), {MS_DP_ITERS} steps: every scene's "
+          f"parameters and Adam state bit-identical to world 1: {same} ({len(keys)} leaves)",
+          flush=True)
+    check(same, "2 ranks: per-scene parameters bit-identical to world 1")
+    print(f"[multiscene] (e) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 36. (f) timing, plain, kernel, kernel, plain; the batched launch
+    #     against 8 one-scene launches; the loop; the per-step host work.
+    t0 = time.time()
+    times = {}
+
+    def turns(tag, fns):
+        for name in ("plain", "kernel", "singles", "kernel", "singles", "plain"):
+            times.setdefault(tag, {}).setdefault(name, []).append(
+                cuda_ms(fns[name], iters=3 if name == "plain" else 10))
+
+    model, cfg, ro, rd, tgt, seeds = _ms_case("tinynerf", dev)
+    singles = [scene_module(model, k) for k in range(MS_SCENES)]
+    turns("K2", {
+        "kernel": lambda: k2_mod.fused_loss_grads_scenes(model, ro, rd, tgt, seeds),
+        "singles": lambda: [k2_mod.fused_loss_grads(singles[k], ro[k], rd[k], tgt[k], seeds[k:k + 1])
+                            for k in range(MS_SCENES)],
+        "plain": lambda: k2_mod.fused_loss_grads_scenes_plain(model, ro, rd, tgt, seeds)})
+    n_par = sum(p[0].numel() for p in model.parameters())
+    bounds = {"K2": (2 * MS_SCENES * MS_RAYS * 64 * train_macs_per_point(singles[0]),
+                     4 * MS_SCENES * (MS_RAYS * 9 + 2 * n_par + 1))}
+    pack_ms = min(cuda_ms(lambda: pack_tiny_weights(model, model.cfg, mma=True, upstream=True))
+                  for _ in range(2))
+    for kind in ("nerf", "flagship"):
+        model, cfg, ro, rd, tgt, seeds = _ms_case(kind, dev)
+        singles = [scene_module(model, k) for k in range(MS_SCENES)]
+        n_par = sum(p[0].numel() for p in model.parameters())
+        w, z = k4_mod.fused_nerf_pass_grads_scenes(model, ro, rd, tgt, seeds, emit_sampling=True,
+                                                   cfg=cfg)[2:]
+        n_fine = 128 if kind == "flagship" else 64
+        zu = _union(w, z, n_fine)
+        macs = train_macs_per_point(singles[0])
+        tag = "K4 coarse " + kind
+        turns(tag, {
+            "kernel": lambda: k4_mod.fused_nerf_pass_grads_scenes(model, ro, rd, tgt, seeds,
+                                                                  emit_sampling=True, cfg=cfg),
+            "singles": lambda: [k4_mod.fused_nerf_pass_grads(
+                singles[k], ro[k], rd[k], tgt[k], seeds[k:k + 1], emit_sampling=True, cfg=cfg)
+                for k in range(MS_SCENES)],
+            "plain": lambda: k4_mod.fused_nerf_pass_grads_scenes_plain(
+                model, ro, rd, tgt, seeds, z, randomized=False, cfg=cfg)})
+        bounds[tag] = (2 * MS_SCENES * MS_RAYS * 64 * macs,
+                       4 * MS_SCENES * (MS_RAYS * (9 + 2 * 64) + 2 * n_par + 1))
+        S = 64 + n_fine
+        if kind == "flagship":
+            tag = "K6 fine flagship"
+            turns(tag, {
+                "kernel": lambda: k6_mod.fused_nerf_pass_grads_streamed_scenes(
+                    model, ro, rd, tgt, zu, cfg=cfg, sample_block=64),
+                "singles": lambda: [k6_mod.fused_nerf_pass_grads_streamed(
+                    singles[k], ro[k], rd[k], tgt[k], zu[k], cfg=cfg, sample_block=64)
+                    for k in range(MS_SCENES)],
+                "plain": lambda: k6_mod.fused_nerf_pass_grads_streamed_scenes_plain(
+                    model, ro, rd, tgt, zu, cfg=cfg, sample_block=64)})
+        else:
+            tag = "K4 fine nerf"
+            turns(tag, {
+                "kernel": lambda: k4_mod.fused_nerf_pass_grads_scenes(
+                    model, ro, rd, tgt, seeds, zu, randomized=False, cfg=cfg),
+                "singles": lambda: [k4_mod.fused_nerf_pass_grads(
+                    singles[k], ro[k], rd[k], tgt[k], seeds[k:k + 1], zu[k], randomized=False,
+                    cfg=cfg) for k in range(MS_SCENES)],
+                "plain": lambda: k4_mod.fused_nerf_pass_grads_scenes_plain(
+                    model, ro, rd, tgt, seeds, zu, randomized=False, cfg=cfg)})
+        bounds[tag] = (2 * MS_SCENES * MS_RAYS * S * macs,
+                       4 * MS_SCENES * (MS_RAYS * (6 + 2 * S) + 2 * n_par + 1))
+    # The flagship K6 launch's device buffers at K = 8: the walk's workspace
+    # and the partial rows, from the wrapper's own sizes; the peak memory.
+    lib = k4_mod._lib()
+    fcfg = flagship[1]
+    ws_floats = lib.tinynerf_fused_nerf_train_workspace_floats(2, 64, 10, 256, 8, 64)
+    n_grad = k4_mod.pack_nerf_weights(scene_module(flagship[0], 0), fcfg).numel()
+    n_blocks = min(MS_RAYS // 2, torch.cuda.get_device_properties(dev).multi_processor_count)
+    buf = {"workspace_MB": 4 * MS_SCENES * n_blocks * ws_floats / 1e6,
+           "partials_MB": 4 * MS_SCENES * n_blocks * (n_grad + 1) / 1e6}
+    torch.cuda.reset_peak_memory_stats(dev)
+    k6_mod.fused_nerf_pass_grads_streamed_scenes(*flagship[:1], *flagship[2:5], flagship[6],
+                                                 cfg=fcfg, sample_block=64)
+    torch.cuda.synchronize()
+    buf["peak_allocated_MB"] = torch.cuda.max_memory_allocated(dev) / 1e6
+    ms = {t: {n: min(v) for n, v in d.items()} for t, d in times.items()}
+    for tag, d in ms.items():
+        flops, nbytes = bounds[tag]
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        print(f"[timing] {card}: {tag}, {MS_SCENES} scenes x {MS_RAYS} rays, bf16: batched "
+              f"{d['kernel']:.4f} ms, {MS_SCENES} one-scene launches {d['singles']:.4f} ms, plain "
+              f"{d['plain']:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB) (all runs {json.dumps(times[tag])})", flush=True)
+    print(f"[timing] {card}: the flagship K6 launch at K = {MS_SCENES}: {json.dumps(buf)}",
+          flush=True)
+    # The 8-scene loop, fused against eager, and its per-step host work.
+    data = ms_mod._load_or_make_scene
+    cfg0 = ms_mod.MultiSceneConfig(**base)
+    scenes = [data(cfg0, k, dev) for k in range(MS_SCENES)]
+    poses = torch.from_numpy(np.stack([s["poses"] for s in scenes])).to(dev)
+    images = torch.from_numpy(np.stack([s["images"] for s in scenes])).to(dev)
+    H = cfg0.size
+    rays = [get_rays_for_poses(H, H, float(scenes[0]["focal"]), p) for p in poses]
+    rays_o = torch.stack([r[0] for r in rays])
+    rays_d = torch.stack([r[1] for r in rays])
+    pixels = images.reshape(MS_SCENES, cfg0.poses_per_scene, H * H, 3)
+    s = TrainSettings(n_rand=MS_RAYS)
+    sps = {}
+    for name in ("eager", "fused", "fused", "eager"):
+        gf = k2_mod.make_fused_grad_fn_scenes(s) if name == "fused" else None
+        m, o = init_multiscene_state(0, MS_SCENES, s, device=dev)
+        block = make_multiscene_train_block(s, TIMED_STEPS, MS_SCENES, grad_fn=gf)
+        block(m, o, 1, 0, rays_o, rays_d, pixels)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        block(m, o, 1, TIMED_STEPS, rays_o, rays_d, pixels)
+        torch.cuda.synchronize()
+        sps.setdefault(name, []).append(TIMED_STEPS / (time.time() - t1))
+
+    def draws():
+        gens = [step_generator(k, 7, dev) for k in range(MS_SCENES)]
+        b = [draw_ray_batch(s, g, 7, rays_o[k], rays_d[k], pixels[k]) for k, g in enumerate(gens)]
+        seeds_ = [torch.randint(0, 2**31 - 1, (1,), generator=g, dtype=torch.int32, device=dev)
+                  for g in gens]
+        return [torch.stack(t) for t in zip(*b)], torch.cat(seeds_)
+
+    draw_ms = min(cuda_ms(draws) for _ in range(2))
+    best = {k: max(v) for k, v in sps.items()}
+    agg = MS_SCENES * MS_RAYS
+    print(f"[timing] {card}: the {MS_SCENES}-scene TinyNeRF loop, {TIMED_STEPS} steps of "
+          f"{MS_SCENES} x {MS_RAYS} rays, bf16: fused {best['fused']:.2f} steps/s "
+          f"({best['fused'] * agg:,.0f} rays/s aggregate), eager {best['eager']:.2f} steps/s "
+          f"({best['eager'] * agg:,.0f}) (all runs {json.dumps(sps)}); per-step host work "
+          f"(readings): the {MS_SCENES} scenes' draws and seeds {draw_ms:.4f} ms, the batched "
+          f"weight pack {pack_ms:.4f} ms", flush=True)
+    print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3324,7 +3770,8 @@ def main() -> int:
         run_slice()
         run_grid()
         run_scenes()
-    print(f"[phases] 1-35 in {time.time() - t_start:.2f}s", flush=True)
+        run_multiscene()
+    print(f"[phases] 1-36 in {time.time() - t_start:.2f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

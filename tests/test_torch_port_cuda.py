@@ -1,9 +1,11 @@
 """The fused render (K1), train (K2), NeRF (K3), streamed NeRF (K5),
 NeRF train (K4), streamed NeRF train (K6) and block-partials (K7)
-kernels against their plain versions, K2's and K4's jitter, and the
-routes of K1, K2, K3/K5 and K4/K6/K7 (bf16 at the tensor-core shapes on
-the tensor cores, f32 and other shapes on the CUDA cores; a tensor-core
-width without its fragments refused), on a CUDA device.
+kernels against their plain versions, K2's and K4's jitter, the routes
+of K1, K2, K3/K5 and K4/K6/K7 (bf16 at the tensor-core shapes on the
+tensor cores, f32 and other shapes on the CUDA cores; a tensor-core width
+without its fragments refused), and the scene axis of K2, K4 and K6
+(multi-scene training: each scene of a batched launch bit-identical to a
+one-scene launch; counts and strides checked in C), on a CUDA device.
 
 Skips without one. This file imports neither jax nor the JAX package, so
 it also runs on a GPU machine that has no JAX (without the suite's
@@ -157,7 +159,9 @@ def test_k1_and_k2_refuse_fragments_off_their_route_on_card(cuda_device):
     """K1's and K2's C entries run the tensor-core kernel only for a bf16
     launch at its shapes: fragments with an f32 launch, at hidden 48, or
     (K1) over 128 points a tile or (K2) with tiles of 48 points come back
-    as cudaErrorInvalidValue before anything runs."""
+    as cudaErrorInvalidValue before anything runs. K2's other arguments
+    (n_grad, its partial row, each scene's weight strides) are right for
+    each shape, one scene and two, so the route rule alone refuses."""
     from tinynerf_tpu_torch.kernels import fused_render as k1
     from tinynerf_tpu_torch.kernels import fused_train as k2
 
@@ -170,10 +174,16 @@ def test_k1_and_k2_refuse_fragments_off_their_route_on_card(cuda_device):
                                               stream)
         assert err != 0, (tile, S, hidden, bf16)
     for tile, S, hidden, bf16 in ((1, 64, 128, 0), (1, 64, 48, 1), (1, 48, 128, 1)):
-        err = k2._lib().tinynerf_fused_train(
-            None, None, None, None, None, None, None, frag, None, None, None, 132, tile, S, 10,
-            hidden, 4, 2, 2.0, 0.1, 0.01, 0, 1, bf16, 132, 100, 104, cuda_device.index, stream)
-        assert err != 0, (tile, S, hidden, bf16)
+        cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=hidden, depth=4, skip_at=2)
+        w_fwd, w_mma = k1.pack_tiny_weights(TinyNeRF(cfg), cfg, mma=True, upstream=True)
+        n_grad = w_fwd.numel()
+        slab = lambda n: -(-n // 4) * 4  # noqa: E731
+        for n_scenes in (1, 2):
+            err = k2._lib().tinynerf_fused_train(
+                None, None, None, None, None, None, None, frag, None, None, None, 132, tile, S,
+                10, hidden, 4, 2, 2.0, 0.1, 0.01, 0, 1, bf16, 132, n_grad, k2.partial_row(n_grad),
+                n_scenes, slab(n_grad), 0, slab(w_mma.numel()), cuda_device.index, stream)
+            assert err == 1, (tile, S, hidden, bf16, n_scenes)  # cudaErrorInvalidValue
 
 
 @pytest.mark.cuda
@@ -1204,3 +1214,285 @@ def test_grid_family_on_card_matches_the_cpu(cuda_device, dtype):
     for n in grads["card"]:
         if n.startswith("tables."):
             assert torch.equal(grads["card"][n], grads["again"][n]), n
+
+
+# The scene axis of K2, K4 and K6 (multi-scene training: one launch trains
+# every scene of a step).
+
+SCENE_SEEDS = (5, 9, 13)
+# The NeRF scenes' model seeds: each leaves the flagship's density alive at
+# init on these rays. A dead one gives all-zero leaves, which the bf16
+# cosine gate cannot read (seed 9: 44 of the plain K6 reference's leaves
+# are zero); _live_leaves checks every reference leaf.
+NERF_SCENE_SEEDS = (5, 8, 17)
+
+
+def _live_leaves(ref, names):
+    """Each leaf of a plain reference (loss, grads, slack) holds a non-zero
+    value, so that the gates compare something."""
+    for g, name in zip(ref[1], names):
+        assert float(g.abs().max()) > 0, f"the reference's {name} is all zeros: a dead scene"
+
+
+def _stacked(make, seeds, device):
+    from tinynerf_tpu_torch.models.stacked import stack_models
+
+    return stack_models([make(torch.Generator().manual_seed(s), device) for s in seeds])
+
+
+def _scene_rays(K, n, seed, device):
+    pairs = [_rays(n, seed + k, device) for k in range(K)]
+    target = torch.from_numpy(np.random.RandomState(seed).rand(K, n, 3).astype(np.float32))
+    return (torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs]),
+            target.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_scene_axis_bit_identical_to_one_scene_launches_on_card(cuda_device, dtype, noise):
+    """One batched K2 launch over 3 stacked TinyNeRFs (jittered in the
+    kernel, 256 rays each, seeds 5, 9, 13): each scene's loss and every
+    gradient leaf bit-identical to a one-scene launch with its seed (the
+    Philox draws keyed by scene-local rays, the blocks a scene independent
+    of K); one launch counted, one scene launch; and against the plain
+    version scene by scene under the K2 gates on the grid depths."""
+    from tinynerf_tpu_torch.kernels import fused_train as k2
+    from tinynerf_tpu_torch.models.stacked import scene_module
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=128, compute_dtype=dtype)
+    model = _stacked(lambda g, d: TinyNeRF(cfg, generator=g, device=d), SCENE_SEEDS, cuda_device)
+    K, n = len(SCENE_SEEDS), 256
+    ro, rd, target = _scene_rays(K, n, 60, cuda_device)
+    sigma_noise = None
+    if noise:
+        g = torch.Generator(device=cuda_device).manual_seed(4)
+        sigma_noise = torch.randn(K, n, 64, generator=g, device=cuda_device)
+    seeds = torch.tensor(SCENE_SEEDS, dtype=torch.int32, device=cuda_device)
+    before = (k2.fused_loss_grads.launches, k2.fused_loss_grads.mma_launches,
+              k2.fused_loss_grads.scene_launches)
+    loss, grads = k2.fused_loss_grads_scenes(model, ro, rd, target, seeds, sigma_noise=sigma_noise)
+    torch.cuda.synchronize()
+    mma = int(dtype == torch.bfloat16)
+    assert (k2.fused_loss_grads.launches - before[0], k2.fused_loss_grads.mma_launches - before[1],
+            k2.fused_loss_grads.scene_launches - before[2]) == (1, mma, 1)
+    assert loss.shape == (K,) and all(g.shape == p.shape for g, p in zip(grads, model.parameters()))
+    for k, seed in enumerate(SCENE_SEEDS):
+        one = scene_module(model, k)
+        l1, g1 = k2.fused_loss_grads(one, ro[k], rd[k], target[k], seed,
+                                     sigma_noise=None if noise is False else sigma_noise[k])
+        assert float(loss[k]) == float(l1)
+        assert all(torch.equal(a[k], b) for a, b in zip(grads, g1))
+    kw = dict(randomized=False, sigma_noise=sigma_noise)
+    loss, grads = k2.fused_loss_grads_scenes(model, ro, rd, target, seeds, **kw)
+    want_loss, want = k2.fused_loss_grads_scenes_plain(model, ro, rd, target, seeds, **kw)
+    names = [n for n, _ in model.named_parameters()]
+    for k in range(K):
+        rel = abs(float(loss[k]) - float(want_loss[k])) / float(want_loss[k])
+        if dtype == torch.float32:
+            assert rel < 1e-5
+            for g, w in zip(grads, want):
+                assert float((g[k] - w[k]).abs().max()) <= 2e-4 * float(w[k].abs().max()) + 1e-8
+        else:
+            assert rel < 1e-3
+            assert min(_cosine(g[k], w[k]) for g, w in zip(grads, want)) > 0.98
+            _scale_check(names, [g[k] for g in grads], [w[k] for w in want])
+
+
+def _nerf_stack(hidden, dtype, device):
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+
+    depth, skip_at, rgb_hidden = (8, 4, 64) if hidden == 256 else (3, 2, 32)
+    cfg = NeRFConfig(num_freqs=10, num_freqs_dir=4, hidden=hidden, depth=depth, skip_at=skip_at,
+                     rgb_hidden=rgb_hidden, compute_dtype=dtype)
+    return _stacked(lambda g, d: NeRFMLP(cfg, generator=g, device=d), NERF_SCENE_SEEDS,
+                    device), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_scene_axis_bit_identical_to_one_scene_launches_on_card(cuda_device, hidden, dtype):
+    """One batched K4 launch over 3 stacked NeRF MLPs (NERF_SCENE_SEEDS), the coarse pass
+    jittered in the kernel (300 rays: padding, S=64, weights and depths
+    out), then the fine pass on given sorted depths (S=96, sigma-noise):
+    every scene's loss, gradient leaves, weights and depths bit-identical
+    to a one-scene launch with its seed; scene k's depths equal K2's
+    jitter_probe with seed k; one launch and one scene launch counted per
+    call; the plain version scene by scene under the NeRF pass gates."""
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4
+    from tinynerf_tpu_torch.kernels.fused_train import jitter_probe
+    from tinynerf_tpu_torch.models.stacked import scene_module
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, cfg = _nerf_stack(hidden, dtype, cuda_device)
+    K, n = len(SCENE_SEEDS), 300
+    ro, rd, target = _scene_rays(K, n, 70, cuda_device)
+    seeds = torch.tensor(SCENE_SEEDS, dtype=torch.int32, device=cuda_device)
+    f = k4.fused_nerf_pass_grads
+    before = (f.launches, f.mma_launches, f.scene_launches)
+    loss, grads, w, z = k4.fused_nerf_pass_grads_scenes(model, ro, rd, target, seeds, n_samples=64,
+                                                        emit_sampling=True, cfg=cfg)
+    torch.cuda.synchronize()
+    mma = int(dtype == torch.bfloat16)
+    assert (f.launches - before[0], f.mma_launches - before[1],
+            f.scene_launches - before[2]) == (1, mma, 1)
+    assert w.shape == z.shape == (K, n, 64)
+    for k, seed in enumerate(SCENE_SEEDS):
+        l1, g1, w1, z1 = f(scene_module(model, k), ro[k], rd[k], target[k], seed, n_samples=64,
+                           emit_sampling=True, cfg=cfg)
+        assert float(loss[k]) == float(l1) and torch.equal(w[k], w1) and torch.equal(z[k], z1)
+        assert all(torch.equal(a[k], b) for a, b in zip(grads, g1))
+        assert torch.equal(z[k], jitter_probe(seed, n, 64, 2.0, 6.0, tile=1, device=cuda_device))
+    zf = torch.stack([_sorted_z(n, 96, 71 + k, cuda_device) for k in range(K)])
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    noise = torch.randn(K, n, 96, generator=g, device=cuda_device)
+    loss, grads = k4.fused_nerf_pass_grads_scenes(model, ro, rd, target, seeds, zf,
+                                                  sigma_noise=noise, randomized=False, cfg=cfg)
+    names = [nm for nm, _ in model.named_parameters()]
+    for k, seed in enumerate(SCENE_SEEDS):
+        one = scene_module(model, k)
+        kw = dict(sigma_noise=noise[k], randomized=False, cfg=cfg)
+        l1, g1 = f(one, ro[k], rd[k], target[k], seed, zf[k], **kw)
+        assert float(loss[k]) == float(l1) and all(torch.equal(a[k], b) for a, b in zip(grads, g1))
+        ref = _plain(k4.fused_nerf_pass_grads_plain, one, ro[k], rd[k], target[k], seed, zf[k],
+                     dtype=dtype, **kw)
+        _live_leaves(ref, names)
+        _leaf_check(loss[k], [gr[k] for gr in grads], ref, dtype, names=names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_scene_axis_bit_identical_to_one_scene_launches_on_card(cuda_device, dtype):
+    """One batched K6 launch over 3 stacked flagship MLPs on given sorted
+    unions (300 rays x 192, block 64): every scene's loss and gradient
+    leaves bit-identical to a one-scene launch; one launch and one scene
+    launch counted; the plain version scene by scene under the pass
+    gates."""
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k6
+    from tinynerf_tpu_torch.models.stacked import scene_module
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, cfg = _nerf_stack(256, dtype, cuda_device)
+    K, n = len(SCENE_SEEDS), 300
+    ro, rd, target = _scene_rays(K, n, 80, cuda_device)
+    z = torch.stack([_sorted_z(n, 192, 81 + k, cuda_device) for k in range(K)])
+    f = k6.fused_nerf_pass_grads_streamed
+    before = (f.launches, f.mma_launches, f.scene_launches)
+    loss, grads = k6.fused_nerf_pass_grads_streamed_scenes(model, ro, rd, target, z, cfg=cfg)
+    torch.cuda.synchronize()
+    assert (f.launches - before[0], f.mma_launches - before[1],
+            f.scene_launches - before[2]) == (1, int(dtype == torch.bfloat16), 1)
+    names = [nm for nm, _ in model.named_parameters()]
+    for k in range(K):
+        one = scene_module(model, k)
+        l1, g1 = f(one, ro[k], rd[k], target[k], z[k], cfg=cfg)
+        assert float(loss[k]) == float(l1) and all(torch.equal(a[k], b) for a, b in zip(grads, g1))
+        ref = _plain(k6.fused_nerf_pass_grads_streamed_plain, one, ro[k], rd[k], target[k], z[k],
+                     dtype=dtype, cfg=cfg)
+        _live_leaves(ref, names)
+        _leaf_check(loss[k], [gr[k] for gr in grads], ref, dtype, names=names)
+
+
+@pytest.mark.cuda
+def test_scene_axis_refuses_wrong_counts_and_strides_on_card(cuda_device):
+    """The C entries of K2 and K4/K6 take a scene count in [1, 65535] and
+    each weight buffer's scene stride as one model's packed size rounded
+    up to a multiple of 4 (16-byte aligned slabs): anything else comes back
+    as cudaErrorInvalidValue (1) before a launch."""
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4
+    from tinynerf_tpu_torch.kernels import fused_train as k2
+    from tinynerf_tpu_torch.kernels.fused_nerf import pack_nerf_weights
+    from tinynerf_tpu_torch.kernels.fused_render import pack_tiny_weights
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    dev = cuda_device.index
+    cfg = TinyNeRFConfig(in_dim=encoding_dim(4), hidden=32, compute_dtype=torch.float32)
+    n_grad = pack_tiny_weights(TinyNeRF(cfg), cfg)[0].numel()
+    row, bwd = k2.partial_row(n_grad), 3 * 32 * 32
+    dummy = torch.zeros(1, device=cuda_device).data_ptr()
+
+    def k2_err(n_scenes, fwd, bwd_stride):
+        return k2._lib().tinynerf_fused_train(
+            None, None, None, None, None, None, dummy, None, None, None, None, 64, 4, 16, 4, 32,
+            4, 2, 2.0, 0.1, 0.01, 0, 1, 0, 16, n_grad, row, n_scenes, fwd, bwd_stride, 0, dev,
+            stream)
+
+    for args in ((2, n_grad + 4, bwd), (2, n_grad, bwd + 1), (0, n_grad, bwd), (70000, n_grad, bwd)):
+        assert k2_err(*args) == 1, args
+    ncfg = NeRFConfig(num_freqs=4, num_freqs_dir=2, hidden=32, depth=3, skip_at=2, rgb_hidden=16,
+                      compute_dtype=torch.float32)
+    n_grad = pack_nerf_weights(NeRFMLP(ncfg), ncfg).numel()
+    slab, want_bwd = -(-n_grad // 4) * 4, 2 * 32 * 32 + 16 * 32
+    geom = (4, 2, 1, 32, 3, 2, 16)
+    # n_grad itself (4727) is no slab: the scenes' weights start 16-byte aligned.
+    for n_scenes, fwd, bwd_stride in ((2, n_grad, want_bwd), (2, slab + 4, want_bwd),
+                                      (2, slab, want_bwd - 4), (0, slab, want_bwd),
+                                      (70000, slab, want_bwd)):
+        err = k4._lib().tinynerf_fused_nerf_train(
+            *(None,) * 8, dummy, None, None, None, None, None, None, None, 128, 128, 8, 16, *geom,
+            2.0, 0.1, 0.01, 0, 1, 0, 16, n_grad, n_scenes, fwd, bwd_stride, 0, dev, stream)
+        assert err == 1, (n_scenes, fwd, bwd_stride)
+        err = k4._lib().tinynerf_fused_nerf_train_streamed(
+            *(None,) * 7, dummy, None, None, None, None, None, 128, 128, 8, 16, 8, *geom, 0.01, 1,
+            0, 16, n_grad, n_scenes, fwd, bwd_stride, 0, dev, stream)
+        assert err == 1, (n_scenes, fwd, bwd_stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tinynerf", "nerf", "flagship"])
+def test_fused_multiscene_block_equals_one_scene_blocks_on_card(cuda_device, kind):
+    """A fused K-scene block (make_fused_grad_fn_scenes or
+    make_fused_nerf_grad_fn_scenes: one batched K2, or K4 coarse and K4
+    or K6 fine, a step) of 4 steps with sigma-noise on equals 3 fused
+    one-scene blocks (make_fused_grad_fn, make_fused_nerf_grad_fn) on
+    each scene's seed and data, bf16 on the tensor cores: every scene's
+    losses and parameters within 1e-6 (tests/test_multiscene.py:54-88's
+    tolerance), and one batched launch a pass a step."""
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k6
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4
+    from tinynerf_tpu_torch.kernels import fused_train as k2
+    from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig
+    from tinynerf_tpu_torch.multiscene import (
+        init_multiscene_state, make_multiscene_train_block, scene_params, scene_seed)
+    from tinynerf_tpu_torch.training import TrainSettings, init_train_state, make_train_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K, steps, bf16 = 3, 4, torch.bfloat16
+    if kind == "tinynerf":
+        cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=128, compute_dtype=bf16)
+        s = TrainSettings(n_rand=256, n_samples=64, model_cfg=cfg, sigma_noise_std=0.3)
+        init_fn = None
+        gf, gf1 = k2.make_fused_grad_fn_scenes(s), k2.make_fused_grad_fn(s)
+        counters, per_step = [k2.fused_loss_grads], [1]
+    else:
+        hidden, n_fine, block = (64, 64, None) if kind == "nerf" else (256, 128, 64)
+        cfg = NeRFConfig(hidden=hidden, rgb_hidden=hidden // 2, compute_dtype=bf16)
+        s = TrainSettings(n_rand=256, n_samples=64, sigma_noise_std=0.3)
+        init_fn = lambda g, d: NeRF(cfg, generator=g, device=d)  # noqa: E731
+        gf = k4.make_fused_nerf_grad_fn_scenes(s, cfg, n_fine=n_fine, sample_block=block)
+        gf1 = k4.make_fused_nerf_grad_fn(s, cfg, n_fine=n_fine, sample_block=block)
+        counters = [k4.fused_nerf_pass_grads, k6.fused_nerf_pass_grads_streamed]
+        per_step = [2, 0] if block is None else [1, 1]
+    rng = np.random.RandomState(3)
+    ro = (rng.randn(K, 2, 1024, 3) * 0.1 + [0.0, 0.0, 4.0]).astype(np.float32)
+    rd = rng.randn(K, 2, 1024, 3).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    px = rng.rand(K, 2, 1024, 3).astype(np.float32)
+    data = [torch.from_numpy(a).to(cuda_device) for a in (ro, rd, px)]
+    model, opt = init_multiscene_state(0, K, s, device=cuda_device, init_fn=init_fn)
+    before = [(c.launches, c.scene_launches) for c in counters]
+    m = make_multiscene_train_block(s, steps, K, grad_fn=gf)(model, opt, 7, 0, *data)
+    torch.cuda.synchronize()
+    assert [(c.launches - b[0], c.scene_launches - b[1]) for c, b in zip(counters, before)] == [
+        (n * steps, n * steps) for n in per_step]
+    single = make_train_block(s, steps, grad_fn=gf1)
+    for k in range(K):
+        m1, o1 = init_train_state(torch.Generator().manual_seed(scene_seed(0, k)), s,
+                                  device=cuda_device, init_fn=init_fn)
+        r = single(m1, o1, scene_seed(7, k), 0, data[0][k], data[1][k], data[2][k])
+        assert torch.allclose(m["loss"][:, k], r["loss"], rtol=0, atol=1e-6), k
+        for a, b in zip(scene_params(model, k).parameters(), m1.parameters()):
+            assert torch.allclose(a, b, rtol=0, atol=1e-6), k

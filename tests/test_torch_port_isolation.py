@@ -27,6 +27,9 @@ import tinynerf_tpu_torch.parallel.render
 import tinynerf_tpu_torch.ops.regularizers, tinynerf_tpu_torch.ops.occupancy
 import tinynerf_tpu_torch.render, tinynerf_tpu_torch.synthetic, tinynerf_tpu_torch.ops.rays
 import tinynerf_tpu_torch.models.grid_nerf
+import tinynerf_tpu_torch.multiscene, tinynerf_tpu_torch.train_multiscene
+import tinynerf_tpu_torch.models.stacked
+import tinynerf_tpu_torch.utils.profiling, tinynerf_tpu_torch.utils.torch_import
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tinynerf_tpu"))
 print(bad)
 sys.exit(1 if bad else 0)
@@ -43,7 +46,8 @@ def test_port_never_imports_jax():
 # The modules of the bf16 tensor-core wrappers (K1 and K2 and their
 # packer, K3 and the packer, K4, K5, K6, K7), the trainer that reports
 # its launch counts, the sparsity prior, the occupancy proposal, the grid
-# family and the synthetic scenes, each alone in a fresh interpreter.
+# family, the synthetic scenes, multi-scene training and the profiling and
+# .pth-import utilities, each alone in a fresh interpreter.
 ALONE = """
 import sys
 import {module}
@@ -65,6 +69,10 @@ sys.exit(1 if bad else 0)
     "tinynerf_tpu_torch.ops.occupancy",
     "tinynerf_tpu_torch.models.grid_nerf",
     "tinynerf_tpu_torch.synthetic",
+    "tinynerf_tpu_torch.multiscene",
+    "tinynerf_tpu_torch.train_multiscene",
+    "tinynerf_tpu_torch.utils.profiling",
+    "tinynerf_tpu_torch.utils.torch_import",
 ])
 def test_tensor_core_wrappers_alone_never_import_jax(module):
     proc = subprocess.run([sys.executable, "-c", ALONE.format(module=module)], cwd=ROOT,

@@ -23,8 +23,10 @@ reprojects a forward-facing capture's rays to NDC space and samples t in
 [0, 1] (train_settings() swaps near/far, tinynerf_tpu/config.py:133,
 219-220). The grid family's fields (grid_*, model="grid") and grid_cfg()
 follow tinynerf_tpu/config.py:65-75, 186-210; the family runs in eager
-torch whatever fused and fused_train say (it has no kernel). Profiling's
-field is not ported yet (ROADMAP.md, queue 1). data_parallel, sample_parallel and distributed
+torch whatever fused and fused_train say (it has no kernel).
+profile_dir (tinynerf_tpu/config.py:150) names the directory of the
+training loop's torch.profiler trace (utils/profiling.trace; the JAX
+package's jax.profiler trace). data_parallel, sample_parallel and distributed
 (tinynerf_tpu/config.py:144-149) select parallel/: a rank of a
 torch.distributed process group is one device of the mesh.
 """
@@ -107,6 +109,7 @@ class Config:
     # blockwise composite; parallel/train.py)
     distributed: bool = False  # join the launcher's process group (parallel/mesh.py)
     metrics_path: Optional[str] = None  # JSONL metrics log
+    profile_dir: Optional[str] = None  # torch.profiler trace output (Chrome trace JSON)
     holdout: int = 0  # poses excluded from training, scored at the end
     holdout_mode: str = "tail"  # "tail": the last N poses | "strided": N spread evenly
     eval_every: int = 0  # >0: score the held-out views every N steps (needs holdout)

@@ -42,6 +42,15 @@
 // (fused_partials.cu) shares; its header explains the design. K4 keeps its
 // one segment's activations in the workspace from the forward to the
 // backward; K6 rematerialises each block's forward on the reverse walk.
+//
+// Both entries take a scene axis (multi-scene training: one launch a step
+// trains every scene): n_scenes in [1, 65535] slabs of every per-scene
+// buffer, each slab the one-scene layout below, seed[k] for scene k, and
+// each weight buffer's stride (one MLP's packed size rounded up to a
+// multiple of 4; with more than one scene launch_walk_by_route refuses any
+// other, one scene reads none). Scene k's loss and gradients are
+// bit-identical to a one-scene launch on its slabs. The gradient output
+// holds n_grad - 2 floats a scene.
 
 #include "nerf_train_walk.cuh"
 
@@ -68,7 +77,7 @@ int tinynerf_fused_nerf_train_max_threads() { return kMaxThreads; }
 // int32 *seed when randomized, deltas from it); noise (R, S) or null;
 // w_out and z_out (R, S) or null.
 // n_rays must be a multiple of tile_rays; rays from n_real on are padding
-// (no loss, no gradient). w_mma given (pack_mma_weights; bf16 at the
+// (no loss, no gradient), in every scene. w_mma given (pack_mma_weights; bf16 at the
 // tensor-core widths only) runs the products on the tensor cores, w_bwd
 // unused; w_mma null runs them on the CUDA cores from w_bwd (f32, or bf16
 // at other widths). Off that route: cudaErrorInvalidValue, no launch.
@@ -82,13 +91,15 @@ int tinynerf_fused_nerf_train(const float* rays_o, const float* rays_d, const fl
                               int dir_freqs, int use_viewdirs, int hidden, int depth, int skip_at,
                               int rgb_hidden, float near, float h_bin, float inv_n,
                               int randomized, int white_bkgd, int bf16, int n_blocks, int n_grad,
-                              int device, void* stream) {
+                              int n_scenes, long long fwd_stride, long long bwd_stride,
+                              long long mma_stride, int device, void* stream) {
   const Args a{rays_o, rays_d, target, z, delta, noise, seed, w_fwd, w_bwd, ws, partials,
                w_out, z_out, n_rays, n_real, n_samples, n_samples, tile_rays, num_freqs,
                dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, near, h_bin, inv_n,
                randomized, white_bkgd, bf16};
   return launch_walk_by_route<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
-                                            stream);
+                                            stream,
+                                            {n_scenes, fwd_stride, bwd_stride, mma_stride});
 }
 
 // K6. z and delta (R, S); S must be a multiple of sample_block and n_rays
@@ -103,13 +114,16 @@ int tinynerf_fused_nerf_train_streamed(const float* rays_o, const float* rays_d,
                                        int num_freqs, int dir_freqs, int use_viewdirs,
                                        int hidden, int depth, int skip_at, int rgb_hidden,
                                        float inv_n, int white_bkgd, int bf16, int n_blocks,
-                                       int n_grad, int device, void* stream) {
+                                       int n_grad, int n_scenes, long long fwd_stride,
+                                       long long bwd_stride, long long mma_stride, int device,
+                                       void* stream) {
   const Args a{rays_o, rays_d, target, z, delta, noise, nullptr, w_fwd, w_bwd, ws, partials,
                nullptr, nullptr, n_rays, n_real, n_samples, sample_block, tile_rays, num_freqs,
                dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, 0.f, 0.f, inv_n,
                0, white_bkgd, bf16};
   return launch_walk_by_route<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
-                                            stream);
+                                            stream,
+                                            {n_scenes, fwd_stride, bwd_stride, mma_stride});
 }
 
 const char* tinynerf_cuda_error_string(int code) {

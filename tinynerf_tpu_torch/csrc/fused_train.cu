@@ -36,7 +36,8 @@
 // head, the composite, the scans and the jitter are the same code on
 // both routes.
 //
-// Grid: a persistent grid of about one block per SM. Block b walks the
+// Grid: a persistent grid of about one block per SM and scene. Block
+// (b, k) trains scene k (blockIdx.y, the scene axis): it walks scene k's
 // ray tiles b, b + gridDim.x, ... and accumulates its gradient and loss
 // into its own row of `partials` in device memory (first tile writes,
 // later tiles add; 132 rows of 66,312 floats stay in the 50 MB L2; a
@@ -45,6 +46,18 @@
 // second kernel sums the rows in a fixed order and scatters them to the
 // model's parameter order. No atomics: the same seed and inputs give
 // bit-identical loss and gradients from launch to launch.
+//
+// Scenes (multi-scene training: K models trained in lockstep, one launch a
+// step for all of them). Scene k's rays, targets and noise are the k-th
+// (R, .) slabs, its seed seed[k], its weights the k-th slab of each packed
+// buffer (strides checked by the C entry), its partial rows the k-th
+// gridDim.x rows, its output the k-th n_grad + 1 floats. Ray indices stay
+// scene-local (the jitter's Philox key is (seed[k], ray, sample)) and the
+// blocks per scene do not depend on K, so scene k's loss and gradients
+// are bit-identical to a one-scene launch with seed[k]. A stack runs
+// fused_train_kernel<kMma, true>, which first moves the pointers to
+// blockIdx.y's scene; a one-scene launch runs <kMma, false>, which has no
+// scene offsets in it.
 //
 // Tile: TR rays x S samples, P = TR*S points (64 at S=64). Shared
 // memory, row per point (strides odd, so the rows a warp reads at one
@@ -93,7 +106,7 @@ constexpr int kRayScalars = 5;  // g_comp r, g, b; g_acc; squared residual
 
 // Offset of trunk layer i's W (in, hidden) then b (hidden) in the packed
 // forward weights, which is also the layout of the gradient partials.
-__device__ int layer_offset(int i, int in_dim, int hidden, int skip_at) {
+__host__ __device__ int layer_offset(int i, int in_dim, int hidden, int skip_at) {
   int off = 0;
   for (int j = 0; j < i; ++j) off += (layer_in_dim(j, in_dim, hidden, skip_at) + 1) * hidden;
   return off;
@@ -193,8 +206,36 @@ struct Params {
   int randomized, white_bkgd, bf16;
 };
 
-template <bool kMma>
-__global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm) {
+// A scene's slab of w_fwd, w_bwd (floats) and w_mma (bf16 values). Its own
+// kernel argument: three more fields in Params alone change the one-scene
+// kernels' code (ptxas: 224 registers in f32, 196 in bf16, against 168 and
+// 210).
+struct SceneStrides {
+  long long fwd, bwd, mma;
+};
+
+// The pointers of scene `sc` (blockIdx.y): every per-scene input, its seed,
+// its weights and its own gridDim.x rows of partials. Scene 0 is the
+// launch's own pointers.
+__device__ __forceinline__ void to_scene(Params& p, const SceneStrides& st, int sc) {
+  const size_t r3 = (size_t)sc * p.n_rays * 3;
+  p.rays_o += r3;
+  p.rays_d += r3;
+  p.target += r3;
+  if (p.noise != nullptr) p.noise += (size_t)sc * p.n_rays * p.n_samples;
+  p.seed += sc;
+  p.w_fwd += sc * st.fwd;
+  if (p.w_bwd != nullptr) p.w_bwd += sc * st.bwd;
+  if (p.w_mma != nullptr) p.w_mma += sc * st.mma / 4;
+  p.partials += (size_t)sc * gridDim.x * p.row;
+}
+
+// kScenes: scene blockIdx.y of a stack; without it the launch's own
+// pointers, and the code is the one-scene kernel's with no scene offsets.
+template <bool kMma, bool kScenes>
+__global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm,
+                                                                   SceneStrides strides) {
+  if constexpr (kScenes) to_scene(prm, strides, blockIdx.y);
   extern __shared__ float smem[];
   const int S = prm.n_samples;
   const int TR = prm.tile_rays;
@@ -550,11 +591,22 @@ int tinynerf_fused_train_smem_bytes(int tile_rays, int n_samples, int num_freqs,
 
 int tinynerf_fused_train_threads() { return kThreads; }
 
-// Launch the step kernel on `n_blocks` blocks, then the reduction.
-// n_rays must be a multiple of tile_rays, n_blocks <= n_rays / tile_rays.
-// partials is (n_blocks, row), row a multiple of 4 and > n_grad; dst has
-// row entries (-1 for the padding after the loss). out receives n_grad
-// gradient values in parameter order and the loss last. The route is the
+// Launch the step kernel on n_blocks x n_scenes blocks, then the
+// reduction. n_rays (a scene's rays) must be a multiple of tile_rays,
+// n_blocks <= n_rays / tile_rays. partials is (n_scenes, n_blocks, row),
+// row a multiple of 4 and > n_grad; dst has row entries (-1 for the
+// padding after the loss). out (n_scenes, n_grad + 1) receives each
+// scene's n_grad gradient values in parameter order and its loss last.
+// n_scenes is in [1, 65535]. One scene runs fused_train_kernel<kMma,
+// false> on the pointers as given and reads no stride. More run
+// fused_train_kernel<kMma, true>: per scene k, rays_o, rays_d, target
+// (n_rays, 3) and noise (n_rays, n_samples) at k times their size, seed[k],
+// and the k-th slab of each weight buffer: w_fwd at k * fwd_stride floats, w_bwd at k * bwd_stride
+// floats, w_mma at k * mma_stride bf16 values. Each stride must be its
+// buffer's size rounded up to a multiple of 4 (0 for a null buffer: every
+// slab starts 16-byte aligned for the float4 weight loads) and n_grad one
+// model's gradient floats; anything else is cudaErrorInvalidValue, no
+// launch. The route is the
 // caller's: w_mma null runs the CUDA-core kernel (from w_bwd); w_mma set
 // (the packed fragments) runs the tensor-core kernel, and only a bf16
 // launch with hidden a multiple of 32 and 64-point tiles may set it (else
@@ -566,17 +618,31 @@ int tinynerf_fused_train(const float* rays_o, const float* rays_d, const float* 
                          float* out, int n_rays, int tile_rays, int n_samples, int num_freqs,
                          int hidden, int depth, int skip_at, float near, float h_bin, float inv_n,
                          int randomized, int white_bkgd, int bf16, int n_blocks, int n_grad,
-                         int row, int device, void* stream) {
+                         int row, int n_scenes, long long fwd_stride, long long bwd_stride,
+                         long long mma_stride, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool mma = w_mma != nullptr;
-  if (row <= n_grad || row % 4 != 0 ||
+  if (row <= n_grad || row % 4 != 0 || n_scenes < 1 || n_scenes > 65535 ||
       (mma && (!bf16 || hidden <= 0 || hidden % 32 != 0 ||
                tile_rays * n_samples != kMmaChunkPoints)))
     return (int)cudaErrorInvalidValue;
+  const bool scenes = n_scenes > 1;
+  if (scenes) {  // each scene's slab of the packed weights: exactly one buffer's size
+    const int in_dim = 3 + 6 * num_freqs;
+    const long long want_bwd = (long long)(depth > 1 ? depth - 1 : 1) * hidden * hidden;
+    const long long want_mma =
+        mma_fwd_off(depth, in_dim, hidden, skip_at) + (long long)(depth - 1) * hidden * hidden;
+    auto slab = [](long long n) { return (n + 3) / 4 * 4; };
+    if (n_grad != layer_offset(depth, in_dim, hidden, skip_at) + hidden * 4 + 4 ||
+        fwd_stride != slab(n_grad) || bwd_stride != (w_bwd != nullptr ? slab(want_bwd) : 0) ||
+        mma_stride != (mma ? slab(want_mma) : 0))
+      return (int)cudaErrorInvalidValue;
+  }
   const int smem =
       tinynerf_fused_train_smem_bytes(tile_rays, n_samples, num_freqs, hidden, depth);
-  auto kernel = mma ? fused_train_kernel<true> : fused_train_kernel<false>;
+  auto kernel = scenes ? (mma ? fused_train_kernel<true, true> : fused_train_kernel<false, true>)
+                       : (mma ? fused_train_kernel<true, false> : fused_train_kernel<false, false>);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   Params prm{rays_o, rays_d, target, noise, seed, w_fwd, w_bwd,
@@ -584,10 +650,12 @@ int tinynerf_fused_train(const float* rays_o, const float* rays_d, const float* 
              n_rays, tile_rays, n_samples, num_freqs, hidden, depth, skip_at, row,
              near, h_bin, inv_n, randomized, white_bkgd, bf16};
   cudaStream_t st = (cudaStream_t)stream;
-  kernel<<<n_blocks, kThreads, smem, st>>>(prm);
+  kernel<<<dim3(n_blocks, n_scenes), kThreads, smem, st>>>(
+      prm, SceneStrides{fwd_stride, bwd_stride, mma_stride});
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<(row + 255) / 256, 256, 0, st>>>(partials, n_blocks, row, dst, out);
+  reduce_partials_kernel<<<dim3((row + 255) / 256, n_scenes), 256, 0, st>>>(
+      partials, n_blocks, row, dst, out, n_grad + 1);
   return (int)cudaGetLastError();
 }
 

@@ -65,6 +65,16 @@
 // second kernel sums the rows in a fixed order and scatters them to the
 // model's parameter order: no float atomics, bit-identical launches.
 //
+// Scenes: the grid's second axis (blockIdx.y) is the scene of multi-scene
+// training (K4 and K6; K7 launches one). A stack runs
+// nerf_walk_scenes_kernel, whose scene_args moves every per-scene pointer
+// to scene k's slab: its rays, targets, depths, deltas, noise and outputs,
+// its seed seed[k], its weights (strides checked by launch_walk_by_route),
+// its blocks' workspace and partial rows. Ray indices stay scene-local and
+// the blocks per scene do not depend on K, so scene k's results are
+// bit-identical to a one-scene launch. A one-scene launch runs
+// nerf_walk_kernel, which has no scene offsets in it.
+//
 // Numerics follow the TPU kernels term by term, with one exact rewrite:
 // the composite with one_m = exp(-sigma delta) + 1e-10 and the 1e10
 // terminal delta scaled by ||d||; the density gradient by a recurrence on
@@ -139,12 +149,34 @@ struct Args {
   const void* w_mma;    // kMma: kernels/fused_nerf_train.py::pack_mma_weights (bf16)
 };
 
+// The scene axis of a K4 or K6 launch: the grid's second axis and a
+// scene's slab of w_fwd, w_bwd (floats) and w_mma (bf16 values). Kept out
+// of Args, so that the one-scene kernels' argument is what it was before
+// the axis (more fields in a kernel's argument struct can change its code:
+// they did in K2's).
+struct WalkScenes {
+  int n = 1;
+  long long fwd_stride = 0, bwd_stride = 0, mma_stride = 0;
+};
+
 // Offset of trunk layer i's W (in, H) then b (H) in the packed weights,
 // which is also the layout of the gradient partials.
 __host__ __device__ inline int layer_off(int i, int E, int H, int skip_at) {
   int off = 0;
   for (int j = 0; j < i; ++j) off += (layer_in_dim(j, E, H, skip_at) + 1) * H;
   return off;
+}
+
+// Packed weights (= gradient floats) of one MLP: trunk (W, b)..., sigma
+// (W hidden, b, 3 pad), rgb_in (W (H + Dd, RH), b), rgb (W (RH, 3), b).
+__host__ __device__ inline int walk_n_grad(int E, int Dd, int H, int D, int skip_at, int RH) {
+  return layer_off(D, E, H, skip_at) + H + 4 + (H + Dd + 1) * RH + RH * 3 + 3;
+}
+
+// Workspace floats of one block: every activation of one segment.
+__host__ __device__ inline long long walk_workspace_floats(int tile_rays, int seg, int num_freqs,
+                                                           int hidden, int depth, int rgb_hidden) {
+  return (long long)tile_rays * seg * (depth * hidden + rgb_hidden + enc_dim(num_freqs));
 }
 
 // acc[i][j] = sum over o < n_red of G[p][o] * WT[o][col0 + j], for the
@@ -802,9 +834,47 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
   }
 }
 
+// Scene sc's arguments (see the header): every per-scene pointer moved to
+// its slab; null pointers stay null. Scene 0 is the launch's own.
+__device__ __forceinline__ Args scene_args(Args a, const WalkScenes& st, int sc) {
+  const size_t r3 = (size_t)sc * a.n_rays * 3, rs = (size_t)sc * a.n_rays * a.S;
+  a.rays_o += r3;
+  a.rays_d += r3;
+  if (a.target != nullptr) a.target += r3;
+  if (a.z != nullptr) a.z += rs;
+  if (a.delta != nullptr) a.delta += rs;
+  if (a.noise != nullptr) a.noise += rs;
+  if (a.w_out != nullptr) a.w_out += rs;
+  if (a.z_out != nullptr) a.z_out += rs;
+  if (a.seed != nullptr) a.seed += sc;
+  a.w_fwd += sc * st.fwd_stride;
+  if (a.w_bwd != nullptr) a.w_bwd += sc * st.bwd_stride;
+  if (a.w_mma != nullptr)
+    a.w_mma = static_cast<const __nv_bfloat16*>(a.w_mma) + sc * st.mma_stride;
+  const int E = enc_dim(a.num_freqs), Dd = dir_dim(a.dir_freqs, a.use_viewdirs);
+  if (a.ws != nullptr)
+    a.ws += (size_t)sc * gridDim.x *
+            walk_workspace_floats(a.tile_rays, a.seg, a.num_freqs, a.hidden, a.depth,
+                                  a.rgb_hidden);
+  if (a.partials != nullptr)
+    a.partials += (size_t)sc * gridDim.x *
+                  (walk_n_grad(E, Dd, a.hidden, a.depth, a.skip_at, a.rgb_hidden) + 1);
+  return a;
+}
+
+// One scene (every K7 launch, and K4 and K6 on one scene): the launch's
+// own pointers.
 template <Walk kMode, bool kMma>
 __global__ void __launch_bounds__(kMaxThreads, 1) nerf_walk_kernel(Args a) {
   nerf_walk<kMode, kMma>(a);
+}
+
+// Scene blockIdx.y of a stack (K4 and K6). A kernel of its own, so that a
+// one-scene launch runs nerf_walk with no scene offsets in it.
+template <Walk kMode, bool kMma>
+__global__ void __launch_bounds__(kMaxThreads, 1) nerf_walk_scenes_kernel(Args a,
+                                                                        WalkScenes st) {
+  nerf_walk<kMode, kMma>(scene_args(a, st, blockIdx.y));
 }
 
 // Shared memory of one block, in bytes, for tile_rays rays and segments
@@ -818,32 +888,41 @@ inline int walk_smem_bytes(int tile_rays, int seg, int n_samples, int num_freqs,
   return floats * (int)sizeof(float);
 }
 
-// Workspace floats of one block: every activation of one segment.
-inline long long walk_workspace_floats(int tile_rays, int seg, int num_freqs, int hidden,
-                                       int depth, int rgb_hidden) {
-  return (long long)tile_rays * seg * (depth * hidden + rgb_hidden + enc_dim(num_freqs));
-}
-
-// The walk on n_blocks blocks of block_threads; then, when dst is
-// given, the reduction of the partial rows into out (parameter order, the
-// loss last). kMma takes the tensor-core products. Returns the CUDA error
-// code (0 = ok).
+// The walk on n_blocks x scenes.n blocks of block_threads; then, when dst
+// is given, the reduction of each scene's partial rows into its n_grad - 2
+// floats of out (the parameters in their order without the layout's 3
+// padding floats, the loss last). kMma takes the tensor-core products.
+// Returns the CUDA error code (0 = ok).
 template <Walk kMode, bool kMma = false>
-int launch_walk(const Args& a, int n_blocks, int n_grad, const int* dst, float* out, int device,
-                void* stream) {
+int launch_walk(const Args& a, const WalkScenes& scenes, int n_blocks, int n_grad,
+                const int* dst, float* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int smem = walk_smem_bytes(a.tile_rays, a.seg, a.S, a.num_freqs, a.dir_freqs,
                                    a.use_viewdirs, a.hidden, a.rgb_hidden);
-  err = cudaFuncSetAttribute(nerf_walk_kernel<kMode, kMma>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  nerf_walk_kernel<kMode, kMma><<<n_blocks, block_threads(a.hidden, a.rgb_hidden), smem, st>>>(a);
+  const dim3 grid(n_blocks, scenes.n);
+  const int threads = block_threads(a.hidden, a.rgb_hidden);
+  if (scenes.n > 1) {
+    if constexpr (kMode == Walk::kLoss) {
+      err = cudaFuncSetAttribute(nerf_walk_scenes_kernel<kMode, kMma>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      nerf_walk_scenes_kernel<kMode, kMma><<<grid, threads, smem, st>>>(a, scenes);
+    } else {
+      return (int)cudaErrorInvalidValue;  // K7 launches one scene
+    }
+  } else {
+    err = cudaFuncSetAttribute(nerf_walk_kernel<kMode, kMma>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    nerf_walk_kernel<kMode, kMma><<<grid, threads, smem, st>>>(a);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || dst == nullptr) return (int)err;
   const int row = n_grad + 1;
-  reduce_partials_kernel<<<(row + 255) / 256, 256, 0, st>>>(a.partials, n_blocks, row, dst, out);
+  reduce_partials_kernel<<<dim3((row + 255) / 256, scenes.n), 256, 0, st>>>(
+      a.partials, n_blocks, row, dst, out, n_grad - 2);
   return (int)cudaGetLastError();
 }
 
@@ -866,21 +945,42 @@ inline bool walk_mma_widths(int hidden, int rgb_hidden) {
 // wrappers zero-pad other widths) within kMaxThreads. Anything else is
 // refused with cudaErrorInvalidValue and nothing launches: a bf16 launch
 // at a tensor-core width without its fragments never becomes a CUDA-core
-// launch, and the CUDA-core walk's backward needs w_bwd.
+// launch, and the CUDA-core walk's backward needs w_bwd. `scenes` (K4 and
+// K6; K7 launches one) must hold 1 to 65535 scenes, and more than one must
+// also give each weight buffer's stride as exactly one MLP's size rounded
+// up to a multiple of 4 (w_bwd's and w_mma's 0 when null: every scene's
+// slab starts 16-byte aligned, as the CUDA-core products' float4 weight
+// loads need) and n_grad as walk_n_grad, else it is refused the same way.
+// One scene reads no stride.
 template <Walk kMode>
 int launch_walk_by_route(Args a, const void* w_mma, int n_blocks, int n_grad, const int* dst,
-                         float* out, int device, void* stream) {
+                         float* out, int device, void* stream, WalkScenes scenes = {}) {
   const bool mma = a.bf16 && walk_mma_widths(a.hidden, a.rgb_hidden);
-  if ((w_mma != nullptr) != mma) return (int)cudaErrorInvalidValue;
+  if ((w_mma != nullptr) != mma || scenes.n < 1 || scenes.n > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (scenes.n > 1) {
+    const int E = enc_dim(a.num_freqs), Dd = dir_dim(a.dir_freqs, a.use_viewdirs);
+    const int H = a.hidden, D = a.depth, RH = a.rgb_hidden;
+    const long long want_bwd = (long long)(D - 1) * H * H + (long long)RH * H;
+    const long long want_mma = mma_fwd_off(D, E, H, a.skip_at) + (long long)pad32(H + Dd) * RH +
+                               (long long)(D - 1) * H * H + (long long)pad32(RH) * H;
+    const int want_grad = walk_n_grad(E, Dd, H, D, a.skip_at, RH);
+    auto slab = [](long long n) { return (n + 3) / 4 * 4; };
+    if ((kMode != Walk::kPartialsFwd && n_grad != want_grad) ||
+        scenes.fwd_stride != slab(want_grad) ||
+        scenes.bwd_stride != (a.w_bwd != nullptr ? slab(want_bwd) : 0) ||
+        scenes.mma_stride != (mma ? slab(want_mma) : 0))
+      return (int)cudaErrorInvalidValue;
+  }
   if (!mma) {
     if (kMode != Walk::kPartialsFwd && a.w_bwd == nullptr) return (int)cudaErrorInvalidValue;
     if (a.hidden <= 0 || a.hidden % kCols != 0 || a.rgb_hidden <= 0 || a.rgb_hidden % kCols != 0
         || block_threads(a.hidden, a.rgb_hidden) > kMaxThreads)
       return (int)cudaErrorInvalidValue;
-    return launch_walk<kMode>(a, n_blocks, n_grad, dst, out, device, stream);
+    return launch_walk<kMode>(a, scenes, n_blocks, n_grad, dst, out, device, stream);
   }
   a.w_mma = w_mma;
-  return launch_walk<kMode, true>(a, n_blocks, n_grad, dst, out, device, stream);
+  return launch_walk<kMode, true>(a, scenes, n_blocks, n_grad, dst, out, device, stream);
 }
 
 }  // namespace

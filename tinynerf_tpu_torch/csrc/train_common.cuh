@@ -9,8 +9,9 @@
 // - weight_grad_item: one 8x8 register block of a weight gradient,
 //   summed over a tile's points and added to the block's own row of
 //   gradient partials in device memory.
-// - reduce_partials_kernel: the fixed-order sum of the partial rows. No
-//   float atomics anywhere, so a launch is bit-identical to the next.
+// - reduce_partials_kernel: the fixed-order sum of the partial rows, one
+//   scene a grid row. No float atomics anywhere, so a launch is
+//   bit-identical to the next.
 
 #pragma once
 
@@ -96,15 +97,19 @@ __device__ __forceinline__ void weight_grad_item(int item, Seg s, int row0, cons
 }
 
 // out[dst[j]] = sum over blocks b, in order, of partials[b][j]; entries
-// with dst[j] < 0 (alignment padding of the layout) are skipped.
+// with dst[j] < 0 (alignment padding of the layout) are skipped. The
+// scene axis is blockIdx.y: scene k's n_blocks partial rows follow scene
+// k-1's, and its output is out + k * n_out. A one-scene launch reads and
+// writes what it did before the axis existed.
 __global__ void reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
                                        int row, const int* __restrict__ dst,
-                                       float* __restrict__ out) {
+                                       float* __restrict__ out, int n_out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= row || dst[j] < 0) return;
+  const float* p = partials + (size_t)blockIdx.y * n_blocks * row;
   float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[(size_t)b * row + j];
-  out[dst[j]] = s;
+  for (int b = 0; b < n_blocks; ++b) s += p[(size_t)b * row + j];
+  out[(size_t)blockIdx.y * n_out + dst[j]] = s;
 }
 
 }  // namespace

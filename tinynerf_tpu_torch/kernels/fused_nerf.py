@@ -120,10 +120,13 @@ def pack_nerf_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     (16-byte alignment for what follows); rgb_in W (hidden + dir_dim,
     rgb_hidden) then b; rgb W (rgb_hidden, 3) then b. Weights are
     rounded to bf16 when the compute dtype is bf16; biases stay f32.
-    The rows stay in the model's interleaved encoding order."""
+    The rows stay in the model's interleaved encoding order. An MLP of
+    stacked scenes (weights (K, out, in), multiscene.py) gives one such
+    buffer a scene, (K, n), from one concatenation."""
+    lead = mlp.sigma.weight.shape[:-2]
 
     def w(lin):
-        return lin.weight.detach().to(cfg.compute_dtype).float().t().reshape(-1)
+        return lin.weight.detach().to(cfg.compute_dtype).float().transpose(-1, -2).reshape(*lead, -1)
 
     def b(lin):
         return lin.bias.detach().float()
@@ -131,9 +134,9 @@ def pack_nerf_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     parts = []
     for lin in mlp.layers:
         parts += [w(lin), b(lin)]
-    parts += [w(mlp.sigma), b(mlp.sigma), b(mlp.sigma).new_zeros(3)]
+    parts += [w(mlp.sigma), b(mlp.sigma), b(mlp.sigma).new_zeros(*lead, 3)]
     parts += [w(mlp.rgb_in), b(mlp.rgb_in), w(mlp.rgb), b(mlp.rgb)]
-    return torch.cat(parts).contiguous()
+    return torch.cat(parts, dim=-1).contiguous()
 
 
 def mma_shapes_ok(cfg: NeRFConfig) -> bool:
@@ -158,12 +161,13 @@ def mma_operands(mlp: NeRFMLP, cfg: NeRFConfig) -> List[tuple]:
     as (name, bf16 matrix): each trunk layer's and rgb_in's forward W^T
     (in, out), then the upstream W[:, :hidden] (out, hidden) of trunk
     layers 1..depth-1 and of rgb_in (the skip layer's encoding rows and
-    rgb_in's direction rows get no upstream gradient)."""
+    rgb_in's direction rows get no upstream gradient). Stacked scenes keep
+    their leading axis: (K, K_op, N) each."""
     h = cfg.hidden
     named = [(f"layers.{i}", lin) for i, lin in enumerate(mlp.layers)] + [("rgb_in", mlp.rgb_in)]
     ws = {n: lin.weight.detach().to(torch.bfloat16) for n, lin in named}
-    out = [(f"{n}.fwd", ws[n].t()) for n, _ in named]
-    return out + [(f"{n}.up", ws[n][:, :h]) for n, _ in named[1:]]
+    out = [(f"{n}.fwd", ws[n].transpose(-1, -2)) for n, _ in named]
+    return out + [(f"{n}.up", ws[n][..., :h]) for n, _ in named[1:]]
 
 
 def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
@@ -171,12 +175,15 @@ def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
     (csrc/mma_bf16.cuh): K zero-padded to a multiple of 32, then for each
     16-deep k-step ks, each 8-column tile nt and each lane (g = lane // 4,
     t = lane % 4) the 4 values B[32 (ks // 2) + 8 t + 4 (ks % 2) + j][8 nt
-    + g], j = 0..3: one 8-byte load per lane. Flat, same dtype."""
-    K, N = b.shape
+    + g], j = 0..3: one 8-byte load per lane. Flat, same dtype; leading
+    (scene) axes stay: (..., K, N) -> (..., n)."""
+    *lead, K, N = b.shape
     kp = -(-K // 32) * 32
-    b = torch.cat([b, b.new_zeros(kp - K, N)])
+    b = torch.cat([b, b.new_zeros(*lead, kp - K, N)], dim=-2)
     # (p, t, h, j, nt, g) -> (p, h, nt, g, t, j): ks = 2 p + h, lane = 4 g + t
-    return b.reshape(kp // 32, 4, 2, 4, N // 8, 8).permute(0, 2, 4, 5, 1, 3).reshape(-1)
+    n = len(lead)
+    perm = [*range(n), *(n + i for i in (0, 2, 4, 5, 1, 3))]
+    return b.reshape(*lead, kp // 32, 4, 2, 4, N // 8, 8).permute(*perm).reshape(*lead, -1)
 
 
 def pack_mma_forward(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
@@ -186,7 +193,7 @@ def pack_mma_forward(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     of the training kernels' pack_mma_weights, so csrc/mma_bf16.cuh's
     mma_fwd_off serves both."""
     return torch.cat([pack_mma_b(b) for name, b in mma_operands(mlp, cfg)
-                      if name.endswith(".fwd")]).contiguous()
+                      if name.endswith(".fwd")], dim=-1).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -353,10 +360,12 @@ def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int) -> 
 
 
 def pad_rays(rays_o, rays_d, pad: int):
-    """Pad with origin 0 and unit-z directions (finite norms), contiguous."""
-    unit_z = torch.tensor([[0.0, 0.0, 1.0]], device=rays_d.device)
-    return (torch.cat([rays_o, rays_o.new_zeros(pad, 3)]).contiguous(),
-            torch.cat([rays_d, unit_z.expand(pad, 3)]).contiguous())
+    """Pad (..., R, 3) rays with `pad` rays of origin 0 and unit-z
+    direction (finite norms) along R, contiguous."""
+    lead = rays_o.shape[:-2]
+    unit_z = torch.tensor([0.0, 0.0, 1.0], device=rays_d.device)
+    return (torch.cat([rays_o, rays_o.new_zeros(*lead, pad, 3)], dim=-2).contiguous(),
+            torch.cat([rays_d, unit_z.expand(*lead, pad, 3)], dim=-2).contiguous())
 
 
 def fused_nerf_render_rays(

@@ -242,3 +242,53 @@ def fused_nerf_pass_grads_streamed(
 fused_nerf_pass_grads_streamed.launches = 0  # kernel launches since the last reset
 # ... of which took the tensor-core walk (bf16 at the tensor-core widths)
 fused_nerf_pass_grads_streamed.mma_launches = 0
+# ... of which trained a stack of scenes in one launch
+fused_nerf_pass_grads_streamed.scene_launches = 0
+
+
+def fused_nerf_pass_grads_streamed_scenes_plain(mlp: NeRFMLP, rays_o, rays_d, target, z_vals, *,
+                                                sigma_noise=None, **kw):
+    """fused_nerf_pass_grads_streamed_scenes in torch ops: K6's plain
+    version on each scene in turn. The CPU path and the tests' subject."""
+    from tinynerf_tpu_torch.models.stacked import per_scene
+
+    return per_scene(fused_nerf_pass_grads_streamed_plain, mlp, (rays_o, rays_d, target, z_vals),
+                     dict(sigma_noise=sigma_noise), **kw)
+
+
+def fused_nerf_pass_grads_streamed_scenes(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    target: torch.Tensor,
+    z_vals: torch.Tensor,
+    *,
+    sigma_noise: Optional[torch.Tensor] = None,
+    white_bkgd: bool = True,
+    cfg: Optional[NeRFConfig] = None,
+    sample_block: int = DEFAULT_SAMPLE_BLOCK,
+):
+    """One K6 launch for K stacked scenes over their sorted unions z_vals
+    (K, R, S) -> (loss (K,), grads aligned to mlp.parameters(), each (K,
+    *shape)). `mlp` stacks K scenes (multiscene.py); rays and target (K, R,
+    3), sigma_noise (K, R, S). Scene k's results are bit-identical to
+    fused_nerf_pass_grads_streamed on its own weights and slabs. CUDA
+    tensors launch the kernel (or raise; .launches and .scene_launches
+    count one); CPU tensors take the plain version, scene by scene."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import check_scenes_launch
+
+    cfg = cfg or mlp.cfg
+    S = z_vals.shape[-1]
+    sb = _check_block(S, sample_block)
+    kw = dict(sigma_noise=sigma_noise, white_bkgd=white_bkgd)
+    if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
+        return fused_nerf_pass_grads_streamed_scenes_plain(mlp, rays_o, rays_d, target, z_vals,
+                                                           cfg=cfg, sample_block=sb, **kw)
+    tile = check_scenes_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
+    mma = uses_tensor_cores(cfg)
+    res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=True, seg=sb, z=z_vals,
+                      **kw)
+    fused_nerf_pass_grads_streamed.launches += 1
+    fused_nerf_pass_grads_streamed.mma_launches += int(mma)
+    fused_nerf_pass_grads_streamed.scene_launches += 1
+    return res

@@ -45,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, Optional
+from typing import Optional
 
 import torch
 
@@ -63,7 +63,15 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     padded_widths,
     unpad_grads,
 )
-from tinynerf_tpu_torch.kernels.fused_train import _seed_tensor, stratified_depths
+from tinynerf_tpu_torch.kernels.fused_train import (
+    _seed_tensor,
+    _seeds_tensor,
+    _split_grads,
+    draw_step_inputs,
+    join_scenes,
+    scene_slabs,
+    stratified_depths,
+)
 from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP, nerf_layer_in_dims, run_mlp, view_encoding
 from tinynerf_tpu_torch.ops.sampling import sample_pdf
 from tinynerf_tpu_torch.utils.metrics import mse2psnr
@@ -148,11 +156,14 @@ def pack_backward_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     """The upstream products' weights, rounded to compute_dtype: trunk
     layers 1..depth-1 then rgb_in, each weight[:, :hidden] in nn.Linear's
     own (out, in) layout (the rows the upstream gradient needs: the skip
-    layer's encoding rows and rgb_in's direction rows get no gradient)."""
+    layer's encoding rows and rgb_in's direction rows get no gradient).
+    Stacked scenes give (K, n), a row a scene."""
     h = cfg.hidden
-    parts = [lin.weight.detach()[:, :h] for lin in list(mlp.layers)[1:]]
-    parts.append(mlp.rgb_in.weight.detach()[:, :h])
-    return torch.cat([p.to(cfg.compute_dtype).float().reshape(-1) for p in parts]).contiguous()
+    lead = mlp.rgb_in.weight.shape[:-2]
+    parts = [lin.weight.detach()[..., :h] for lin in list(mlp.layers)[1:]]
+    parts.append(mlp.rgb_in.weight.detach()[..., :h])
+    return torch.cat([p.to(cfg.compute_dtype).float().reshape(*lead, -1) for p in parts],
+                     dim=-1).contiguous()
 
 
 def uses_tensor_cores(cfg: NeRFConfig) -> bool:
@@ -167,8 +178,9 @@ def uses_tensor_cores(cfg: NeRFConfig) -> bool:
 def pack_mma_weights(mlp: NeRFMLP, cfg: NeRFConfig) -> torch.Tensor:
     """Every B operand of mma_operands, packed by pack_mma_b and
     concatenated (bf16): the w_mma buffer of every tensor-core launch of K4, K6
-    and K7, whose offsets csrc/mma_bf16.cuh (mma_fwd_off) mirrors."""
-    return torch.cat([pack_mma_b(b) for _, b in mma_operands(mlp, cfg)]).contiguous()
+    and K7, whose offsets csrc/mma_bf16.cuh (mma_fwd_off) mirrors; (K, n)
+    for stacked scenes."""
+    return torch.cat([pack_mma_b(b) for _, b in mma_operands(mlp, cfg)], dim=-1).contiguous()
 
 
 def grad_layout(cfg: NeRFConfig) -> dict:
@@ -219,9 +231,12 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_nerf_train")
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.tinynerf_fused_nerf_train.argtypes = [p] * 16 + [i] * 11 + [f] * 3 + [i] * 6 + [p]
+    ll = ctypes.c_longlong
+    lib.tinynerf_fused_nerf_train.argtypes = ([p] * 16 + [i] * 11 + [f] * 3 + [i] * 6
+                                              + [ll] * 3 + [i, p])
     lib.tinynerf_fused_nerf_train.restype = i
-    lib.tinynerf_fused_nerf_train_streamed.argtypes = [p] * 13 + [i] * 12 + [f] + [i] * 5 + [p]
+    lib.tinynerf_fused_nerf_train_streamed.argtypes = ([p] * 13 + [i] * 12 + [f] + [i] * 5
+                                                       + [ll] * 3 + [i, p])
     lib.tinynerf_fused_nerf_train_streamed.restype = i
     lib.tinynerf_fused_nerf_train_smem_bytes.argtypes = [i] * 8
     lib.tinynerf_fused_nerf_train_smem_bytes.restype = i
@@ -276,78 +291,119 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
     """Pad the rays to whole tiles and launch K4 (seg == S: depths given
     or drawn in the kernel) or the streamed K6 (z given, segments of
     `seg` samples) -> (loss, grads aligned to mlp.parameters()[, weights,
-    z])."""
-    R = rays_o.shape[0]
+    z]).
+
+    One scene: rays (R, 3), z and sigma_noise (R, S), `seed` an int or a
+    one-element device tensor. K stacked scenes (rays (K, R, 3), an `mlp`
+    whose parameters carry the scene axis, multiscene.py): z and
+    sigma_noise (K, R, S), `seed` K seeds; the results gain the leading K
+    axis, and the weights are packed once for all scenes."""
+    scenes = rays_o.dim() == 3
+    if not scenes:
+        rays_o, rays_d, target = rays_o[None], rays_d[None], target[None]
+        z = None if z is None else z[None]
+        sigma_noise = None if sigma_noise is None else sigma_noise[None]
+    K, R = rays_o.shape[:2]
     pad = -R % tile
     dev = rays_o.device
     o, d = pad_rays(rays_o, rays_d, pad)
-    tgt = torch.cat([target, target.new_zeros(pad, 3)]).contiguous()
+    tgt = torch.cat([target, target.new_zeros(K, pad, 3)], dim=1).contiguous()
     delta = None
     if z is not None:
         # Given depths (padded with ones, as K5 pads) come with their
         # deltas from torch, the plain versions' deltas, for K4 and K6 alike.
-        z = torch.cat([z, z.new_ones(pad, S)]).contiguous()
-        delta = deltas(z, d).contiguous()
+        z = torch.cat([z, z.new_ones(K, pad, S)], dim=1).contiguous()
+        delta = deltas(z.reshape(-1, S), d.reshape(-1, 3)).reshape(K, -1, S).contiguous()
     noise = None
     if sigma_noise is not None:
-        noise = torch.cat([sigma_noise, sigma_noise.new_zeros(pad, S)]).contiguous()
+        noise = torch.cat([sigma_noise, sigma_noise.new_zeros(K, pad, S)], dim=1).contiguous()
     bf16 = int(cfg.compute_dtype == torch.bfloat16)
-    w_fwd = pack_nerf_weights(mlp, cfg)
     # The tensor-core route reads its products' weights as fragments only;
     # the CUDA-core walk reads the upstream weights rounded to the dtype.
+    # Each buffer is packed once for every scene: (K, n).
     mma = uses_tensor_cores(cfg)
-    w_mma = pack_mma_weights(mlp, cfg) if mma else None
-    w_bwd = None if mma else pack_backward_weights(mlp, cfg)
-    n_grad = w_fwd.numel()
+    w_fwd = pack_nerf_weights(mlp, cfg)
+    n_grad = w_fwd.shape[-1]
+    w_fwd = scene_slabs(w_fwd, K)
+    w_mma = scene_slabs(pack_mma_weights(mlp, cfg), K) if mma else None
+    w_bwd = None if mma else scene_slabs(pack_backward_weights(mlp, cfg), K)
     n_tiles = (R + pad) // tile
+    # Blocks per scene, independent of K: a scene's reduction order, and so
+    # its loss and gradients, do not depend on the scenes beside it.
     n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _lib()
     ws_floats = lib.tinynerf_fused_nerf_train_workspace_floats(
         tile, seg, cfg.num_freqs, cfg.hidden, cfg.depth, cfg.rgb_hidden)
-    ws = torch.empty(n_blocks, ws_floats, dtype=torch.float32, device=dev)
-    partials = torch.empty(n_blocks, n_grad + 1, dtype=torch.float32, device=dev)
-    n_params = sum(p.numel() for p in mlp.parameters())
-    out = torch.empty(n_params + 1, dtype=torch.float32, device=dev)
+    ws = torch.empty(K, n_blocks, ws_floats, dtype=torch.float32, device=dev)
+    partials = torch.empty(K, n_blocks, n_grad + 1, dtype=torch.float32, device=dev)
+    n_params = n_grad - 3  # the layout's 3 padding floats after sigma's bias
+    out = torch.empty(K, n_params + 1, dtype=torch.float32, device=dev)
     dst = scatter_index(tuple(n for n, _ in mlp.named_parameters()), cfg, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     geom = (cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden, cfg.depth,
             cfg.skip_at, cfg.rgb_hidden)
+    strides = (w_fwd.shape[1], 0 if w_bwd is None else w_bwd.shape[1],
+               0 if w_mma is None else w_mma.shape[1])
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
+    w_out = z_out = None
     if streamed:
         err = lib.tinynerf_fused_nerf_train_streamed(
             o.data_ptr(), d.data_ptr(), tgt.data_ptr(), z.data_ptr(), delta.data_ptr(),
             ptr(noise), w_fwd.data_ptr(), ptr(w_bwd), ptr(w_mma), ws.data_ptr(),
             partials.data_ptr(), dst.data_ptr(), out.data_ptr(), R + pad, R, tile, S, seg, *geom,
             1.0 / (R * 3),
-            int(white_bkgd), bf16, n_blocks, n_grad, dev.index, stream,
+            int(white_bkgd), bf16, n_blocks, n_grad, K, *strides, dev.index, stream,
         )
-        w_out = z_out = None
     else:
-        seed_t = _seed_tensor(0 if seed is None else seed, dev)
-        w_out = z_out = None
+        if scenes:
+            seed_t = _seeds_tensor(seed, K, dev)
+        else:
+            seed_t = _seed_tensor(0 if seed is None else seed, dev)
         if emit_sampling:
-            w_out = torch.empty(R + pad, S, dtype=torch.float32, device=dev)
-            z_out = torch.empty(R + pad, S, dtype=torch.float32, device=dev)
+            w_out = torch.empty(K, R + pad, S, dtype=torch.float32, device=dev)
+            z_out = torch.empty(K, R + pad, S, dtype=torch.float32, device=dev)
         err = lib.tinynerf_fused_nerf_train(
             o.data_ptr(), d.data_ptr(), tgt.data_ptr(), ptr(z), ptr(delta), ptr(noise),
             seed_t.data_ptr(), w_fwd.data_ptr(), ptr(w_bwd), ptr(w_mma), ws.data_ptr(),
             partials.data_ptr(),
             dst.data_ptr(), out.data_ptr(), ptr(w_out), ptr(z_out), R + pad, R, tile, S, *geom,
             float(near), (far - near) / (S - 1), 1.0 / (R * 3), int(randomized),
-            int(white_bkgd), bf16, n_blocks, n_grad, dev.index, stream,
+            int(white_bkgd), bf16, n_blocks, n_grad, K, *strides, dev.index, stream,
         )
     _raise_on(err, "fused_nerf_train_streamed kernel" if streamed else "fused_nerf_train kernel")
-    grads: List[torch.Tensor] = []
-    off = 0
-    for p in mlp.parameters():
-        grads.append(out[off:off + p.numel()].view(p.shape))
-        off += p.numel()
+    grads = _split_grads(out if scenes else out[0], mlp.parameters())
+    loss = out[:, n_params] if scenes else out[0, n_params]
     if emit_sampling:
-        return out[n_params], grads, w_out[:R], z_out[:R]
-    return out[n_params], grads
+        if scenes:
+            return loss, grads, w_out[:, :R], z_out[:, :R]
+        return loss, grads, w_out[0, :R], z_out[0, :R]
+    return loss, grads
+
+
+def check_scenes_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z, sigma_noise,
+                        S: int, seg: int) -> int:
+    """check_train_launch for K stacked scenes: (K, R, 3) rays and target,
+    (K, R, S) z and sigma_noise, every parameter stacking K scenes, at
+    widths that need no padding (multiples of 8: every recipe's); scene
+    0's slabs go through check_train_launch. Returns the rays per tile."""
+    if rays_o.dim() != 3:
+        raise ValueError(f"rays_o must be (K, R, 3), got {tuple(rays_o.shape)}")
+    K, R = rays_o.shape[:2]
+    for name, x, shape in (("rays_d", rays_d, (K, R, 3)), ("target", target, (K, R, 3)),
+                           ("z_vals", z, (K, R, S)), ("sigma_noise", sigma_noise, (K, R, S))):
+        if x is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+    if any(p.shape[0] != K for p in mlp.parameters()):
+        raise ValueError(f"the MLP must stack {K} scenes on every parameter's first axis")
+    if cfg.hidden % 8 or cfg.rgb_hidden % 8:
+        raise ValueError(f"stacked scenes take widths that are multiples of 8, got hidden "
+                         f"{cfg.hidden}, rgb_hidden {cfg.rgb_hidden}")
+    return check_train_launch(mlp, cfg, rays_o[0], rays_d[0], target[0],
+                              None if z is None else z[0],
+                              None if sigma_noise is None else sigma_noise[0], S, seg)
 
 
 def fused_nerf_pass_grads(
@@ -400,6 +456,69 @@ def fused_nerf_pass_grads(
 fused_nerf_pass_grads.launches = 0  # kernel launches since the last reset
 # ... of which took the tensor-core walk (bf16 at the tensor-core widths)
 fused_nerf_pass_grads.mma_launches = 0
+# ... of which trained a stack of scenes in one launch (fused_nerf_pass_grads_scenes)
+fused_nerf_pass_grads.scene_launches = 0
+
+
+def fused_nerf_pass_grads_scenes_plain(mlp: NeRFMLP, rays_o, rays_d, target, seeds,
+                                       z_vals=None, *, sigma_noise=None, **kw):
+    """fused_nerf_pass_grads_scenes in torch ops: K4's plain version on
+    each scene in turn (scene k's weights, slabs and seeds[k]). The CPU
+    path and the tests' subject; no main path runs it when a card is
+    present."""
+    from tinynerf_tpu_torch.models.stacked import per_scene
+
+    return per_scene(fused_nerf_pass_grads_plain, mlp, (rays_o, rays_d, target, seeds, z_vals),
+                     dict(sigma_noise=sigma_noise), **kw)
+
+
+def fused_nerf_pass_grads_scenes(
+    mlp: NeRFMLP,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    target: torch.Tensor,
+    seeds,
+    z_vals: Optional[torch.Tensor] = None,
+    *,
+    sigma_noise: Optional[torch.Tensor] = None,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    randomized: bool = True,
+    white_bkgd: bool = True,
+    emit_sampling: bool = False,
+    cfg: Optional[NeRFConfig] = None,
+):
+    """One K4 launch for K stacked scenes -> (loss (K,), grads aligned to
+    mlp.parameters(), each (K, *shape)), plus (weights, z) (K, R, S) with
+    emit_sampling.
+
+    `mlp` holds K NeRF MLPs stacked on a leading axis (multiscene.py);
+    rays_o, rays_d, target (K, R, 3); seeds K int32 jitter seeds (a (K,)
+    device tensor or ints); z_vals and sigma_noise (K, R, S). Scene k's
+    results are bit-identical to fused_nerf_pass_grads on its own weights
+    and slabs with seeds[k]. The weights are packed once for all scenes.
+    CUDA tensors launch the kernel (or raise; .launches counts one, and
+    .scene_launches one); CPU tensors take the plain version, scene by
+    scene. Widths must be multiples of 8."""
+    cfg = cfg or mlp.cfg
+    S = z_vals.shape[-1] if z_vals is not None else n_samples
+    if S < 2:
+        raise ValueError(f"the kernel needs at least 2 samples per ray, got {S}")
+    kw = dict(sigma_noise=sigma_noise, near=near, far=far, white_bkgd=white_bkgd,
+              emit_sampling=emit_sampling)
+    if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
+        return fused_nerf_pass_grads_scenes_plain(mlp, rays_o, rays_d, target, seeds, z_vals,
+                                                  n_samples=n_samples, randomized=randomized,
+                                                  cfg=cfg, **kw)
+    tile = check_scenes_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
+    mma = uses_tensor_cores(cfg)
+    res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=False, seg=S,
+                      z=z_vals, seed=seeds, randomized=randomized and z_vals is None, **kw)
+    fused_nerf_pass_grads.launches += 1
+    fused_nerf_pass_grads.mma_launches += int(mma)
+    fused_nerf_pass_grads.scene_launches += 1
+    return res
 
 
 def fine_pass_route(s, cfg: NeRFConfig, n_fine: int, tile_r: int = DEFAULT_TILE_R,
@@ -427,53 +546,43 @@ def fine_pass_route(s, cfg: NeRFConfig, n_fine: int, tile_r: int = DEFAULT_TILE_
     return None
 
 
-def make_fused_nerf_grad_fn(s, cfg: NeRFConfig, n_fine: int = 64, tile_r: int = DEFAULT_TILE_R,
-                            randomized: bool = True, sample_block: Optional[int] = None):
-    """The hierarchical (coarse + fine) fused step, the drop-in for
-    autograd of models/nerf.make_hierarchical_loss: (model: NeRF, ro, rd,
-    target, generator, noise_scale=1.0) -> (fine loss, metrics), writing
-    each parameter's .grad.
-
-    The generator draws, in the JAX package's order (:522-538), the
-    coarse (R, S) and fine (R, S_union) sigma-noise (only when
-    s.sigma_noise_std > 0), then the int32 kernel seed (on the
-    generator's device: no host sync), then sample_pdf's u. The fine pass
-    takes K4 or K6 by fine_pass_route. On CPU tensors the kernels' plain
-    versions run."""
-    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+def _make_nerf_grad_fn(s, cfg: NeRFConfig, n_fine: int, tile_r: int, randomized: bool,
+                       sample_block: Optional[int], scenes: bool):
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k6
 
     s_union = s.n_samples + n_fine
     fine_block = fine_pass_route(s, cfg, n_fine, tile_r, sample_block)
     noise_std = s.sigma_noise_std
+    k4_pass = fused_nerf_pass_grads_scenes if scenes else fused_nerf_pass_grads
+    k6_pass = (k6.fused_nerf_pass_grads_streamed_scenes if scenes
+               else k6.fused_nerf_pass_grads_streamed)
 
-    def grad_fn(model: NeRF, ro, rd, target, generator, noise_scale=1.0):
-        gdev = generator.device
-        noise_c = noise_f = None
-        if noise_std > 0.0:
-            def draw(n):
-                return (noise_scale * noise_std * torch.randn(
-                    (ro.shape[0], n), generator=generator, dtype=torch.float32, device=gdev
-                )).to(ro.device)
-
-            noise_c, noise_f = draw(s.n_samples), draw(s_union)
-        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, dtype=torch.int32,
-                             device=gdev).to(ro.device)
-        loss_c, g_c, weights, z_c = fused_nerf_pass_grads(
+    def grad_fn(model: NeRF, ro, rd, target, generators, noise_scale=1.0):
+        gens = generators if scenes else [generators]
+        noise_c, noise_f, seed = join_scenes([
+            draw_step_inputs(gen, ro.shape[-2], (s.n_samples, s_union), noise_std, noise_scale,
+                             ro.device)
+            for gen in gens], scenes)
+        loss_c, g_c, weights, z_c = k4_pass(
             model.coarse, ro, rd, target, seed, n_samples=s.n_samples, near=s.near, far=s.far,
             randomized=randomized, white_bkgd=s.white_bkgd, emit_sampling=True, cfg=cfg,
             sigma_noise=noise_c,
         )
-        z_mids = 0.5 * (z_c[:, 1:] + z_c[:, :-1])
-        z_f = sample_pdf(z_mids, weights[:, 1:-1], n_fine, randomized=randomized,
-                         generator=generator if randomized else None)
+        z_mids = 0.5 * (z_c[..., 1:] + z_c[..., :-1])
+        # sample_pdf's u from each scene's own generator, after its other draws.
+        z_f = [sample_pdf(z_mids[k] if scenes else z_mids,
+                          (weights[k] if scenes else weights)[:, 1:-1], n_fine,
+                          randomized=randomized, generator=gen if randomized else None)
+               for k, gen in enumerate(gens)]
+        z_f = torch.stack(z_f) if scenes else z_f[0]
         z_union = torch.sort(torch.cat([z_c, z_f], dim=-1), dim=-1).values
         if fine_block is not None:
-            loss_f, g_f = fused_nerf_pass_grads_streamed(
+            loss_f, g_f = k6_pass(
                 model.fine, ro, rd, target, z_union, sigma_noise=noise_f,
                 white_bkgd=s.white_bkgd, cfg=cfg, sample_block=fine_block,
             )
         else:
-            loss_f, g_f = fused_nerf_pass_grads(
+            loss_f, g_f = k4_pass(
                 model.fine, ro, rd, target, seed, z_union, near=s.near, far=s.far,
                 randomized=False, white_bkgd=s.white_bkgd, cfg=cfg, sigma_noise=noise_f,
             )
@@ -483,3 +592,34 @@ def make_fused_nerf_grad_fn(s, cfg: NeRFConfig, n_fine: int = 64, tile_r: int = 
         return loss_f, {"loss": loss_f, "psnr": mse2psnr(loss_f), "loss_coarse": loss_c}
 
     return grad_fn
+
+
+def make_fused_nerf_grad_fn(s, cfg: NeRFConfig, n_fine: int = 64, tile_r: int = DEFAULT_TILE_R,
+                            randomized: bool = True, sample_block: Optional[int] = None):
+    """The hierarchical (coarse + fine) fused step, the drop-in for
+    autograd of models/nerf.make_hierarchical_loss: (model: NeRF, ro, rd,
+    target, generator, noise_scale=1.0) -> (fine loss, metrics), writing
+    each parameter's .grad.
+
+    The generator draws, in the JAX package's order (:522-538), the
+    coarse (R, S) and fine (R, S_union) sigma-noise (only when
+    s.sigma_noise_std > 0), then the int32 kernel seed
+    (fused_train.draw_step_inputs), then sample_pdf's u. The fine pass
+    takes K4 or K6 by fine_pass_route. On CPU tensors the kernels' plain
+    versions run."""
+    return _make_nerf_grad_fn(s, cfg, n_fine, tile_r, randomized, sample_block, scenes=False)
+
+
+def make_fused_nerf_grad_fn_scenes(s, cfg: NeRFConfig, n_fine: int = 64,
+                                   tile_r: int = DEFAULT_TILE_R, randomized: bool = True,
+                                   sample_block: Optional[int] = None):
+    """The multi-scene make_fused_nerf_grad_fn: (model of K stacked NeRFs,
+    ro, rd, target (K, R, 3), generators (K scene generators),
+    noise_scale=1.0) -> (fine loss (K,), metrics of (K,)), writing each
+    stacked parameter's .grad. One batched K4 launch runs every scene's
+    coarse pass, sample_pdf draws each scene's fine depths from its own
+    generator, and one batched launch of K4 or K6 (fine_pass_route, as for
+    one scene) runs every fine pass. The same body as
+    make_fused_nerf_grad_fn's, so scene k's generator draws what a
+    one-scene run's does, in its order."""
+    return _make_nerf_grad_fn(s, cfg, n_fine, tile_r, randomized, sample_block, scenes=True)

@@ -170,12 +170,15 @@ def pack_tiny_weights(params: TinyNeRF, cfg: TinyNeRFConfig, *, mma: bool = Fals
     rounded to compute_dtype, biases f32. w_mma (bf16, with mma): the
     tensor-core B fragments of tiny_mma_operands, each packed by
     pack_mma_b and concatenated, the forward operands alone or (upstream)
-    followed by the upstream ones; else None."""
+    followed by the upstream ones; else None. A model of stacked scenes
+    (weights (K, out, in), multiscene.py) gives (K, n) buffers, one row a
+    scene, from the same one concatenation and gathers."""
     ps = list(params.parameters())
-    flat = torch.cat([p.reshape(-1) for p in ps] + [ps[0].new_zeros(1)])
+    lead = ps[0].shape[:-2]  # layers.0.weight: (out, in), or (K, out, in)
+    flat = torch.cat([p.reshape(*lead, -1) for p in ps] + [ps[0].new_zeros(*lead, 1)], dim=-1)
     fwd_idx, mma_idx = _pack_index(cfg, mma, upstream, flat.device)
-    w_fwd = torch.cat([flat.to(cfg.compute_dtype).float(), flat])[fwd_idx]
-    return w_fwd, None if mma_idx is None else flat.to(torch.bfloat16)[mma_idx]
+    w_fwd = torch.cat([flat.to(cfg.compute_dtype).float(), flat], dim=-1)[..., fwd_idx]
+    return w_fwd, None if mma_idx is None else flat.to(torch.bfloat16)[..., mma_idx]
 
 
 def pack_weights(params: TinyNeRF, cfg: TinyNeRFConfig) -> torch.Tensor:

@@ -164,14 +164,16 @@ def fused_loss_grads_plain(
 def pack_backward_weights(model: TinyNeRF, cfg: TinyNeRFConfig) -> torch.Tensor:
     """Trunk layers 1..depth-1, each W[:, :hidden] in nn.Linear's own
     (out, in) layout (the rows the upstream gradient needs; the skip
-    layer's encoding rows get no gradient), rounded to compute_dtype."""
+    layer's encoding rows get no gradient), rounded to compute_dtype.
+    Stacked scenes give (K, n), a row a scene."""
+    lead = model.layers[0].weight.shape[:-2]
     parts = [
-        lin.weight.detach()[:, : cfg.hidden].to(cfg.compute_dtype).float().reshape(-1)
+        lin.weight.detach()[..., : cfg.hidden].to(cfg.compute_dtype).float().reshape(*lead, -1)
         for lin in list(model.layers)[1:]
     ]
     if not parts:
-        return torch.zeros(cfg.hidden * cfg.hidden, device=model.layers[0].weight.device)
-    return torch.cat(parts).contiguous()
+        return torch.zeros(*lead, cfg.hidden * cfg.hidden, device=model.layers[0].weight.device)
+    return torch.cat(parts, dim=-1).contiguous()
 
 
 def grad_layout(cfg: TinyNeRFConfig) -> dict:
@@ -216,7 +218,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_train")
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.tinynerf_fused_train.argtypes = [p] * 11 + [i] * 7 + [f] * 3 + [i] * 7 + [p]
+    ll = ctypes.c_longlong
+    lib.tinynerf_fused_train.argtypes = ([p] * 11 + [i] * 7 + [f] * 3 + [i] * 7 + [ll] * 3
+                                         + [i, p])
     lib.tinynerf_fused_train.restype = i
     lib.tinynerf_fused_train_jitter.argtypes = [p, p, i, i, i, f, f, i, p]
     lib.tinynerf_fused_train_jitter.restype = i
@@ -245,6 +249,19 @@ def _seed_tensor(seed, device: torch.device) -> torch.Tensor:
     return torch.tensor([int(seed)], dtype=torch.int32, device=device)
 
 
+def _seeds_tensor(seeds, n_scenes: int, device: torch.device) -> torch.Tensor:
+    """The scenes' int32 seeds as a (K,) device tensor (a device tensor
+    stays on the device: no host sync)."""
+    if isinstance(seeds, torch.Tensor):
+        if seeds.device != device or seeds.numel() != n_scenes:
+            raise ValueError(f"seeds must hold {n_scenes} values on {device}")
+        return seeds.reshape(n_scenes).to(torch.int32).contiguous()
+    seeds = [int(x) for x in seeds]
+    if len(seeds) != n_scenes:
+        raise ValueError(f"{len(seeds)} seeds for {n_scenes} scenes")
+    return torch.tensor(seeds, dtype=torch.int32, device=device)
+
+
 def _check_launch(model, tensors, n_samples, num_freqs, cfg) -> None:
     dev = tensors["rays_o"].device
     for name, x in tensors.items():
@@ -254,12 +271,12 @@ def _check_launch(model, tensors, n_samples, num_freqs, cfg) -> None:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    R = tensors["rays_o"].shape[0]
+    *lead, R, _ = tensors["rays_o"].shape  # lead: (K,) for stacked scenes
     for name in ("rays_o", "rays_d", "target"):
-        if tuple(tensors[name].shape) != (R, 3):
-            raise ValueError(f"{name} must be ({R}, 3), got {tuple(tensors[name].shape)}")
-    if "sigma_noise" in tensors and tuple(tensors["sigma_noise"].shape) != (R, n_samples):
-        raise ValueError(f"sigma_noise must be ({R}, {n_samples})")
+        if tuple(tensors[name].shape) != (*lead, R, 3):
+            raise ValueError(f"{name} must be {(*lead, R, 3)}, got {tuple(tensors[name].shape)}")
+    if "sigma_noise" in tensors and tuple(tensors["sigma_noise"].shape) != (*lead, R, n_samples):
+        raise ValueError(f"sigma_noise must be {(*lead, R, n_samples)}")
     if next(model.parameters()).device != dev:
         raise ValueError(f"model on {next(model.parameters()).device}, rays on {dev}")
     if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
@@ -312,48 +329,154 @@ def fused_loss_grads(
               randomized=randomized, num_freqs=num_freqs, white_bkgd=white_bkgd, model_cfg=cfg)
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_loss_grads_plain(model, rays_o, rays_d, target, seed, **kw)
+    mma = k2_uses_tensor_cores(cfg, n_samples)
+    loss, out = _launch(model, rays_o[None], rays_d[None], target[None],
+                        _seed_tensor(seed, rays_o.device),
+                        None if sigma_noise is None else sigma_noise[None], n_samples, near, far,
+                        randomized, num_freqs, white_bkgd, cfg)
+    fused_loss_grads.launches += 1
+    fused_loss_grads.mma_launches += int(mma)
+    return loss[0], _split_grads(out[0], model.parameters())
+
+
+fused_loss_grads.launches = 0  # kernel launches since the last reset
+# ... of which took the tensor cores (every bf16 launch k2_uses_tensor_cores takes)
+fused_loss_grads.mma_launches = 0
+# ... of which trained a stack of scenes in one launch (fused_loss_grads_scenes)
+fused_loss_grads.scene_launches = 0
+
+
+def scene_slabs(w: Optional[torch.Tensor], K: int) -> Optional[torch.Tensor]:
+    """A packed weight buffer as (K, n) rows, one slab a scene; with K > 1
+    each row zero-padded to a multiple of 4 values, so that every scene's
+    slab starts 16-byte aligned (8-byte in bf16) for the kernels' vector
+    loads of the weights (the C entries check the stride)."""
+    if w is None:
+        return None
+    w = w.reshape(K, -1)
+    pad = -w.shape[1] % 4 if K > 1 else 0
+    return torch.nn.functional.pad(w, (0, pad)) if pad else w
+
+
+def _split_grads(flat: torch.Tensor, params) -> List[torch.Tensor]:
+    """Views of `flat` (..., n) shaped as each parameter in turn; a
+    stacked parameter (K, *shape) takes (K, *shape) of a (K, n) buffer."""
+    grads, off = [], 0
+    for p in params:
+        n = p[0].numel() if flat.dim() == 2 else p.numel()
+        grads.append(flat[..., off:off + n].reshape(p.shape))
+        off += n
+    return grads
+
+
+def _launch(model, rays_o, rays_d, target, seeds, sigma_noise, n_samples, near, far, randomized,
+            num_freqs, white_bkgd, cfg):
+    """Launch K2 over K stacked scenes: rays_o, rays_d, target (K, R, 3),
+    seeds (K,) int32 on the device, sigma_noise (K, R, S) or None; `model`
+    holds one scene (K = 1) or K stacked ones -> (loss (K,), out (K, n_grad
+    + 1): each scene's gradients in parameter order, then its loss)."""
+    R = rays_o.shape[1]
     tensors = {"rays_o": rays_o, "rays_d": rays_d, "target": target}
     if sigma_noise is not None:
         tensors["sigma_noise"] = sigma_noise
     _check_launch(model, tensors, n_samples, num_freqs, cfg)
 
     dev = rays_o.device
-    seed_t = _seed_tensor(seed, dev)
+    K = rays_o.shape[0]
+    tr = tile_rays(n_samples)
     mma = k2_uses_tensor_cores(cfg, n_samples)
-    # The tensor cores read the upstream products' weights as fragments only.
+    # The tensor cores read the upstream products' weights as fragments only;
+    # each buffer is packed once for every scene, (K, n).
     w_fwd, w_mma = pack_tiny_weights(model, cfg, mma=mma, upstream=True)
     w_bwd = None if mma else pack_backward_weights(model, cfg)
-    n_grad = w_fwd.numel()
+    n_grad = w_fwd.shape[-1]
+    w_fwd, w_mma, w_bwd = (scene_slabs(w, K) for w in (w_fwd, w_mma, w_bwd))
+    # Blocks per scene, independent of K: a scene's reduction order, and so
+    # its loss and gradients, do not depend on the scenes beside it.
     n_blocks = min(R // tr, torch.cuda.get_device_properties(dev).multi_processor_count)
     row = partial_row(n_grad)
-    partials = torch.empty(n_blocks, row, dtype=torch.float32, device=dev)
-    out = torch.empty(n_grad + 1, dtype=torch.float32, device=dev)
+    partials = torch.empty(K, n_blocks, row, dtype=torch.float32, device=dev)
+    out = torch.empty(K, n_grad + 1, dtype=torch.float32, device=dev)
     names = tuple(n for n, _ in model.named_parameters())
     dst = _scatter_index(names, cfg, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tinynerf_fused_train(
         rays_o.data_ptr(), rays_d.data_ptr(), target.data_ptr(),
-        None if sigma_noise is None else sigma_noise.data_ptr(), seed_t.data_ptr(),
+        None if sigma_noise is None else sigma_noise.data_ptr(), seeds.data_ptr(),
         w_fwd.data_ptr(), None if w_bwd is None else w_bwd.data_ptr(),
         None if w_mma is None else w_mma.data_ptr(), partials.data_ptr(), dst.data_ptr(),
         out.data_ptr(), R, tr, n_samples, num_freqs, cfg.hidden, cfg.depth, cfg.skip_at,
         float(near), (far - near) / (n_samples - 1), 1.0 / (R * 3),
         int(randomized), int(white_bkgd), int(cfg.compute_dtype == torch.bfloat16),
-        n_blocks, n_grad, row, dev.index, stream,
+        n_blocks, n_grad, row, K, w_fwd.shape[1], 0 if w_bwd is None else w_bwd.shape[1],
+        0 if w_mma is None else w_mma.shape[1], dev.index, stream,
     )
     _raise_on(err, "fused_train kernel")
+    return out[:, n_grad], out[:, :n_grad]
+
+
+def fused_loss_grads_scenes_plain(model, rays_o, rays_d, target, seeds, *,
+                                  sigma_noise: Optional[torch.Tensor] = None, **kw):
+    """fused_loss_grads_scenes in torch ops: fused_loss_grads_plain on
+    each scene in turn (scene k's weights, rays, seeds[k]) -> (loss (K,),
+    grads aligned to model.parameters(), each (K, *shape)). The CPU path
+    and the tests' subject; no main path runs it when a card is present."""
+    from tinynerf_tpu_torch.models.stacked import per_scene
+
+    return per_scene(fused_loss_grads_plain, model, (rays_o, rays_d, target, seeds),
+                     dict(sigma_noise=sigma_noise), **kw)
+
+
+def fused_loss_grads_scenes(
+    model: TinyNeRF,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    target: torch.Tensor,
+    seeds,
+    *,
+    sigma_noise: Optional[torch.Tensor] = None,
+    n_samples: int = 64,
+    near: float = 2.0,
+    far: float = 6.0,
+    randomized: bool = True,
+    num_freqs: int = 10,
+    white_bkgd: bool = True,
+    model_cfg: Optional[TinyNeRFConfig] = None,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """One training step of K stacked scenes in one launch -> (loss (K,),
+    grads aligned to model.parameters(), each (K, *shape)).
+
+    `model` holds K TinyNeRFs stacked on a leading axis (multiscene.py);
+    rays_o, rays_d, target are (K, R, 3), seeds K int32 seeds (a (K,)
+    device tensor or ints), sigma_noise (K, R, S). Scene k's loss and
+    gradients are bit-identical to fused_loss_grads on its own weights and
+    inputs with seeds[k]: its draws are keyed by scene-local rays and its
+    blocks do not depend on K. The weights are packed once for all scenes.
+    CUDA tensors launch the kernel (or raise; .launches counts one, and
+    .scene_launches one); CPU tensors take fused_loss_grads_scenes_plain."""
+    cfg = model_cfg or model.cfg
+    if rays_o.dim() != 3:
+        raise ValueError(f"rays_o must be (K, R, 3), got {tuple(rays_o.shape)}")
+    K, R = rays_o.shape[:2]
+    tr = tile_rays(n_samples)
+    if R == 0 or R % tr:
+        raise ValueError(f"n_rand={R} must be a positive multiple of the ray tile {tr}")
+    if n_samples < 2:
+        raise ValueError(f"n_samples must be >= 2, got {n_samples}")
+    if any(p.shape[0] != K for p in model.parameters()):
+        raise ValueError(f"the model must stack {K} scenes on every parameter's first axis")
+    kw = dict(n_samples=n_samples, near=near, far=far, randomized=randomized,
+              num_freqs=num_freqs, white_bkgd=white_bkgd, model_cfg=cfg)
+    if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
+        return fused_loss_grads_scenes_plain(model, rays_o, rays_d, target, seeds,
+                                             sigma_noise=sigma_noise, **kw)
+    mma = k2_uses_tensor_cores(cfg, n_samples)
+    loss, out = _launch(model, rays_o, rays_d, target, _seeds_tensor(seeds, K, rays_o.device),
+                        sigma_noise, n_samples, near, far, randomized, num_freqs, white_bkgd, cfg)
     fused_loss_grads.launches += 1
     fused_loss_grads.mma_launches += int(mma)
-    grads, off = [], 0
-    for p in model.parameters():
-        grads.append(out[off:off + p.numel()].view(p.shape))
-        off += p.numel()
-    return out[n_grad], grads
-
-
-fused_loss_grads.launches = 0  # kernel launches since the last reset
-# ... of which took the tensor cores (every bf16 launch k2_uses_tensor_cores takes)
-fused_loss_grads.mma_launches = 0
+    fused_loss_grads.scene_launches += 1
+    return loss, _split_grads(out, model.parameters())
 
 
 def jitter_probe(seed, n_rays: int, n_samples: int, near: float, far: float,
@@ -373,24 +496,44 @@ def jitter_probe(seed, n_rays: int, n_samples: int, near: float, far: float,
     return z
 
 
-def make_fused_grad_fn(s, randomized: bool = True):
-    """(model, ro, rd, target, generator, noise_scale=1.0) -> (loss,
-    metrics), writing each parameter's .grad: the drop-in for
-    training.loss_fn + backward. The generator draws the sigma-noise
-    (R, S) only when s.sigma_noise_std > 0, then the int32 kernel seed
-    (on the generator's device: no host sync)."""
-    noise_std = s.sigma_noise_std
+def draw_step_inputs(generator: torch.Generator, n_rays: int, noise_widths, noise_std: float,
+                     noise_scale: float, device) -> tuple:
+    """One scene's draws for a fused step, from its generator in the JAX
+    package's order: a sigma-noise (n_rays, n) for each n of noise_widths
+    (when noise_std > 0; else None each), then the int32 kernel seed (1,),
+    drawn on the generator's device (no host sync) and moved to `device`
+    -> (*noises, seed)."""
+    gdev = generator.device
+    noises = [None] * len(noise_widths)
+    if noise_std > 0.0:
+        noises = [(noise_scale * noise_std * torch.randn(
+            (n_rays, n), generator=generator, dtype=torch.float32, device=gdev)).to(device)
+            for n in noise_widths]
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, dtype=torch.int32,
+                         device=gdev).to(device)
+    return (*noises, seed)
 
-    def grad_fn(model, ro, rd, target, generator, noise_scale=1.0):
-        gdev = generator.device
-        noise = None
-        if noise_std > 0.0:
-            noise = noise_scale * noise_std * torch.randn(
-                (ro.shape[0], s.n_samples), generator=generator, dtype=torch.float32, device=gdev
-            ).to(ro.device)
-        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator, dtype=torch.int32,
-                             device=gdev).to(ro.device)
-        loss, grads = fused_loss_grads(
+
+def join_scenes(draws: list, scenes: bool) -> tuple:
+    """The draw_step_inputs of each scene as one launch's inputs: one
+    scene's own, or K scenes' noises stacked (K, R, n) and seeds
+    concatenated (K,); None stays None."""
+    if not scenes:
+        return draws[0]
+    *noises, seeds = zip(*draws)
+    return (*(None if n[0] is None else torch.stack(n) for n in noises), torch.cat(seeds))
+
+
+def _make_grad_fn(s, randomized: bool, scenes: bool):
+    noise_std = s.sigma_noise_std
+    loss_grads = fused_loss_grads_scenes if scenes else fused_loss_grads
+
+    def grad_fn(model, ro, rd, target, generators, noise_scale=1.0):
+        noise, seed = join_scenes([
+            draw_step_inputs(gen, ro.shape[-2], (s.n_samples,), noise_std, noise_scale,
+                             ro.device)
+            for gen in (generators if scenes else [generators])], scenes)
+        loss, grads = loss_grads(
             model, ro, rd, target, seed, sigma_noise=noise, n_samples=s.n_samples,
             near=s.near, far=s.far, randomized=randomized, num_freqs=s.num_freqs,
             white_bkgd=s.white_bkgd, model_cfg=s.model_cfg,
@@ -400,3 +543,22 @@ def make_fused_grad_fn(s, randomized: bool = True):
         return loss, {"loss": loss, "psnr": mse2psnr(loss)}
 
     return grad_fn
+
+
+def make_fused_grad_fn(s, randomized: bool = True):
+    """(model, ro, rd, target, generator, noise_scale=1.0) -> (loss,
+    metrics), writing each parameter's .grad: the drop-in for
+    training.loss_fn + backward. The generator draws the sigma-noise
+    (R, S) only when s.sigma_noise_std > 0, then the int32 kernel seed
+    (draw_step_inputs)."""
+    return _make_grad_fn(s, randomized, scenes=False)
+
+
+def make_fused_grad_fn_scenes(s, randomized: bool = True):
+    """The multi-scene make_fused_grad_fn: (model of K stacked scenes, ro,
+    rd, target (K, R, 3), generators (K scene generators), noise_scale=1.0)
+    -> (loss (K,), metrics of (K,)), writing each stacked parameter's .grad
+    from one fused_loss_grads_scenes launch. Scene k's generator draws what
+    make_fused_grad_fn's does, by the same draw_step_inputs, so scene k
+    trains as a one-scene run on its own generator."""
+    return _make_grad_fn(s, randomized, scenes=True)

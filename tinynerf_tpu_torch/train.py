@@ -37,7 +37,9 @@ JAX package's XLA path); its scene box is the capture's (the NDC cube
 under --ndc), persisted in the meta's `grid` entry; it takes
 --data-parallel, and refuses --sample-parallel and --proposal occupancy
 as the JAX package does. Metrics stay on the device inside a block; the
-host reads them only at a log point.
+host reads them only at a log point. --profile-dir writes a
+torch.profiler Chrome trace of the training loop there
+(utils/profiling.trace).
 
 Parallel training (tinynerf_tpu/train.py:53-62, 219-258, 361-381):
 --data-parallel (or --distributed) joins the launcher's process group
@@ -57,6 +59,7 @@ barrier. Every rank prints a digest of its parameters at the end.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import hashlib
@@ -92,6 +95,7 @@ from tinynerf_tpu_torch.training import (
 from tinynerf_tpu_torch.utils import checkpoint as ckpt_lib
 from tinynerf_tpu_torch.utils.cli import cli
 from tinynerf_tpu_torch.utils.image_io import write_png
+from tinynerf_tpu_torch.utils.profiling import trace
 
 
 def _kernel_launches() -> dict:
@@ -486,6 +490,10 @@ def main(cfg: Config = Config()) -> dict:
     last = {}
     metrics_f = open(cfg.metrics_path, "a") if cfg.metrics_path and is_main else None
     eval_secs = 0.0  # in-loop held-out evaluations, excluded from the rays/s denominator
+    # --profile-dir: a torch.profiler trace of the training loop, started and
+    # stopped where the JAX trainer starts and stops its jax.profiler trace.
+    profiler = contextlib.ExitStack()
+    profiler.enter_context(trace(cfg.profile_dir))
     try:
         _sync(device)
         t0 = time.time()
@@ -564,6 +572,7 @@ def main(cfg: Config = Config()) -> dict:
         _sync(device)
         dt = time.time() - t0 - eval_secs
     finally:
+        profiler.close()
         if metrics_f:
             metrics_f.close()
 

@@ -113,20 +113,26 @@ class TrainOptimizer:
       parameters and lists one tensor per parameter, in their order.
 
     torch's AdamW puts lr * wd * p on the pre-update p, as optax's adamw
-    does. `state`, `param_groups` and `zero_grad` are the base
+    does. batch_dims leading axes of every parameter are stacked scenes
+    (multiscene.py), which the decay mask does not count: every update is
+    elementwise and the schedule runs on the one shared count, so one
+    optimizer over K stacked scenes is K optimizers in lockstep. `state`,
+    `param_groups` and `zero_grad` are the base
     optimizer's; the checkpoints (utils/checkpoint.py) write all of it in
     optax's state tree."""
 
     def __init__(self, params, lr: float, decay_steps: int = 0, decay_factor: float = 0.1,
-                 weight_decay: float = 0.0, lr_floor: float = 0.0, ema_decay: float = 0.0):
+                 weight_decay: float = 0.0, lr_floor: float = 0.0, ema_decay: float = 0.0,
+                 batch_dims: int = 0):
         self.params = list(params)
         self.lr, self.decay_steps, self.decay_factor = lr, decay_steps, decay_factor
         self.weight_decay, self.lr_floor, self.ema_decay = weight_decay, lr_floor, ema_decay
         kw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8)
         if weight_decay > 0:
-            groups = [{"params": [p for p in self.params if p.ndim >= 2],
+            groups = [{"params": [p for p in self.params if p.ndim - batch_dims >= 2],
                        "weight_decay": weight_decay},
-                      {"params": [p for p in self.params if p.ndim < 2], "weight_decay": 0.0}]
+                      {"params": [p for p in self.params if p.ndim - batch_dims < 2],
+                       "weight_decay": 0.0}]
             self.base = torch.optim.AdamW([g for g in groups if g["params"]], **kw)
         else:
             self.base = torch.optim.Adam(self.params, **kw)
@@ -164,18 +170,18 @@ class TrainOptimizer:
 
 def make_optimizer(params, lr: float, decay_steps: int = 0, decay_factor: float = 0.1,
                    weight_decay: float = 0.0, lr_floor: float = 0.0,
-                   ema_decay: float = 0.0) -> TrainOptimizer:
+                   ema_decay: float = 0.0, batch_dims: int = 0) -> TrainOptimizer:
     """Adam as optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8) (both step by
     lr * m_hat / (sqrt(v_hat) + eps)), with the levers of the JAX
     package's make_optimizer (TrainOptimizer)."""
     return TrainOptimizer(params, lr, decay_steps, decay_factor, weight_decay, lr_floor,
-                          ema_decay)
+                          ema_decay, batch_dims)
 
 
-def settings_optimizer(params, s: TrainSettings) -> TrainOptimizer:
+def settings_optimizer(params, s: TrainSettings, batch_dims: int = 0) -> TrainOptimizer:
     return make_optimizer(params, s.lr, s.lr_decay_steps, s.lr_decay_factor,
                           weight_decay=s.weight_decay, lr_floor=s.lr_floor,
-                          ema_decay=s.ema_decay)
+                          ema_decay=s.ema_decay, batch_dims=batch_dims)
 
 
 class SigmaDeathDetector:

@@ -32,6 +32,12 @@ params-only checkpoints (save_params) of every model family, the EMA
 twin `<ckpt>.ema.npz` among them. save_checkpoint_rotating also keeps
 the last few step-stamped copies. Writes are atomic (temp file +
 rename).
+
+Multi-scene checkpoints (scenes=True; port of the JAX driver's batched
+checkpoint, tinynerf_tpu/train_multiscene.py:165-171) hold a model of K
+stacked scenes (multiscene.py): every leaf carries the leading K axis,
+Adam's count (and the schedule's) included, as jax.vmap(opt.init) makes
+them ((K,) int32); the tree strings are the single-scene ones.
 """
 
 from __future__ import annotations
@@ -144,18 +150,33 @@ def _converters(model: nn.Module):
     return state_to_jax, params_from_jax
 
 
-def _to_jax(model: nn.Module):
-    """The model's parameters as a JAX-layout tree (TinyNeRF, NeRF or GridNeRF)."""
-    return _state_to_jax(model, model.state_dict())
+def _to_jax(model: nn.Module, scenes: bool = False):
+    """The model's parameters as a JAX-layout tree (TinyNeRF, NeRF or
+    GridNeRF; with scenes, K stacked scenes: every leaf (K, ...))."""
+    return _state_to_jax(model, model.state_dict(), scenes)
 
 
-def _from_jax(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
-    return _converters(model)[1](tree)
+def _from_jax(model: nn.Module, tree, scenes: bool = False) -> Dict[str, torch.Tensor]:
+    """A JAX-layout tree -> per-parameter tensors by name; with scenes,
+    each leaf's leading K axis becomes each tensor's."""
+    convert = _converters(model)[1]
+    if not scenes:
+        return convert(tree)
+    leaves = _flatten(tree)
+    states = [convert(_unflatten([x[k] for x in leaves], tree)) for k in range(len(leaves[0]))]
+    return {n: torch.stack([st[n] for st in states]) for n in states[0]}
 
 
-def _state_to_jax(model: nn.Module, state: Dict[str, torch.Tensor]):
-    """Per-parameter tensors keyed by parameter name -> the JAX tree."""
-    return _converters(model)[0](state)
+def _state_to_jax(model: nn.Module, state: Dict[str, torch.Tensor], scenes: bool = False):
+    """Per-parameter tensors keyed by parameter name -> the JAX tree;
+    with scenes, scene by scene, the leaves stacked on a leading K axis."""
+    convert = _converters(model)[0]
+    if not scenes:
+        return convert(state)
+    trees = [convert({n: v[k] for n, v in state.items()})
+             for k in range(next(iter(state.values())).shape[0])]
+    leaves = [np.stack(xs) for xs in zip(*(_flatten(t) for t in trees))]
+    return _unflatten(leaves, trees[0])
 
 
 def _write(path: str, payload: Dict[str, np.ndarray]) -> None:
@@ -211,27 +232,33 @@ def save_checkpoint(
     optimizer,
     step: int,
     meta: Optional[Dict[str, Any]] = None,
+    scenes: bool = False,
 ) -> None:
     """Atomically write params, the optimizer's state (optax's tree, see
     the module docstring), step and meta of a TinyNeRF, a NeRF or a
-    GridNeRF. Before
-    the first update the state is count 0 and zero moments."""
+    GridNeRF, or with scenes of K stacked scenes (every leaf (K, ...), the
+    counts (K,)). Before the first update the state is count 0 and zero
+    moments."""
     named = dict(model.named_parameters())
     states = [optimizer.state.get(p, {}) for p in named.values()]
     count = np.asarray(int(states[0]["step"]) if states[0] else 0, dtype=np.int32)
+    if scenes:
+        count = np.full(next(iter(named.values())).shape[0], count, dtype=np.int32)
     mu, nu = {}, {}
     for (name, p), st in zip(named.items(), states):
         mu[name] = st["exp_avg"] if st else torch.zeros_like(p)
         nu[name] = st["exp_avg_sq"] if st else torch.zeros_like(p)
     decay_steps, weight_decay, ema_decay = _options(optimizer)
+    tree = _to_jax(model, scenes)
     opt_leaves = [count]
-    opt_leaves += _flatten(_state_to_jax(model, mu)) + _flatten(_state_to_jax(model, nu))
+    opt_leaves += (_flatten(_state_to_jax(model, mu, scenes))
+                   + _flatten(_state_to_jax(model, nu, scenes)))
     if decay_steps > 0:
         opt_leaves.append(count)  # the schedule counts the updates as Adam does
     if ema_decay > 0:
-        opt_leaves += _flatten(_state_to_jax(model, dict(zip(named, optimizer.ema))))
-    o_struct = optax_struct(tree_struct(_to_jax(model)), decay_steps, weight_decay, ema_decay)
-    _write(path, _payload(model, opt_leaves, o_struct, step, meta))
+        opt_leaves += _flatten(_state_to_jax(model, dict(zip(named, optimizer.ema)), scenes))
+    o_struct = optax_struct(tree_struct(tree), decay_steps, weight_decay, ema_decay)
+    _write(path, _payload(model, opt_leaves, o_struct, step, meta, tree))
 
 
 def save_checkpoint_rotating(path: str, model: nn.Module, optimizer, step: int,
@@ -254,13 +281,15 @@ def read_meta(path: str) -> Dict[str, Any]:
         return json.loads(str(z["meta"]))
 
 
-def restore_params(path: str, model: nn.Module) -> Tuple[int, Dict[str, Any]]:
+def restore_params(path: str, model: nn.Module,
+                   scenes: bool = False) -> Tuple[int, Dict[str, Any]]:
     """Load a checkpoint's parameters into `model` (TinyNeRF, NeRF or
-    GridNeRF) in place.
+    GridNeRF; with scenes, K stacked scenes from a multi-scene checkpoint)
+    in place.
 
     Returns (step, meta). Raises ValueError when the stored structure or
     a leaf's shape does not match the model."""
-    template = _to_jax(model)
+    template = _to_jax(model, scenes)
     struct, n_params = tree_struct(template), len(_flatten(template))
     want = model.state_dict()
     with np.load(path, allow_pickle=False) as z:
@@ -272,7 +301,9 @@ def restore_params(path: str, model: nn.Module) -> Tuple[int, Dict[str, Any]]:
             )
         leaves = [np.asarray(z[f"param_{i}"]) for i in range(n_params)]
         step = int(z["step"])
-    state = _from_jax(model, _unflatten(leaves, template))
+    if scenes and any(x.shape[:1] != t.shape[:1] for x, t in zip(leaves, _flatten(template))):
+        raise ValueError("checkpoint scene count does not match the model's")
+    state = _from_jax(model, _unflatten(leaves, template), scenes)
     for k, v in state.items():
         if tuple(v.shape) != tuple(want[k].shape):
             raise ValueError(
@@ -283,15 +314,18 @@ def restore_params(path: str, model: nn.Module) -> Tuple[int, Dict[str, Any]]:
     return step, info["meta"]
 
 
-def restore_checkpoint(path: str, model: nn.Module, optimizer) -> Tuple[int, Dict[str, Any]]:
+def restore_checkpoint(path: str, model: nn.Module, optimizer,
+                       scenes: bool = False) -> Tuple[int, Dict[str, Any]]:
     """Load params and the optimizer's state into `model` and `optimizer`
-    (a training.TrainOptimizer) in place.
+    (a training.TrainOptimizer) in place; with scenes, K stacked scenes
+    from a multi-scene checkpoint, whose scenes' counts must agree (one
+    optimizer steps them in lockstep).
 
     Returns (step, meta). Raises ValueError when the stored optimizer
     state is not the tree of this optimizer's options for this model (a
     params-only checkpoint, another optimizer chain) or a shape does not
     match."""
-    template = _to_jax(model)
+    template = _to_jax(model, scenes)
     decay_steps, weight_decay, ema_decay = _options(optimizer)
     want = optax_struct(tree_struct(template), decay_steps, weight_decay, ema_decay)
     with np.load(path, allow_pickle=False) as z:
@@ -304,10 +338,14 @@ def restore_checkpoint(path: str, model: nn.Module, optimizer) -> Tuple[int, Dic
                 f"stored {info['opt_struct']} vs this optimizer's {want}"
             )
         opt = [np.asarray(z[f"opt_{i}"]) for i in range(info["n_opt"])]
-    step, meta = restore_params(path, model)
-    count = int(opt[0])
-    mu = _from_jax(model, _unflatten(opt[1:1 + n_p], template))
-    nu = _from_jax(model, _unflatten(opt[1 + n_p:1 + 2 * n_p], template))
+    step, meta = restore_params(path, model, scenes)
+    counts = np.unique(opt[0])
+    if counts.size != 1:
+        raise ValueError(f"the scenes' optimizer counts differ ({counts.tolist()}): one "
+                         "optimizer steps every scene of the stack")
+    count = int(counts[0])
+    mu = _from_jax(model, _unflatten(opt[1:1 + n_p], template), scenes)
+    nu = _from_jax(model, _unflatten(opt[1 + n_p:1 + 2 * n_p], template), scenes)
     optimizer.state.clear()
     for name, p in model.named_parameters():
         optimizer.state[p] = {
@@ -316,7 +354,7 @@ def restore_checkpoint(path: str, model: nn.Module, optimizer) -> Tuple[int, Dic
             "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
         }
     if ema_decay > 0:
-        ema = _from_jax(model, _unflatten(opt[n_opt - n_p:], template))
+        ema = _from_jax(model, _unflatten(opt[n_opt - n_p:], template), scenes)
         optimizer.ema = [ema[name].to(p.device).reshape(p.shape).clone()
                          for name, p in model.named_parameters()]
     return step, meta

@@ -1,10 +1,13 @@
-"""The one-scene training kernels of two checkouts on one CUDA card: K2,
-K4, K6 and K7 timed in turn A B B A A B B A, and their results compared bit
-for bit. A development tool: nothing of the package imports it.
+"""The one-scene training kernels of two checkouts on one CUDA card, and
+the TinyNeRF render: K1, K2, K4, K6 and K7 timed in turn A B B A A B B A,
+and their results compared bit for bit. A development tool: nothing of
+the package imports it.
 
 Each run is a process of its own that imports tinynerf_tpu_torch from its
 checkout and builds that checkout's kernels there (build/ under it). The
-shapes are chip_smoke.py's one-scene ones: K2 on a 2048-ray step of 64
+shapes are chip_smoke.py's one-scene ones: K1 on 8192 rays of 64 samples,
+the reference recipe's TinyNeRF 4 x 128, in f32 and bf16 (phase 2); K2 on
+a 2048-ray step of 64
 jittered samples, the reference recipe's TinyNeRF 4 x 128, in f32 and
 bf16 (phase 10); K4 on the flagship's coarse pass (2048 rays x 64 jittered
 in the kernel, weights and depths out, hidden 256, bf16 and f32; phase 21)
@@ -60,7 +63,7 @@ def worker(tree: str) -> dict:
 
     if not Path(tinynerf_tpu_torch.__file__).resolve().is_relative_to(Path(tree).resolve()):
         raise RuntimeError(f"imported {tinynerf_tpu_torch.__file__}, not the package in {tree}")
-    sources = ("fused_train", "fused_nerf_train", "fused_partials")
+    sources = ("fused_render", "fused_train", "fused_nerf_train", "fused_partials")
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = dict(zip(sources, pool.map(_build.build, sources)))
     ptxas = {}
@@ -77,6 +80,7 @@ def worker(tree: str) -> dict:
     from tinynerf_tpu_torch.kernels.fused_nerf_train import fused_nerf_pass_grads
     from tinynerf_tpu_torch.kernels.fused_partials import (
         fused_block_partials_bwd, fused_block_partials_fwd)
+    from tinynerf_tpu_torch.kernels.fused_render import fused_render_rays
     from tinynerf_tpu_torch.kernels.fused_train import fused_loss_grads
     from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
     from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
@@ -98,6 +102,15 @@ def worker(tree: str) -> dict:
 
     seed = torch.tensor([3], dtype=torch.int32, device=dev)
     cases = {}
+    rng1 = np.random.RandomState(1)  # K1's rays; the other cases' draws stay as they were
+    ro1 = torch.from_numpy((rng1.randn(4 * N_RAYS, 3) * 0.1 + [0.0, 0.0, 4.0]).astype(np.float32))
+    rd1 = rng1.randn(4 * N_RAYS, 3).astype(np.float32)
+    rd1 = torch.from_numpy(rd1 / np.linalg.norm(rd1, axis=-1, keepdims=True))
+    ro1, rd1 = ro1.to(dev), rd1.to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=128, compute_dtype=dtype)
+        m = TinyNeRF(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+        cases[f"K1 {str(dtype)[6:]}"] = lambda m=m: fused_render_rays(m, ro1, rd1, n_samples=64)
     for dtype in (torch.float32, torch.bfloat16):
         cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=128, compute_dtype=dtype)
         m = TinyNeRF(cfg, generator=torch.Generator().manual_seed(1), device=dev)

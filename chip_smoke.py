@@ -240,6 +240,31 @@ Phases, each printed with its result and time:
                 batched calls against 8 one-scene launches and the plain
                 versions, with their bounds, the flagship launch's buffers,
                 the 8-scene loop fused against eager, the per-step host work.
+ 37. tiny domain - K1 and K2 at every TinyNeRF shape the JAX kernels take:
+                (a) K2 at S=20 (tiles of 3 rays: the batch padded), hidden
+                36 (padded to 40), 168 and 256, depth 6, S=96 and 128, the
+                8 x 256 trunk with its skip at 4 and hidden 264 at S=192,
+                f32 and bf16, 2048 rays, each one launch on the route its
+                rules give (the F4c shapes on the spill route) under the K2
+                gates; the spill kernels' HMMA per route; (b) the spill route
+                forced at the recipe's shape (and at hidden 36) bit-identical
+                to the shared route; (c) K1 at hidden 36 and 264, S=192 at
+                hidden 256 and 264, S=512 (the general kernel: rounds and
+                segments) and the full width, f32 and bf16, under the render
+                gates; (d) the scene axis at widths off 8: K2 x3 at hidden
+                36 (S=20) and at the full width (spill), K4 and K6 x3 at
+                hidden 36 / rgb_hidden 20, each scene bit-identical to its
+                one-scene launch; (e) the slice, `train --hidden 256 --depth
+                8 --skip-at 4`, 500 steps fused (K2 every step on the spill
+                route and the tensor cores, K1 on the tensor cores) and
+                eager: rise >= 3 dB, held-out within 1.5 dB; (f) `train
+                --hidden 36 --n-samples 20` (200 steps), `--hidden 264
+                --n-samples 192` (20 steps: K2 spill on the CUDA cores, K1
+                in segments), `train_multiscene --hidden 36` (20 steps, the
+                batched K2); (g) timing: K2 shared against spill at the
+                recipe's shape, the full width, hidden 264 at S=192; K1 at
+                the full width and at hidden 264, S=192; the full-width
+                spill launch's buffers.
 
 Weights are random from a seed throughout. The line before the kernels
 line gives the seconds of all phases.
@@ -254,6 +279,7 @@ Artifacts go to outputs/chip_smoke/.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -3413,7 +3439,7 @@ def run_multiscene() -> None:
 
     from tinynerf_tpu_torch.kernels import _build
 
-    for source, kernel in (("fused_train", r"fused_train_kernelILb([01])ELb1E"),
+    for source, kernel in (("fused_train", r"fused_train_kernelILb([01])ELb1ELb0E"),
                            ("fused_nerf_train", r"nerf_walk_scenes_kernelI.*?Lb([01])E")):
         hmma = {}
         for fn, n in sass_counts(_build.build(source), "HMMA").items():
@@ -3755,6 +3781,364 @@ def run_multiscene() -> None:
     print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
 
 
+FULL_WIDTH = dict(hidden=256, depth=8, skip_at=4)  # phase 37: the NeRF paper's trunk as a TinyNeRF
+FULL_ITERS = 500  # phase 37 (e): the full-width train, fused and eager
+ANY_SHAPE_ITERS = 200  # phase 37 (f): train --hidden 36 --n-samples 20 (F4a, F4b)
+WIDE_ITERS = 20  # phase 37 (f): train --hidden 264 --n-samples 192 (spill, K1 in segments)
+# phase 37 (a): K2 at every F4 shape, (tag, hidden, depth, skip_at, S), 2048 rays
+F4_K2 = (("F4a S=20", 128, 4, 2, 20), ("F4b hidden 36", 36, 4, 2, 64),
+         ("F4c hidden 168", 168, 4, 2, 64), ("F4c hidden 256", 256, 4, 2, 64),
+         ("F4c depth 6", 128, 6, 3, 64), ("F4c S=96", 128, 4, 2, 96),
+         ("F4c S=128", 128, 4, 2, 128), ("F4c 8 x 256", 256, 8, 4, 64),
+         ("F4c hidden 264, S=192", 264, 4, 2, 192))
+# phase 37 (b): K1 at the F4b and F4d shapes and the full width, (tag, hidden, depth, skip_at, S, rays)
+F4_K1 = (("F4b hidden 36", 36, 4, 2, 64, 8192), ("F4d hidden 264", 264, 4, 2, 64, 8192),
+         ("F4d hidden 264, S=192", 264, 4, 2, 192, 4096),
+         ("F4d S=192 hidden 256", 256, 4, 2, 192, 4096), ("F4d S=512", 128, 4, 2, 512, 2048),
+         ("full width", 256, 8, 4, 64, 8192))
+
+
+def _tiny_case(hidden, depth, skip_at, dtype, dev, n_rays, seed=0):
+    """A TinyNeRF of the given trunk (seeded) and n_rays rays toward the
+    scene with random targets."""
+    import numpy as np
+
+    from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
+    from tinynerf_tpu_torch.ops.encoding import encoding_dim
+
+    cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=hidden, depth=depth, skip_at=skip_at,
+                         compute_dtype=dtype)
+    model = TinyNeRF(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    rng = np.random.RandomState(37 + seed)
+    ro = torch.from_numpy((rng.randn(n_rays, 3) * 0.1 + [0.0, 0.0, 4.0]).astype(np.float32))
+    rd = rng.randn(n_rays, 3).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    rd[:, 2] = -np.abs(rd[:, 2])  # toward the origin
+    tgt = torch.from_numpy(rng.rand(n_rays, 3).astype(np.float32))
+    return model, cfg, ro.to(dev), torch.from_numpy(rd).to(dev), tgt.to(dev)
+
+
+def k2_gates(dtype, loss, grads, want_loss, want, names) -> tuple:
+    """K2's gates (PERF.md section 2) -> (errors, ok)."""
+    err = {"loss_rel": abs(float(loss) - float(want_loss)) / float(want_loss),
+           **leaf_errors(grads, want), "mma_scale_err": mma_scale_error(names, grads, want)}
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    if dtype == torch.float32:
+        ok = err["loss_rel"] < 1e-5 and err["max_rel_to_leaf"] <= 2e-4
+    else:
+        ok = err["loss_rel"] < 1e-3 and err["min_cosine"] > 0.98 and err["mma_scale_err"] < MMA_SCALE
+    return err, ok and finite
+
+
+def run_tiny_domain(build_render, build_train) -> list:
+    """Phase 37: K1 and K2 at every TinyNeRF shape the JAX kernels take (F4:
+    any batch, any width, the spill route, K1 in rounds and segments), the
+    scene axis at widths off multiples of 8 (F5), and the full-width
+    TinyNeRF (8 x 256, skip at 4) trained through the spill route."""
+    import numpy as np
+
+    from tinynerf_tpu_torch import train as train_mod
+    from tinynerf_tpu_torch import train_multiscene as ms_mod
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k6_mod
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4_mod
+    from tinynerf_tpu_torch.kernels import fused_render as k1_mod
+    from tinynerf_tpu_torch.kernels import fused_train as k2_mod
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+    from tinynerf_tpu_torch.models.stacked import stack_models
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    k1, k2 = k1_mod.fused_render_rays, k2_mod.fused_loss_grads
+    k4, k6 = k4_mod.fused_nerf_pass_grads, k6_mod.fused_nerf_pass_grads_streamed
+    data_path = os.path.join(OUT_DIR, "absent.npz")  # phase 3's synthetic scene
+
+    def reset():
+        k1.launches = k1.mma_launches = k1.general_launches = 0
+        k2.launches = k2.mma_launches = k2.spill_launches = k2.scene_launches = 0
+        for k in (k4, k6):
+            k.launches = k.mma_launches = k.scene_launches = 0
+
+    # 37. HMMA in the spill route's tensor-core instantiations only.
+    t0 = time.time()
+    import re
+
+    hmma = {fn: n for fn, n in sass_counts(build_train.result()[0], "HMMA").items()
+            if re.search(r"fused_train_kernelILb[01]ELb[01]ELb1E", fn)}
+    print(f"[tiny] HMMA instructions per spill kernel (kSpill, cuobjdump -sass): "
+          f"{json.dumps(hmma)}", flush=True)
+    check(len(hmma) == 4 and all((n > 0) == ("kernelILb1E" in fn) for fn, n in hmma.items()),
+          "the spill route's kMma instantiations hold HMMA instructions, the others none")
+    build_render.result()
+
+    # 37. (a) K2 at every F4 shape, f32 and bf16, against its plain version
+    #     (grid depths) under the K2 gates; every launch on its configured
+    #     route, none refused.
+    errs = {}
+    for tag, hidden, depth, skip_at, S in F4_K2:
+        for dtype in (torch.float32, torch.bfloat16):
+            model, cfg, ro, rd, tgt = _tiny_case(hidden, depth, skip_at, dtype, dev, N_RAYS_TRAIN)
+            kw = dict(n_samples=S, randomized=False, model_cfg=cfg)
+            reset()
+            loss, grads = k2(model, ro, rd, tgt, 0, **kw)
+            torch.cuda.synchronize()
+            route = (k2.launches, k2.mma_launches, k2.spill_launches)
+            want_loss, want = k2_mod.fused_loss_grads_plain(model, ro, rd, tgt, 0, **kw)
+            names = [n for n, _ in model.named_parameters()]
+            err, ok = k2_gates(dtype, loss, grads, want_loss, want, names)
+            errs[tag, dtype] = err
+            print(f"[tiny] K2 {tag} ({k2_mod.k2_route(cfg, S)}), {str(dtype)[6:]}: (launches, "
+                  f"tensor cores, spill) {route}; {json.dumps(err)}", flush=True)
+            want_route = (1, int(k2_mod.k2_uses_tensor_cores(
+                dataclasses.replace(cfg, hidden=-(-hidden // 8) * 8), S)),
+                int(not k2_mod.k2_fits_shared_memory(cfg, S)))
+            check(route == want_route and ok and route[2] == int(tag.startswith("F4c")),
+                  f"K2 {tag} {dtype}: one launch on its route (F4c: spill), within the K2 gates")
+
+    # 37. (b) the spill route forced at the recipe's shape (and at hidden 36,
+    #     CUDA cores): bit-identical to the shared route, jittered, with noise.
+    for hidden, dtype in ((128, torch.float32), (128, torch.bfloat16), (36, torch.bfloat16)):
+        model, cfg, ro, rd, tgt = _tiny_case(hidden, 4, 2, dtype, dev, N_RAYS_TRAIN)
+        noise = torch.randn(N_RAYS_TRAIN, 64, generator=torch.Generator().manual_seed(5)).to(dev)
+        runs = [k2(model, ro, rd, tgt, 9, sigma_noise=noise, spill=spill) for spill in (False, True)]
+        same = float(runs[0][0]) == float(runs[1][0]) and all(
+            torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+        print(f"[tiny] K2 hidden {hidden} {str(dtype)[6:]}: the spill route bit-identical to the "
+              f"shared route: {same}", flush=True)
+        check(same, f"K2 spill == shared at hidden {hidden}, {dtype}")
+
+    # 37. (c) K1 at the F4b and F4d shapes and the full width, f32 and bf16,
+    #     against its plain version under the render gates.
+    with torch.no_grad():
+        for tag, hidden, depth, skip_at, S, n_rays in F4_K1:
+            for dtype in (torch.float32, torch.bfloat16):
+                model, cfg, ro, rd, _ = _tiny_case(hidden, depth, skip_at, dtype, dev, n_rays)
+                reset()
+                got = k1(model, ro, rd, n_samples=S, model_cfg=cfg)
+                torch.cuda.synchronize()
+                route = (k1.launches, k1.mma_launches, k1.general_launches)
+                want = k1_mod.fused_render_rays_plain(model, ro, rd, n_samples=S, model_cfg=cfg)
+                errs["K1", tag, dtype] = err = ray_errors(got, want)
+                shape = k1_mod.k1_shape(dataclasses.replace(cfg, hidden=-(-hidden // 8) * 8), S)
+                mma, general = shape[:2]
+                print(f"[tiny] K1 {tag} (k1_shape: tensor cores, general, tile rays, segment "
+                      f"samples {shape}), {str(dtype)[6:]}: (launches, tensor cores, general) "
+                      f"{route}; {json.dumps(err)}", flush=True)
+                check(route == (1, int(mma), int(general)) and within(err, dtype)
+                      and bool(torch.isfinite(got).all()),
+                      f"K1 {tag} {dtype}: one launch on its route, within the render gates")
+
+    # 37. (d) the scene axis at widths off multiples of 8: K2 (hidden 36, and
+    #     the full width on the spill route), K4 and K6 (hidden 36, rgb_hidden
+    #     20) for 3 scenes, each bit-identical to its one-scene launch.
+    K = 3
+    for tag, hidden, depth, skip_at, S in (("hidden 36", 36, 4, 2, 20),
+                                           ("full width", 256, 8, 4, 64)):
+        cases = [_tiny_case(hidden, depth, skip_at, torch.bfloat16, dev, 1000, seed=k)
+                 for k in range(K)]
+        model = stack_models([c[0] for c in cases])
+        ro, rd, tgt = (torch.stack([c[i] for c in cases]) for i in (2, 3, 4))
+        seeds = torch.arange(7, 7 + K, dtype=torch.int32, device=dev)
+        reset()
+        loss, grads = k2_mod.fused_loss_grads_scenes(model, ro, rd, tgt, seeds, n_samples=S)
+        batched = (k2.launches, k2.scene_launches)
+        same = True
+        for k in range(K):
+            l1, g1 = k2(cases[k][0], ro[k], rd[k], tgt[k], seeds[k:k + 1], n_samples=S)
+            same = same and float(l1) == float(loss[k]) and all(
+                torch.equal(a[k], b) for a, b in zip(grads, g1))
+        print(f"[tiny] K2 x{K} scenes, {tag}, 1000 rays x {S} (padded to whole tiles), bf16 "
+              f"({k2_mod.k2_route(cases[0][1], S)}): each scene bit-identical to its one-scene "
+              f"launch: {same}", flush=True)
+        check(same and batched == (1, 1), f"batched K2 at {tag}: one launch, per scene identical")
+    ncfg = NeRFConfig(hidden=36, rgb_hidden=20, compute_dtype=torch.bfloat16)
+    mlps = [NeRFMLP(ncfg, generator=torch.Generator().manual_seed(k), device=dev) for k in range(K)]
+    model = stack_models(mlps)
+    _, _, ro, rd, tgt = _tiny_case(128, 4, 2, torch.float32, dev, K * 512)
+    ro, rd, tgt = (x.reshape(K, 512, 3) for x in (ro, rd, tgt))
+    seeds = torch.arange(3, 3 + K, dtype=torch.int32, device=dev)
+    reset()
+    loss, grads, w, z = k4_mod.fused_nerf_pass_grads_scenes(model, ro, rd, tgt, seeds,
+                                                            emit_sampling=True, cfg=ncfg)
+    zu = _union(w, z, 128)
+    loss6, grads6 = k6_mod.fused_nerf_pass_grads_streamed_scenes(model, ro, rd, tgt, zu, cfg=ncfg,
+                                                                sample_block=64)
+    same4 = same6 = True
+    for k in range(K):
+        l1, g1, w1, z1 = k4(mlps[k], ro[k], rd[k], tgt[k], seeds[k:k + 1], emit_sampling=True,
+                            cfg=ncfg)
+        same4 = same4 and float(l1) == float(loss[k]) and torch.equal(w1, w[k]) and all(
+            torch.equal(a[k], b) for a, b in zip(grads, g1))
+        l6, g6 = k6(mlps[k], ro[k], rd[k], tgt[k], zu[k], cfg=ncfg, sample_block=64)
+        same6 = same6 and float(l6) == float(loss6[k]) and all(
+            torch.equal(a[k], b) for a, b in zip(grads6, g6))
+    print(f"[tiny] K4 and K6 x{K} scenes at hidden 36, rgb_hidden 20 (padded to 40, 24), bf16: "
+          f"each scene bit-identical to its one-scene launch: K4 {same4}, K6 {same6}; "
+          f"(launches, tensor cores, scene launches) K4 {(k4.launches, k4.mma_launches, k4.scene_launches)}"
+          f", K6 {(k6.launches, k6.mma_launches, k6.scene_launches)}", flush=True)
+    check(same4 and same6, "batched K4/K6 at widths off 8: per scene bit-identical")
+    print(f"[tiny] (a-d) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 37. (e) the slice: python -m tinynerf_tpu_torch.train --hidden 256
+    #     --depth 8 --skip-at 4, fused (K2 on the spill route and the tensor
+    #     cores every step, K1 on the tensor cores) and eager, 500 steps each.
+    t0 = time.time()
+    runs = {}
+    for fused in (True, False):
+        name = "fused" if fused else "eager"
+        cfg = Config(data_path=data_path, out_dir=os.path.join(OUT_DIR, f"full_{name}"),
+                     iters=FULL_ITERS, holdout=4, resume=False, log_every=50,
+                     ckpt_path=os.path.join(OUT_DIR, f"full_{name}.npz"),
+                     metrics_path=os.path.join(OUT_DIR, f"full_{name}.jsonl"),
+                     fused_train=fused, fused=fused, **FULL_WIDTH)
+        if os.path.exists(cfg.metrics_path):
+            os.unlink(cfg.metrics_path)
+        reset()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = train_mod.main(cfg)
+        lines = [l for l in out.getvalue().splitlines() if "route" in l]
+        c = {"K2": (k2.launches, k2.mma_launches, k2.spill_launches),
+             "K1": (k1.launches, k1.mma_launches, k1.general_launches)}
+        psnrs = logged_psnrs(cfg.metrics_path)
+        rise = sum(psnrs[-3:]) / 3 - psnrs[0]
+        runs[name] = {"counts": c, "rise": rise, "heldout": res["eval"]["psnr_mean"],
+                      "rays_per_sec": res["rays_per_sec"]}
+        print(f"[tiny] full width {name}: {lines}; (launches, tensor cores, spill or general) "
+              f"{json.dumps(c)}; train PSNR {psnrs[0]:.2f} -> {sum(psnrs[-3:]) / 3:.2f} dB (rise "
+              f"{rise:.2f}), held-out {res['eval']['psnr_mean']:.2f} dB, "
+              f"{res['rays_per_sec']:,.0f} rays/s", flush=True)
+        check(rise >= 3.0, f"full width {name}: train PSNR rises >= 3 dB")
+    check(runs["fused"]["counts"]["K2"] == (FULL_ITERS,) * 3,
+          "full width: every step one K2 launch, on the spill route and the tensor cores")
+    k1c = runs["fused"]["counts"]["K1"]
+    check(k1c[0] > 0 and k1c[0] == k1c[1] and k1c[2] == 0, "full width: K1 on the tensor cores")
+    check(runs["eager"]["counts"]["K2"][0] == 0 and runs["eager"]["counts"]["K1"][0] == 0,
+          "the eager run launches no K1, K2")
+    gap = abs(runs["fused"]["heldout"] - runs["eager"]["heldout"])
+    print(f"[tiny] full width: held-out PSNR fused vs eager {gap:.3f} dB apart", flush=True)
+    check(gap <= 1.5, "full width: fused and eager held-out within 1.5 dB")
+
+    # 37. (f) any shape through the trainer: --hidden 36 --n-samples 20 (2048
+    #     rays, tiles of 3: padded; hidden padded to 40), --hidden 264
+    #     --n-samples 192 (K2 spill on the CUDA cores, K1 in rounds and
+    #     segments), and train_multiscene --hidden 36 (the batched K2).
+    shapes = {}
+    for tag, kw, iters in (("hidden 36, S=20", dict(hidden=36, n_samples=20), ANY_SHAPE_ITERS),
+                           ("hidden 264, S=192", dict(hidden=264, n_samples=192), WIDE_ITERS)):
+        cfg = Config(data_path=data_path, out_dir=os.path.join(OUT_DIR, "any_shape"), iters=iters,
+                     holdout=4, resume=False, log_every=10,
+                     ckpt_path=os.path.join(OUT_DIR, "any_shape.npz"),
+                     metrics_path=os.path.join(OUT_DIR, "any_shape.jsonl"), **kw)
+        if os.path.exists(cfg.metrics_path):
+            os.unlink(cfg.metrics_path)
+        reset()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = train_mod.main(cfg)
+        psnrs = logged_psnrs(cfg.metrics_path)
+        c = shapes[tag] = {"K2": (k2.launches, k2.mma_launches, k2.spill_launches),
+                           "K1": (k1.launches, k1.mma_launches, k1.general_launches)}
+        lines = [l for l in out.getvalue().splitlines() if "route" in l]
+        print(f"[tiny] train {tag}, {iters} steps: {lines}; (launches, tensor cores, spill or "
+              f"general) {json.dumps(c)}; train PSNR {psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB, "
+              f"held-out {res['eval']['psnr_mean']:.2f} dB", flush=True)
+        check(c["K2"][0] == iters and c["K1"][0] > 0 and np.isfinite(res["eval"]["psnr_mean"])
+              and psnrs[-1] > psnrs[0], f"train {tag}: K2 every step, K1 renders, PSNR rises")
+    check(shapes["hidden 264, S=192"]["K2"][2] == WIDE_ITERS
+          and shapes["hidden 264, S=192"]["K1"][2] == shapes["hidden 264, S=192"]["K1"][0],
+          "hidden 264, S=192: K2 on the spill route, K1 in segments")
+    reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        r = ms_mod.main(ms_mod.MultiSceneConfig(  # phase 36's scenes 0-3
+            scenes=4, iters=20, log_every=10, hidden=36, data_dir=os.path.join(OUT_DIR, "ms_data"),
+            out_dir=os.path.join(OUT_DIR, "ms_tiny"), ckpt_path=os.path.join(OUT_DIR, "ms_tiny.npz"),
+            preview=False))
+    print(f"[tiny] train_multiscene --hidden 36, 4 scenes, 20 steps: K2 (launches, scene "
+          f"launches) {(k2.launches, k2.scene_launches)}; mean train PSNR {r['psnr_mean']:.2f} dB",
+          flush=True)
+    check(k2.launches == 20 and k2.scene_launches == 20 and np.isfinite(r["psnr_mean"]),
+          "train_multiscene at hidden 36: one batched K2 launch a step")
+    print(f"[tiny] (e, f) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 37. (g) timing: plain, kernel, kernel, plain. K2: the recipe's shape on
+    #     the shared and the spill routes, the full width (spill, tensor
+    #     cores), hidden 264 at S=192 (spill, CUDA cores); K1: the full width
+    #     (tensor cores) and S=192 at hidden 264 (rounds, segments).
+    t0 = time.time()
+    times, bounds, launch_counts = {}, {}, {}
+    full = runs["fused"]["counts"]
+    wide = shapes["hidden 264, S=192"]
+    k2_cases = (("K2 recipe, shared", 128, 4, 2, 64, False, None),
+                ("K2 recipe, spill", 128, 4, 2, 64, True, None),
+                ("K2 full width, spill, tensor cores", 256, 8, 4, 64, None, full["K2"][0]),
+                ("K2 hidden 264, S=192, spill, CUDA cores", 264, 4, 2, 192, None, wide["K2"][0]))
+    for tag, hidden, depth, skip_at, S, spill, n in k2_cases:
+        model, cfg, ro, rd, tgt = _tiny_case(hidden, depth, skip_at, torch.bfloat16, dev,
+                                             N_RAYS_TRAIN)
+        seed = torch.tensor([3], dtype=torch.int32, device=dev)
+        fns = {"kernel": lambda: k2(model, ro, rd, tgt, seed, n_samples=S, spill=spill),
+               "plain": lambda: k2_mod.fused_loss_grads_plain(model, ro, rd, tgt, 3, n_samples=S)}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            times.setdefault(tag, {}).setdefault(name, []).append(
+                cuda_ms(fns[name], iters=5 if S > 64 else 20))
+        n_par = sum(p.numel() for p in model.parameters())
+        bounds[tag] = (2 * N_RAYS_TRAIN * S * train_macs_per_point(model),
+                       4 * (N_RAYS_TRAIN * 9 + 2 * n_par + 1))
+        launch_counts[tag] = n
+    # The spill launch's device buffers at the full width: the workspace and
+    # the partial rows, from the wrapper's own sizes.
+    lib = k2_mod._lib()
+    n_blocks = min(N_RAYS_TRAIN, torch.cuda.get_device_properties(dev).multi_processor_count)
+    model = _tiny_case(256, 8, 4, torch.bfloat16, dev, 8)[0]
+    n_grad = k1_mod.pack_tiny_weights(model, model.cfg)[0].numel()
+    buf = {"workspace_MB": 4 * n_blocks * lib.tinynerf_fused_train_workspace_floats(
+               1, 64, 10, 256, 8, 4, 1) / 1e6,
+           "partials_MB": 4 * n_blocks * k2_mod.partial_row(n_grad) / 1e6}
+    with torch.no_grad():
+        for tag, hidden, depth, skip_at, S, n_rays, n in (
+                ("K1 full width, tensor cores", 256, 8, 4, 64, 8192, full["K1"][0]),
+                ("K1 hidden 264, S=192, rounds and segments", 264, 4, 2, 192, 4096, wide["K1"][0])):
+            model, cfg, ro, rd, _ = _tiny_case(hidden, depth, skip_at, torch.bfloat16, dev, n_rays)
+            fns = {"kernel": lambda: k1(model, ro, rd, n_samples=S),
+                   "plain": lambda: k1_mod.fused_render_rays_plain(model, ro, rd, n_samples=S)}
+            for name in ("plain", "kernel", "kernel", "plain"):
+                times.setdefault(tag, {}).setdefault(name, []).append(cuda_ms(fns[name], iters=5))
+            n_par = sum(p.numel() for p in model.parameters())
+            bounds[tag] = (2 * n_rays * S * macs_per_point(model), 4 * (n_rays * 7 + n_par))
+            launch_counts[tag] = n
+    ms = {t: {n: min(v) for n, v in d.items()} for t, d in times.items()}
+    kernels = []
+    for tag, d in ms.items():
+        flops, nbytes = bounds[tag]
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        print(f"[timing] {card}: {tag}, bf16: kernel {d['kernel']:.4f} ms, plain "
+              f"{d['plain']:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB) (all runs {json.dumps(times[tag])})", flush=True)
+    print(f"[timing] {card}: the full-width K2 spill launch's buffers: {json.dumps(buf)}",
+          flush=True)
+    print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
+    entries = (("fused_loss_grads spill route, tensor cores (full width 8 x 256)",
+                "K2 full width, spill, tensor cores", "tinynerf_tpu_torch/csrc/fused_train.cu",
+                "tinynerf_tpu/kernels/fused_train.py:263", errs["F4c 8 x 256", torch.bfloat16]),
+               ("fused_loss_grads spill route, CUDA cores (hidden 264, S=192)",
+                "K2 hidden 264, S=192, spill, CUDA cores", "tinynerf_tpu_torch/csrc/fused_train.cu",
+                "tinynerf_tpu/kernels/fused_train.py:263",
+                errs["F4c hidden 264, S=192", torch.bfloat16]),
+               ("fused_render_rays general kernel (hidden 264, S=192, segments of 128)",
+                "K1 hidden 264, S=192, rounds and segments",
+                "tinynerf_tpu_torch/csrc/fused_render.cu",
+                "tinynerf_tpu/kernels/fused_render.py:211",
+                errs["K1", "F4d hidden 264, S=192", torch.bfloat16]))
+    for name, tag, source, replaces, err in entries:
+        flops, nbytes = bounds[tag]
+        kernels.append(kernel_entry(name, source, replaces, launch_counts[tag],
+                                    err["max_abs" if "max_abs" in err else "max"],
+                                    ms[tag]["kernel"], ms[tag]["plain"], flops, nbytes))
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3771,7 +4155,8 @@ def main() -> int:
         run_grid()
         run_scenes()
         run_multiscene()
-    print(f"[phases] 1-36 in {time.time() - t_start:.2f}s", flush=True)
+        kernels += run_tiny_domain(builds["fused_render"], builds["fused_train"])
+    print(f"[phases] 1-37 in {time.time() - t_start:.2f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -169,9 +169,9 @@ def test_k1_and_k2_refuse_fragments_off_their_route_on_card(cuda_device):
     frag = torch.zeros(4, dtype=torch.bfloat16, device=cuda_device).data_ptr()
     # (tile_rays, n_samples, hidden, bf16)
     for tile, S, hidden, bf16 in ((2, 64, 128, 0), (2, 64, 48, 1), (1, 192, 128, 1)):
-        err = k1._lib().tinynerf_fused_render(None, None, None, frag, None, 2 * tile, tile, S, 10,
-                                              hidden, 4, 2, 2.0, 6.0, bf16, cuda_device.index,
-                                              stream)
+        err = k1._lib().tinynerf_fused_render(None, None, None, frag, None, 2 * tile, tile, S, S,
+                                              0, 10, hidden, 4, 2, 2.0, 6.0, bf16,
+                                              cuda_device.index, stream)
         assert err != 0, (tile, S, hidden, bf16)
     for tile, S, hidden, bf16 in ((1, 64, 128, 0), (1, 64, 48, 1), (1, 48, 128, 1)):
         cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=hidden, depth=4, skip_at=2)
@@ -182,7 +182,8 @@ def test_k1_and_k2_refuse_fragments_off_their_route_on_card(cuda_device):
             err = k2._lib().tinynerf_fused_train(
                 None, None, None, None, None, None, None, frag, None, None, None, 132, tile, S,
                 10, hidden, 4, 2, 2.0, 0.1, 0.01, 0, 1, bf16, 132, n_grad, k2.partial_row(n_grad),
-                n_scenes, slab(n_grad), 0, slab(w_mma.numel()), cuda_device.index, stream)
+                n_scenes, slab(n_grad), 0, slab(w_mma.numel()), 0, None, cuda_device.index,
+                stream)
             assert err == 1, (tile, S, hidden, bf16, n_scenes)  # cudaErrorInvalidValue
 
 
@@ -1417,8 +1418,8 @@ def test_scene_axis_refuses_wrong_counts_and_strides_on_card(cuda_device):
     def k2_err(n_scenes, fwd, bwd_stride):
         return k2._lib().tinynerf_fused_train(
             None, None, None, None, None, None, dummy, None, None, None, None, 64, 4, 16, 4, 32,
-            4, 2, 2.0, 0.1, 0.01, 0, 1, 0, 16, n_grad, row, n_scenes, fwd, bwd_stride, 0, dev,
-            stream)
+            4, 2, 2.0, 0.1, 0.01, 0, 1, 0, 16, n_grad, row, n_scenes, fwd, bwd_stride, 0, 0, None,
+            dev, stream)
 
     for args in ((2, n_grad + 4, bwd), (2, n_grad, bwd + 1), (0, n_grad, bwd), (70000, n_grad, bwd)):
         assert k2_err(*args) == 1, args
@@ -1496,3 +1497,187 @@ def test_fused_multiscene_block_equals_one_scene_blocks_on_card(cuda_device, kin
         assert torch.allclose(m["loss"][:, k], r["loss"], rtol=0, atol=1e-6), k
         for a, b in zip(scene_params(model, k).parameters(), m1.parameters()):
             assert torch.allclose(a, b, rtol=0, atol=1e-6), k
+
+
+# Every TinyNeRF shape the JAX kernels take (F4, F5): (hidden, depth,
+# skip_at, S, n_rays). S=20: tiles of 3 rays, 250 rays padded; hidden 36:
+# padded to 40; the rest pass 227 KB of shared memory: the spill route.
+K2_DOMAIN = [(128, 4, 2, 20, 250), (36, 4, 2, 64, 256), (168, 4, 2, 64, 256),
+             (256, 4, 2, 64, 256), (128, 6, 3, 64, 256), (128, 4, 2, 96, 128),
+             (128, 4, 2, 128, 128), (256, 8, 4, 64, 256)]
+
+
+def _tiny_domain_case(hidden, depth, skip_at, dtype, device, n_rays, seed=3):
+    cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=hidden, depth=depth, skip_at=skip_at,
+                         compute_dtype=dtype)
+    model = TinyNeRF(cfg, generator=torch.Generator().manual_seed(seed), device=device)
+    ro, rd = _rays(n_rays, seed, device)
+    target = torch.from_numpy(np.random.RandomState(seed).rand(n_rays, 3).astype(np.float32))
+    return model, cfg, ro, rd, target.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,depth,skip_at,S,n_rays", K2_DOMAIN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_kernel_takes_every_tiny_shape_on_card(cuda_device, hidden, depth, skip_at, S,
+                                                     n_rays, dtype):
+    """K2 at every F4 shape: one launch, on the memory and products routes
+    its rules give (every shape past 227 KB on the spill route), under the
+    K2 gates against its plain version; none refused, none on the plain
+    version."""
+    import dataclasses
+
+    from tinynerf_tpu_torch.kernels import fused_train as k2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, cfg, ro, rd, target = _tiny_domain_case(hidden, depth, skip_at, dtype, cuda_device,
+                                                   n_rays)
+    kw = dict(n_samples=S, randomized=False)
+    cfg8 = dataclasses.replace(cfg, hidden=-(-hidden // 8) * 8)
+    spill = not k2.k2_fits_shared_memory(cfg, S)
+    assert spill is (hidden not in (36,) and S != 20)
+    f = k2.fused_loss_grads
+    before = (f.launches, f.mma_launches, f.spill_launches)
+    loss, grads = f(model, ro, rd, target, 0, **kw)
+    torch.cuda.synchronize()
+    assert (f.launches - before[0], f.mma_launches - before[1], f.spill_launches - before[2]) == (
+        1, int(k2.k2_uses_tensor_cores(cfg8, S)), int(spill))
+    want_loss, want = k2.fused_loss_grads_plain(model, ro, rd, target, 0, **kw)
+    rel = abs(float(loss) - float(want_loss)) / float(want_loss)
+    assert all(g.shape == p.shape for g, p in zip(grads, model.parameters()))
+    if dtype == torch.float32:
+        assert rel < 1e-5
+        for g, w in zip(grads, want):
+            assert float((g - w).abs().max()) <= 2e-4 * float(w.abs().max()) + 1e-8
+    else:
+        assert rel < 1e-3
+        assert min(_cosine(g, w) for g, w in zip(grads, want)) > 0.98
+        _scale_check([n for n, _ in model.named_parameters()], grads, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,dtype", [(128, torch.float32), (128, torch.bfloat16),
+                                          (36, torch.bfloat16)])
+def test_spill_route_is_bit_identical_to_the_shared_route_on_card(cuda_device, hidden, dtype):
+    """The spill route forced at a shape that fits shared memory (the
+    recipe's; hidden 36) gives the shared route's loss and gradients bit
+    for bit, jittered and with sigma-noise: the same arithmetic in the same
+    order, the activations in a device workspace."""
+    from tinynerf_tpu_torch.kernels.fused_train import fused_loss_grads
+
+    model, _, ro, rd, target = _tiny_domain_case(hidden, 4, 2, dtype, cuda_device, 512)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    noise = torch.randn(512, 64, generator=g, device=cuda_device)
+    before = fused_loss_grads.spill_launches
+    (l0, g0), (l1, g1) = [fused_loss_grads(model, ro, rd, target, 11, sigma_noise=noise,
+                                           spill=spill) for spill in (False, True)]
+    assert fused_loss_grads.spill_launches == before + 1
+    assert float(l0) == float(l1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+# (hidden, depth, skip_at, S, n_rays): hidden 36 (padded), 264 (past 512
+# threads: rounds), S=192 at hidden 256 and S=512 (past 227 KB: segments).
+K1_DOMAIN = [(36, 4, 2, 64, 1001), (264, 4, 2, 64, 1001), (256, 4, 2, 192, 300),
+             (128, 4, 2, 512, 300), (256, 8, 4, 64, 1001)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,depth,skip_at,S,n_rays", K1_DOMAIN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_render_kernel_takes_every_tiny_shape_on_card(cuda_device, hidden, depth, skip_at, S,
+                                                      n_rays, dtype):
+    """K1 at the F4b and F4d shapes and the full width: one launch on the
+    route k1_shape gives (the general kernel past 512 threads or 227 KB),
+    under the render gates against its plain version."""
+    import dataclasses
+
+    from tinynerf_tpu_torch.kernels.fused_render import k1_shape
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, cfg, ro, rd, _ = _tiny_domain_case(hidden, depth, skip_at, dtype, cuda_device, n_rays)
+    mma, general = k1_shape(dataclasses.replace(cfg, hidden=-(-hidden // 8) * 8), S)[:2]
+    assert general is (hidden == 264 or S > 128)
+    f = fused_render_rays
+    before = (f.launches, f.mma_launches, f.general_launches)
+    with torch.no_grad():
+        got = f(model, ro, rd, n_samples=S)
+        torch.cuda.synchronize()
+        want = fused_render_rays_plain(model, ro, rd, n_samples=S)
+    assert (f.launches - before[0], f.mma_launches - before[1],
+            f.general_launches - before[2]) == (1, int(mma), int(general))
+    assert got.shape == (n_rays, 3) and bool(torch.isfinite(got).all())
+    e = (got - want).abs().max(dim=1).values
+    if dtype == torch.float32:
+        assert float(torch.quantile(e, 0.999)) < 5e-4
+    else:
+        assert float(torch.quantile(e, 0.999)) < 3e-2 and float(e.mean()) < 1e-3
+    assert float((e > 3e-2).float().mean()) < 2.5e-3
+
+
+@pytest.mark.cuda
+def test_scene_axis_takes_widths_off_8_on_card(cuda_device):
+    """K2 (hidden 36, 20 samples: 250 rays padded to whole tiles; and the
+    8 x 256 trunk on the spill route), K4 and K6 (hidden 36, rgb_hidden
+    20) over 3 stacked scenes: each scene bit-identical to its one-scene
+    launch."""
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k6
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4
+    from tinynerf_tpu_torch.kernels import fused_train as k2
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+    from tinynerf_tpu_torch.models.stacked import scene_module
+
+    bf16 = torch.bfloat16
+    seeds = torch.tensor(SCENE_SEEDS, dtype=torch.int32, device=cuda_device)
+    K = len(SCENE_SEEDS)
+    for hidden, depth, skip_at, S in ((36, 4, 2, 20), (256, 8, 4, 64)):
+        cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=hidden, depth=depth, skip_at=skip_at,
+                             compute_dtype=bf16)
+        model = _stacked(lambda g, d: TinyNeRF(cfg, generator=g, device=d), SCENE_SEEDS,
+                         cuda_device)
+        ro, rd, target = _scene_rays(K, 250, 61, cuda_device)
+        loss, grads = k2.fused_loss_grads_scenes(model, ro, rd, target, seeds, n_samples=S)
+        for k in range(K):
+            l1, g1 = k2.fused_loss_grads(scene_module(model, k), ro[k], rd[k], target[k],
+                                         seeds[k:k + 1], n_samples=S)
+            assert float(loss[k]) == float(l1)
+            assert all(torch.equal(a[k], b) for a, b in zip(grads, g1))
+    ncfg = NeRFConfig(num_freqs=10, num_freqs_dir=4, hidden=36, depth=3, skip_at=2,
+                      rgb_hidden=20, compute_dtype=bf16)
+    model = _stacked(lambda g, d: NeRFMLP(ncfg, generator=g, device=d), SCENE_SEEDS, cuda_device)
+    ro, rd, target = _scene_rays(K, 300, 62, cuda_device)
+    loss, grads, w, z = k4.fused_nerf_pass_grads_scenes(model, ro, rd, target, seeds,
+                                                        emit_sampling=True, cfg=ncfg)
+    zu = torch.sort(torch.cat([z, z + 0.01], dim=-1), dim=-1).values.contiguous()
+    loss6, grads6 = k6.fused_nerf_pass_grads_streamed_scenes(model, ro, rd, target, zu, cfg=ncfg,
+                                                            sample_block=64)
+    for k in range(K):
+        one = scene_module(model, k)
+        l1, g1, w1, z1 = k4.fused_nerf_pass_grads(one, ro[k], rd[k], target[k], seeds[k:k + 1],
+                                                  emit_sampling=True, cfg=ncfg)
+        assert float(loss[k]) == float(l1) and torch.equal(w[k], w1) and torch.equal(z[k], z1)
+        assert all(torch.equal(a[k], b) for a, b in zip(grads, g1))
+        l6, g6 = k6.fused_nerf_pass_grads_streamed(one, ro[k], rd[k], target[k], zu[k], cfg=ncfg,
+                                                   sample_block=64)
+        assert float(loss6[k]) == float(l6)
+        assert all(torch.equal(a[k], b) for a, b in zip(grads6, g6))
+
+
+@pytest.mark.cuda
+def test_k2_refuses_a_memory_route_that_cannot_run_on_card(cuda_device):
+    """K2's C entry refuses, with cudaErrorInvalidValue (1) before any
+    launch, a shared-memory launch past 227 KB (hidden 168), a spill
+    launch without its workspace, a workspace without the spill route, and
+    a CUDA-core width off multiples of 8 (the wrapper pads)."""
+    from tinynerf_tpu_torch.kernels import fused_train as k2
+    from tinynerf_tpu_torch.kernels.fused_render import pack_tiny_weights
+
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    dummy = torch.zeros(1, device=cuda_device).data_ptr()
+    for hidden, spill, ws in ((168, 0, None), (128, 1, None), (128, 0, dummy), (36, 0, None)):
+        cfg = TinyNeRFConfig(in_dim=encoding_dim(10), hidden=hidden, compute_dtype=torch.float32)
+        n_grad = pack_tiny_weights(TinyNeRF(cfg), cfg)[0].numel()
+        err = k2._lib().tinynerf_fused_train(
+            None, None, None, None, None, None, dummy, None, None, None, None, 128, 1, 64, 10,
+            hidden, 4, 2, 2.0, 0.1, 0.01, 0, 1, 0, 16, n_grad, k2.partial_row(n_grad), 1, 0, 0, 0,
+            spill, ws, cuda_device.index, stream)
+        assert err == 1, (hidden, spill, ws)

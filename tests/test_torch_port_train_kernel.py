@@ -152,8 +152,16 @@ def test_wrapper_takes_plain_version_on_cpu_and_checks_the_tile():
     assert fused_loss_grads.launches == before
     assert float(loss) == float(want_loss)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
-    with pytest.raises(ValueError, match="multiple of the ray tile 4"):
-        fused_loss_grads(model, *(x[:62] for x in t), 7, n_samples=16, num_freqs=4, model_cfg=cfg)
+    # A batch off the ray tile (4 rays at S=16) is taken: the card pads it
+    # to whole tiles with rays that add nothing; the CPU needs no padding.
+    loss, grads = fused_loss_grads(model, *(x[:62] for x in t), 7, n_samples=16, num_freqs=4,
+                                   model_cfg=cfg)
+    want_loss, want = fused_loss_grads_plain(model, *(x[:62] for x in t), 7, n_samples=16,
+                                             num_freqs=4, model_cfg=cfg)
+    assert float(loss) == float(want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+    with pytest.raises(ValueError, match="n_rand must be positive"):
+        fused_loss_grads(model, *(x[:0] for x in t), 7, n_samples=16, num_freqs=4, model_cfg=cfg)
 
 
 def test_grad_fn_writes_param_grads():

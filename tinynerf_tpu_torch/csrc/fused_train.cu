@@ -55,9 +55,9 @@
 // scene-local (the jitter's Philox key is (seed[k], ray, sample)) and the
 // blocks per scene do not depend on K, so scene k's loss and gradients
 // are bit-identical to a one-scene launch with seed[k]. A stack runs
-// fused_train_kernel<kMma, true>, which first moves the pointers to
-// blockIdx.y's scene; a one-scene launch runs <kMma, false>, which has no
-// scene offsets in it.
+// fused_train_kernel<kMma, true, .>, which first moves the pointers to
+// blockIdx.y's scene; a one-scene launch runs <kMma, false, .>, which has
+// no scene offsets in it.
 //
 // Tile: TR rays x S samples, P = TR*S points (64 at S=64). Shared
 // memory, row per point (strides odd, so the rows a warp reads at one
@@ -69,6 +69,18 @@
 //   per-point and per-ray scalars
 // Backward, layer i writes its upstream gradient (w.r.t. act_{i-1})
 // into act_i's buffer, which is dead by then: no second buffer.
+//
+// Memory route, by configuration in the wrapper (k2_fits_shared_memory),
+// independent of the products' route. A tile whose carve passes 227 KB
+// (hidden 168 or 256, depth 6, S=96 or 128, the 8 x 256 trunk) runs
+// fused_train_kernel<., ., true>: the activation stack act_0 .. act_{depth-1},
+// G (with kMma and a skip, the encoding inside it) lives in the block's
+// slab of a device workspace (gridDim.x x gridDim.y slabs of
+// stack_floats), reached through the same generic pointers, so the
+// arithmetic and its order are the shared route's: the two routes are
+// bit-identical. Shared memory keeps the encoding otherwise and the
+// scalars. The route is the kernel's third template argument, kSpill; the
+// shared route's instantiations are the code they were before it.
 //
 // Numerics follow _fused_train_kernel term by term (depth grid
 // near + s*h, deltas z_next - z with the 1e10 terminal times ||d||,
@@ -96,6 +108,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 4;  // point rows of a thread's block in point-major products
+constexpr int kMaxSmemBytes = 232448;  // H100: 227 KB of dynamic shared memory per block
 
 // Per-point scalars, structure of arrays: ps[q * p_pad + p].
 enum : int {
@@ -230,11 +243,24 @@ __device__ __forceinline__ void to_scene(Params& p, const SceneStrides& st, int 
   p.partials += (size_t)sc * gridDim.x * p.row;
 }
 
+// Floats of the activation stack act_0 .. act_{depth-1}, G: with kMma and
+// a skip, act_{skip_at-1}'s rows are [act | enc] (the encoding's buffer).
+__host__ __device__ inline long long stack_floats(int p_pad, int in_dim, int hidden, int depth,
+                                                  bool wide) {
+  return (long long)(depth + 1) * p_pad * (hidden + 1) + (wide ? (long long)p_pad * (in_dim - 1) : 0);
+}
+
 // kScenes: scene blockIdx.y of a stack; without it the launch's own
 // pointers, and the code is the one-scene kernel's with no scene offsets.
-template <bool kMma, bool kScenes>
+// kSpill: the activation stack lives in the block's slab of the device
+// workspace `ws` (the spill route, for the tiles whose stack does not fit
+// in shared memory; gridDim.x x gridDim.y slabs of stack_floats); shared
+// memory keeps the encoding (unless it is inside the stack) and the
+// scalars. Without it `ws` is unused and the carve is all shared memory.
+template <bool kMma, bool kScenes, bool kSpill>
 __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm,
-                                                                   SceneStrides strides) {
+                                                                   SceneStrides strides,
+                                                                   float* ws) {
   if constexpr (kScenes) to_scene(prm, strides, blockIdx.y);
   extern __shared__ float smem[];
   const int S = prm.n_samples;
@@ -259,12 +285,19 @@ __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(Params prm,
   float* enc = wide ? smem + (skip_at - 1) * p_pad * ld_h + hidden : smem;  // (p_pad, in_dim)
   const int ld_enc = wide ? hidden + in_dim : in_dim;
   float* act = wide ? smem : enc + p_pad * in_dim;  // depth x (p_pad, ld_h)
+  if constexpr (kSpill) {
+    float* slab = ws + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) *
+                           stack_floats(p_pad, in_dim, hidden, depth, wide);
+    if (wide) enc = slab + (skip_at - 1) * p_pad * ld_h + hidden;
+    act = slab;
+  }
   auto LD = [&](int i) { return wide && i == skip_at - 1 ? hidden + in_dim : ld_h; };
   auto A = [&](int i) {
     return act + i * p_pad * ld_h + (wide && i >= skip_at ? p_pad * (in_dim - 1) : 0);
   };
   float* G = A(depth);                           // (p_pad, ld_h)
-  float* ps = G + p_pad * ld_h;                  // kNumScalars x p_pad
+  // kNumScalars x p_pad; with kSpill after the shared encoding (if any)
+  float* ps = kSpill ? (wide ? smem : smem + p_pad * in_dim) : G + p_pad * ld_h;
   float* rs = ps + kNumScalars * p_pad;          // TR x kRayScalars
   auto Q = [&](int q) { return ps + q * p_pad; };
 
@@ -589,17 +622,40 @@ int tinynerf_fused_train_smem_bytes(int tile_rays, int n_samples, int num_freqs,
   return floats * (int)sizeof(float);
 }
 
-int tinynerf_fused_train_threads() { return kThreads; }
+// The spill route: floats of one block's slab of the workspace (the
+// activation stack; with kMma (mma != 0) and a skip, the encoding inside
+// it), and the shared memory that a spill block keeps (the encoding
+// otherwise, the per-point and per-ray scalars), in bytes.
+long long tinynerf_fused_train_workspace_floats(int tile_rays, int n_samples, int num_freqs,
+                                                int hidden, int depth, int skip_at, int mma) {
+  const int P = tile_rays * n_samples;
+  const int p_pad = (P + kRows - 1) / kRows * kRows;
+  return stack_floats(p_pad, 3 + 6 * num_freqs, hidden, depth, mma && skip_at >= 1);
+}
+
+int tinynerf_fused_train_spill_smem_bytes(int tile_rays, int n_samples, int num_freqs,
+                                          int skip_at, int mma) {
+  const int P = tile_rays * n_samples;
+  const int p_pad = (P + kRows - 1) / kRows * kRows;
+  const int enc = mma && skip_at >= 1 ? 0 : p_pad * (3 + 6 * num_freqs);
+  return (enc + kNumScalars * p_pad + tile_rays * kRayScalars) * (int)sizeof(float);
+}
 
 // Launch the step kernel on n_blocks x n_scenes blocks, then the
 // reduction. n_rays (a scene's rays) must be a multiple of tile_rays,
-// n_blocks <= n_rays / tile_rays. partials is (n_scenes, n_blocks, row),
+// n_blocks <= n_rays / tile_rays, hidden a multiple of 8 (the float4
+// weight loads). The memory route is the caller's: spill = 0 keeps the
+// whole carve in shared memory (tinynerf_fused_train_smem_bytes, at most
+// 227 KB); spill = 1 runs fused_train_kernel<., ., true> with the activation
+// stack in `workspace`, n_scenes x n_blocks slabs of
+// tinynerf_fused_train_workspace_floats (anything else is
+// cudaErrorInvalidValue, no launch). partials is (n_scenes, n_blocks, row),
 // row a multiple of 4 and > n_grad; dst has row entries (-1 for the
 // padding after the loss). out (n_scenes, n_grad + 1) receives each
 // scene's n_grad gradient values in parameter order and its loss last.
 // n_scenes is in [1, 65535]. One scene runs fused_train_kernel<kMma,
-// false> on the pointers as given and reads no stride. More run
-// fused_train_kernel<kMma, true>: per scene k, rays_o, rays_d, target
+// false, .> on the pointers as given and reads no stride. More run
+// fused_train_kernel<kMma, true, .>: per scene k, rays_o, rays_d, target
 // (n_rays, 3) and noise (n_rays, n_samples) at k times their size, seed[k],
 // and the k-th slab of each weight buffer: w_fwd at k * fwd_stride floats, w_bwd at k * bwd_stride
 // floats, w_mma at k * mma_stride bf16 values. Each stride must be its
@@ -619,11 +675,13 @@ int tinynerf_fused_train(const float* rays_o, const float* rays_d, const float* 
                          int hidden, int depth, int skip_at, float near, float h_bin, float inv_n,
                          int randomized, int white_bkgd, int bf16, int n_blocks, int n_grad,
                          int row, int n_scenes, long long fwd_stride, long long bwd_stride,
-                         long long mma_stride, int device, void* stream) {
+                         long long mma_stride, int spill, float* workspace, int device,
+                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool mma = w_mma != nullptr;
-  if (row <= n_grad || row % 4 != 0 || n_scenes < 1 || n_scenes > 65535 ||
+  if (row <= n_grad || row % 4 != 0 || n_scenes < 1 || n_scenes > 65535 || hidden <= 0 ||
+      hidden % 8 != 0 || (spill != 0) != (workspace != nullptr) ||
       (mma && (!bf16 || hidden <= 0 || hidden % 32 != 0 ||
                tile_rays * n_samples != kMmaChunkPoints)))
     return (int)cudaErrorInvalidValue;
@@ -639,19 +697,31 @@ int tinynerf_fused_train(const float* rays_o, const float* rays_d, const float* 
         mma_stride != (mma ? slab(want_mma) : 0))
       return (int)cudaErrorInvalidValue;
   }
-  const int smem =
-      tinynerf_fused_train_smem_bytes(tile_rays, n_samples, num_freqs, hidden, depth);
-  auto kernel = scenes ? (mma ? fused_train_kernel<true, true> : fused_train_kernel<false, true>)
-                       : (mma ? fused_train_kernel<true, false> : fused_train_kernel<false, false>);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  const int smem = spill ? tinynerf_fused_train_spill_smem_bytes(tile_rays, n_samples, num_freqs,
+                                                                 skip_at, mma)
+                         : tinynerf_fused_train_smem_bytes(tile_rays, n_samples, num_freqs,
+                                                           hidden, depth);
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   Params prm{rays_o, rays_d, target, noise, seed, w_fwd, w_bwd,
              static_cast<const uint2*>(w_mma), partials,
              n_rays, tile_rays, n_samples, num_freqs, hidden, depth, skip_at, row,
              near, h_bin, inv_n, randomized, white_bkgd, bf16};
+  decltype(&fused_train_kernel<false, false, false>) kernel;
+  if (spill)
+    kernel = scenes ? (mma ? fused_train_kernel<true, true, true>
+                           : fused_train_kernel<false, true, true>)
+                    : (mma ? fused_train_kernel<true, false, true>
+                           : fused_train_kernel<false, false, true>);
+  else
+    kernel = scenes ? (mma ? fused_train_kernel<true, true, false>
+                           : fused_train_kernel<false, true, false>)
+                    : (mma ? fused_train_kernel<true, false, false>
+                           : fused_train_kernel<false, false, false>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   kernel<<<dim3(n_blocks, n_scenes), kThreads, smem, st>>>(
-      prm, SceneStrides{fwd_stride, bwd_stride, mma_stride});
+      prm, SceneStrides{fwd_stride, bwd_stride, mma_stride}, workspace);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_partials_kernel<<<dim3((row + 255) / 256, n_scenes), 256, 0, st>>>(

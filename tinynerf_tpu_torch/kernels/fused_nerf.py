@@ -50,6 +50,7 @@ from typing import List, Optional
 import torch
 
 from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP, nerf_layer_in_dims, run_mlp, view_encoding
+from tinynerf_tpu_torch.models.stacked import with_params
 from tinynerf_tpu_torch.ops.sampling import sample_pdf
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
 
@@ -293,42 +294,62 @@ def _pad_index(cfg: NeRFConfig, cfg_p: NeRFConfig) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _template(cls, cfg):
+    """A CPU module of class `cls` at `cfg`, whose tree pad_linears copies."""
+    return cls(cfg, generator=torch.Generator())
+
+
+def pad_linears(module: torch.nn.Module, cfg_p, idx: dict) -> torch.nn.Module:
+    """A module of module's class at cfg_p whose Linear `name` of idx holds
+    module's weight at (rows, cols) and its bias at rows, zeros elsewhere.
+    Leading axes of module's parameters (stacked scenes, multiscene.py)
+    carry over: every scene is padded alike."""
+    tensors = {}
+    with torch.no_grad():
+        for name, (rows, cols) in idx.items():
+            src, dst = module.get_submodule(name), _template(type(module), cfg_p).get_submodule(name)
+            rows, cols = rows.to(src.weight.device), cols.to(src.weight.device)
+            lead = src.weight.shape[:-2]
+            w = src.weight.new_zeros(*lead, *dst.weight.shape)
+            w[..., rows[:, None], cols[None, :]] = src.weight.detach()
+            b = src.bias.new_zeros(*lead, *dst.bias.shape)
+            b[..., rows] = src.bias.detach()
+            tensors[f"{name}.weight"], tensors[f"{name}.bias"] = w, b
+    return with_params(_template(type(module), cfg_p), tensors)
+
+
+def unpad_linears(grads: List[torch.Tensor], idx: dict) -> List[torch.Tensor]:
+    """Gradients of pad_linears' module (parameters() order: each Linear of
+    idx, in idx's order, weight then bias) -> those of the original module:
+    the padded entries dropped (leading scene axes kept)."""
+    out, it = [], iter(grads)
+    for rows, cols in idx.values():
+        rows, cols = rows.to(grads[0].device), cols.to(grads[0].device)
+        out.append(next(it)[..., rows[:, None], cols[None, :]])
+        out.append(next(it)[..., rows])
+    return out
+
+
 def padded_widths(mlp: NeRFMLP, cfg: NeRFConfig):
     """-> (mlp, cfg) at hidden and rgb_hidden rounded up to multiples of 8,
     the widths the CUDA-core products take (kCols = 8, float4 loads): the
     new units' weights and biases are zero, so each padded unit is
     ReLU(0) = 0 and feeds the next layer through zero rows; the function
     and the real units' gradients do not change. The same objects when
-    both widths are multiples of 8 already (every tensor-core width)."""
+    both widths are multiples of 8 already (every tensor-core width). A
+    model of stacked scenes pads every scene alike."""
     cfg_p = dataclasses.replace(cfg, hidden=pad8(cfg.hidden), rgb_hidden=pad8(cfg.rgb_hidden))
     if cfg_p == cfg:
         return mlp, cfg
     check_mlp(mlp, cfg)
-    dev = next(mlp.parameters()).device
-    mlp_p = NeRFMLP(cfg_p, generator=torch.Generator(), device=dev)  # overwritten below
-    idx = _pad_index(cfg, cfg_p)
-    with torch.no_grad():
-        for name, (rows, cols) in idx.items():
-            src, dst = mlp.get_submodule(name), mlp_p.get_submodule(name)
-            dst.weight.zero_()
-            dst.bias.zero_()
-            dst.weight[rows[:, None].to(dev), cols[None, :].to(dev)] = src.weight.detach()
-            dst.bias[rows.to(dev)] = src.bias.detach()
-    return mlp_p, cfg_p
+    return pad_linears(mlp, cfg_p, _pad_index(cfg, cfg_p)), cfg_p
 
 
 def unpad_grads(grads: List[torch.Tensor], cfg: NeRFConfig, cfg_p: NeRFConfig):
     """Gradients of padded_widths' MLP (parameters() order) -> those of the
     original MLP: the padded entries dropped."""
-    if cfg_p == cfg:
-        return grads
-    idx = _pad_index(cfg, cfg_p)
-    out, it = [], iter(grads)
-    for name in idx:  # parameters() order: each layer's weight, then bias
-        rows, cols = (t.to(grads[0].device) for t in idx[name])
-        out.append(next(it)[rows[:, None], cols[None, :]])
-        out.append(next(it)[rows])
-    return out
+    return grads if cfg_p == cfg else unpad_linears(grads, _pad_index(cfg, cfg_p))
 
 
 def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int) -> int:

@@ -270,8 +270,9 @@ def fused_nerf_pass_grads_streamed_scenes(
 ):
     """One K6 launch for K stacked scenes over their sorted unions z_vals
     (K, R, S) -> (loss (K,), grads aligned to mlp.parameters(), each (K,
-    *shape)). `mlp` stacks K scenes (multiscene.py); rays and target (K, R,
-    3), sigma_noise (K, R, S). Scene k's results are bit-identical to
+    *shape)). `mlp` stacks K scenes (multiscene.py), at any width (every
+    scene padded alike); rays and target (K, R, 3), sigma_noise (K, R, S).
+    Scene k's results are bit-identical to
     fused_nerf_pass_grads_streamed on its own weights and slabs. CUDA
     tensors launch the kernel (or raise; .launches and .scene_launches
     count one); CPU tensors take the plain version, scene by scene."""
@@ -284,11 +285,12 @@ def fused_nerf_pass_grads_streamed_scenes(
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_nerf_pass_grads_streamed_scenes_plain(mlp, rays_o, rays_d, target, z_vals,
                                                            cfg=cfg, sample_block=sb, **kw)
-    tile = check_scenes_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
-    mma = uses_tensor_cores(cfg)
-    res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=True, seg=sb, z=z_vals,
-                      **kw)
+    mlp_k, cfg_k = padded_widths(mlp, cfg)
+    tile = check_scenes_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
+    mma = uses_tensor_cores(cfg_k)
+    loss, grads = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, tile, S, streamed=True, seg=sb,
+                              z=z_vals, **kw)
     fused_nerf_pass_grads_streamed.launches += 1
     fused_nerf_pass_grads_streamed.mma_launches += int(mma)
     fused_nerf_pass_grads_streamed.scene_launches += 1
-    return res
+    return loss, unpad_grads(grads, cfg, cfg_k)

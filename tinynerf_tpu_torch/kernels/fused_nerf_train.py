@@ -387,8 +387,8 @@ def check_scenes_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z
                         S: int, seg: int) -> int:
     """check_train_launch for K stacked scenes: (K, R, 3) rays and target,
     (K, R, S) z and sigma_noise, every parameter stacking K scenes, at
-    widths that need no padding (multiples of 8: every recipe's); scene
-    0's slabs go through check_train_launch. Returns the rays per tile."""
+    the launched widths (padded_widths'); scene 0's slabs go through
+    check_train_launch. Returns the rays per tile."""
     if rays_o.dim() != 3:
         raise ValueError(f"rays_o must be (K, R, 3), got {tuple(rays_o.shape)}")
     K, R = rays_o.shape[:2]
@@ -398,9 +398,6 @@ def check_scenes_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
     if any(p.shape[0] != K for p in mlp.parameters()):
         raise ValueError(f"the MLP must stack {K} scenes on every parameter's first axis")
-    if cfg.hidden % 8 or cfg.rgb_hidden % 8:
-        raise ValueError(f"stacked scenes take widths that are multiples of 8, got hidden "
-                         f"{cfg.hidden}, rgb_hidden {cfg.rgb_hidden}")
     return check_train_launch(mlp, cfg, rays_o[0], rays_d[0], target[0],
                               None if z is None else z[0],
                               None if sigma_noise is None else sigma_noise[0], S, seg)
@@ -500,7 +497,7 @@ def fused_nerf_pass_grads_scenes(
     and slabs with seeds[k]. The weights are packed once for all scenes.
     CUDA tensors launch the kernel (or raise; .launches counts one, and
     .scene_launches one); CPU tensors take the plain version, scene by
-    scene. Widths must be multiples of 8."""
+    scene. Any width: every scene is padded alike (padded_widths)."""
     cfg = cfg or mlp.cfg
     S = z_vals.shape[-1] if z_vals is not None else n_samples
     if S < 2:
@@ -511,14 +508,15 @@ def fused_nerf_pass_grads_scenes(
         return fused_nerf_pass_grads_scenes_plain(mlp, rays_o, rays_d, target, seeds, z_vals,
                                                   n_samples=n_samples, randomized=randomized,
                                                   cfg=cfg, **kw)
-    tile = check_scenes_launch(mlp, cfg, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
-    mma = uses_tensor_cores(cfg)
-    res = launch_pass(mlp, cfg, rays_o, rays_d, target, tile, S, streamed=False, seg=S,
+    mlp_k, cfg_k = padded_widths(mlp, cfg)
+    tile = check_scenes_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
+    mma = uses_tensor_cores(cfg_k)
+    res = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, tile, S, streamed=False, seg=S,
                       z=z_vals, seed=seeds, randomized=randomized and z_vals is None, **kw)
     fused_nerf_pass_grads.launches += 1
     fused_nerf_pass_grads.mma_launches += int(mma)
     fused_nerf_pass_grads.scene_launches += 1
-    return res
+    return (res[0], unpad_grads(res[1], cfg, cfg_k), *res[2:])
 
 
 def fine_pass_route(s, cfg: NeRFConfig, n_fine: int, tile_r: int = DEFAULT_TILE_R,

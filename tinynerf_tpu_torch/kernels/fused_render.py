@@ -19,9 +19,13 @@ tile of at most 128 points (every S <= 128, the recipe's S=64 included)
 runs the trunk as mma.sync products on the tensor cores
 (csrc/mma_bf16.cuh) from the fragments of pack_tiny_weights, packed for
 each launch by one gather; f32, and bf16 off that layout, run a
-register-tiled 8x8 f32 product per thread on the CUDA cores. The render
-refuses no width. .mma_launches counts the tensor-core launches beside
-.launches.
+register-tiled 8x8 f32 product per thread on the CUDA cores, and the
+shapes whose block would pass 512 threads or 227 KB (hidden 264, S=192
+at hidden 256, S=512) the general CUDA-core kernel, in rounds of threads
+and segments of samples (k1_shape). The render refuses no width and no
+sample count: widths off multiples of 8 go in zero-padded
+(padded_tiny_widths). .mma_launches counts the tensor-core launches and
+.general_launches the general kernel's beside .launches.
 
 Layout: the TPU kernel's feature-major, sample-major lanes, roll scans
 and k-major encoding permutation are not carried over. A block holds
@@ -37,12 +41,13 @@ the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import List, Optional, Tuple
 
 import torch
 
-from tinynerf_tpu_torch.kernels.fused_nerf import pack_mma_b
+from tinynerf_tpu_torch.kernels.fused_nerf import pack_mma_b, pad8, pad_linears, unpad_linears
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_in_dims
 from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
@@ -189,6 +194,41 @@ def pack_weights(params: TinyNeRF, cfg: TinyNeRFConfig) -> torch.Tensor:
     return pack_tiny_weights(params, cfg)[0]
 
 
+def _tiny_pad_index(cfg: TinyNeRFConfig, cfg_p: TinyNeRFConfig) -> dict:
+    """Linear name -> (rows, columns) of its weight (out, in) inside the
+    padded layer's: the hidden units keep their index, and the skip
+    layer's encoding columns follow the padded hidden ones ([h | 0 | enc])."""
+    h, hp = cfg.hidden, cfg_p.hidden
+    out = {}
+    for i, n_in in enumerate(layer_in_dims(cfg)):
+        cols = torch.arange(n_in) if i == 0 or n_in == h else torch.cat(
+            [torch.arange(h), hp + torch.arange(n_in - h)])
+        out[f"layers.{i}"] = (torch.arange(h), cols)
+    out["sigma.0"] = (torch.arange(1), torch.arange(h))
+    out["rgb.0"] = (torch.arange(3), torch.arange(h))
+    return out
+
+
+def padded_tiny_widths(params: TinyNeRF, cfg: TinyNeRFConfig):
+    """-> (params, cfg) at hidden rounded up to a multiple of 8, the widths
+    the CUDA-core products of K1 and K2 take (8-column blocks, float4
+    weight loads): the new units' weights and biases are zero, so each
+    padded unit is ReLU(0) = 0 and feeds the next layer and the heads
+    through zero weights; the function and the real units' gradients do
+    not change. The same objects when hidden is a multiple of 8 already
+    (every tensor-core width). Stacked scenes are padded alike."""
+    cfg_p = dataclasses.replace(cfg, hidden=pad8(cfg.hidden))
+    if cfg_p == cfg:
+        return params, cfg
+    return pad_linears(params, cfg_p, _tiny_pad_index(cfg, cfg_p)), cfg_p
+
+
+def unpad_tiny_grads(grads: List[torch.Tensor], cfg: TinyNeRFConfig, cfg_p: TinyNeRFConfig):
+    """Gradients of padded_tiny_widths' model (parameters() order) -> those
+    of the original model: the padded entries dropped."""
+    return grads if cfg_p == cfg else unpad_linears(grads, _tiny_pad_index(cfg, cfg_p))
+
+
 def k1_uses_tensor_cores(cfg: TinyNeRFConfig, n_samples: int) -> bool:
     """K1's route, by configuration: bf16 with hidden a multiple of 32
     (whole 32-column warp tiles, 2 * hidden threads) and a tile of at most
@@ -202,8 +242,33 @@ def k1_uses_tensor_cores(cfg: TinyNeRFConfig, n_samples: int) -> bool:
             <= MAX_SMEM_BYTES)
 
 
-def _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg, mma: bool) -> int:
-    """Validate what the kernel takes on its route; returns the rays per tile."""
+def k1_shape(cfg: TinyNeRFConfig, n_samples: int) -> Tuple[bool, bool, int, int]:
+    """K1's launch by configuration, at a hidden that is a multiple of 8
+    (padded_tiny_widths' width) -> (mma, general, tile rays, segment
+    samples). The tensor cores where k1_uses_tensor_cores; else the
+    CUDA-core kernel, one 8x8 block a thread, when its block fits
+    MAX_THREADS threads and MAX_SMEM_BYTES (every S <= 128 up to hidden
+    256, the recipe's included); else the general CUDA-core kernel
+    (products in rounds of at most MAX_THREADS threads), on a buffer of
+    the most points (a multiple of 8, at most 128) that fits: whole rays
+    when S fits in it, else one ray a tile in segments of that many
+    samples. Never raises: the C entry checks the shape again."""
+    S, h = n_samples, cfg.hidden
+    ld = h + cfg.in_dim
+    tile = max(1, TILE_POINTS // S)
+    P = tile * S
+    if k1_uses_tensor_cores(cfg, S):
+        return True, False, tile, S
+    if -(-P // 8) * (h // 8) <= MAX_THREADS and 4 * (-(-P // 8) * 8 * ld + 7 * P) <= MAX_SMEM_BYTES:
+        return False, False, tile, S
+    p = TILE_POINTS
+    while p > 8 and 4 * (p * ld + 7 * p + 5 * max(1, p // S)) > MAX_SMEM_BYTES:
+        p -= 8
+    return (False, True, p // S, S) if S <= p else (False, True, 1, p)
+
+
+def _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg) -> None:
+    """Validate the inputs and the model against cfg (any width)."""
     for name, x in (("rays_o", rays_o), ("rays_d", rays_d)):
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -222,22 +287,10 @@ def _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg, mma: bool) 
         raise ValueError(f"in_dim {cfg.in_dim} does not match num_freqs={num_freqs}")
     if [lin.in_features for lin in params.layers] != layer_in_dims(cfg):
         raise ValueError("params do not match model_cfg (depth/skip_at/hidden)")
-    if cfg.hidden % 8 or not 0 <= cfg.skip_at < cfg.depth:
-        raise ValueError(
-            f"kernel needs hidden % 8 == 0 and 0 <= skip_at < depth, got {cfg}"
-        )
+    if cfg.hidden < 1 or not 0 <= cfg.skip_at < cfg.depth:
+        raise ValueError(f"kernel needs hidden >= 1 and 0 <= skip_at < depth, got {cfg}")
     if n_samples < 2:
         raise ValueError(f"n_samples must be >= 2, got {n_samples}")
-    tile = max(1, TILE_POINTS // n_samples)
-    lib = _lib()
-    threads = lib.tinynerf_fused_render_threads(tile, n_samples, cfg.hidden, int(mma))
-    smem = lib.tinynerf_fused_render_smem_bytes(tile, n_samples, num_freqs, cfg.hidden, int(mma))
-    if threads > lib.tinynerf_fused_render_max_threads() or smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"tile of {tile} rays x {n_samples} samples at hidden {cfg.hidden} "
-            f"needs {threads} threads and {smem} B of shared memory: too large"
-        )
-    return tile
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,14 +302,8 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_render")
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.tinynerf_fused_render.argtypes = [p] * 5 + [i] * 7 + [f, f, i, i, p]
+    lib.tinynerf_fused_render.argtypes = [p] * 5 + [i] * 9 + [f, f, i, i, p]
     lib.tinynerf_fused_render.restype = i
-    lib.tinynerf_fused_render_smem_bytes.argtypes = [i] * 5
-    lib.tinynerf_fused_render_smem_bytes.restype = i
-    lib.tinynerf_fused_render_threads.argtypes = [i] * 4
-    lib.tinynerf_fused_render_threads.restype = i
-    lib.tinynerf_fused_render_max_threads.argtypes = []
-    lib.tinynerf_fused_render_max_threads.restype = i
     lib.tinynerf_cuda_error_string.argtypes = [i]
     lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -286,8 +333,9 @@ def fused_render_rays(
               white_bkgd=white_bkgd, model_cfg=cfg)
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_render_rays_plain(params, rays_o, rays_d, **kw)
-    mma = k1_uses_tensor_cores(cfg, n_samples)
-    tile = _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg, mma)
+    _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg)
+    params, cfg = padded_tiny_widths(params, cfg)
+    mma, general, tile, seg = k1_shape(cfg, n_samples)
 
     R = rays_o.shape[0]
     pad = -R % tile
@@ -300,15 +348,16 @@ def fused_render_rays(
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tinynerf_fused_render(
         o.data_ptr(), d.data_ptr(), wts.data_ptr(), None if w_mma is None else w_mma.data_ptr(),
-        out.data_ptr(),
-        R + pad, tile, n_samples, num_freqs, cfg.hidden, cfg.depth, cfg.skip_at,
-        float(near), float(far), int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
+        out.data_ptr(), R + pad, tile, n_samples, seg, int(general), num_freqs, cfg.hidden,
+        cfg.depth, cfg.skip_at, float(near), float(far),
+        int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
     )
     if err != 0:
         msg = _lib().tinynerf_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_render kernel launch failed: CUDA error {err} ({msg})")
     fused_render_rays.launches += 1
     fused_render_rays.mma_launches += int(mma)
+    fused_render_rays.general_launches += int(general)
     comp = out[:R, :3]
     if white_bkgd:
         comp = comp + (1.0 - out[:R, 3:4])
@@ -318,3 +367,5 @@ def fused_render_rays(
 fused_render_rays.launches = 0  # kernel launches since the last reset
 # ... of which took the tensor cores (every bf16 launch k1_uses_tensor_cores takes)
 fused_render_rays.mma_launches = 0
+# ... of which took the general CUDA-core kernel (k1_shape: rounds, segments)
+fused_render_rays.general_launches = 0

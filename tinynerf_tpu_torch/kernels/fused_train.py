@@ -29,6 +29,17 @@ gather each, every step); f32, and bf16 off that layout, run the
 CUDA-core kernel. .mma_launches counts the tensor-core launches beside
 .launches.
 
+Memory, by configuration too (k2_fits_shared_memory): a tile whose
+encoding, activations and gradient fit 227 KB of shared memory keeps
+them there (every recipe); larger ones (hidden 168 or 256, depth 6,
+S=96 or 128, the NeRF paper's 8 x 256 trunk) take the spill route, the
+same kernel code with the activation stack in a device workspace, one
+slab a block; .spill_launches counts them. Any width is taken: the model
+goes in zero-padded to a multiple of 8 units (padded_tiny_widths, the
+gradients unpadded). Any batch: the rays are padded to whole tiles with
+rays that add nothing (pad_ray_batch), and the loss divides by the real
+rays.
+
 The TPU kernel's lane layout (feature-major points, pltpu.repeat/roll
 scans, the k-major encoding permutation and its inverse on the
 gradients) is not carried over: the kernel computes the encoding in the
@@ -43,12 +54,19 @@ and the reference the kernel is checked against on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import List, Optional, Tuple
 
 import torch
 
-from tinynerf_tpu_torch.kernels.fused_render import MAX_SMEM_BYTES, pack_tiny_weights
+from tinynerf_tpu_torch.kernels.fused_nerf import pad8
+from tinynerf_tpu_torch.kernels.fused_render import (
+    MAX_SMEM_BYTES,
+    pack_tiny_weights,
+    padded_tiny_widths,
+    unpad_tiny_grads,
+)
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_in_dims
 from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
@@ -59,7 +77,7 @@ TILE_POINTS = 64
 
 
 def tile_rays(n_samples: int) -> int:
-    """Rays per kernel tile; the batch must be a multiple of it."""
+    """Rays per kernel tile (the wrapper pads the batch to whole tiles)."""
     return max(1, TILE_POINTS // n_samples)
 
 
@@ -72,6 +90,35 @@ def k2_uses_tensor_cores(cfg: TinyNeRFConfig, n_samples: int) -> bool:
     h = cfg.hidden
     return (cfg.compute_dtype == torch.bfloat16 and h > 0 and h % 32 == 0
             and 0 < n_samples <= TILE_POINTS and TILE_POINTS % n_samples == 0)
+
+
+def k2_smem_bytes(cfg: TinyNeRFConfig, n_samples: int) -> int:
+    """Shared memory of K2's shared-memory route at cfg's launched width
+    (hidden rounded up to a multiple of 8), in bytes: a tile's encoding,
+    every layer's activations and G (p_pad, hidden + 1) each, 15 scalars a
+    point and 5 a ray (csrc/fused_train.cu's
+    tinynerf_fused_train_smem_bytes)."""
+    tr = tile_rays(n_samples)
+    p_pad = -(-tr * n_samples // 4) * 4
+    h = pad8(cfg.hidden)
+    return 4 * (p_pad * cfg.in_dim + (cfg.depth + 1) * p_pad * (h + 1) + 15 * p_pad + 5 * tr)
+
+
+def k2_fits_shared_memory(cfg: TinyNeRFConfig, n_samples: int) -> bool:
+    """K2's memory route, by configuration: the whole tile in shared
+    memory (True: every recipe, 185,108 B at hidden 128, depth 4, S=64,
+    L=10), or the spill route (False), whose activation stack lives in a
+    device workspace, one slab a block (hidden 168 or 256, depth 6 at
+    hidden 128, S=96 or 128, the 8 x 256 trunk). Independent of the
+    products' route (k2_uses_tensor_cores). Never raises."""
+    return k2_smem_bytes(cfg, n_samples) <= MAX_SMEM_BYTES
+
+
+def k2_route(cfg: TinyNeRFConfig, n_samples: int) -> str:
+    """K2's two routes in words, at cfg's launched (padded) width."""
+    cfg_k = dataclasses.replace(cfg, hidden=pad8(cfg.hidden))
+    mem = "shared memory" if k2_fits_shared_memory(cfg_k, n_samples) else "spill"
+    return f"{mem}, {'tensor' if k2_uses_tensor_cores(cfg_k, n_samples) else 'CUDA'} cores"
 
 
 def partial_row(n_grad: int) -> int:
@@ -220,14 +267,14 @@ def _lib() -> ctypes.CDLL:
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     ll = ctypes.c_longlong
     lib.tinynerf_fused_train.argtypes = ([p] * 11 + [i] * 7 + [f] * 3 + [i] * 7 + [ll] * 3
-                                         + [i, p])
+                                         + [i, p, i, p])
     lib.tinynerf_fused_train.restype = i
     lib.tinynerf_fused_train_jitter.argtypes = [p, p, i, i, i, f, f, i, p]
     lib.tinynerf_fused_train_jitter.restype = i
-    lib.tinynerf_fused_train_smem_bytes.argtypes = [i] * 5
-    lib.tinynerf_fused_train_smem_bytes.restype = i
-    lib.tinynerf_fused_train_threads.argtypes = []
-    lib.tinynerf_fused_train_threads.restype = i
+    lib.tinynerf_fused_train_spill_smem_bytes.argtypes = [i] * 5
+    lib.tinynerf_fused_train_spill_smem_bytes.restype = i
+    lib.tinynerf_fused_train_workspace_floats.argtypes = [i] * 7
+    lib.tinynerf_fused_train_workspace_floats.restype = ll
     lib.tinynerf_cuda_error_string.argtypes = [i]
     lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -283,15 +330,8 @@ def _check_launch(model, tensors, n_samples, num_freqs, cfg) -> None:
         raise TypeError(f"compute_dtype must be float32 or bfloat16, got {cfg.compute_dtype}")
     if cfg.in_dim != encoding_dim(num_freqs) or [l.in_features for l in model.layers] != layer_in_dims(cfg):
         raise ValueError(f"model does not match model_cfg {cfg} at num_freqs={num_freqs}")
-    if cfg.hidden % 8 or not 0 <= cfg.skip_at < cfg.depth:
-        raise ValueError(f"kernel needs hidden % 8 == 0 and 0 <= skip_at < depth, got {cfg}")
-    smem = _lib().tinynerf_fused_train_smem_bytes(
-        tile_rays(n_samples), n_samples, num_freqs, cfg.hidden, cfg.depth)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"a tile of {tile_rays(n_samples)} rays x {n_samples} samples at hidden "
-            f"{cfg.hidden}, depth {cfg.depth} needs {smem} B of shared memory: too large"
-        )
+    if cfg.hidden < 1 or not 0 <= cfg.skip_at < cfg.depth:
+        raise ValueError(f"kernel needs hidden >= 1 and 0 <= skip_at < depth, got {cfg}")
 
 
 def fused_loss_grads(
@@ -309,39 +349,39 @@ def fused_loss_grads(
     num_freqs: int = 10,
     white_bkgd: bool = True,
     model_cfg: Optional[TinyNeRFConfig] = None,
+    spill: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """One training step's (mse_loss, grads aligned to model.parameters()).
 
     CUDA tensors launch the kernel (or raise): on the tensor cores where
-    k2_uses_tensor_cores(cfg, n_samples), else on the CUDA cores; CPU
-    tensors take fused_loss_grads_plain. `seed` is an int or a one-element int tensor
-    on the rays' device (the jitter's Philox key). The batch must be a
-    multiple of tile_rays(n_samples), else ValueError.
+    k2_uses_tensor_cores, else on the CUDA cores; with the tile in shared
+    memory where k2_fits_shared_memory, else on the spill route (`spill`
+    True or False forces a memory route, to compare the two). Any width
+    (padded_tiny_widths) and any batch (masked ray padding) is taken. CPU
+    tensors take fused_loss_grads_plain. `seed` is an int or a
+    one-element int tensor on the rays' device (the jitter's Philox key).
     """
     cfg = model_cfg or model.cfg
-    R = rays_o.shape[0]
-    tr = tile_rays(n_samples)
-    if R == 0 or R % tr:
-        raise ValueError(f"n_rand={R} must be a positive multiple of the ray tile {tr}")
+    if rays_o.shape[0] == 0:
+        raise ValueError("n_rand must be positive")
     if n_samples < 2:
         raise ValueError(f"n_samples must be >= 2, got {n_samples}")
     kw = dict(sigma_noise=sigma_noise, n_samples=n_samples, near=near, far=far,
               randomized=randomized, num_freqs=num_freqs, white_bkgd=white_bkgd, model_cfg=cfg)
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_loss_grads_plain(model, rays_o, rays_d, target, seed, **kw)
-    mma = k2_uses_tensor_cores(cfg, n_samples)
-    loss, out = _launch(model, rays_o[None], rays_d[None], target[None],
-                        _seed_tensor(seed, rays_o.device),
-                        None if sigma_noise is None else sigma_noise[None], n_samples, near, far,
-                        randomized, num_freqs, white_bkgd, cfg)
-    fused_loss_grads.launches += 1
-    fused_loss_grads.mma_launches += int(mma)
-    return loss[0], _split_grads(out[0], model.parameters())
+    loss, grads = _launch(model, rays_o[None], rays_d[None], target[None],
+                          _seed_tensor(seed, rays_o.device),
+                          None if sigma_noise is None else sigma_noise[None], n_samples, near, far,
+                          randomized, num_freqs, white_bkgd, cfg, spill, scenes=False)
+    return loss[0], grads
 
 
 fused_loss_grads.launches = 0  # kernel launches since the last reset
 # ... of which took the tensor cores (every bf16 launch k2_uses_tensor_cores takes)
 fused_loss_grads.mma_launches = 0
+# ... of which took the spill route (every launch k2_fits_shared_memory refuses)
+fused_loss_grads.spill_launches = 0
 # ... of which trained a stack of scenes in one launch (fused_loss_grads_scenes)
 fused_loss_grads.scene_launches = 0
 
@@ -369,50 +409,95 @@ def _split_grads(flat: torch.Tensor, params) -> List[torch.Tensor]:
     return grads
 
 
+def pad_ray_batch(rays_o, rays_d, target, sigma_noise, pad: int, white_bkgd: bool):
+    """(K, R, .) inputs with `pad` rays appended to each scene that add
+    nothing to the loss or to any gradient: origin and direction 0, so
+    every delta is 0, every alpha exactly 0 and the composite exactly the
+    background, which is the target (1 with a white background, else 0);
+    the residual and every gradient term of such a ray are zeros. Real
+    rays keep their indices, so the jitter's (seed, ray, sample) draws do
+    not change."""
+    if not pad:
+        return rays_o, rays_d, target, sigma_noise
+    K = rays_o.shape[0]
+
+    def cat(x, fill, width):
+        return torch.cat([x, x.new_full((K, pad, width), fill)], dim=1).contiguous()
+
+    noise = None if sigma_noise is None else cat(sigma_noise, 0.0, sigma_noise.shape[-1])
+    return (cat(rays_o, 0.0, 3), cat(rays_d, 0.0, 3),
+            cat(target, 1.0 if white_bkgd else 0.0, 3), noise)
+
+
 def _launch(model, rays_o, rays_d, target, seeds, sigma_noise, n_samples, near, far, randomized,
-            num_freqs, white_bkgd, cfg):
-    """Launch K2 over K stacked scenes: rays_o, rays_d, target (K, R, 3),
-    seeds (K,) int32 on the device, sigma_noise (K, R, S) or None; `model`
-    holds one scene (K = 1) or K stacked ones -> (loss (K,), out (K, n_grad
-    + 1): each scene's gradients in parameter order, then its loss)."""
-    R = rays_o.shape[1]
+            num_freqs, white_bkgd, cfg, spill: Optional[bool], scenes: bool):
+    """Launch K2 over K stacked scenes and count it: rays_o, rays_d,
+    target (K, R, 3), seeds (K,) int32 on the device, sigma_noise (K, R,
+    S) or None; `model` holds one scene (scenes=False, K = 1) or K stacked
+    ones -> (loss (K,), grads aligned to model.parameters(): one scene's,
+    or each (K, *shape)). The model is padded to a multiple of 8 units
+    (padded_tiny_widths) and each scene's rays to whole tiles
+    (pad_ray_batch); the loss divides by the real rays."""
     tensors = {"rays_o": rays_o, "rays_d": rays_d, "target": target}
     if sigma_noise is not None:
         tensors["sigma_noise"] = sigma_noise
     _check_launch(model, tensors, n_samples, num_freqs, cfg)
+    model_k, cfg_k = padded_tiny_widths(model, cfg)
 
     dev = rays_o.device
-    K = rays_o.shape[0]
+    K, R = rays_o.shape[:2]
     tr = tile_rays(n_samples)
-    mma = k2_uses_tensor_cores(cfg, n_samples)
+    pad = -R % tr
+    rays_o, rays_d, target, sigma_noise = pad_ray_batch(rays_o, rays_d, target, sigma_noise, pad,
+                                                        white_bkgd)
+    mma = k2_uses_tensor_cores(cfg_k, n_samples)
+    if spill is None:
+        spill = not k2_fits_shared_memory(cfg_k, n_samples)
+    lib = _lib()
+    wide = int(mma)  # the tensor cores keep the encoding inside the stack
+    smem = (lib.tinynerf_fused_train_spill_smem_bytes(tr, n_samples, num_freqs, cfg_k.skip_at, wide)
+            if spill else k2_smem_bytes(cfg_k, n_samples))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"a tile of {tr} rays x {n_samples} samples needs {smem} B of shared "
+                         f"memory on the {'spill' if spill else 'shared-memory'} route: too large")
     # The tensor cores read the upstream products' weights as fragments only;
     # each buffer is packed once for every scene, (K, n).
-    w_fwd, w_mma = pack_tiny_weights(model, cfg, mma=mma, upstream=True)
-    w_bwd = None if mma else pack_backward_weights(model, cfg)
+    w_fwd, w_mma = pack_tiny_weights(model_k, cfg_k, mma=mma, upstream=True)
+    w_bwd = None if mma else pack_backward_weights(model_k, cfg_k)
     n_grad = w_fwd.shape[-1]
     w_fwd, w_mma, w_bwd = (scene_slabs(w, K) for w in (w_fwd, w_mma, w_bwd))
     # Blocks per scene, independent of K: a scene's reduction order, and so
     # its loss and gradients, do not depend on the scenes beside it.
-    n_blocks = min(R // tr, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_blocks = min((R + pad) // tr, torch.cuda.get_device_properties(dev).multi_processor_count)
     row = partial_row(n_grad)
     partials = torch.empty(K, n_blocks, row, dtype=torch.float32, device=dev)
+    ws = None
+    if spill:
+        slab = lib.tinynerf_fused_train_workspace_floats(tr, n_samples, num_freqs, cfg_k.hidden,
+                                                         cfg_k.depth, cfg_k.skip_at, wide)
+        ws = torch.empty(K * n_blocks * slab, dtype=torch.float32, device=dev)
     out = torch.empty(K, n_grad + 1, dtype=torch.float32, device=dev)
-    names = tuple(n for n, _ in model.named_parameters())
-    dst = _scatter_index(names, cfg, dev)
+    names = tuple(n for n, _ in model_k.named_parameters())
+    dst = _scatter_index(names, cfg_k, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().tinynerf_fused_train(
+    err = lib.tinynerf_fused_train(
         rays_o.data_ptr(), rays_d.data_ptr(), target.data_ptr(),
         None if sigma_noise is None else sigma_noise.data_ptr(), seeds.data_ptr(),
         w_fwd.data_ptr(), None if w_bwd is None else w_bwd.data_ptr(),
         None if w_mma is None else w_mma.data_ptr(), partials.data_ptr(), dst.data_ptr(),
-        out.data_ptr(), R, tr, n_samples, num_freqs, cfg.hidden, cfg.depth, cfg.skip_at,
-        float(near), (far - near) / (n_samples - 1), 1.0 / (R * 3),
-        int(randomized), int(white_bkgd), int(cfg.compute_dtype == torch.bfloat16),
+        out.data_ptr(), R + pad, tr, n_samples, num_freqs, cfg_k.hidden, cfg_k.depth,
+        cfg_k.skip_at, float(near), (far - near) / (n_samples - 1), 1.0 / (R * 3),
+        int(randomized), int(white_bkgd), int(cfg_k.compute_dtype == torch.bfloat16),
         n_blocks, n_grad, row, K, w_fwd.shape[1], 0 if w_bwd is None else w_bwd.shape[1],
-        0 if w_mma is None else w_mma.shape[1], dev.index, stream,
+        0 if w_mma is None else w_mma.shape[1], int(spill),
+        None if ws is None else ws.data_ptr(), dev.index, stream,
     )
     _raise_on(err, "fused_train kernel")
-    return out[:, n_grad], out[:, :n_grad]
+    fused_loss_grads.launches += 1
+    fused_loss_grads.mma_launches += int(mma)
+    fused_loss_grads.spill_launches += int(spill)
+    grads = _split_grads(out[:, :n_grad] if scenes else out[0, :n_grad], model_k.parameters())
+    return out[:, n_grad], unpad_tiny_grads(grads, cfg, cfg_k)
 
 
 def fused_loss_grads_scenes_plain(model, rays_o, rays_d, target, seeds, *,
@@ -442,6 +527,7 @@ def fused_loss_grads_scenes(
     num_freqs: int = 10,
     white_bkgd: bool = True,
     model_cfg: Optional[TinyNeRFConfig] = None,
+    spill: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """One training step of K stacked scenes in one launch -> (loss (K,),
     grads aligned to model.parameters(), each (K, *shape)).
@@ -452,15 +538,15 @@ def fused_loss_grads_scenes(
     gradients are bit-identical to fused_loss_grads on its own weights and
     inputs with seeds[k]: its draws are keyed by scene-local rays and its
     blocks do not depend on K. The weights are packed once for all scenes.
-    CUDA tensors launch the kernel (or raise; .launches counts one, and
-    .scene_launches one); CPU tensors take fused_loss_grads_scenes_plain."""
+    Widths, batches and routes as fused_loss_grads'. CUDA tensors launch
+    the kernel (or raise; .launches counts one, and .scene_launches one);
+    CPU tensors take fused_loss_grads_scenes_plain."""
     cfg = model_cfg or model.cfg
     if rays_o.dim() != 3:
         raise ValueError(f"rays_o must be (K, R, 3), got {tuple(rays_o.shape)}")
     K, R = rays_o.shape[:2]
-    tr = tile_rays(n_samples)
-    if R == 0 or R % tr:
-        raise ValueError(f"n_rand={R} must be a positive multiple of the ray tile {tr}")
+    if R == 0:
+        raise ValueError("n_rand must be positive")
     if n_samples < 2:
         raise ValueError(f"n_samples must be >= 2, got {n_samples}")
     if any(p.shape[0] != K for p in model.parameters()):
@@ -470,13 +556,11 @@ def fused_loss_grads_scenes(
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_loss_grads_scenes_plain(model, rays_o, rays_d, target, seeds,
                                              sigma_noise=sigma_noise, **kw)
-    mma = k2_uses_tensor_cores(cfg, n_samples)
-    loss, out = _launch(model, rays_o, rays_d, target, _seeds_tensor(seeds, K, rays_o.device),
-                        sigma_noise, n_samples, near, far, randomized, num_freqs, white_bkgd, cfg)
-    fused_loss_grads.launches += 1
-    fused_loss_grads.mma_launches += int(mma)
+    res = _launch(model, rays_o, rays_d, target, _seeds_tensor(seeds, K, rays_o.device),
+                  sigma_noise, n_samples, near, far, randomized, num_freqs, white_bkgd, cfg, spill,
+                  scenes=True)
     fused_loss_grads.scene_launches += 1
-    return loss, _split_grads(out, model.parameters())
+    return res
 
 
 def jitter_probe(seed, n_rays: int, n_samples: int, near: float, far: float,

@@ -349,9 +349,11 @@ def main(cfg: Config = Config()) -> dict:
             route = (f"{'CUDA kernels' if on_card else 'their plain versions on the CPU'}: "
                      f"coarse pass K4, fine pass {fine}{walk if on_card else ''}")
         else:
-            from tinynerf_tpu_torch.kernels.fused_train import make_fused_grad_fn
+            from tinynerf_tpu_torch.kernels.fused_train import k2_route, make_fused_grad_fn
 
             grad_fn = make_fused_grad_fn(settings)
+            if on_card:
+                route += f" (K2: {k2_route(settings.model_cfg, settings.n_samples)})"
         print(f"[train] fused fwd+bwd train route: {route}")
 
     eff_near, eff_far = (0.0, 1.0) if cfg.ndc else (cfg.near, cfg.far)

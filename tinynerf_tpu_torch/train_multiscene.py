@@ -179,11 +179,13 @@ def main(cfg: MultiSceneConfig) -> dict:
             from tinynerf_tpu_torch.kernels.fused_nerf_train import make_fused_nerf_grad_fn_scenes
 
             grad_fn = make_fused_nerf_grad_fn_scenes(s, ncfg, n_fine=cfg.n_fine)
+            route = ""
         else:
-            from tinynerf_tpu_torch.kernels.fused_train import make_fused_grad_fn_scenes
+            from tinynerf_tpu_torch.kernels.fused_train import k2_route, make_fused_grad_fn_scenes
 
             grad_fn = make_fused_grad_fn_scenes(s)
-        print("[train] fused train kernel enabled: one launch a step for every scene",
+            route = f" (K2: {k2_route(s.model_cfg, s.n_samples)})" if device.type == "cuda" else ""
+        print(f"[train] fused train kernel enabled: one launch a step for every scene{route}",
               flush=True)
 
     step_seed = cfg.seed + 1  # the JAX driver's PRNGKey(seed + 1) for the steps

@@ -1,7 +1,7 @@
 """The one-scene training kernels of two checkouts on one CUDA card, and
-the TinyNeRF render: K1, K2, K4, K6 and K7 timed in turn A B B A A B B A,
-and their results compared bit for bit. A development tool: nothing of
-the package imports it.
+the render kernels: K1, K2, K3, K4, K5, K6 and K7 timed in turn A B B A A
+B B A, and their results compared bit for bit. A development tool:
+nothing of the package imports it.
 
 Each run is a process of its own that imports tinynerf_tpu_torch from its
 checkout and builds that checkout's kernels there (build/ under it). The
@@ -14,8 +14,12 @@ in the kernel, weights and depths out, hidden 256, bf16 and f32; phase 21)
 and on the hidden-128 NeRF's fine pass (2048 rays x a 128-sample union);
 K6 on the flagship's fine union (2048 x 192, block 64, bf16; phase 21);
 K7's forward and backward on the flagship's fine shard (2048 x 96, block
-48, bf16; phase 25). Every input is made from a fixed seed, so a kernel
-that neither checkout changed gives the same bits in both.
+48, bf16; phase 25); K3 on the flagship's coarse render (2048 rays x 64
+linspace depths, weights out) and fine render (2048 x a 192-sample
+union), bf16 and f32 (phases 12, 15); K5 on the --n-fine 448 recipe's
+union (hidden 128, 2048 x 512, block 64), bf16 and f32 (phase 13). Every
+input is made from a fixed seed, so a kernel that neither checkout
+changed gives the same bits in both.
 
     python ab_train_kernels.py OTHER_CHECKOUT [THIS_CHECKOUT]
 
@@ -63,7 +67,7 @@ def worker(tree: str) -> dict:
 
     if not Path(tinynerf_tpu_torch.__file__).resolve().is_relative_to(Path(tree).resolve()):
         raise RuntimeError(f"imported {tinynerf_tpu_torch.__file__}, not the package in {tree}")
-    sources = ("fused_render", "fused_train", "fused_nerf_train", "fused_partials")
+    sources = ("fused_render", "fused_train", "fused_nerf", "fused_nerf_train", "fused_partials")
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = dict(zip(sources, pool.map(_build.build, sources)))
     ptxas = {}
@@ -76,7 +80,9 @@ def worker(tree: str) -> dict:
             elif "registers" in line and kernel is not None:
                 ptxas[kernel] = line.split(":", 1)[-1].strip()
 
-    from tinynerf_tpu_torch.kernels.fused_nerf_stream import fused_nerf_pass_grads_streamed
+    from tinynerf_tpu_torch.kernels.fused_nerf import fused_nerf_render_rays
+    from tinynerf_tpu_torch.kernels.fused_nerf_stream import (
+        fused_nerf_pass_grads_streamed, fused_nerf_render_rays_streamed)
     from tinynerf_tpu_torch.kernels.fused_nerf_train import fused_nerf_pass_grads
     from tinynerf_tpu_torch.kernels.fused_partials import (
         fused_block_partials_bwd, fused_block_partials_fwd)
@@ -144,6 +150,22 @@ def worker(tree: str) -> dict:
     cases["K7 backward fine shard bfloat16"] = lambda: fused_block_partials_bwd(
         flag, cfg, ro, rd, z96, d96, noise, tin, g_ray, None, w_fwd, w_mma, sb, tile)
 
+    # The render kernels (no autograd: inference, as the renderers call them).
+    # (Names of their own: the cases above read cfg and mlp when they run.)
+    for dtype in (torch.bfloat16, torch.float32):
+        rcfg = NeRFConfig(hidden=256, rgb_hidden=128, compute_dtype=dtype)
+        rmlp = NeRFMLP(rcfg, generator=torch.Generator().manual_seed(8), device=dev)
+        tag = str(dtype)[6:]
+        cases[f"K3 coarse flagship {tag}"] = lambda mlp=rmlp: fused_nerf_render_rays(
+            mlp, ro, rd, n_samples=64, return_weights=True)
+        cases[f"K3 fine flagship {tag}"] = lambda mlp=rmlp: fused_nerf_render_rays(mlp, ro, rd,
+                                                                                  z192)
+        rcfg = NeRFConfig(hidden=128, rgb_hidden=64, compute_dtype=dtype)
+        rmlp = NeRFMLP(rcfg, generator=torch.Generator().manual_seed(9), device=dev)
+        z512 = sorted_z(512, 10)
+        cases[f"K5 nerf128 S=512 {tag}"] = lambda mlp=rmlp, z512=z512: (
+            fused_nerf_render_rays_streamed(mlp, ro, rd, z512, sample_block=64))
+
     def digest(out) -> str:
         h = hashlib.sha256()
 
@@ -168,9 +190,10 @@ def worker(tree: str) -> dict:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    ms = {name: min(cuda_ms(fn) for _ in range(REPEATS)) for name, fn in cases.items()}
-    return {"ms": ms, "digest": {name: digest(fn()) for name, fn in cases.items()},
-            "ptxas": ptxas}
+    with torch.no_grad():
+        ms = {name: min(cuda_ms(fn) for _ in range(REPEATS)) for name, fn in cases.items()}
+        digests = {name: digest(fn()) for name, fn in cases.items()}
+    return {"ms": ms, "digest": digests, "ptxas": ptxas}
 
 
 def main() -> int:

@@ -265,6 +265,26 @@ Phases, each printed with its result and time:
                 recipe's shape, the full width, hidden 264 at S=192; K1 at
                 the full width and at hidden 264, S=192; the full-width
                 spill launch's buffers.
+ 38. nerf domain - K3-K7 at every NeRF width and sample count the JAX
+                kernels take (F6: hidden 320, 512 / rgb_hidden 128 past 512
+                threads or 227 KB; F7: S=100, unions 164 and 228 whose tiles
+                end in partial 128-point chunks): (a) K4, K6 (or K4 on the
+                union), K3 and K5 at hidden 320, 512/128, S=100 and the
+                flagship's union 228 in blocks of 57, and the K7 pair at
+                hidden 320, bf16, 2048 rays with the recipes' density noise,
+                each one launch on the route nerf_shape configures (the
+                general kernel; X in device memory at 512) under the bf16
+                pass and render gates; (b) `train --model nerf` at hidden
+                320 (and its `eval`: K3), 320 with --n-fine 128 (K5),
+                --hidden 384 --rgb-hidden 96, --hidden 512 --rgb-hidden 128,
+                --rgb-hidden 320, --n-samples 65, --n-samples 100 and
+                --hidden 256 --n-samples 100 --n-fine 128, 60 steps each fused and
+                eager (every K4 and K6 launch on its route; held-out within
+                1.5 dB), and sample-parallel 2 at hidden 320 on two ranks
+                (the K7 pair on the general walk), fused and eager side by
+                side, 3 steps; (c)
+                timing: each kernel at its new shape against its plain
+                version, with its bound.
 
 Weights are random from a seed throughout. The line before the kernels
 line gives the seconds of all phases.
@@ -422,6 +442,19 @@ def check_hmma(lib, kernel: str, what: str) -> None:
     check(any(f"{kernel}ILb1E" in fn and n > 0 for fn, n in hmma.items())
           and not any(f"{kernel}ILb0E" in fn and n for fn, n in hmma.items()),
           f"the bf16 {what} kernel (kMma=true) holds HMMA instructions; the CUDA-core one none")
+
+
+def walk_hmma(hmma: dict) -> list:
+    """The training walk's kernels among sass_counts' -> (kMma, kGeneral,
+    HMMA count) each: nerf_walk(_scenes)_kernel<Walk, kMma, kGeneral>."""
+    import re
+
+    out = []
+    for fn, n in hmma.items():
+        m = re.search(r"nerf_walk(?:_scenes)?_kernelILNS_4WalkE\dELb([01])ELb([01])E", fn)
+        if m:
+            out.append((m.group(1) == "1", m.group(2) == "1", n))
+    return out
 
 
 def timed_build(name: str):
@@ -1137,9 +1170,10 @@ def run_nerf_train(build_nerf_train) -> list:
                     if "registers" in line or "spill" in line or "stack frame" in line), flush=True)
     hmma = sass_counts(lib, "HMMA")
     print(f"[build] HMMA instructions per kernel (cuobjdump -sass): {json.dumps(hmma)}", flush=True)
-    check(any("Lb1E" in fn and n > 0 for fn, n in hmma.items())
-          and not any("Lb0E" in fn and n for fn, n in hmma.items()),
-          "the bf16 walk of K4 and K6 (kMma=true) holds HMMA instructions; the CUDA-core walk none")
+    walks = walk_hmma(hmma)
+    check(len(walks) == 8 and all((n > 0) == mma for mma, _, n in walks),
+          "the bf16 walks of K4 and K6 (kMma=true, one-round and general) hold HMMA instructions; "
+          "the CUDA-core walks none")
 
     # 17. K4 against its plain version: the flagship coarse pass and a
     #     hidden-128 fine pass, on 2048 rays of a synthetic view.
@@ -1636,11 +1670,10 @@ def run_partials(build_partials) -> list:
                     if "registers" in line or "spill" in line or "stack frame" in line), flush=True)
     hmma = sass_counts(lib, "HMMA")
     print(f"[build] HMMA instructions per kernel (cuobjdump -sass): {json.dumps(hmma)}", flush=True)
-    mma_walks = [n for fn, n in hmma.items() if "nerf_walk_kernel" in fn and "Lb1E" in fn]
-    check(len(mma_walks) == 2 and all(mma_walks)
-          and not any("Lb0E" in fn and n for fn, n in hmma.items()),
-          "K7's bf16 forward and backward walks (kMma=true) hold HMMA instructions; the CUDA-core "
-          "walks none")
+    walks = walk_hmma(hmma)
+    check(len(walks) == 8 and all((n > 0) == mma for mma, _, n in walks),
+          "K7's bf16 forward and backward walks (kMma=true, one-round and general) hold HMMA "
+          "instructions; the CUDA-core walks none")
 
     # 23. K7 against its plain versions: both shards of the flagship's coarse
     #     (2 x 32, weights out) and fine (2 x 96, block 48, sigma-noise)
@@ -2141,10 +2174,10 @@ def run_levers(build_nerf_train, build_partials) -> None:
     t0 = time.time()
     for build, what in ((build_nerf_train, "K4/K6"), (build_partials, "K7")):
         hmma = sass_counts(build.result()[0], "HMMA")
-        cuda_core = {fn: n for fn, n in hmma.items() if "nerf_walk_kernel" in fn and "Lb0E" in fn}
-        print(f"[route] {what}: HMMA in the CUDA-core walks (kMma=false) {json.dumps(cuda_core)}",
-              flush=True)
-        check(cuda_core and not any(cuda_core.values()),
+        cuda_core = [n for mma, _, n in walk_hmma(hmma) if not mma]
+        print(f"[route] {what}: HMMA in the CUDA-core walks (kMma=false, one-round and general) "
+              f"{cuda_core}", flush=True)
+        check(cuda_core and not any(cuda_core),
               f"the {what} CUDA-core walks that off-layout bf16 launches run hold no HMMA")
     g = torch.Generator(device=dev).manual_seed(26)
     z_union = torch.sort(2.0 + 4.0 * torch.rand(R, 192, generator=g, device=dev), dim=1).values
@@ -3440,7 +3473,7 @@ def run_multiscene() -> None:
     from tinynerf_tpu_torch.kernels import _build
 
     for source, kernel in (("fused_train", r"fused_train_kernelILb([01])ELb1ELb0E"),
-                           ("fused_nerf_train", r"nerf_walk_scenes_kernelI.*?Lb([01])E")):
+                           ("fused_nerf_train", r"nerf_walk_scenes_kernelI.*?Lb([01])ELb0E")):
         hmma = {}
         for fn, n in sass_counts(_build.build(source), "HMMA").items():
             m = re.search(kernel, fn)
@@ -3717,7 +3750,7 @@ def run_multiscene() -> None:
     # and the partial rows, from the wrapper's own sizes; the peak memory.
     lib = k4_mod._lib()
     fcfg = flagship[1]
-    ws_floats = lib.tinynerf_fused_nerf_train_workspace_floats(2, 64, 10, 256, 8, 64)
+    ws_floats = lib.tinynerf_fused_nerf_train_workspace_floats(2, 64, 10, 256, 8, 64, 0)
     n_grad = k4_mod.pack_nerf_weights(scene_module(flagship[0], 0), fcfg).numel()
     n_blocks = min(MS_RAYS // 2, torch.cuda.get_device_properties(dev).multi_processor_count)
     buf = {"workspace_MB": 4 * MS_SCENES * n_blocks * ws_floats / 1e6,
@@ -4139,6 +4172,358 @@ def run_tiny_domain(build_render, build_train) -> list:
     return kernels
 
 
+# phase 38: every NeRF width and sample count the JAX kernels take (F6, F7).
+# (tag, Config overrides): each trained fused and eager, NERF_DOMAIN_ITERS
+# steps of 2048 rays, bf16, tail holdout 4.
+NERF_DOMAIN_RUNS = (
+    ("hidden 320", dict(hidden=320)),
+    ("hidden 320, n_fine 128", dict(hidden=320, n_fine=128)),
+    ("hidden 384, rgb_hidden 96", dict(hidden=384, rgb_hidden=96)),
+    ("hidden 512, rgb_hidden 128", dict(hidden=512, rgb_hidden=128)),
+    ("rgb_hidden 320", dict(rgb_hidden=320)),
+    ("n_samples 65", dict(n_samples=65)),
+    ("n_samples 100", dict(n_samples=100)),
+    ("hidden 256, n_samples 100, n_fine 128", dict(hidden=256, n_samples=100, n_fine=128)),
+)
+# Steps of each run. In their first steps fused and eager runs pass a
+# transient (train PSNR down to 5.64 dB at step 10, held-out 4.24 dB) at
+# steps that differ between the two: at 10 steps hidden 320's held-out
+# views read 4.24 dB fused and 8.82 eager; at 60, 7.89 and 8.90.
+NERF_DOMAIN_ITERS = 60
+NERF_DOMAIN_SP_ITERS = 3  # the 2-rank sample-parallel runs at hidden 320 (K7), side by side
+
+
+def _nerf_domain_case(hidden, rgb_hidden, dev, n_rays, seed=1):
+    """A flagship-shaped NeRF MLP (L 10, L_dir 4, depth 8, skip 4) at the
+    given widths, bf16, seeded; n_rays rays toward the scene, targets."""
+    import numpy as np
+
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+
+    cfg = NeRFConfig(hidden=hidden, rgb_hidden=rgb_hidden, compute_dtype=torch.bfloat16)
+    mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    rng = np.random.RandomState(38 + seed)
+    ro = torch.from_numpy((rng.randn(n_rays, 3) * 0.1 + [0.0, 0.0, 4.0]).astype(np.float32))
+    rd = rng.randn(n_rays, 3).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    rd[:, 2] = -np.abs(rd[:, 2])
+    tgt = torch.from_numpy(rng.rand(n_rays, 3).astype(np.float32))
+    return mlp, cfg, ro.to(dev), torch.from_numpy(rd).to(dev), tgt.to(dev)
+
+
+def run_nerf_domain() -> list:
+    """Phase 38: K3-K7 at every NeRF width and sample count the JAX kernels
+    take (F6: widths past 256, blocks past 512 threads or 227 KB; F7:
+    sample counts whose walk tile ends in a partial 128-point chunk, and
+    unions no multiple of 8 divides): each kernel against its plain
+    version at the main paths' shapes, every launch on the route nerf_shape
+    configures; the trainer fused and eager at each shape; the K7 pair on
+    two ranks at hidden 320; timings against the plain versions."""
+    from tinynerf_tpu_torch import eval as eval_mod
+    from tinynerf_tpu_torch import train as train_mod
+    from tinynerf_tpu_torch.config import Config
+    from tinynerf_tpu_torch.kernels import fused_nerf as k3_mod
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k56_mod
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4_mod
+    from tinynerf_tpu_torch.kernels import fused_partials as k7_mod
+    from tinynerf_tpu_torch.ops.volume import global_deltas
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    k3, k5 = k3_mod.fused_nerf_render_rays, k56_mod.fused_nerf_render_rays_streamed
+    k4, k6 = k4_mod.fused_nerf_pass_grads, k56_mod.fused_nerf_pass_grads_streamed
+    k7f, k7b = k7_mod.fused_block_partials_fwd, k7_mod.fused_block_partials_bwd
+    wrappers = {"K3": k3, "K5": k5, "K4": k4, "K6": k6, "K7 fwd": k7f, "K7 bwd": k7b}
+    data_path = os.path.join(OUT_DIR, "absent.npz")  # phase 3's synthetic scene
+
+    def reset():
+        for k in wrappers.values():
+            k.launches = k.mma_launches = k.general_launches = k.spill_launches = 0
+
+    def counts(name):
+        k = wrappers[name]
+        return (k.launches, k.mma_launches, k.general_launches, k.spill_launches)
+
+    def want(n, cfg, shape):
+        """n launches on the routes of `shape` (nerf_shape) at cfg's widths."""
+        return (n, n * int(k4_mod.uses_tensor_cores(cfg)), n * int(shape.general),
+                n * int(shape.spill))
+
+    # 38. (a) each kernel against its plain version at the main paths'
+    #     shapes, bf16 (the recipes' density noise, std 1), one launch each
+    #     on its configured route; the render and the NeRF pass gates.
+    t0 = time.time()
+    errs, cases = {}, {}
+    n = N_RAYS_TRAIN
+    for tag, hidden, rgb_hidden, S, union, block, seed in (
+            ("hidden 320", 320, 64, 64, 128, 64, 2),
+            ("hidden 512/128", 512, 128, 64, 128, 64, 1),
+            ("S=100, union 164", 128, 64, 100, 164, None, 1),
+            ("hidden 256, union 228", 256, 64, 100, 228, 57, 1)):
+        mlp, cfg, ro, rd, tgt = _nerf_domain_case(hidden, rgb_hidden, dev, n, seed)
+        names = [nm for nm, _ in mlp.named_parameters()]
+        g = torch.Generator(device=dev).manual_seed(38)
+        noise = torch.randn(n, union, generator=g, device=dev)
+        nc = noise[:, :S].contiguous()
+        reset()
+        loss, grads, w, z = k4(mlp, ro, rd, tgt, 3, n_samples=S, emit_sampling=True, sigma_noise=nc)
+        c4 = counts("K4")
+        want_loss, ref, _ = k4_mod.pass_grads_plain(mlp, ro, rd, tgt, z, nc, True, cfg, S)
+        errs["K4", tag] = err = {"loss_rel": abs(float(loss) - float(want_loss)) / float(want_loss),
+                                 **leaf_errors(grads, ref),
+                                 "mma_scale_err": mma_scale_error(names, grads, ref)}
+        check(c4 == want(1, cfg, k3_mod.nerf_shape(cfg, S, S)), f"K4 {tag}: one launch on its route")
+        check(err["loss_rel"] < 1e-3 and err["min_cosine"] > 0.98 and err["mma_scale_err"] < MMA_SCALE
+              and min(float(r.abs().max()) for r in ref) > 0, f"K4 {tag}: the bf16 pass gates")
+        zu = _union(w[None], z[None], union - S)[0]
+        reset()
+        if block is not None:
+            loss, grads = k6(mlp, ro, rd, tgt, zu, sigma_noise=noise, sample_block=block)
+            shape = k3_mod.nerf_shape(cfg, union, block)
+        else:
+            loss, grads = k4(mlp, ro, rd, tgt, 3, zu, sigma_noise=noise, randomized=False)
+            shape = k3_mod.nerf_shape(cfg, union, union)
+        cf = counts("K6" if block is not None else "K4")
+        want_loss, ref, _ = k4_mod.pass_grads_plain(mlp, ro, rd, tgt, zu, noise, True, cfg,
+                                                    block or union)
+        fname = "K6" if block is not None else "K4 fine"
+        errs[fname, tag] = err = {"loss_rel": abs(float(loss) - float(want_loss)) / float(want_loss),
+                                  **leaf_errors(grads, ref),
+                                  "mma_scale_err": mma_scale_error(names, grads, ref)}
+        check(cf == want(1, cfg, shape), f"{fname} {tag}: one launch on its route")
+        check(err["loss_rel"] < 1e-3 and err["min_cosine"] > 0.98 and err["mma_scale_err"] < MMA_SCALE,
+              f"{fname} {tag}: the bf16 pass gates")
+        with torch.no_grad():
+            reset()
+            got3, got_w = k3(mlp, ro, rd, n_samples=S, return_weights=True)
+            c3 = counts("K3")
+            want3, want_w = k3_mod.fused_nerf_render_rays_plain(mlp, ro, rd, n_samples=S,
+                                                                return_weights=True)
+            rb = k3_mod.default_sample_block(union, 64)
+            got5 = k5(mlp, ro, rd, zu, sample_block=rb)
+            c5 = counts("K5")
+            want5 = k56_mod.fused_nerf_render_rays_streamed_plain(mlp, ro, rd, zu, sample_block=rb)
+        errs["K3", tag] = ray_errors(got3, want3)
+        errs["K3 weights", tag] = ray_errors(got_w, want_w, width=S)
+        errs["K5", tag] = ray_errors(got5, want5)
+        check(c3 == want(1, cfg, k3_mod.nerf_shape(cfg, S, S, walk=False))
+              and c5 == want(1, cfg, k3_mod.nerf_shape(cfg, union, rb, walk=False)),
+              f"K3, K5 {tag}: one launch each on its route")
+        check(all(within(errs[k, tag], torch.bfloat16) for k in ("K3", "K3 weights", "K5")),
+              f"K3, K5 {tag}: the bf16 render gates")
+        cases[tag] = (mlp, cfg, ro, rd, tgt, nc, noise, zu, S, union, block)
+        print(f"[domain] {tag}: K4 {k3_mod.nerf_shape(cfg, S, S).route} "
+              f"{json.dumps(errs['K4', tag])}; {fname} {shape.route} "
+              f"{json.dumps(errs[fname, tag])}; K3 {json.dumps(errs['K3', tag])}; K5 (block {rb}) "
+              f"{json.dumps(errs['K5', tag])}", flush=True)
+    # The K7 pair at hidden 320: one shard of the union 128 in blocks of 64.
+    mlp, cfg, ro, rd, tgt, _, noise, zu, *_ = cases["hidden 320"]
+    d = global_deltas(zu, rd)
+    shard, sd, sn = (x[:, :64].contiguous() for x in (zu, d, noise))
+    shape7 = k3_mod.launch_shape(cfg, 64, 64, walk=True, route=None)
+    tile = shape7.tile_rays
+    reset()
+    out6, tin, _, w_fwd, w_mma = k7f(mlp, cfg, ro, rd, shard, sd, sn, 64, shape7, False)
+    g_ray = torch.rand(n, 6, generator=torch.Generator(device=dev).manual_seed(39), device=dev) / n
+    grads = k7b(mlp, cfg, ro, rd, shard, sd, sn, tin, g_ray, None, w_fwd, w_mma, 64, shape7)
+    check(counts("K7 fwd") == counts("K7 bwd") == want(1, cfg, shape7) and n % tile == 0,
+          "K7 at hidden 320: one forward and one backward launch on the general walk")
+    with torch.no_grad():
+        parts, _ = k7_mod.block_partials_plain(mlp, ro, rd, shard, sd, sn, sample_block=64)
+    want6 = torch.stack([parts["C"][:, 0], parts["C"][:, 1], parts["C"][:, 2], parts["A"],
+                         parts["T"], parts["D"] / 6.0], dim=1)
+    got6 = torch.cat([out6[:, :5], out6[:, 5:] / 6.0], dim=1)
+    errs["K7 fwd", "hidden 320"] = ray_errors(got6, want6, width=6)
+    cot = {"C": g_ray[:, :3], "A": g_ray[:, 3], "T": g_ray[:, 4], "D": g_ray[:, 5]}
+    ref = k7_mod.block_partials_grads_plain(mlp, ro, rd, shard, sd, sn, cot, sample_block=64)
+    names = [nm for nm, _ in mlp.named_parameters()]
+    errs["K7 bwd", "hidden 320"] = err = {**leaf_errors(grads, ref),
+                                          "mma_scale_err": mma_scale_error(names, grads, ref)}
+    check(within(errs["K7 fwd", "hidden 320"], torch.bfloat16) and err["min_cosine"] > 0.98,
+          "K7 at hidden 320: the render gates on the partials, cosine > 0.98 on the gradients")
+    print(f"[domain] K7 at hidden 320 ({shape7.route}): forward {json.dumps(errs['K7 fwd', 'hidden 320'])}"
+          f"; backward {json.dumps(err)}", flush=True)
+    print(f"[domain] (a) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 38. (b) the trainer fused and eager at each shape, and eval of the
+    #     fused hidden-320 checkpoint (K3): every launch on its route.
+    t0 = time.time()
+    trained = {}
+    for tag, kw in NERF_DOMAIN_RUNS:
+        runs = {}
+        for fused in (True, False):
+            name = "fused" if fused else "eager"
+            cfg = Config(model="nerf", data_path=data_path, iters=NERF_DOMAIN_ITERS, holdout=4,
+                         resume=False, log_every=10,
+                         out_dir=os.path.join(OUT_DIR, f"domain_{name}"),
+                         ckpt_path=os.path.join(OUT_DIR, f"domain_{name}.npz"),
+                         metrics_path=os.path.join(OUT_DIR, f"domain_{name}.jsonl"),
+                         fused_train=fused, fused=fused, **kw)
+            if os.path.exists(cfg.metrics_path):
+                os.unlink(cfg.metrics_path)
+            reset()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                res = train_mod.main(cfg)
+            route = [l for l in out.getvalue().splitlines() if "route" in l]
+            runs[name] = {k: counts(k) for k in ("K4", "K6", "K3", "K5")}
+            runs[name]["heldout"] = res["eval"]["psnr_mean"]
+            psnrs = [round(p, 2) for p in logged_psnrs(cfg.metrics_path)]
+            print(f"[domain] train {tag} {name}, {NERF_DOMAIN_ITERS} steps: {route}; (launches, "
+                  f"tensor cores, general, spill) {json.dumps({k: runs[name][k] for k in ('K4', 'K6', 'K3', 'K5')})}"
+                  f"; train PSNR every 10 steps {psnrs}; held-out {res['eval']['psnr_mean']:.2f} dB, "
+                  f"{res['rays_per_sec']:,.0f} rays/s", flush=True)
+        ncfg = k3_mod.padded_cfg(cfg.nerf_cfg())
+        S, union = cfg.n_samples, cfg.n_samples + cfg.n_fine
+        block = k4_mod.fine_pass_route(cfg.train_settings(), ncfg, cfg.n_fine)
+        it = NERF_DOMAIN_ITERS
+        want4 = want(it, ncfg, k3_mod.nerf_shape(ncfg, S, S))
+        if block is None:
+            fine4 = want(it, ncfg, k3_mod.nerf_shape(ncfg, union, union))
+            want4 = tuple(a + b for a, b in zip(want4, fine4))
+        want6 = want(it, ncfg, k3_mod.nerf_shape(ncfg, union, block)) if block else (0,) * 4
+        f = runs["fused"]
+        check(f["K4"] == want4 and f["K6"] == want6,
+              f"train {tag}: K4 (and K6) every step on the routes nerf_shape configures")
+        check(f["K3"][0] > 0 and all(runs["eager"][k][0] == 0 for k in ("K4", "K6", "K3", "K5")),
+              f"train {tag}: K3 renders the held-out views; the eager run launches none")
+        gap = abs(runs["fused"]["heldout"] - runs["eager"]["heldout"])
+        print(f"[domain] train {tag}: held-out PSNR fused vs eager {gap:.3f} dB apart", flush=True)
+        check(gap <= 1.5, f"train {tag}: fused and eager held-out within 1.5 dB")
+        trained[tag] = runs
+        if tag == "hidden 320":
+            ckpt = os.path.join(OUT_DIR, "domain_fused.npz")
+            reset()
+            ev = eval_mod.main(eval_mod.EvalConfig(ckpt_path=ckpt, data_path=data_path, views=2,
+                                                   out_dir=os.path.join(OUT_DIR, "domain_eval")))
+            c = counts("K3")
+            print(f"[domain] eval of the hidden-320 checkpoint: K3 (launches, tensor cores, "
+                  f"general, spill) {c}, PSNR {ev['psnr_mean']:.3f} dB", flush=True)
+            check(c[0] > 0 and c[2] == c[0] and math.isfinite(ev["psnr_mean"]),
+                  "eval at hidden 320 serves through K3's general kernel")
+    k5c = trained["hidden 320, n_fine 128"]["fused"]["K5"]
+    check(k5c[0] > 0 and k5c[2] == k5c[0], "hidden 320, n_fine 128: the held-out views' fine "
+          "pass through K5's general kernel")
+    with ThreadPoolExecutor(max_workers=2) as pool:  # two 2-rank runs share the card
+        sp = dict(zip(("fused", "eager"), pool.map(
+            lambda a: torchrun_train(f"domain_sp_{a[0]}", "--hidden", "320", "--n-fine", "64",
+                                     "--sample-parallel", "2", "--iters",
+                                     str(NERF_DOMAIN_SP_ITERS), "--no-resume", *a[1]),
+            (("fused", ()), ("eager", ("--no-fused-train", "--no-fused"))))))
+    c7 = [(r.get("fused_block_partials_fwd", 0), r.get("fused_block_partials_fwd.general_launches", 0),
+           r.get("fused_block_partials_bwd", 0), r.get("fused_block_partials_bwd.general_launches", 0))
+          for r in sp["fused"]["launches"]]
+    held = {k: float(v["out"].split("[eval] held-out PSNR over")[1].split("mean ")[1].split(" dB")[0])
+            for k, v in sp.items()}
+    print(f"[domain] sample-parallel 2 at hidden 320, {NERF_DOMAIN_SP_ITERS} steps: K7 (forward, "
+          f"general, backward, general) per rank {c7}; held-out fused {held['fused']:.2f} dB, eager "
+          f"{held['eager']:.2f} dB", flush=True)
+    check(all(c[0] > 0 and c[0] == c[1] == c[2] == c[3] for c in c7),
+          "sample-parallel 2 at hidden 320: the K7 pair on the general walk")
+    check(abs(held["fused"] - held["eager"]) <= 1.5, "sample-parallel: fused and eager held-out "
+          "within 1.5 dB")
+    print(f"[domain] (b) ok in {time.time() - t0:.2f}s", flush=True)
+
+    # 38. (c) timing: plain, kernel, kernel, plain, bf16, at the new shapes.
+    t0 = time.time()
+    times, bounds, launch_counts, entries = {}, {}, {}, []
+    t320, t512, t100, t228 = (trained[k]["fused"] for k in (
+        "hidden 320", "hidden 512, rgb_hidden 128", "n_samples 100",
+        "hidden 256, n_samples 100, n_fine 128"))
+    specs = []
+    for tag, key, run, src, rep in (
+            ("hidden 320", "K4", t320, "fused_nerf_train.cu", "fused_nerf_train.py:344"),
+            ("hidden 512/128", "K4", t512, "fused_nerf_train.cu", "fused_nerf_train.py:344"),
+            ("S=100, union 164", "K4", t100, "fused_nerf_train.cu", "fused_nerf_train.py:344"),
+            ("hidden 320", "K6", t320, "fused_nerf_train.cu", "fused_nerf_stream.py:548"),
+            ("hidden 512/128", "K6", t512, "fused_nerf_train.cu", "fused_nerf_stream.py:548"),
+            ("hidden 256, union 228", "K6", t228, "fused_nerf_train.cu", "fused_nerf_stream.py:548"),
+            ("hidden 320", "K3", t320, "fused_nerf.cu", "fused_nerf.py:183"),
+            ("hidden 512/128", "K3", t512, "fused_nerf.cu", "fused_nerf.py:183"),
+            ("hidden 512/128", "K5", t512, "fused_nerf.cu", "fused_nerf_stream.py:451"),
+            ("hidden 256, union 228", "K5", t228, "fused_nerf.cu", "fused_nerf_stream.py:451")):
+        specs.append((tag, key, run[key][0], src, rep))
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)  # as the train step passes it
+    for tag, key, n_launch, src, rep in specs:
+        mlp, cfg, ro, rd, tgt, nc, noise, zu, S, union, block = cases[tag]
+        macs = train_macs_per_point(mlp) if key in ("K4", "K6") else macs_per_point(mlp)
+        n_par = sum(p.numel() for p in mlp.parameters())
+        if key == "K4":
+            fns = {"kernel": lambda: k4(mlp, ro, rd, tgt, seed, n_samples=S, sigma_noise=nc),
+                   "plain": lambda: k4_mod.pass_grads_plain(
+                       mlp, ro, rd, tgt, k4_mod.stratified_depths(3, n, S, 2.0, 6.0, True, dev), nc,
+                       True, cfg, S)}
+            shape, pts = k3_mod.nerf_shape(cfg, S, S), S
+        elif key == "K6":
+            fns = {"kernel": lambda: k6(mlp, ro, rd, tgt, zu, sigma_noise=noise, sample_block=block),
+                   "plain": lambda: k56_mod.fused_nerf_pass_grads_streamed_plain(
+                       mlp, ro, rd, tgt, zu, sigma_noise=noise, sample_block=block)}
+            shape, pts = k3_mod.nerf_shape(cfg, union, block), union
+        elif key == "K3":
+            fns = {"kernel": lambda: k3(mlp, ro, rd, n_samples=S, return_weights=True),
+                   "plain": lambda: k3_mod.fused_nerf_render_rays_plain(mlp, ro, rd, n_samples=S,
+                                                                       return_weights=True)}
+            shape, pts = k3_mod.nerf_shape(cfg, S, S, walk=False), S
+        else:
+            rb = k3_mod.default_sample_block(union, 64)
+            fns = {"kernel": lambda: k5(mlp, ro, rd, zu, sample_block=rb),
+                   "plain": lambda: k56_mod.fused_nerf_render_rays_streamed_plain(
+                       mlp, ro, rd, zu, sample_block=rb)}
+            shape, pts = k3_mod.nerf_shape(cfg, union, rb, walk=False), union
+        name = f"{key} {tag} ({shape.route})"
+        with torch.no_grad() if key in ("K3", "K5") else contextlib.nullcontext():
+            for which in ("plain", "kernel", "kernel", "plain"):
+                times.setdefault(name, {}).setdefault(which, []).append(cuda_ms(fns[which], iters=3))
+        # Floats read and written once: rays (and targets), the per-sample
+        # inputs (noise; given depths and deltas), the outputs, the weights
+        # (and their gradients).
+        per_ray = {"K4": 9 + pts, "K6": 9 + 3 * pts, "K3": 10 + pts, "K5": 10 + 2 * pts}[key]
+        bounds[name] = (2 * n * pts * macs,
+                        4 * (n * per_ray + (2 if key in ("K4", "K6") else 1) * n_par))
+        launch_counts[name] = n_launch
+        err = errs.get((key, tag)) or errs.get(("K4 fine", tag))
+        entries.append((name, src, rep, err))
+    # The K7 pair at hidden 320, forward + backward as one entry each.
+    mlp, cfg, ro, rd, *_ = cases["hidden 320"]
+    for key, fn, plain in (
+            ("K7 fwd", lambda: k7f(mlp, cfg, ro, rd, shard, sd, sn, 64, shape7, False),
+             lambda: k7_mod.block_partials_plain(mlp, ro, rd, shard, sd, sn, sample_block=64)),
+            ("K7 bwd", lambda: k7b(mlp, cfg, ro, rd, shard, sd, sn, tin, g_ray, None, w_fwd, w_mma,
+                                   64, shape7),
+             lambda: k7_mod.block_partials_grads_plain(mlp, ro, rd, shard, sd, sn, cot,
+                                                       sample_block=64))):
+        name = f"{key} hidden 320 ({shape7.route})"
+        fns = {"kernel": fn, "plain": plain}
+        with torch.no_grad() if key == "K7 fwd" else contextlib.nullcontext():
+            for which in ("plain", "kernel", "kernel", "plain"):
+                times.setdefault(name, {}).setdefault(which, []).append(cuda_ms(fns[which], iters=3))
+        macs = macs_per_point(mlp) if key == "K7 fwd" else train_macs_per_point(mlp)
+        n_par = sum(p.numel() for p in mlp.parameters())
+        # Rays, depths, deltas, noise; the partials and entry transmittances
+        # (forward) or those and the cotangents (backward); the weights.
+        per_ray = 13 + 3 * 64 + (7 if key == "K7 bwd" else 0)
+        bounds[name] = (2 * n * 64 * macs,
+                        4 * (n * per_ray + (2 if key == "K7 bwd" else 1) * n_par))
+        launch_counts[name] = sum(c[0] for c in c7)
+        entries.append((name, "fused_partials.cu", "fused_partials.py:381", errs[key, "hidden 320"]))
+    kernels = []
+    for name, src, rep, err in entries:
+        d = {k: min(v) for k, v in times[name].items()}
+        flops, nbytes = bounds[name]
+        entry = kernel_entry(f"{name}, bf16", f"tinynerf_tpu_torch/csrc/{src}",
+                             f"tinynerf_tpu/kernels/{rep}", launch_counts[name],
+                             err["max_abs" if "max_abs" in err else "max"], d["kernel"], d["plain"],
+                             flops, nbytes)
+        kernels.append(entry)
+        print(f"[timing] {card}: {name}, bf16: kernel {d['kernel']:.4f} ms, plain "
+              f"{d['plain']:.4f} ms; bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); launches in (b) "
+              f"{launch_counts[name]} (all runs {json.dumps(times[name])})", flush=True)
+    print(f"[timing] ok in {time.time() - t0:.2f}s", flush=True)
+    return kernels
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4156,7 +4541,8 @@ def main() -> int:
         run_scenes()
         run_multiscene()
         kernels += run_tiny_domain(builds["fused_render"], builds["fused_train"])
-    print(f"[phases] 1-37 in {time.time() - t_start:.2f}s", flush=True)
+        kernels += run_nerf_domain()
+    print(f"[phases] 1-38 in {time.time() - t_start:.2f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,9 @@ from chip_smoke import MMA_SCALE, card_line, leaf_errors, mma_scale_error
 
 WALK, MMA, MLP, RENDER = "nerf_train_walk.cuh", "mma_bf16.cuh", "nerf_mlp.cuh", "fused_nerf.cu"
 TRAIN = "fused_train.cu"
-# name -> [(file, text, replacement)]: each text must occur in the file.
+# name -> [(file, text, replacement)]: each text must occur in the file;
+# every occurrence is replaced (the one-round kernels' and the general
+# kernels' copies of a product alike).
 ABLATIONS = {
     "weight gradients": [(MMA, "  constexpr int MT = kGradMTiles;\n",
                           "  constexpr int MT = kGradMTiles;\n  if (true) return;\n")],
@@ -110,8 +112,8 @@ def build_variant(name: str, source: str, edits: list, out_dir: Path) -> Path:
     for fname, old, new in edits:
         path = d / "csrc" / fname
         text = path.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"variant {name!r}: {fname} holds {old!r} {text.count(old)} times")
+        if text.count(old) < 1:
+            raise RuntimeError(f"variant {name!r}: {fname} does not hold {old!r}")
         path.write_text(text.replace(old, new))
     lib = d / "lib.so"
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),

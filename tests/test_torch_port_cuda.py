@@ -5,7 +5,10 @@ of K1, K2, K3/K5 and K4/K6/K7 (bf16 at the tensor-core shapes on the
 tensor cores, f32 and other shapes on the CUDA cores; a tensor-core width
 without its fragments refused), and the scene axis of K2, K4 and K6
 (multi-scene training: each scene of a batched launch bit-identical to a
-one-scene launch; counts and strides checked in C), on a CUDA device.
+one-scene launch; counts and strides checked in C), and K3-K7 at every
+NeRF width and sample count the JAX kernels take (nerf_shape's general
+kernel and its spill route, forced at recipe shapes bit-identical to the
+one-round kernels), on a CUDA device.
 
 Skips without one. This file imports neither jax nor the JAX package, so
 it also runs on a GPU machine that has no JAX (without the suite's
@@ -373,14 +376,15 @@ def test_hierarchical_pipeline_on_card(cuda_device, sample_block, want_k5):
 
 @pytest.mark.cuda
 def test_refused_launch_raises(cuda_device):
-    """A launch the card refuses (here: shared memory for hidden 1024) comes
-    back as a CUDA error code, and the wrapper's check turns it into an
-    exception; nothing runs."""
+    """A launch the card refuses (here: hidden 1024 on the one-round route,
+    2048 threads a block) comes back as a CUDA error code, and the
+    wrapper's check turns it into an exception; nothing runs."""
     from tinynerf_tpu_torch.kernels.fused_nerf import _lib, raise_on_error
 
     stream = torch.cuda.current_stream(cuda_device).cuda_stream
     err = _lib().tinynerf_fused_nerf(None, None, None, None, None, None, None, 128, 1, 64, 10, 4,
-                                     1, 1024, 8, 4, 64, 2.0, 6.0, 0, cuda_device.index, stream)
+                                     1, 1024, 8, 4, 64, 2.0, 6.0, 0, 0, None, 1,
+                                     cuda_device.index, stream)
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         raise_on_error(err, "fused_nerf")
@@ -390,7 +394,7 @@ def test_refused_launch_raises(cuda_device):
     for hidden, rgb_hidden, bf16 in ((256, 64, 0), (48, 24, 1)):
         err = _lib().tinynerf_fused_nerf(None, None, None, None, frag.data_ptr(), None, None, 128,
                                          1, 64, 10, 4, 1, hidden, 8, 4, rgb_hidden, 2.0, 6.0, bf16,
-                                         cuda_device.index, stream)
+                                         0, None, 1, cuda_device.index, stream)
         assert err != 0
 
 
@@ -1115,7 +1119,7 @@ def test_nerf_kernels_refuse_unpadded_widths_in_c_on_card(cuda_device):
 
     stream = torch.cuda.current_stream(cuda_device).cuda_stream
     args = (None,) * 7 + (128, 1, 64, 10, 4, 1)
-    tail = (2.0, 6.0, 0, cuda_device.index, stream)
+    tail = (2.0, 6.0, 0, 0, None, 1, cuda_device.index, stream)
     err = _lib().tinynerf_fused_nerf(*args, 36, 8, 4, 20, *tail)
     assert err == 1  # cudaErrorInvalidValue
     assert _lib().tinynerf_fused_nerf(*args, 40, 8, 4, 0, *tail) == 1  # rgb_hidden 0
@@ -1434,11 +1438,12 @@ def test_scene_axis_refuses_wrong_counts_and_strides_on_card(cuda_device):
                                       (70000, slab, want_bwd)):
         err = k4._lib().tinynerf_fused_nerf_train(
             *(None,) * 8, dummy, None, None, None, None, None, None, None, 128, 128, 8, 16, *geom,
-            2.0, 0.1, 0.01, 0, 1, 0, 16, n_grad, n_scenes, fwd, bwd_stride, 0, dev, stream)
+            2.0, 0.1, 0.01, 0, 1, 0, 16, n_grad, n_scenes, fwd, bwd_stride, 0, 0, None, dev,
+            stream)
         assert err == 1, (n_scenes, fwd, bwd_stride)
         err = k4._lib().tinynerf_fused_nerf_train_streamed(
             *(None,) * 7, dummy, None, None, None, None, None, 128, 128, 8, 16, 8, *geom, 0.01, 1,
-            0, 16, n_grad, n_scenes, fwd, bwd_stride, 0, dev, stream)
+            0, 16, n_grad, n_scenes, fwd, bwd_stride, 0, 0, None, dev, stream)
         assert err == 1, (n_scenes, fwd, bwd_stride)
 
 
@@ -1681,3 +1686,293 @@ def test_k2_refuses_a_memory_route_that_cannot_run_on_card(cuda_device):
             hidden, 4, 2, 2.0, 0.1, 0.01, 0, 1, 0, 16, n_grad, k2.partial_row(n_grad), 1, 0, 0, 0,
             spill, ws, cuda_device.index, stream)
         assert err == 1, (hidden, spill, ws)
+
+
+# F6 and F7: every NeRF width and sample count the JAX kernels take.
+# (tag, hidden, rgb_hidden, S, union, block, seed): K3 renders S linspace
+# samples (weights out), K4 trains S jittered samples, K5 renders the union
+# in blocks, K6 trains it in blocks, the K7 pair runs it as one shard in
+# blocks. The blocks are default_sample_block's (26, 41, 57: no multiple of
+# 8 divides 130, 164 or 228). The MLP's seed gives every leaf of the
+# reference a gradient (with seed 61 most of these MLPs' densities are
+# ReLU-dead on every sample, and so is every gradient).
+NERF_DOMAIN = [
+    ("F6 hidden 320", 320, 64, 64, 192, 64, 2),
+    ("F6 384/96", 384, 96, 64, 192, 64, 1),
+    ("F6 512/128", 512, 128, 64, 128, 64, 1),
+    ("F6 rgb_hidden 320", 128, 320, 64, 128, 64, 1),
+    ("F7 S=65", 128, 64, 65, 130, 26, 1),
+    ("F7 S=100", 128, 64, 100, 164, 41, 1),
+    ("F7 union 228", 256, 64, 100, 228, 57, 1),
+]
+
+
+def _route_moved(fn, before, cfg, shape):
+    """One launch of `fn` since `before`, on the configured routes."""
+    from tinynerf_tpu_torch.kernels.fused_nerf_train import uses_tensor_cores
+
+    now = (fn.launches, fn.mma_launches, fn.general_launches, fn.spill_launches)
+    assert tuple(a - b for a, b in zip(now, before)) == (
+        1, int(uses_tensor_cores(cfg)), int(shape.general), int(shape.spill)), (fn.__name__, shape)
+
+
+def _counts(fn):
+    return (fn.launches, fn.mma_launches, fn.general_launches, fn.spill_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,hidden,rgb_hidden,S,union,block,seed", NERF_DOMAIN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nerf_kernels_take_every_width_and_sample_count_on_card(cuda_device, tag, hidden,
+                                                                rgb_hidden, S, union, block, seed,
+                                                                dtype):
+    """K3 (weights out), K5, K4, K6 and the K7 pair at each F6 and F7 shape
+    (the flagship's L 10, L_dir 4, depth 8, skip 4): one launch each on the
+    route nerf_shape configures (the general kernel past 512 threads or a
+    walk tile off whole chunks, X in device memory past 227 KB), within the
+    render gates and the NeRF pass gates of their plain versions (bf16:
+    the scale gate too; K7 on one-signed cotangents)."""
+    import copy
+
+    from tinynerf_tpu_torch.kernels import fused_nerf as k3
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k56
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4
+    from tinynerf_tpu_torch.kernels import fused_partials as k7
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+    from tinynerf_tpu_torch.ops.volume import global_deltas
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = NeRFConfig(hidden=hidden, rgb_hidden=rgb_hidden, compute_dtype=dtype)
+    assert k3.default_sample_block(union, 64) == block
+    mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(seed), device=cuda_device)
+    names = [n for n, _ in mlp.named_parameters()]
+    n = 200
+    ro, rd = _rays(n, 62, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(63).rand(n, 3).astype(np.float32)).to(cuda_device)
+    z = _sorted_z(n, union, 64, cuda_device)
+
+    with torch.no_grad():
+        before = _counts(k3.fused_nerf_render_rays)
+        got, got_w = k3.fused_nerf_render_rays(mlp, ro, rd, n_samples=S, return_weights=True)
+        _route_moved(k3.fused_nerf_render_rays, before, cfg, k3.nerf_shape(cfg, S, S, walk=False))
+        want, want_w = k3.fused_nerf_render_rays_plain(mlp, ro, rd, n_samples=S,
+                                                       return_weights=True)
+        before = _counts(k56.fused_nerf_render_rays_streamed)
+        got5 = k56.fused_nerf_render_rays_streamed(mlp, ro, rd, z, sample_block=block)
+        _route_moved(k56.fused_nerf_render_rays_streamed, before, cfg,
+                     k3.nerf_shape(cfg, union, block, walk=False))
+        want5 = k56.fused_nerf_render_rays_streamed_plain(mlp, ro, rd, z, sample_block=block)
+    for a, b in ((got, want), (got_w, want_w), (got5, want5)):
+        assert bool(torch.isfinite(a).all())
+        _within_render_gates(a, b, dtype)
+
+    # Density noise, as the recipes train with (--sigma-noise-std 1): these
+    # random MLPs' densities are small, where f32's alpha = 1 - (exp(-sigma
+    # delta) + 1e-10 - 1e-10) keeps few bits, and the noise keeps the f32
+    # reference inside the gates' own allowance.
+    g = torch.Generator(device=cuda_device).manual_seed(65)
+    noise = torch.randn(n, union, generator=g, device=cuda_device)
+    noise_c = noise[:, :S].contiguous()
+    before = _counts(k4.fused_nerf_pass_grads)
+    loss, grads, w, zk = k4.fused_nerf_pass_grads(mlp, ro, rd, target, 7, n_samples=S,
+                                                  emit_sampling=True, sigma_noise=noise_c)
+    _route_moved(k4.fused_nerf_pass_grads, before, cfg, k3.nerf_shape(cfg, S, S))
+    ref = _plain(k4.fused_nerf_pass_grads_plain, mlp, ro, rd, target, 0, zk, dtype=dtype,
+                 randomized=False, sigma_noise=noise_c)
+    _live_leaves(ref, names)
+    _leaf_check(loss, grads, ref, dtype, names=names)
+    before = _counts(k56.fused_nerf_pass_grads_streamed)
+    kw6 = dict(sigma_noise=noise, sample_block=block)
+    loss, grads = k56.fused_nerf_pass_grads_streamed(mlp, ro, rd, target, z, **kw6)
+    _route_moved(k56.fused_nerf_pass_grads_streamed, before, cfg,
+                 k3.nerf_shape(cfg, union, block))
+    ref = _plain(k56.fused_nerf_pass_grads_streamed_plain, mlp, ro, rd, target, z, dtype=dtype,
+                 **kw6)
+    _leaf_check(loss, grads, ref, dtype, names=names)
+
+    deltas = global_deltas(z, rd)
+    cot, _ = _partials_cotangents(n, union, cuda_device, seed=66, signed=False)
+    before = [_counts(f) for f in (k7.fused_block_partials_fwd, k7.fused_block_partials_bwd)]
+    partials, _ = k7.make_fused_block_partials_fn(cfg, sample_block=block)(mlp, ro, rd, z, deltas)
+    keys = ("C", "A", "T", "D")
+    grads = torch.autograd.grad([partials[k] for k in keys], list(mlp.parameters()),
+                                grad_outputs=[cot[k] for k in keys])
+    torch.cuda.synchronize()
+    for f, b in zip((k7.fused_block_partials_fwd, k7.fused_block_partials_bwd), before):
+        _route_moved(f, b, cfg, k3.nerf_shape(cfg, union, block))
+    with torch.no_grad():
+        want7, _ = k7.block_partials_plain(mlp, ro, rd, z, deltas, None, sample_block=block)
+    for k in keys:
+        scale = 6.0 if k == "D" else 1.0
+        _within_render_gates(partials[k].detach().reshape(n, -1) / scale,
+                             want7[k].reshape(n, -1) / scale, dtype)
+    args = (ro, rd, z, deltas, None, cot, None)
+    if dtype == torch.bfloat16:
+        ref = k7.block_partials_grads_plain(mlp, *args, sample_block=block)
+        assert min(_cosine(a, r) for a, r in zip(grads, ref)) > 0.98
+        _scale_check(names, grads, ref)
+    else:
+        want64 = [a.float() for a in k7.block_partials_grads_plain(
+            copy.deepcopy(mlp).double(), *args, sample_block=block)]
+        plain32 = k7.block_partials_grads_plain(mlp, *args, sample_block=block)
+        for a, r, p in zip(grads, want64, plain32):
+            tol = 3e-4 * float(r.abs().max())
+            assert float((a - r).abs().max()) <= tol + min(float((p - r).abs().max()), tol) + 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,rgb_hidden", [(128, 64), (256, 64), (48, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_general_and_spill_routes_are_bit_identical_to_the_shared_route_on_card(
+        cuda_device, hidden, rgb_hidden, dtype):
+    """At recipe shapes (hidden 128 and the flagship's 256 on the tensor
+    cores in bf16, hidden 48 on the CUDA cores), K3, K5, K4, K6 and the K7
+    pair forced onto the general kernel and onto its spill route give the
+    one-round kernel's results bit for bit: the rounds take each product's
+    items in another order but sum each output in the same one, and X in
+    device memory holds the same values."""
+    from tinynerf_tpu_torch.kernels import fused_nerf as k3
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k56
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4
+    from tinynerf_tpu_torch.kernels import fused_partials as k7
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+    from tinynerf_tpu_torch.ops.volume import global_deltas
+
+    cfg = NeRFConfig(hidden=hidden, rgb_hidden=rgb_hidden, compute_dtype=dtype)
+    mlp = NeRFMLP(cfg, generator=torch.Generator().manual_seed(1), device=cuda_device)
+    n = 300
+    ro, rd = _rays(n, 62, cuda_device)
+    target = torch.from_numpy(np.random.RandomState(69).rand(n, 3).astype(np.float32)).to(cuda_device)
+    z = _sorted_z(n, 192, 70, cuda_device)
+    noise = torch.randn(n, 192, generator=torch.Generator(device=cuda_device).manual_seed(71),
+                        device=cuda_device)
+
+    def runs(route):
+        with torch.no_grad():
+            out = [k3.fused_nerf_render_rays(mlp, ro, rd, n_samples=64, return_weights=True,
+                                             route=route),
+                   k3.fused_nerf_render_rays(mlp, ro, rd, z, route=route),
+                   k56.fused_nerf_render_rays_streamed(mlp, ro, rd, z, sample_block=64,
+                                                       route=route)]
+        out.append(k4.fused_nerf_pass_grads(mlp, ro, rd, target, 9, n_samples=64,
+                                            emit_sampling=True, route=route))
+        out.append(k4.fused_nerf_pass_grads(mlp, ro, rd, target, 9, z[:, :128],
+                                            sigma_noise=noise[:, :128], randomized=False,
+                                            route=route))
+        out.append(k56.fused_nerf_pass_grads_streamed(mlp, ro, rd, target, z, sigma_noise=noise,
+                                                      sample_block=64, route=route))
+        shard, sd = z[:, :96].contiguous(), global_deltas(z, rd)[:, :96].contiguous()
+        shape = k3.launch_shape(cfg, 96, 48, walk=True, route=route)
+        pad = -n % shape.tile_rays
+        o, d = k3.pad_rays(ro, rd, pad)
+        zp = torch.cat([shard, shard.new_ones(pad, 96)]).contiguous()
+        dp = torch.cat([sd, sd.new_ones(pad, 96)]).contiguous()
+        np_ = torch.cat([noise[:, :96], noise.new_zeros(pad, 96)]).contiguous()
+        fwd = k7.fused_block_partials_fwd(mlp, cfg, o, d, zp, dp, np_, 48, shape, True)
+        g_ray = torch.rand(n + pad, 6, generator=torch.Generator(device=cuda_device).manual_seed(72),
+                           device=cuda_device) / n
+        out.append(fwd[:3])
+        out.append(k7.fused_block_partials_bwd(mlp, cfg, o, d, zp, dp, np_, fwd[1], g_ray, None,
+                                               fwd[3], fwd[4], 48, shape))
+        torch.cuda.synchronize()
+        return out
+
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for y in x for t in flat(y)]
+
+    shared = flat(runs(None))
+    for route in ("general", "spill"):
+        other = flat(runs(route))
+        assert len(other) == len(shared)
+        for i, (a, b) in enumerate(zip(shared, other)):
+            assert torch.equal(a, b), (route, i)
+
+
+@pytest.mark.cuda
+def test_k4_k6_scene_axis_at_an_f6_width_bit_identical_on_card(cuda_device):
+    """The scene axis of K4 and K6 on the general walk (hidden 320, 512
+    threads in rounds), bf16: each scene of a batched launch bit-identical
+    to its one-scene launch."""
+    from tinynerf_tpu_torch.kernels import fused_nerf_stream as k56
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP
+    from tinynerf_tpu_torch.models.stacked import scene_module
+
+    cfg = NeRFConfig(hidden=320, rgb_hidden=64, compute_dtype=torch.bfloat16)
+    model = _stacked(lambda g, d: NeRFMLP(cfg, generator=g, device=d), NERF_SCENE_SEEDS,
+                     cuda_device)
+    K, n = len(NERF_SCENE_SEEDS), 200
+    ro, rd, target = _scene_rays(K, n, 73, cuda_device)
+    seeds = torch.arange(5, 5 + K, dtype=torch.int32, device=cuda_device)
+    before = _counts(k4.fused_nerf_pass_grads)
+    loss, grads = k4.fused_nerf_pass_grads_scenes(model, ro, rd, target, seeds, n_samples=64,
+                                                  cfg=cfg)
+    assert _counts(k4.fused_nerf_pass_grads)[2] == before[2] + 1  # the general walk
+    zf = torch.stack([_sorted_z(n, 192, 74 + k, cuda_device) for k in range(K)])
+    loss6, grads6 = k56.fused_nerf_pass_grads_streamed_scenes(model, ro, rd, target, zf, cfg=cfg,
+                                                             sample_block=64)
+    for k in range(K):
+        one = scene_module(model, k)
+        l1, g1 = k4.fused_nerf_pass_grads(one, ro[k], rd[k], target[k], seeds[k:k + 1],
+                                          n_samples=64, cfg=cfg)
+        assert float(loss[k]) == float(l1) and all(torch.equal(a[k], b) for a, b in zip(grads, g1))
+        l6, g6 = k56.fused_nerf_pass_grads_streamed(one, ro[k], rd[k], target[k], zf[k], cfg=cfg,
+                                                    sample_block=64)
+        assert float(loss6[k]) == float(l6)
+        assert all(torch.equal(a[k], b) for a, b in zip(grads6, g6))
+
+
+@pytest.mark.cuda
+def test_nerf_shape_mirrors_the_c_formulas_and_c_refuses_off_route_on_card(cuda_device):
+    """nerf_shape's byte and thread counts equal the C entries' own
+    (tinynerf_fused_nerf_smem_bytes, _train_smem_bytes, _threads, the spill
+    slab), and the C entries refuse a shape off its route with
+    cudaErrorInvalidValue (1), nothing launched: the one-round walk at a
+    tile off whole chunks, the one-round kernels past 512 threads, a spill
+    slab on the one-round route, widths past MAX_GENERAL_WIDTH."""
+    from tinynerf_tpu_torch.kernels import fused_nerf as k3
+    from tinynerf_tpu_torch.kernels import fused_nerf_train as k4
+    from tinynerf_tpu_torch.models.nerf import NeRFConfig
+
+    l3, l4 = k3._lib(), k4._lib()
+    for _, hidden, rgb_hidden, S, union, block, _ in NERF_DOMAIN:
+        cfg = NeRFConfig(hidden=hidden, rgb_hidden=rgb_hidden)
+        geom = (cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs))
+        for seg, n_samples in ((S, S), (block, union)):
+            for route in (None, "general", "spill"):
+                w = k3.nerf_shape(cfg, n_samples, seg, route=route)
+                assert w.smem_bytes == l4.tinynerf_fused_nerf_train_smem_bytes(
+                    w.tile_rays, seg, n_samples, *geom, hidden, rgb_hidden, int(w.general),
+                    int(w.spill))
+                assert w.threads == l4.tinynerf_fused_nerf_train_threads(hidden, rgb_hidden,
+                                                                         int(w.general))
+                r = k3.nerf_shape(cfg, n_samples, seg, walk=False, route=route)
+                assert r.smem_bytes == l3.tinynerf_fused_nerf_smem_bytes(
+                    r.tile_rays, seg, *geom, hidden, rgb_hidden, int(r.spill))
+                assert r.threads == l3.tinynerf_fused_nerf_threads(hidden, rgb_hidden,
+                                                                   int(r.general))
+        assert k3.spill_floats(cfg) == l3.tinynerf_fused_nerf_spill_floats(
+            hidden, *geom, rgb_hidden) == l4.tinynerf_fused_nerf_train_spill_floats(
+            hidden, *geom, rgb_hidden)
+
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    dev = cuda_device.index
+    dummy = torch.zeros(1, device=cuda_device).data_ptr()
+    geom = (10, 4, 1)
+
+    def k4_err(tile, S, hidden, rgb_hidden, general, spill):
+        return l4.tinynerf_fused_nerf_train(
+            *(None,) * 6, dummy, dummy, dummy, None, None, None, None, None, None, None, 4 * tile,
+            4 * tile, tile, S, *geom, hidden, 8, 4, rgb_hidden, 2.0, 0.1, 0.01, 0, 1, 0, 1, 100,
+            1, 0, 0, 0, general, spill, dev, stream)
+
+    assert k4_err(16, 100, 128, 64, 0, None) == 1     # 1600 points: off whole chunks
+    assert k4_err(2, 64, 320, 64, 0, None) == 1       # 640 threads on the one-round walk
+    assert k4_err(2, 64, 128, 64, 0, dummy) == 1      # a spill slab on the one-round walk
+    assert k4_err(2, 64, 4104, 64, 1, dummy) == 1     # past MAX_GENERAL_WIDTH
+    assert l3.tinynerf_fused_nerf(None, None, None, None, None, None, None, 128, 1, 64, 10, 4, 1,
+                                  320, 8, 4, 64, 2.0, 6.0, 0, 0, None, 1, dev, stream) == 1
+    assert l3.tinynerf_fused_nerf(None, None, None, None, None, None, None, 128, 1, 64, 10, 4, 1,
+                                  128, 8, 4, 64, 2.0, 6.0, 0, 0, dummy, 1, dev, stream) == 1

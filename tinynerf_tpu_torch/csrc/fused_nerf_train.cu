@@ -57,21 +57,33 @@
 extern "C" {
 
 // Shared memory of one block, in bytes, for tile_rays rays and segments
-// of `seg` samples (seg = S for K4, the sample block for K6).
+// of `seg` samples (seg = S for K4, the sample block for K6), on the shape
+// route (general, spill: X in device memory).
 int tinynerf_fused_nerf_train_smem_bytes(int tile_rays, int seg, int n_samples, int num_freqs,
                                          int dir_freqs, int use_viewdirs, int hidden,
-                                         int rgb_hidden) {
+                                         int rgb_hidden, int general, int spill) {
   return walk_smem_bytes(tile_rays, seg, n_samples, num_freqs, dir_freqs, use_viewdirs,
-                         hidden, rgb_hidden);
+                         hidden, rgb_hidden, general != 0, spill != 0);
 }
 
 // Workspace floats of one block: every activation of one segment.
 long long tinynerf_fused_nerf_train_workspace_floats(int tile_rays, int seg, int num_freqs,
-                                                     int hidden, int depth, int rgb_hidden) {
-  return walk_workspace_floats(tile_rays, seg, num_freqs, hidden, depth, rgb_hidden);
+                                                     int hidden, int depth, int rgb_hidden,
+                                                     int general) {
+  return walk_workspace_floats(tile_rays, seg, num_freqs, hidden, depth, rgb_hidden,
+                               general != 0);
 }
 
-int tinynerf_fused_nerf_train_max_threads() { return kMaxThreads; }
+// Floats of one block's X slab on the spill route.
+long long tinynerf_fused_nerf_train_spill_floats(int hidden, int num_freqs, int dir_freqs,
+                                                 int use_viewdirs, int rgb_hidden) {
+  return spill_floats(row_stride(hidden, num_freqs, dir_freqs, use_viewdirs, rgb_hidden));
+}
+
+// Threads of one block on the shape route.
+int tinynerf_fused_nerf_train_threads(int hidden, int rgb_hidden, int general) {
+  return general ? nerf_general_threads(hidden, rgb_hidden) : block_threads(hidden, rgb_hidden);
+}
 
 // K4. z and delta (R, S), or both null (the grid, jittered with the
 // int32 *seed when randomized, deltas from it); noise (R, S) or null;
@@ -80,8 +92,13 @@ int tinynerf_fused_nerf_train_max_threads() { return kMaxThreads; }
 // (no loss, no gradient), in every scene. w_mma given (pack_mma_weights; bf16 at the
 // tensor-core widths only) runs the products on the tensor cores, w_bwd
 // unused; w_mma null runs them on the CUDA cores from w_bwd (f32, or bf16
-// at other widths). Off that route: cudaErrorInvalidValue, no launch.
-// Returns the CUDA error code (0 = ok).
+// at other widths). general and spill: the shape route
+// (kernels/fused_nerf.py::nerf_shape): general 0 the one-round walk
+// (whole 128-point chunks a tile, block_threads <= 512), general 1 the
+// general walk, X in spill's slabs (n_scenes x n_blocks of
+// tinynerf_fused_nerf_train_spill_floats) when spill is given. Off the
+// routes: cudaErrorInvalidValue, no launch. Returns the CUDA error code
+// (0 = ok).
 int tinynerf_fused_nerf_train(const float* rays_o, const float* rays_d, const float* target,
                               const float* z, const float* delta, const float* noise,
                               const int* seed, const float* w_fwd, const float* w_bwd,
@@ -92,18 +109,21 @@ int tinynerf_fused_nerf_train(const float* rays_o, const float* rays_d, const fl
                               int rgb_hidden, float near, float h_bin, float inv_n,
                               int randomized, int white_bkgd, int bf16, int n_blocks, int n_grad,
                               int n_scenes, long long fwd_stride, long long bwd_stride,
-                              long long mma_stride, int device, void* stream) {
+                              long long mma_stride, int general, float* spill, int device,
+                              void* stream) {
   const Args a{rays_o, rays_d, target, z, delta, noise, seed, w_fwd, w_bwd, ws, partials,
                w_out, z_out, n_rays, n_real, n_samples, n_samples, tile_rays, num_freqs,
                dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, near, h_bin, inv_n,
                randomized, white_bkgd, bf16};
   return launch_walk_by_route<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
                                             stream,
-                                            {n_scenes, fwd_stride, bwd_stride, mma_stride});
+                                            {n_scenes, fwd_stride, bwd_stride, mma_stride},
+                                            general, spill);
 }
 
 // K6. z and delta (R, S); S must be a multiple of sample_block and n_rays
-// of tile_rays. bf16 and f32 as K4. Returns the CUDA error code (0 = ok).
+// of tile_rays. bf16 and f32, general and spill as K4. Returns the CUDA
+// error code (0 = ok).
 int tinynerf_fused_nerf_train_streamed(const float* rays_o, const float* rays_d,
                                        const float* target, const float* z, const float* delta,
                                        const float* noise, const float* w_fwd,
@@ -115,15 +135,16 @@ int tinynerf_fused_nerf_train_streamed(const float* rays_o, const float* rays_d,
                                        int hidden, int depth, int skip_at, int rgb_hidden,
                                        float inv_n, int white_bkgd, int bf16, int n_blocks,
                                        int n_grad, int n_scenes, long long fwd_stride,
-                                       long long bwd_stride, long long mma_stride, int device,
-                                       void* stream) {
+                                       long long bwd_stride, long long mma_stride, int general,
+                                       float* spill, int device, void* stream) {
   const Args a{rays_o, rays_d, target, z, delta, noise, nullptr, w_fwd, w_bwd, ws, partials,
                nullptr, nullptr, n_rays, n_real, n_samples, sample_block, tile_rays, num_freqs,
                dir_freqs, use_viewdirs, hidden, depth, skip_at, rgb_hidden, 0.f, 0.f, inv_n,
                0, white_bkgd, bf16};
   return launch_walk_by_route<Walk::kLoss>(a, w_mma, n_blocks, n_grad, dst, out, device,
                                             stream,
-                                            {n_scenes, fwd_stride, bwd_stride, mma_stride});
+                                            {n_scenes, fwd_stride, bwd_stride, mma_stride},
+                                            general, spill);
 }
 
 const char* tinynerf_cuda_error_string(int code) {

@@ -39,33 +39,26 @@
 
 extern "C" {
 
-// Shared memory of one block, in bytes (both entry points).
-int tinynerf_partials_smem_bytes(int tile_rays, int sample_block, int n_samples, int num_freqs,
-                                 int dir_freqs, int use_viewdirs, int hidden,
-                                 int rgb_hidden) {
-  return walk_smem_bytes(tile_rays, sample_block, n_samples, num_freqs, dir_freqs, use_viewdirs,
-                         hidden, rgb_hidden);
-}
-
 // Workspace floats of one block of the backward.
 long long tinynerf_partials_workspace_floats(int tile_rays, int sample_block, int num_freqs,
-                                             int hidden, int depth, int rgb_hidden) {
-  return walk_workspace_floats(tile_rays, sample_block, num_freqs, hidden, depth, rgb_hidden);
+                                             int hidden, int depth, int rgb_hidden, int general) {
+  return walk_workspace_floats(tile_rays, sample_block, num_freqs, hidden, depth, rgb_hidden,
+                               general != 0);
 }
-
-int tinynerf_partials_max_threads() { return kMaxThreads; }
 
 // The forward. z, delta and noise (R, S) (noise may be null); out6 (R, 6)
 // C(3), A, T, D; tin (R, S / sample_block); w_out (R, S) or null; w_mma
 // the tensor-core fragments, given exactly for bf16 at the tensor-core
 // widths (launch_walk_by_route). n_rays must be a multiple
-// of tile_rays and S of sample_block. Returns the CUDA error code (0 = ok).
+// of tile_rays and S of sample_block; general and spill the shape route, as
+// K4's (fused_nerf_train.cu). Returns the CUDA error code (0 = ok).
 int tinynerf_partials_fwd(const float* rays_o, const float* rays_d, const float* z,
                           const float* delta, const float* noise, const float* w_fwd,
                           const void* w_mma, float* out6, float* tin, float* w_out, int n_rays, int tile_rays,
                           int n_samples, int sample_block, int num_freqs, int dir_freqs,
                           int use_viewdirs, int hidden, int depth, int skip_at, int rgb_hidden,
-                          int bf16, int n_blocks, int device, void* stream) {
+                          int bf16, int n_blocks, int general, float* spill, int device,
+                          void* stream) {
   Args a{};
   a.rays_o = rays_o;
   a.rays_d = rays_d;
@@ -89,14 +82,14 @@ int tinynerf_partials_fwd(const float* rays_o, const float* rays_d, const float*
   a.tin = tin;
   a.out6 = out6;
   return launch_walk_by_route<Walk::kPartialsFwd>(a, w_mma, n_blocks, 0, nullptr, nullptr,
-                                                   device, stream);
+                                                   device, stream, {}, general, spill);
 }
 
 // The backward. tin (R, S / sample_block) from the forward; g_ray (R, 6)
 // the cotangents of C(3), A, T, D; g_w (R, S) or null; w_mma (bf16 at the
-// tensor-core widths) or else w_bwd. Writes the parameter gradients to out in
-// the order dst gives (then one unused float). Returns the CUDA error code
-// (0 = ok).
+// tensor-core widths) or else w_bwd; general and spill as the forward's. Writes
+// the parameter gradients to out in the order dst gives (then one unused
+// float). Returns the CUDA error code (0 = ok).
 int tinynerf_partials_bwd(const float* rays_o, const float* rays_d, const float* z,
                           const float* delta, const float* noise, const float* tin,
                           const float* g_ray, const float* g_w, const float* w_fwd,
@@ -104,7 +97,7 @@ int tinynerf_partials_bwd(const float* rays_o, const float* rays_d, const float*
                           float* out, int n_rays, int tile_rays, int n_samples, int sample_block,
                           int num_freqs, int dir_freqs, int use_viewdirs, int hidden, int depth,
                           int skip_at, int rgb_hidden, int bf16, int n_blocks, int n_grad,
-                          int device, void* stream) {
+                          int general, float* spill, int device, void* stream) {
   Args a{};
   a.rays_o = rays_o;
   a.rays_d = rays_d;
@@ -131,7 +124,7 @@ int tinynerf_partials_bwd(const float* rays_o, const float* rays_d, const float*
   a.g_w = g_w;
   a.tin = const_cast<float*>(tin);
   return launch_walk_by_route<Walk::kPartialsBwd>(a, w_mma, n_blocks, n_grad, dst, out, device,
-                                                   stream);
+                                                   stream, {}, general, spill);
 }
 
 const char* tinynerf_cuda_error_string(int code) {

@@ -193,6 +193,41 @@ __device__ void mma_dense_relu(float* X, int ld, int in_col, int n_in, int n_out
   __syncthreads();
 }
 
+// mma_dense_relu for the general kernels, whose blocks (at most 16 warps)
+// may hold fewer warps than the 2 n_out / (8 NT) warp tiles: the tiles
+// go in rounds of whole 64-row halves, each round every column tile of
+// one half (two halves a round where the block has the warps), warp w
+// taking half w % halves and column tile w / halves as mma_dense_relu's
+// warps do, so each tile's sums are mma_dense_relu's bit for bit. A round
+// reads and then overwrites only its own rows. n_out / (8 NT) <= warps.
+template <int NT>
+__device__ void mma_dense_relu_rounds(float* X, int ld, int in_col, int n_in, int n_out,
+                                      const uint2* __restrict__ W, const float* __restrict__ b,
+                                      float* __restrict__ store) {
+  constexpr int MT = kFwdMTiles;
+  const int warp = threadIdx.x >> 5, n_ct = n_out / (8 * NT);
+  const int halves = (int)(blockDim.x >> 5) >= 2 * n_ct ? 2 : 1;
+  const bool active = warp < halves * n_ct;
+#pragma unroll 1
+  for (int h0 = 0; h0 < 2; h0 += halves) {
+    const int m0 = (h0 + warp % halves) * 16 * MT, nt0 = (warp / halves) * NT;
+    float acc[MT][NT][4];
+    if (active) mma_rows<MT, NT>(acc, X + in_col, ld, m0, n_in, W, n_out / 8, nt0);
+    __syncthreads();  // every read of this round's rows is done
+    if (active) {
+      for_each_pair(acc, m0, 8 * nt0, [&](int p, int c, float v0, float v1) {
+        v0 = to_compute(fmaxf(v0 + __ldg(b + c), 0.f), true);
+        v1 = to_compute(fmaxf(v1 + __ldg(b + c + 1), 0.f), true);
+        X[p * ld + c] = v0;
+        X[p * ld + c + 1] = v1;
+        if (store != nullptr)
+          *reinterpret_cast<float2*>(store + (size_t)p * n_out + c) = make_float2(v0, v1);
+      });
+    }
+    __syncthreads();
+  }
+}
+
 // The upstream product of a 64-point backward chunk into registers:
 // acc = G[:, 0, n_red) @ W^T[:, :n_cols), W's packed upstream B. Warp w
 // takes points 32 (w % 2) on and columns 32 (w / 2) on; blockDim.x / 32
@@ -207,6 +242,31 @@ __device__ __forceinline__ int mma_upstream(float (&acc)[kUpMTiles][kUpNTiles][4
   mma_rows<kUpMTiles, kUpNTiles>(acc, G, ld, (warp % 2) * 16 * kUpMTiles, n_red, W, n_cols / 8,
                                  nt0);
   return 8 * nt0;
+}
+
+// mma_upstream for the general kernels, with its epilogue: the warp tiles
+// (32 points x 32 columns) go in rounds of whole 32-point halves of the
+// chunk, as mma_dense_relu_rounds takes its rows, and after each round's
+// barrier store(p, k, v0, v1) receives the round's sums (mma_upstream's,
+// bit for bit). A round reads only its own rows of G, so the epilogue may
+// write over them (rgb_in's upstream writes the trunk's gradient into G).
+// The caller synchronises before the first round reads, as for
+// mma_upstream. n_cols / 32 <= warps.
+template <class F>
+__device__ void mma_upstream_rounds(const float* G, int ld, int n_red,
+                                    const uint2* __restrict__ W, int n_cols, F store) {
+  const int warp = threadIdx.x >> 5, n_ct = n_cols / (8 * kUpNTiles);
+  const int halves = (int)(blockDim.x >> 5) >= 2 * n_ct ? 2 : 1;
+  const bool active = warp < halves * n_ct;
+#pragma unroll 1
+  for (int h0 = 0; h0 < 2; h0 += halves) {
+    const int m0 = (h0 + warp % halves) * 16 * kUpMTiles, nt0 = (warp / halves) * kUpNTiles;
+    float acc[kUpMTiles][kUpNTiles][4];
+    if (active) mma_rows<kUpMTiles, kUpNTiles>(acc, G, ld, m0, n_red, W, n_cols / 8, nt0);
+    __syncthreads();  // every read of this round's rows is done
+    if (active) for_each_pair(acc, m0, 8 * nt0, store);
+    __syncthreads();
+  }
 }
 
 // train_common.cuh's weight_grad_item loop on the tensor cores, with the

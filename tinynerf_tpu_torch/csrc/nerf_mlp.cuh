@@ -53,6 +53,33 @@ __host__ __device__ inline int block_threads(int hidden, int rgb_hidden) {
   return 2 * (hidden > rgb_hidden ? hidden : rgb_hidden);
 }
 
+constexpr int kMaxBlockThreads = 512;  // every NeRF kernel's launch bound
+
+// Threads of a general kernel's block (K3-K7 past one round): the
+// one-round count capped at kMaxBlockThreads; the products then take
+// their items in rounds (dense_relu_rounds and its tensor-core twins).
+__host__ __device__ inline int nerf_general_threads(int hidden, int rgb_hidden) {
+  const int t = block_threads(hidden, rgb_hidden);
+  return t < kMaxBlockThreads ? t : kMaxBlockThreads;
+}
+
+// The widest width a general kernel takes: a round holds at least one
+// point group's max(hidden, rgb_hidden) / kCols items.
+constexpr int kMaxGeneralWidth = kCols * kMaxBlockThreads;
+
+// Points of a general kernel's segment buffers: tile_rays * seg rounded up
+// to whole kTilePoints chunks (the last chunk's rows past the segment are
+// computed from the origin and masked).
+__host__ __device__ inline int chunk_points(int n) {
+  return (n + kTilePoints - 1) / kTilePoints * kTilePoints;
+}
+
+// One block's slab of X on the general kernels' spill route (X in device
+// memory): kTilePoints rows of ld floats, rounded up to 128 bytes.
+__host__ __device__ inline long long spill_floats(int ld) {
+  return ((long long)kTilePoints * ld + 31) / 32 * 32;
+}
+
 // X[p][0, n_out) = to_compute(relu(X[p][in_col, in_col + n_in) @ W + b))
 // for the PT rows. W is (n_in, n_out) row-major, n_out a multiple of
 // kCols. Item = (point group pg, column group): rows pg + n_pg*i, columns
@@ -133,6 +160,68 @@ __device__ void dense_relu_fit(float* X, int ld, int in_col, int n_in, int n_out
     dense_relu<PT, 4, kStore>(X, ld, in_col, n_in, n_out, W, b, bf16, store);
   else
     dense_relu<PT, 8, kStore>(X, ld, in_col, n_in, n_out, W, b, bf16, store);
+}
+
+// dense_relu for the general kernels (blocks of at most kMaxBlockThreads, fewer
+// than the (PT / 8) * (n_out / kCols) items of one round): the items are
+// taken in rounds of whole point groups, item = pg * n_og + og with the
+// column group the fast index, so a round of blockDim.x / n_og point
+// groups reads and then overwrites only its own rows (a barrier between
+// its reads and its writes). Each output's sum is dense_relu's, term by
+// term (k in order from 0, fmaf), so the values are bit-identical to it.
+// kStore writes every row as dense_relu does. blockDim.x >= n_out / kCols.
+template <bool kStore = false>
+__device__ void dense_relu_rounds(float* X, int ld, int in_col, int n_in, int n_out,
+                                  const float* __restrict__ W, const float* __restrict__ b,
+                                  bool bf16, float* __restrict__ store = nullptr) {
+  constexpr int MT = 8, n_pg = kTilePoints / MT;
+  const int n_og = n_out / kCols, per = blockDim.x / n_og;
+  const int col0 = (threadIdx.x % n_og) * kCols;
+#pragma unroll 1
+  for (int pg0 = 0; pg0 < n_pg; pg0 += per) {
+    const int pg = pg0 + threadIdx.x / n_og;
+    const bool active = (int)threadIdx.x < per * n_og && pg < n_pg;
+    float acc[MT][kCols];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+    if (active) {
+      const float* xin = X + pg * ld + in_col;
+      const float* wrow = W + col0;
+#pragma unroll 2
+      for (int k = 0; k < n_in; ++k, wrow += n_out) {
+        const float4 w0 = __ldg(reinterpret_cast<const float4*>(wrow));
+        const float4 w1 = __ldg(reinterpret_cast<const float4*>(wrow) + 1);
+        const float w[kCols] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const float x = xin[i * n_pg * ld + k];
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x, w[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();  // every read of this round's rows is done
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        float* row = X + (pg + n_pg * i) * ld + col0;
+        float v[kCols];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          v[j] = to_compute(fmaxf(acc[i][j] + __ldg(b + col0 + j), 0.f), bf16);
+          row[j] = v[j];
+        }
+        if (kStore) {
+          float4* dst = reinterpret_cast<float4*>(store + (size_t)(pg + n_pg * i) * n_out + col0);
+          dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+          dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+        }
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // The tensor-core kernels' sigma head (K3/K5 and the training walk alike,

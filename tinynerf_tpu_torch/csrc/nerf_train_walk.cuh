@@ -35,7 +35,8 @@
 // backward rematerialises from the same products its forward ran.
 
 // Design. The forward of a segment (TR rays x `seg` samples, a whole
-// number of 128-point chunks) is K3's: nerf_mlp.cuh's dense_relu over one
+// number of 128-point chunks; the general walk below lifts this and the
+// thread count) is K3's: nerf_mlp.cuh's dense_relu over one
 // 128-row shared buffer, 2*max(hidden, rgb_hidden) threads of 8x8
 // register blocks (rgb_in's rows per thread fit its width). The backward
 // needs every trunk layer's post-activation, 8 x 256 x 128 floats
@@ -75,6 +76,28 @@
 // bit-identical to a one-scene launch. A one-scene launch runs
 // nerf_walk_kernel, which has no scene offsets in it.
 //
+// The general walk (third template argument kGeneral; a shape route chosen
+// by configuration, kernels/fused_nerf.py::nerf_shape, and checked again by
+// walk_shape_ok) takes every width and segment the one-round walk cannot:
+// - past block_threads = 512 (hidden or rgb_hidden past 256) the block
+//   keeps 512 threads and each product takes its items in rounds of whole
+//   point groups (dense_relu_rounds, upstream_rounds; on the tensor cores
+//   mma_dense_relu_rounds and mma_upstream_rounds, whole 64-row or
+//   32-point halves a round, so hidden up to 512): a round reads and then
+//   overwrites only its own rows, and every output's sum is the one-round
+//   product's, bit for bit;
+// - a segment of TR x seg points need not fill whole 128-point chunks: the
+//   per-point buffers and each workspace layer hold it rounded up to whole
+//   chunks (chunk_points), the rows past it encode the origin (finite
+//   values) and get zero head gradients, so every backward chunk's G rows
+//   there are zero and add exactly nothing to any weight gradient;
+// - where X (128 rows of ld floats) does not fit 227 KB beside the rest, X
+//   lives in the block's slab of a device buffer (`spill`), reached through
+//   the same generic pointers, and the scalars stay in shared memory.
+// Forced onto a recipe's shape, both general routes give the one-round
+// walk's results bit for bit. The one-round walk's code is kept as it was
+// (its ptxas lines too): every change sits behind `if constexpr (kGeneral)`.
+
 // Numerics follow the TPU kernels term by term, with one exact rewrite:
 // the composite with one_m = exp(-sigma delta) + 1e-10 and the 1e10
 // terminal delta scaled by ||d||; the density gradient by a recurrence on
@@ -105,7 +128,6 @@ namespace {
 
 constexpr int kBwdPoints = 64;  // point rows of one backward chunk
 constexpr int kBwdRows = 4;     // MT of the backward upstream products
-constexpr int kMaxThreads = 512;
 static_assert(kBwdPoints == kMmaChunkPoints, "the tensor-core weight gradient sums 64 points");
 
 enum class Walk { kLoss, kPartialsFwd, kPartialsBwd };
@@ -173,10 +195,13 @@ __host__ __device__ inline int walk_n_grad(int E, int Dd, int H, int D, int skip
   return layer_off(D, E, H, skip_at) + H + 4 + (H + Dd + 1) * RH + RH * 3 + 3;
 }
 
-// Workspace floats of one block: every activation of one segment.
+// Workspace floats of one block: every activation of one segment (general:
+// of its rows rounded up to whole chunks).
 __host__ __device__ inline long long walk_workspace_floats(int tile_rays, int seg, int num_freqs,
-                                                           int hidden, int depth, int rgb_hidden) {
-  return (long long)tile_rays * seg * (depth * hidden + rgb_hidden + enc_dim(num_freqs));
+                                                           int hidden, int depth, int rgb_hidden,
+                                                           bool general = false) {
+  const long long n = general ? chunk_points(tile_rays * seg) : (long long)tile_rays * seg;
+  return n * (depth * hidden + rgb_hidden + enc_dim(num_freqs));
 }
 
 // acc[i][j] = sum over o < n_red of G[p][o] * WT[o][col0 + j], for the
@@ -206,6 +231,31 @@ __device__ __forceinline__ void upstream_item(const float* G, int ld, int n_red,
   }
 }
 
+// upstream_item for the general walk, with its epilogue: the items
+// (point group pg, column group) go in rounds of whole point groups
+// (item = pg * n_og + og, the column group the fast index), and after each
+// round's barrier store(pg, col0, acc) receives the round's sums
+// (upstream_item's, bit for bit). A round reads only its own rows of G, so
+// the epilogue may write over them. The caller synchronises before the
+// first round reads. blockDim.x >= n_cols / kCols.
+template <class F>
+__device__ __forceinline__ void upstream_rounds(const float* G, int ld, int n_red,
+                                                const float* __restrict__ WT, int n_cols, F store) {
+  constexpr int n_pg = kBwdPoints / kBwdRows;
+  const int n_og = n_cols / kCols, per = blockDim.x / n_og;
+  const int col0 = (threadIdx.x % n_og) * kCols;
+#pragma unroll 1
+  for (int pg0 = 0; pg0 < n_pg; pg0 += per) {
+    const int pg = pg0 + threadIdx.x / n_og;
+    const bool active = (int)threadIdx.x < per * n_og && pg < n_pg;
+    float acc[kBwdRows][kCols];
+    if (active) upstream_item(G, ld, n_red, WT, n_cols, pg, col0, acc);
+    __syncthreads();  // every read of this round's rows is done
+    if (active) store(pg, col0, acc);
+    __syncthreads();
+  }
+}
+
 // rows x n floats from device memory (row stride n, n a multiple of 4,
 // 16-byte aligned) into the shared rows of stride ld: float4 loads, several
 // in flight per thread. No barrier.
@@ -229,9 +279,11 @@ __device__ __forceinline__ void accumulate(float* d, float s, bool first) {
 
 // kMma: the three MLP products on the tensor cores (mma_bf16.cuh), bf16 at
 // the tensor-core widths; false keeps the CUDA-core products (f32, and bf16
-// rounded at run time at other widths).
-template <Walk kMode, bool kMma = false>
-__device__ __forceinline__ void nerf_walk(const Args& a) {
+// rounded at run time at other widths). kGeneral: the general walk (see the
+// header): products in rounds, a segment ending in a partial chunk, and X
+// in the block's slab of `spill` when that is given.
+template <Walk kMode, bool kMma = false, bool kGeneral = false>
+__device__ __forceinline__ void nerf_walk(const Args& a, float* spill = nullptr) {
   // K7's forward keeps no activations: nothing reads them back.
   constexpr bool kStore = kMode != Walk::kPartialsFwd;
   extern __shared__ float smem[];
@@ -241,15 +293,25 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
   const int E = enc_dim(L), Dd = dir_dim(a.dir_freqs, a.use_viewdirs);
   const int ld = row_stride(H, L, a.dir_freqs, a.use_viewdirs, RH);
   const bool bf16 = a.bf16 != 0;
-  const int n_seg = TR * SEG;  // points of one segment: whole 128-point chunks
+  const int n_seg = TR * SEG;  // points of one segment (one-round walk: whole 128-point chunks)
+  // Rows of the per-point buffers and of each workspace layer: n_seg, or
+  // in the general walk n_seg rounded up to whole chunks (rows past n_seg
+  // hold finite values of the origin and zero gradients).
+  const int NP = kGeneral ? chunk_points(n_seg) : n_seg;
   const int NB = S / SEG;
   float* X = smem;                        // (kTilePoints, ld)
   float* pts = X + kTilePoints * ld;      // (kTilePoints, 3)
-  float* ps = pts + kTilePoints * 3;      // kNumScalars x n_seg
-  float* rs = ps + kNumScalars * n_seg;   // kRayScalars x TR
+  if constexpr (kGeneral) {
+    if (spill != nullptr) {  // X in the block's slab; the rest stays shared
+      X = spill + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * spill_floats(ld);
+      pts = smem;
+    }
+  }
+  float* ps = pts + kTilePoints * 3;      // kNumScalars x NP
+  float* rs = ps + kNumScalars * NP;      // kRayScalars x TR
   float* denc = rs + kRayScalars * TR;    // (TR, Dd)
   float* tin = denc + TR * Dd;            // (NB, TR): each block's entry T
-  auto Q = [&](int q) { return ps + q * n_seg; };
+  auto Q = [&](int q) { return ps + q * NP; };
   auto RS = [&](int q) { return rs + q * TR; };
 
   // Packed weights (and gradients): trunk (W, b)..., sigma (W hidden, b,
@@ -268,9 +330,9 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
   float* part = kStore ? a.partials + (size_t)blockIdx.x * (n_grad + 1) : nullptr;
   // Workspace: per trunk layer (n_seg, H) post-activations, rgb_in's
   // output (n_seg, RH), the encoding (n_seg, E).
-  float* ws = kStore ? a.ws + (size_t)blockIdx.x * n_seg * (D * H + RH + E) : nullptr;
-  float* ws_g1 = kStore ? ws + (size_t)D * n_seg * H : nullptr;
-  float* ws_enc = kStore ? ws_g1 + (size_t)n_seg * RH : nullptr;
+  float* ws = kStore ? a.ws + (size_t)blockIdx.x * NP * (D * H + RH + E) : nullptr;
+  float* ws_g1 = kStore ? ws + (size_t)D * NP * H : nullptr;
+  float* ws_enc = kStore ? ws_g1 + (size_t)NP * RH : nullptr;
   const bool randomized = a.randomized != 0;
   const unsigned int seed = randomized ? (unsigned int)(*a.seed) : 0u;
 
@@ -295,6 +357,9 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       if (a.z_out != nullptr) a.z_out[gs] = z;
       if (a.delta != nullptr) Q(kDelta)[q] = a.delta[gs];
     }
+    if constexpr (kGeneral) {
+      for (int q = n_seg + tid; q < NP; q += nt) Q(kZ)[q] = Q(kDelta)[q] = 0.f;
+    }
     __syncthreads();
     if (a.delta == nullptr) {  // one segment of all S samples: z_{s+1} - z_s
       for (int q = tid; q < n_seg; q += nt) {
@@ -307,6 +372,19 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       for (int p = tid; p < kTilePoints; p += nt) {
         const int q = c0 + p, g = ray0 + q / SEG;
         const float z = Q(kZ)[q];
+        if constexpr (kGeneral) {
+          // The general walk's rows past the segment take the origin.
+          const bool real = q < n_seg;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float v = real ? __fadd_rn(a.rays_o[(size_t)g * 3 + c],
+                                             __fmul_rn(a.rays_d[(size_t)g * 3 + c], z))
+                                 : 0.f;
+            pts[p * 3 + c] = v;
+            X[p * ld + H + c] = to_compute(v, bf16);
+          }
+          continue;
+        }
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
           const float v = __fadd_rn(a.rays_o[(size_t)g * 3 + c],
@@ -328,13 +406,20 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       const float* wp = a.w_fwd;
       for (int i = 0; i < D; ++i) {
         const int n_in = layer_in_dim(i, E, H, a.skip_at);
-        if constexpr (kMma) {
+        if constexpr (kMma && kGeneral) {
+          mma_dense_relu_rounds<4>(X, ld, i == 0 ? H : 0, n_in, H,
+                                   w_mma + mma_fwd_off(i, E, H, a.skip_at) / 4, wp + n_in * H,
+                                   store ? ws + ((size_t)i * NP + c0) * H : nullptr);
+        } else if constexpr (kMma) {
           mma_dense_relu<4>(X, ld, i == 0 ? H : 0, n_in, H,
                             w_mma + mma_fwd_off(i, E, H, a.skip_at) / 4, wp + n_in * H,
-                            store ? ws + ((size_t)i * n_seg + c0) * H : nullptr);
+                            store ? ws + ((size_t)i * NP + c0) * H : nullptr);
+        } else if constexpr (kGeneral) {
+          dense_relu_rounds<kStore>(X, ld, i == 0 ? H : 0, n_in, H, wp, wp + n_in * H, bf16,
+                                    kStore ? ws + ((size_t)i * NP + c0) * H : nullptr);
         } else {
           dense_relu<kTilePoints, 8, kStore>(X, ld, i == 0 ? H : 0, n_in, H, wp, wp + n_in * H,
-                                             bf16, kStore ? ws + ((size_t)i * n_seg + c0) * H
+                                             bf16, kStore ? ws + ((size_t)i * NP + c0) * H
                                                           : nullptr);
         }
         wp += (n_in + 1) * H;
@@ -351,7 +436,12 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
           if (valid && q == 0) {
             acc += __ldg(w_sigma + H);
             const int qp = c0 + p;
-            if (a.noise != nullptr) acc += a.noise[(size_t)(ray0 + qp / SEG) * S + s0 + qp % SEG];
+            if constexpr (kGeneral) {
+              if (a.noise != nullptr && qp < n_seg)
+                acc += a.noise[(size_t)(ray0 + qp / SEG) * S + s0 + qp % SEG];
+            } else {
+              if (a.noise != nullptr) acc += a.noise[(size_t)(ray0 + qp / SEG) * S + s0 + qp % SEG];
+            }
             Q(kSigmaRaw)[qp] = acc;
           }
         }
@@ -362,18 +452,36 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
           for (int k = 0; k < H; ++k) acc = fmaf(row[k], __ldg(w_sigma + k), acc);
           acc += __ldg(w_sigma + H);
           const int q = c0 + p;
-          if (a.noise != nullptr) acc += a.noise[(size_t)(ray0 + q / SEG) * S + s0 + q % SEG];
+          if constexpr (kGeneral) {
+            if (a.noise != nullptr && q < n_seg)
+              acc += a.noise[(size_t)(ray0 + q / SEG) * S + s0 + q % SEG];
+          } else {
+            if (a.noise != nullptr) acc += a.noise[(size_t)(ray0 + q / SEG) * S + s0 + q % SEG];
+          }
           Q(kSigmaRaw)[q] = acc;
         }
       }
       for (int idx = tid; idx < kTilePoints * Dd; idx += nt) {
         const int p = idx / Dd, j = idx % Dd;
-        X[p * ld + H + j] = denc[((c0 + p) / SEG) * Dd + j];
+        if constexpr (kGeneral) {  // rows past the segment: ray 0's
+          const int r = (c0 + p) / SEG;
+          X[p * ld + H + j] = denc[(r < TR ? r : 0) * Dd + j];
+        } else {
+          X[p * ld + H + j] = denc[((c0 + p) / SEG) * Dd + j];
+        }
       }
       __syncthreads();
       const float* b_in = w_rgb_in + (H + Dd) * RH;
       float* st = kStore ? ws_g1 + (size_t)c0 * RH : nullptr;
-      if constexpr (kMma) {
+      if constexpr (kMma && kGeneral) {
+        const uint2* wm = w_mma + mma_rgb_in / 4;
+        float* sm = store ? st : nullptr;
+        switch (4 * RH / H) {
+          case 1: mma_dense_relu_rounds<1>(X, ld, 0, H + Dd, RH, wm, b_in, sm); break;
+          case 2: mma_dense_relu_rounds<2>(X, ld, 0, H + Dd, RH, wm, b_in, sm); break;
+          default: mma_dense_relu_rounds<4>(X, ld, 0, H + Dd, RH, wm, b_in, sm); break;
+        }
+      } else if constexpr (kMma) {
         // 2 warps over the rows, H / 32 over rgb_in's columns, 8 NT each.
         const uint2* wm = w_mma + mma_rgb_in / 4;
         float* sm = store ? st : nullptr;
@@ -382,6 +490,8 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
           case 2: mma_dense_relu<2>(X, ld, 0, H + Dd, RH, wm, b_in, sm); break;
           default: mma_dense_relu<4>(X, ld, 0, H + Dd, RH, wm, b_in, sm); break;
         }
+      } else if constexpr (kGeneral) {
+        dense_relu_rounds<kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st);
       } else {
         dense_relu_fit<kTilePoints, kStore>(X, ld, 0, H + Dd, RH, w_rgb_in, b_in, bf16, st);
       }
@@ -581,6 +691,12 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) RS(kRgbNext0 + c)[r] = rn[c];
     }
+    if constexpr (kGeneral) {
+      // The rows past the segment add nothing: zero head gradients, so every
+      // backward chunk's G rows there are zero (their inputs are finite).
+      for (int q = n_seg + tid; q < NP; q += nt)
+        Q(kGRgb0)[q] = Q(kGRgb1)[q] = Q(kGRgb2)[q] = Q(kGSigma)[q] = 0.f;
+    }
     __syncthreads();
   };
 
@@ -604,17 +720,22 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
 
       // 1. In = [h_trunk, d_enc] (rgb_in's input), G = rgb_in's output.
       if constexpr (kMma) {
-        load_rows4(In, ld, ws + ((size_t)(D - 1) * n_seg + c0) * H, kBwdPoints, H);
+        load_rows4(In, ld, ws + ((size_t)(D - 1) * NP + c0) * H, kBwdPoints, H);
         load_rows4(G, ld, ws_g1 + (size_t)c0 * RH, kBwdPoints, RH);
       } else {
         for (int idx = tid; idx < kBwdPoints * H; idx += nt) {
           const int p = idx / H, k = idx % H;
-          In[p * ld + k] = ws[((size_t)(D - 1) * n_seg + c0 + p) * H + k];
+          In[p * ld + k] = ws[((size_t)(D - 1) * NP + c0 + p) * H + k];
         }
       }
       for (int idx = tid; idx < kBwdPoints * Dd; idx += nt) {
         const int p = idx / Dd, j = idx % Dd;
-        In[p * ld + H + j] = denc[((c0 + p) / SEG) * Dd + j];
+        if constexpr (kGeneral) {
+          const int r = (c0 + p) / SEG;
+          In[p * ld + H + j] = denc[(r < TR ? r : 0) * Dd + j];
+        } else {
+          In[p * ld + H + j] = denc[((c0 + p) / SEG) * Dd + j];
+        }
       }
       if constexpr (!kMma) {
         for (int idx = tid; idx < kBwdPoints * RH; idx += nt) {
@@ -666,11 +787,7 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
           case 2: mma_weight_grad<2>(in, G, ld, RH, part + off_rgb_in, first); break;
           default: mma_weight_grad<1>(in, G, ld, RH, part + off_rgb_in, first); break;
         }
-        float up[kUpMTiles][kUpNTiles][4];
-        const int n0 = mma_upstream(up, G, ld, RH, w_mma + (mma_up + (D - 1) * H * H) / 4, H);
-        __syncthreads();
-        for_each_pair(up, ((tid >> 5) % 2) * 16 * kUpMTiles, n0,
-                      [&](int p, int k, float v0, float v1) {
+        auto trunk_grad = [&](int p, int k, float v0, float v1) {
           const float v[2] = {v0, v1};
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
@@ -678,8 +795,17 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
             const float x = to_compute(to_compute(v[c], true) + g_sig, true);
             G[p * ld + k + c] = In[p * ld + k + c] > 0.f ? x : 0.f;
           }
-        });
-        __syncthreads();
+        };
+        const uint2* w_up = w_mma + (mma_up + (D - 1) * H * H) / 4;
+        if constexpr (kGeneral) {
+          mma_upstream_rounds(G, ld, RH, w_up, H, trunk_grad);
+        } else {
+          float up[kUpMTiles][kUpNTiles][4];
+          const int n0 = mma_upstream(up, G, ld, RH, w_up, H);
+          __syncthreads();
+          for_each_pair(up, ((tid >> 5) % 2) * 16 * kUpMTiles, n0, trunk_grad);
+          __syncthreads();
+        }
       } else {
         const int items_w = (H + Dd + kCols - 1) / kCols * (RH / kCols);
         for (int item = tid; item < items_w + RH; item += nt) {
@@ -693,22 +819,39 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
             accumulate(part + off_rgb_in + (H + Dd) * RH + o, s, first);
           }
         }
-        upstream_item(G, ld, RH, a.w_bwd + (size_t)(D - 1) * H * H, H, pg, col0, acc);
-        __syncthreads();
-        if (up_active) {
+        if constexpr (kGeneral) {
+          upstream_rounds(G, ld, RH, a.w_bwd + (size_t)(D - 1) * H * H, H,
+                          [&](int pg, int col0, const float (&acc)[kBwdRows][kCols]) {
 #pragma unroll
-          for (int i = 0; i < kBwdRows; ++i) {
-            const int p = pg + n_pg * i;
+            for (int i = 0; i < kBwdRows; ++i) {
+              const int p = pg + n_pg * i;
 #pragma unroll
-            for (int j = 0; j < kCols; ++j) {
-              const int k = col0 + j;
-              const float g_sig = to_compute(__ldg(w_sigma + k) * gs[p], bf16);
-              const float v = to_compute(to_compute(acc[i][j], bf16) + g_sig, bf16);
-              G[p * ld + k] = In[p * ld + k] > 0.f ? v : 0.f;
+              for (int j = 0; j < kCols; ++j) {
+                const int k = col0 + j;
+                const float g_sig = to_compute(__ldg(w_sigma + k) * gs[p], bf16);
+                const float v = to_compute(to_compute(acc[i][j], bf16) + g_sig, bf16);
+                G[p * ld + k] = In[p * ld + k] > 0.f ? v : 0.f;
+              }
+            }
+          });
+        } else {
+          upstream_item(G, ld, RH, a.w_bwd + (size_t)(D - 1) * H * H, H, pg, col0, acc);
+          __syncthreads();
+          if (up_active) {
+#pragma unroll
+            for (int i = 0; i < kBwdRows; ++i) {
+              const int p = pg + n_pg * i;
+#pragma unroll
+              for (int j = 0; j < kCols; ++j) {
+                const int k = col0 + j;
+                const float g_sig = to_compute(__ldg(w_sigma + k) * gs[p], bf16);
+                const float v = to_compute(to_compute(acc[i][j], bf16) + g_sig, bf16);
+                G[p * ld + k] = In[p * ld + k] > 0.f ? v : 0.f;
+              }
             }
           }
+          __syncthreads();
         }
-        __syncthreads();
       }
 
       // 5. Trunk, last layer first: G holds layer i's (masked) output
@@ -717,11 +860,11 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
       for (int i = D - 1; i >= 0; --i) {
         if (i > 0) {
           if constexpr (kMma) {
-            load_rows4(In, ld, ws + ((size_t)(i - 1) * n_seg + c0) * H, kBwdPoints, H);
+            load_rows4(In, ld, ws + ((size_t)(i - 1) * NP + c0) * H, kBwdPoints, H);
           } else {
             for (int idx = tid; idx < kBwdPoints * H; idx += nt) {
               const int p = idx / H, k = idx % H;
-              In[p * ld + k] = ws[((size_t)(i - 1) * n_seg + c0 + p) * H + k];
+              In[p * ld + k] = ws[((size_t)(i - 1) * NP + c0 + p) * H + k];
             }
           }
         }
@@ -740,15 +883,20 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
           mma_weight_grad<4>(i == 0 ? Seg{In + H, ld, E} : Seg{In, ld, n_in}, G, ld, H,
                              part + off, first);
           if (i > 0) {
-            float up[kUpMTiles][kUpNTiles][4];
-            const int n0 = mma_upstream(up, G, ld, H, w_mma + (mma_up + (i - 1) * H * H) / 4, H);
-            __syncthreads();
-            for_each_pair(up, ((tid >> 5) % 2) * 16 * kUpMTiles, n0,
-                          [&](int p, int k, float v0, float v1) {
+            auto masked = [&](int p, int k, float v0, float v1) {
               float* x = In + p * ld + k;
               x[0] = x[0] > 0.f ? to_compute(v0, true) : 0.f;
               x[1] = x[1] > 0.f ? to_compute(v1, true) : 0.f;
-            });
+            };
+            const uint2* w_up = w_mma + (mma_up + (i - 1) * H * H) / 4;
+            if constexpr (kGeneral) {
+              mma_upstream_rounds(G, ld, H, w_up, H, masked);
+            } else {
+              float up[kUpMTiles][kUpNTiles][4];
+              const int n0 = mma_upstream(up, G, ld, H, w_up, H);
+              __syncthreads();
+              for_each_pair(up, ((tid >> 5) % 2) * 16 * kUpMTiles, n0, masked);
+            }
             float* t = In;
             In = G;
             G = t;
@@ -774,15 +922,28 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
           }
         }
         if (i > 0) {
-          upstream_item(G, ld, H, a.w_bwd + (size_t)(i - 1) * H * H, H, pg, col0, acc);
-          __syncthreads();
-          if (up_active) {
+          if constexpr (kGeneral) {
+            upstream_rounds(G, ld, H, a.w_bwd + (size_t)(i - 1) * H * H, H,
+                            [&](int pg, int col0, const float (&acc)[kBwdRows][kCols]) {
 #pragma unroll
-            for (int ii = 0; ii < kBwdRows; ++ii) {
-              float* row = In + (pg + n_pg * ii) * ld + col0;
+              for (int ii = 0; ii < kBwdRows; ++ii) {
+                float* row = In + (pg + n_pg * ii) * ld + col0;
 #pragma unroll
-              for (int j = 0; j < kCols; ++j)
-                row[j] = row[j] > 0.f ? to_compute(acc[ii][j], bf16) : 0.f;
+                for (int j = 0; j < kCols; ++j)
+                  row[j] = row[j] > 0.f ? to_compute(acc[ii][j], bf16) : 0.f;
+              }
+            });
+          } else {
+            upstream_item(G, ld, H, a.w_bwd + (size_t)(i - 1) * H * H, H, pg, col0, acc);
+            __syncthreads();
+            if (up_active) {
+#pragma unroll
+              for (int ii = 0; ii < kBwdRows; ++ii) {
+                float* row = In + (pg + n_pg * ii) * ld + col0;
+#pragma unroll
+                for (int j = 0; j < kCols; ++j)
+                  row[j] = row[j] > 0.f ? to_compute(acc[ii][j], bf16) : 0.f;
+              }
             }
           }
           float* t = In;
@@ -835,7 +996,9 @@ __device__ __forceinline__ void nerf_walk(const Args& a) {
 }
 
 // Scene sc's arguments (see the header): every per-scene pointer moved to
-// its slab; null pointers stay null. Scene 0 is the launch's own.
+// its slab; null pointers stay null. Scene 0 is the launch's own. kGeneral:
+// the general walk's workspace rows (whole chunks).
+template <bool kGeneral = false>
 __device__ __forceinline__ Args scene_args(Args a, const WalkScenes& st, int sc) {
   const size_t r3 = (size_t)sc * a.n_rays * 3, rs = (size_t)sc * a.n_rays * a.S;
   a.rays_o += r3;
@@ -855,7 +1018,7 @@ __device__ __forceinline__ Args scene_args(Args a, const WalkScenes& st, int sc)
   if (a.ws != nullptr)
     a.ws += (size_t)sc * gridDim.x *
             walk_workspace_floats(a.tile_rays, a.seg, a.num_freqs, a.hidden, a.depth,
-                                  a.rgb_hidden);
+                                  a.rgb_hidden, kGeneral);
   if (a.partials != nullptr)
     a.partials += (size_t)sc * gridDim.x *
                   (walk_n_grad(E, Dd, a.hidden, a.depth, a.skip_at, a.rgb_hidden) + 1);
@@ -863,60 +1026,73 @@ __device__ __forceinline__ Args scene_args(Args a, const WalkScenes& st, int sc)
 }
 
 // One scene (every K7 launch, and K4 and K6 on one scene): the launch's
-// own pointers.
-template <Walk kMode, bool kMma>
-__global__ void __launch_bounds__(kMaxThreads, 1) nerf_walk_kernel(Args a) {
-  nerf_walk<kMode, kMma>(a);
+// own pointers. kGeneral: the general walk; `spill` its X slabs, or null
+// (X in shared memory; always null without kGeneral).
+template <Walk kMode, bool kMma, bool kGeneral>
+__global__ void __launch_bounds__(kMaxBlockThreads, 1) nerf_walk_kernel(Args a, float* spill) {
+  nerf_walk<kMode, kMma, kGeneral>(a, spill);
 }
 
 // Scene blockIdx.y of a stack (K4 and K6). A kernel of its own, so that a
 // one-scene launch runs nerf_walk with no scene offsets in it.
-template <Walk kMode, bool kMma>
-__global__ void __launch_bounds__(kMaxThreads, 1) nerf_walk_scenes_kernel(Args a,
-                                                                        WalkScenes st) {
-  nerf_walk<kMode, kMma>(scene_args(a, st, blockIdx.y));
+template <Walk kMode, bool kMma, bool kGeneral>
+__global__ void __launch_bounds__(kMaxBlockThreads, 1) nerf_walk_scenes_kernel(Args a,
+                                                                        WalkScenes st,
+                                                                        float* spill) {
+  nerf_walk<kMode, kMma, kGeneral>(scene_args<kGeneral>(a, st, blockIdx.y), spill);
 }
 
 // Shared memory of one block, in bytes, for tile_rays rays and segments
-// of `seg` samples out of n_samples.
+// of `seg` samples out of n_samples: X and the points, the per-point and
+// per-ray scalars, the direction encodings, the entry transmittances.
+// general: the general walk's per-point rows (whole chunks); spill: X in
+// device memory (spill_floats(ld) a block) instead.
 inline int walk_smem_bytes(int tile_rays, int seg, int n_samples, int num_freqs, int dir_freqs,
-                           int use_viewdirs, int hidden, int rgb_hidden) {
+                           int use_viewdirs, int hidden, int rgb_hidden, bool general = false,
+                           bool spill = false) {
   const int ld = row_stride(hidden, num_freqs, dir_freqs, use_viewdirs, rgb_hidden);
-  const int floats = kTilePoints * (ld + 3) + kNumScalars * tile_rays * seg +
-                     kRayScalars * tile_rays + tile_rays * dir_dim(dir_freqs, use_viewdirs) +
-                     (n_samples / seg) * tile_rays;
-  return floats * (int)sizeof(float);
+  const int n = general ? chunk_points(tile_rays * seg) : tile_rays * seg;
+  const long long floats = (long long)kTilePoints * ((spill ? 0 : ld) + 3) +
+                           (long long)kNumScalars * n + kRayScalars * tile_rays +
+                           tile_rays * dir_dim(dir_freqs, use_viewdirs) +
+                           (long long)(n_samples / seg) * tile_rays;
+  return floats * (long long)sizeof(float) > 0x7fffffff ? 0x7fffffff
+                                                        : (int)(floats * sizeof(float));
 }
 
-// The walk on n_blocks x scenes.n blocks of block_threads; then, when dst
-// is given, the reduction of each scene's partial rows into its n_grad - 2
-// floats of out (the parameters in their order without the layout's 3
-// padding floats, the loss last). kMma takes the tensor-core products.
-// Returns the CUDA error code (0 = ok).
-template <Walk kMode, bool kMma = false>
+// The walk on n_blocks x scenes.n blocks; then, when dst is given, the
+// reduction of each scene's partial rows into its n_grad - 2 floats of out
+// (the parameters in their order without the layout's 3 padding floats,
+// the loss last). kMma takes the tensor-core products; kGeneral the
+// general walk on nerf_general_threads threads (spill: its X slabs, or
+// null), else block_threads. Returns the CUDA error code (0 = ok).
+template <Walk kMode, bool kMma = false, bool kGeneral = false>
 int launch_walk(const Args& a, const WalkScenes& scenes, int n_blocks, int n_grad,
-                const int* dst, float* out, int device, void* stream) {
+                const int* dst, float* out, float* spill, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int smem = walk_smem_bytes(a.tile_rays, a.seg, a.S, a.num_freqs, a.dir_freqs,
-                                   a.use_viewdirs, a.hidden, a.rgb_hidden);
+                                   a.use_viewdirs, a.hidden, a.rgb_hidden, kGeneral,
+                                   spill != nullptr);
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(n_blocks, scenes.n);
-  const int threads = block_threads(a.hidden, a.rgb_hidden);
+  const int threads = kGeneral ? nerf_general_threads(a.hidden, a.rgb_hidden)
+                               : block_threads(a.hidden, a.rgb_hidden);
   if (scenes.n > 1) {
     if constexpr (kMode == Walk::kLoss) {
-      err = cudaFuncSetAttribute(nerf_walk_scenes_kernel<kMode, kMma>,
+      err = cudaFuncSetAttribute(nerf_walk_scenes_kernel<kMode, kMma, kGeneral>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return (int)err;
-      nerf_walk_scenes_kernel<kMode, kMma><<<grid, threads, smem, st>>>(a, scenes);
+      nerf_walk_scenes_kernel<kMode, kMma, kGeneral><<<grid, threads, smem, st>>>(a, scenes,
+                                                                                 spill);
     } else {
       return (int)cudaErrorInvalidValue;  // K7 launches one scene
     }
   } else {
-    err = cudaFuncSetAttribute(nerf_walk_kernel<kMode, kMma>,
+    err = cudaFuncSetAttribute(nerf_walk_kernel<kMode, kMma, kGeneral>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    nerf_walk_kernel<kMode, kMma><<<grid, threads, smem, st>>>(a);
+    nerf_walk_kernel<kMode, kMma, kGeneral><<<grid, threads, smem, st>>>(a, spill);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || dst == nullptr) return (int)err;
@@ -928,12 +1104,29 @@ int launch_walk(const Args& a, const WalkScenes& scenes, int n_blocks, int n_gra
 
 // Whether the tensor-core walk takes these widths (mma_dense_relu: warps
 // own whole 32-column tiles of a trunk layer's output, and hidden / 32
-// warps share rgb_in's columns in 1, 2 or 4 whole 8-column tiles each):
-// kernels/fused_nerf.py::mma_shapes_ok.
+// warps share rgb_in's columns in 1, 2 or 4 whole 8-column tiles each;
+// the general walk's 16 warps hold a 64-row half's hidden / 32 tiles a
+// round, so hidden <= 512): kernels/fused_nerf.py::mma_shapes_ok.
 inline bool walk_mma_widths(int hidden, int rgb_hidden) {
-  if (hidden <= 0 || hidden % 32 != 0 || (4 * rgb_hidden) % hidden != 0) return false;
+  if (hidden <= 0 || hidden % 32 != 0 || hidden > 32 * (kMaxBlockThreads / 32) ||
+      (4 * rgb_hidden) % hidden != 0)
+    return false;
   const int nt_rgb = 4 * rgb_hidden / hidden;
   return nt_rgb == 1 || nt_rgb == 2 || nt_rgb == 4;
+}
+
+// The shape routes of a launch (kernels/fused_nerf.py::nerf_shape, a
+// function of the configuration): the one-round walk (general 0) needs
+// block_threads <= kMaxBlockThreads and whole 128-point chunks a segment; the
+// general walk (general 1) takes any width up to kMaxGeneralWidth, any
+// segment, and X in spill's slabs when spill is given. Off these: false.
+inline bool walk_shape_ok(const Args& a, int general, const float* spill) {
+  if (a.tile_rays < 1 || a.seg < 1 || a.S % a.seg != 0 || a.n_rays % a.tile_rays != 0)
+    return false;
+  if (!general)
+    return spill == nullptr && block_threads(a.hidden, a.rgb_hidden) <= kMaxBlockThreads &&
+           (a.tile_rays * a.seg) % kTilePoints == 0;
+  return a.hidden <= kMaxGeneralWidth && a.rgb_hidden <= kMaxGeneralWidth;
 }
 
 // Every entry point's launch, on the route the caller chose
@@ -942,7 +1135,8 @@ inline bool walk_mma_widths(int hidden, int rgb_hidden) {
 // which only bf16 at walk_mma_widths may take; w_mma null runs the CUDA-core
 // walk, for f32 and for bf16 widths off that layout (which rounds to bf16 at
 // run time, to_compute), at hidden and rgb_hidden multiples of 8 (the
-// wrappers zero-pad other widths) within kMaxThreads. Anything else is
+// wrappers zero-pad other widths). The shape route (general, spill) must
+// pass walk_shape_ok. Anything else is
 // refused with cudaErrorInvalidValue and nothing launches: a bf16 launch
 // at a tensor-core width without its fragments never becomes a CUDA-core
 // launch, and the CUDA-core walk's backward needs w_bwd. `scenes` (K4 and
@@ -954,9 +1148,11 @@ inline bool walk_mma_widths(int hidden, int rgb_hidden) {
 // One scene reads no stride.
 template <Walk kMode>
 int launch_walk_by_route(Args a, const void* w_mma, int n_blocks, int n_grad, const int* dst,
-                         float* out, int device, void* stream, WalkScenes scenes = {}) {
+                         float* out, int device, void* stream, WalkScenes scenes = {},
+                         int general = 0, float* spill = nullptr) {
   const bool mma = a.bf16 && walk_mma_widths(a.hidden, a.rgb_hidden);
-  if ((w_mma != nullptr) != mma || scenes.n < 1 || scenes.n > 65535)
+  if ((w_mma != nullptr) != mma || scenes.n < 1 || scenes.n > 65535 ||
+      !walk_shape_ok(a, general, spill))
     return (int)cudaErrorInvalidValue;
   if (scenes.n > 1) {
     const int E = enc_dim(a.num_freqs), Dd = dir_dim(a.dir_freqs, a.use_viewdirs);
@@ -974,13 +1170,18 @@ int launch_walk_by_route(Args a, const void* w_mma, int n_blocks, int n_grad, co
   }
   if (!mma) {
     if (kMode != Walk::kPartialsFwd && a.w_bwd == nullptr) return (int)cudaErrorInvalidValue;
-    if (a.hidden <= 0 || a.hidden % kCols != 0 || a.rgb_hidden <= 0 || a.rgb_hidden % kCols != 0
-        || block_threads(a.hidden, a.rgb_hidden) > kMaxThreads)
+    if (a.hidden <= 0 || a.hidden % kCols != 0 || a.rgb_hidden <= 0 || a.rgb_hidden % kCols != 0)
       return (int)cudaErrorInvalidValue;
-    return launch_walk<kMode>(a, scenes, n_blocks, n_grad, dst, out, device, stream);
+    return general ? launch_walk<kMode, false, true>(a, scenes, n_blocks, n_grad, dst, out, spill,
+                                                     device, stream)
+                   : launch_walk<kMode>(a, scenes, n_blocks, n_grad, dst, out, nullptr, device,
+                                        stream);
   }
   a.w_mma = w_mma;
-  return launch_walk<kMode, true>(a, scenes, n_blocks, n_grad, dst, out, device, stream);
+  return general ? launch_walk<kMode, true, true>(a, scenes, n_blocks, n_grad, dst, out, spill,
+                                                  device, stream)
+                 : launch_walk<kMode, true>(a, scenes, n_blocks, n_grad, dst, out, nullptr, device,
+                                            stream);
 }
 
 }  // namespace

@@ -34,6 +34,17 @@ the K3-K7 wrappers drop the padded gradient entries (unpad_grads).
 fragment packer (mma_operands, pack_mma_b) lives here and serves the
 training kernels too.
 
+The shape is chosen by configuration too (nerf_shape, the rule of K3-K7):
+the one-round kernel where its block of 2 * max(hidden, rgb_hidden)
+threads fits 512 and 227 KB (every recipe of the repo), else the general
+kernel (512 threads, the products in rounds of whole point groups), with
+its buffer X in a device slab a block (the spill route) where X passes
+227 KB (hidden 384 and past). Every width and sample count the JAX
+kernels take launches; .general_launches and .spill_launches count those
+routes. default_sample_block, the fine pass's block, is total: the JAX
+package's rule where it yields a block, else a divisor of at least 8 (or
+the whole union).
+
 fused_nerf_render_rays_plain is the same computation in torch ops: the
 CPU path of the wrapper and the reference the kernel is checked against
 on the card.
@@ -55,6 +66,15 @@ from tinynerf_tpu_torch.ops.sampling import sample_pdf
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
 
 MAX_SMEM_BYTES = 232448  # H100: 227 KB of dynamic shared memory per block
+# The NeRF kernels' block limits (csrc/nerf_mlp.cuh): 128-point forward
+# chunks, at most 512 threads, and the general kernels' widest width (a
+# round holds at least one point group's max(hidden, rgb_hidden) / 8 items).
+TILE_POINTS = 128
+MAX_THREADS = 512
+MAX_GENERAL_WIDTH = 8 * MAX_THREADS
+# The training walk's scalars per point and per ray (csrc/nerf_train_walk.cuh).
+WALK_POINT_SCALARS = 13
+WALK_RAY_SCALARS = 20
 # The fine pass streams (K5) above this many hidden units x union samples
 # (tinynerf_tpu/kernels/fused_nerf.py:326).
 STREAM_ABOVE = 128 * 384
@@ -144,9 +164,12 @@ def mma_shapes_ok(cfg: NeRFConfig) -> bool:
     """Whether the tensor-core products (csrc/mma_bf16.cuh: mma_dense_relu)
     take cfg's widths: warps own whole 32-column tiles of a trunk layer's
     output, and hidden / 32 warps share rgb_in's columns in 1, 2 or 4 whole
-    8-column tiles each. Never raises."""
+    8-column tiles each; the general kernels' 16 warps hold a 64-row half's
+    hidden / 32 tiles a round, so hidden <= 512 (wider bf16 takes the CUDA
+    cores, as hidden 48 does). Never raises."""
     h, rh = cfg.hidden, cfg.rgb_hidden
-    return h > 0 and h % 32 == 0 and (4 * rh) % h == 0 and 4 * rh // h in (1, 2, 4)
+    return (0 < h <= 32 * (MAX_THREADS // 32) and h % 32 == 0 and (4 * rh) % h == 0
+            and 4 * rh // h in (1, 2, 4))
 
 
 def render_uses_tensor_cores(cfg: NeRFConfig) -> bool:
@@ -206,16 +229,16 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_nerf")
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.tinynerf_fused_nerf.argtypes = [p] * 7 + [i] * 10 + [f, f, i, i, p]
+    lib.tinynerf_fused_nerf.argtypes = [p] * 7 + [i] * 10 + [f, f, i, i, p, i, i, p]
     lib.tinynerf_fused_nerf.restype = i
-    lib.tinynerf_fused_nerf_streamed.argtypes = [p] * 7 + [i] * 13 + [p]
+    lib.tinynerf_fused_nerf_streamed.argtypes = [p] * 7 + [i] * 13 + [p, i, i, p]
     lib.tinynerf_fused_nerf_streamed.restype = i
-    lib.tinynerf_fused_nerf_smem_bytes.argtypes = [i] * 7
+    lib.tinynerf_fused_nerf_smem_bytes.argtypes = [i] * 8
     lib.tinynerf_fused_nerf_smem_bytes.restype = i
-    for name in ("threads", "max_threads", "tile_points"):
-        fn = getattr(lib, f"tinynerf_fused_nerf_{name}")
-        fn.argtypes = [i, i] if name == "threads" else []
-        fn.restype = i
+    lib.tinynerf_fused_nerf_spill_floats.argtypes = [i] * 5
+    lib.tinynerf_fused_nerf_spill_floats.restype = ctypes.c_longlong
+    lib.tinynerf_fused_nerf_threads.argtypes = [i] * 3
+    lib.tinynerf_fused_nerf_threads.restype = i
     lib.tinynerf_cuda_error_string.argtypes = [i]
     lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -331,6 +354,12 @@ def unpad_linears(grads: List[torch.Tensor], idx: dict) -> List[torch.Tensor]:
     return out
 
 
+def padded_cfg(cfg: NeRFConfig) -> NeRFConfig:
+    """cfg at the widths the kernels launch: hidden and rgb_hidden rounded
+    up to multiples of 8 (padded_widths)."""
+    return dataclasses.replace(cfg, hidden=pad8(cfg.hidden), rgb_hidden=pad8(cfg.rgb_hidden))
+
+
 def padded_widths(mlp: NeRFMLP, cfg: NeRFConfig):
     """-> (mlp, cfg) at hidden and rgb_hidden rounded up to multiples of 8,
     the widths the CUDA-core products take (kCols = 8, float4 loads): the
@@ -339,7 +368,7 @@ def padded_widths(mlp: NeRFMLP, cfg: NeRFConfig):
     and the real units' gradients do not change. The same objects when
     both widths are multiples of 8 already (every tensor-core width). A
     model of stacked scenes pads every scene alike."""
-    cfg_p = dataclasses.replace(cfg, hidden=pad8(cfg.hidden), rgb_hidden=pad8(cfg.rgb_hidden))
+    cfg_p = padded_cfg(cfg)
     if cfg_p == cfg:
         return mlp, cfg
     check_mlp(mlp, cfg)
@@ -352,32 +381,163 @@ def unpad_grads(grads: List[torch.Tensor], cfg: NeRFConfig, cfg_p: NeRFConfig):
     return grads if cfg_p == cfg else unpad_linears(grads, _pad_index(cfg, cfg_p))
 
 
-def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int) -> int:
-    """Validate what the kernel takes; returns the rays per block: the
-    fewest that fill whole 128-point chunks with segments of `seg`
-    samples, within the block's threads and shared memory."""
-    check_inputs(mlp, cfg, rays_o, rays_d, z)
-    lib = _lib()
-    threads = lib.tinynerf_fused_nerf_threads(cfg.hidden, cfg.rgb_hidden)
-    if threads > lib.tinynerf_fused_nerf_max_threads():
-        raise ValueError(f"hidden {cfg.hidden}, rgb_hidden {cfg.rgb_hidden} need {threads} "
-                         "threads: too many")
-    tile = lib.tinynerf_fused_nerf_tile_points() // math.gcd(lib.tinynerf_fused_nerf_tile_points(), seg)
-    tile = min(tile, threads)
+def row_stride(cfg: NeRFConfig) -> int:
+    """The row stride of the kernels' buffer X (csrc/nerf_mlp.cuh:
+    row_stride): hidden + the wider encoding, at least rgb_hidden, odd."""
+    e, dd = 3 + 6 * cfg.num_freqs, (3 + 6 * cfg.num_freqs_dir if cfg.use_viewdirs else 0)
+    return max(cfg.hidden + max(e, dd), cfg.rgb_hidden) | 1
 
-    def smem(t):
-        return lib.tinynerf_fused_nerf_smem_bytes(
-            t, seg, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
-            cfg.rgb_hidden)
 
-    while tile > 1 and smem(tile) > MAX_SMEM_BYTES:
-        tile //= 2
-    if smem(tile) > MAX_SMEM_BYTES:
+def spill_floats(cfg: NeRFConfig) -> int:
+    """Floats of one block's slab of X on the spill route (csrc/nerf_mlp.cuh:
+    spill_floats): 128 rows of row_stride, rounded up to 128 bytes."""
+    return -(-TILE_POINTS * row_stride(cfg) // 32) * 32
+
+
+def render_smem_bytes(cfg: NeRFConfig, tile_rays: int, seg: int, spill: bool = False) -> int:
+    """Shared memory of a K3/K5 block in bytes (csrc/fused_nerf.cu:
+    smem_bytes): X (unless spilled) and the points, a segment's heads, the
+    rays' direction encodings."""
+    dd = 3 + 6 * cfg.num_freqs_dir if cfg.use_viewdirs else 0
+    x = 0 if spill else row_stride(cfg)
+    return 4 * (TILE_POINTS * (x + 3) + tile_rays * seg * 4 + tile_rays * dd)
+
+
+def walk_smem_bytes(cfg: NeRFConfig, tile_rays: int, n_samples: int, seg: int,
+                    general: bool = False, spill: bool = False) -> int:
+    """Shared memory of a K4/K6/K7 block in bytes (csrc/nerf_train_walk.cuh:
+    walk_smem_bytes): X (unless spilled) and the points, 13 scalars a point
+    of the segment (general: its points rounded up to whole 128-point
+    chunks), 20 a ray, the direction encodings, each segment's entry
+    transmittance."""
+    dd = 3 + 6 * cfg.num_freqs_dir if cfg.use_viewdirs else 0
+    n = tile_rays * seg
+    if general:
+        n = -(-n // TILE_POINTS) * TILE_POINTS
+    x = 0 if spill else row_stride(cfg)
+    return 4 * (TILE_POINTS * (x + 3) + WALK_POINT_SCALARS * n + WALK_RAY_SCALARS * tile_rays
+                + tile_rays * dd + (n_samples // seg) * tile_rays)
+
+
+@dataclasses.dataclass(frozen=True)
+class NerfShape:
+    """A K3-K7 launch's shape, by configuration (nerf_shape).
+
+    tile_rays: rays a tile; threads: threads a block; rounds: rounds of the
+    block's widest product (1: every item at once); general: the general
+    kernel (products in rounds of whole point groups, a walk segment ending
+    in a partial 128-point chunk), else the one-round kernel; spill: the
+    general kernel's X in a device slab a block; smem_bytes: shared memory
+    a block."""
+    tile_rays: int
+    threads: int
+    rounds: int
+    general: bool
+    spill: bool
+    smem_bytes: int
+
+    @property
+    def route(self) -> str:
+        """'shared' (the one-round kernel), 'general' or 'spill'."""
+        return "spill" if self.spill else ("general" if self.general else "shared")
+
+    def fits(self, cfg: NeRFConfig) -> bool:
+        """Whether a block of this shape launches at cfg's widths."""
+        return (self.smem_bytes <= MAX_SMEM_BYTES
+                and max(cfg.hidden, cfg.rgb_hidden) <= MAX_GENERAL_WIDTH)
+
+
+ROUTES = ("shared", "general", "spill")
+
+
+def nerf_shape(cfg: NeRFConfig, n_samples: int, seg: int, *, walk: bool = True,
+               route: Optional[str] = None) -> NerfShape:
+    """The shape of a K3-K7 launch by configuration, at cfg's launched
+    widths (multiples of 8, padded_widths'): n_samples a ray in segments of
+    `seg` (the walk of K4, K6, K7 with walk=True; the render of K3, K5, whose
+    shared memory does not depend on n_samples, else).
+
+    The one-round kernel ('shared') where it takes the shape, as before:
+    block_threads <= 512 and, for the walk, the fewest rays that fill
+    whole 128-point chunks (128 / gcd(128, seg)) within 227 KB; for the
+    render, that tile capped at the threads and halved until it fits.
+    Else the general kernel: at most 512 threads, the products in rounds,
+    its tile that count capped at the threads and halved until the block
+    fits 227 KB ('general'), or, where X alone passes 227 KB, with X in a
+    device slab ('spill'). Every recipe keeps the one-round kernel. `route`
+    forces one of ROUTES (to compare them; the C entry refuses a shape off
+    its route). Never raises: a shape that fits no route (shared memory
+    past 227 KB even spilled at one ray, widths past MAX_GENERAL_WIDTH) has
+    fits() False."""
+    if route is not None and route not in ROUTES:
+        return nerf_shape(cfg, n_samples, seg, walk=walk)
+    one = block_threads(cfg)
+    gen = min(one, MAX_THREADS)
+    tile0 = TILE_POINTS // math.gcd(TILE_POINTS, seg)
+
+    def smem(tile, general, spill):
+        if walk:
+            return walk_smem_bytes(cfg, tile, n_samples, seg, general, spill)
+        return render_smem_bytes(cfg, tile, seg, spill)
+
+    def halve(tile, general, spill):
+        while tile > 1 and smem(tile, general, spill) > MAX_SMEM_BYTES:
+            tile //= 2
+        return tile
+
+    if route in (None, "shared"):
+        tile = tile0 if walk else halve(min(tile0, one), False, False)
+        if route == "shared" or (one <= MAX_THREADS and smem(tile, False, False) <= MAX_SMEM_BYTES):
+            return NerfShape(tile, one, 1, False, False, smem(tile, False, False))
+    spill = route == "spill"
+    tile = halve(min(tile0, gen), True, spill)
+    if route is None and smem(tile, True, False) > MAX_SMEM_BYTES:
+        spill = True
+        tile = halve(min(tile0, gen), True, True)
+    if cfg.compute_dtype == torch.bfloat16 and mma_shapes_ok(cfg):
+        rounds = 1 if gen // 32 >= 2 * (cfg.hidden // 32) else 2
+    else:
+        per = gen // max(1, max(cfg.hidden, cfg.rgb_hidden) // 8)
+        rounds = -(-(TILE_POINTS // 8) // per) if per else 0
+    return NerfShape(tile, gen, rounds, True, spill, smem(tile, True, spill))
+
+
+def launch_shape(cfg: NeRFConfig, n_samples: int, seg: int, *, walk: bool,
+                 route: Optional[str]) -> NerfShape:
+    """nerf_shape for a launch: raises on a route not in ROUTES (or None)
+    and on a shape that fits no route."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES} or None, got {route!r}")
+    shape = nerf_shape(cfg, n_samples, seg, walk=walk, route=route)
+    if not shape.fits(cfg):
         raise ValueError(
-            f"segments of {seg} samples at hidden {cfg.hidden} need {smem(tile)} B of "
-            "shared memory: too large"
-        )
-    return tile
+            f"segments of {seg} samples ({shape.tile_rays} rays a tile) at hidden {cfg.hidden}, "
+            f"rgb_hidden {cfg.rgb_hidden} need {shape.smem_bytes} B of shared memory even on "
+            "the spill route: too large")
+    return shape
+
+
+def check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, seg: int,
+                 route: Optional[str] = None) -> NerfShape:
+    """Validate what the render kernel takes; returns its shape
+    (nerf_shape, walk=False) for segments of `seg` samples."""
+    check_inputs(mlp, cfg, rays_o, rays_d, z)
+    return launch_shape(cfg, seg, seg, walk=False, route=route)
+
+
+def general_blocks(shape: NerfShape, n_tiles: int, device) -> int:
+    """Blocks of a launch: one a tile on the one-round render kernel; the
+    general kernels walk the tiles on at most one block an SM."""
+    if not shape.general:
+        return n_tiles
+    return min(n_tiles, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def spill_buffer(cfg: NeRFConfig, shape: NerfShape, n_slabs: int, device):
+    """The spill route's X slabs (n_slabs of spill_floats), else None."""
+    if not shape.spill:
+        return None
+    return torch.empty(n_slabs, spill_floats(cfg), dtype=torch.float32, device=device)
 
 
 def pad_rays(rays_o, rays_d, pad: int):
@@ -401,14 +561,16 @@ def fused_nerf_render_rays(
     white_bkgd: bool = True,
     cfg: Optional[NeRFConfig] = None,
     return_weights: bool = False,
+    route: Optional[str] = None,
 ):
     """One fused NeRF-MLP render pass -> comp_rgb (R, 3), plus the
     weights (R, S) when return_weights. z_vals (R, S) gives the depths;
     None uses the linspace of n_samples.
 
     CUDA tensors launch the kernel (or raise): on the tensor cores where
-    render_uses_tensor_cores(cfg), else on the CUDA cores; CPU tensors take
-    fused_nerf_render_rays_plain. `cfg` defaults to mlp.cfg."""
+    render_uses_tensor_cores(cfg), else on the CUDA cores; in the shape of
+    nerf_shape (`route` forces one of ROUTES, to compare them). CPU tensors
+    take fused_nerf_render_rays_plain. `cfg` defaults to mlp.cfg."""
     cfg = cfg or mlp.cfg
     kw = dict(n_samples=n_samples, near=near, far=far, white_bkgd=white_bkgd, cfg=cfg,
               return_weights=return_weights)
@@ -418,7 +580,8 @@ def fused_nerf_render_rays(
     if S < 2:
         raise ValueError(f"the kernel needs at least 2 samples per ray, got {S}")
     mlp, cfg = padded_widths(mlp, cfg)
-    tile = check_launch(mlp, cfg, rays_o, rays_d, z_vals, S)
+    shape = check_launch(mlp, cfg, rays_o, rays_d, z_vals, S, route)
+    tile = shape.tile_rays
 
     R = rays_o.shape[0]
     pad = -R % tile
@@ -432,6 +595,8 @@ def fused_nerf_render_rays(
     w_mma = pack_mma_forward(mlp, cfg) if mma else None
     out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
     w_out = torch.empty(R + pad, S, dtype=torch.float32, device=dev) if return_weights else None
+    n_blocks = general_blocks(shape, (R + pad) // tile, dev)
+    spill = spill_buffer(cfg, shape, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tinynerf_fused_nerf(
         o.data_ptr(), d.data_ptr(), None if z is None else z.data_ptr(), wts.data_ptr(),
@@ -439,11 +604,14 @@ def fused_nerf_render_rays(
         None if w_out is None else w_out.data_ptr(),
         R + pad, tile, S, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
         cfg.depth, cfg.skip_at, cfg.rgb_hidden, float(near), float(far),
-        int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
+        int(cfg.compute_dtype == torch.bfloat16), int(shape.general),
+        None if spill is None else spill.data_ptr(), n_blocks, dev.index, stream,
     )
     raise_on_error(err, "fused_nerf")
     fused_nerf_render_rays.launches += 1
     fused_nerf_render_rays.mma_launches += int(mma)
+    fused_nerf_render_rays.general_launches += int(shape.general)
+    fused_nerf_render_rays.spill_launches += int(shape.spill)
     comp = out[:R, :3]
     if white_bkgd:
         comp = comp + (1.0 - out[:R, 3:4])
@@ -453,16 +621,28 @@ def fused_nerf_render_rays(
 fused_nerf_render_rays.launches = 0  # kernel launches since the last reset
 # ... of which took the tensor cores (every bf16 launch at mma_shapes_ok widths)
 fused_nerf_render_rays.mma_launches = 0
+# ... of which ran the general kernel (nerf_shape: past 512 threads or 227 KB)
+fused_nerf_render_rays.general_launches = 0
+# ... of which held X in device memory (the general kernel's spill route)
+fused_nerf_render_rays.spill_launches = 0
 
 
 def default_sample_block(s_union: int, cap: int) -> int:
-    """The hierarchical pipeline's block: the largest divisor of the union
-    that is <= cap and a multiple of 8 (or the union itself)
-    (tinynerf_tpu/kernels/fused_nerf.py:332-337)."""
-    return next(
-        b for b in range(min(cap, s_union), 0, -1)
-        if s_union % b == 0 and (b % 8 == 0 or b == s_union)
-    )
+    """The hierarchical pipeline's block, total: the JAX package's rule
+    where it yields one, the largest divisor of the union that is <= cap
+    and a multiple of 8 (or the union itself)
+    (tinynerf_tpu/kernels/fused_nerf.py:332-337); else, where the JAX rule
+    finds none (unions such as 100, 164 and 228), the largest divisor in
+    [8, cap], a block that ends its tiles in partial 128-point chunks
+    (K5 and the general walk take any block); else (no divisor in [8, cap]:
+    a prime union, twice a prime) the union itself, one block. Never a
+    block under 8 but the union itself; never raises."""
+    divisors = [b for b in range(min(cap, s_union), 0, -1) if s_union % b == 0]
+    jax_rule = [b for b in divisors if b % 8 == 0 or b == s_union]
+    if jax_rule:
+        return jax_rule[0]
+    wide = [b for b in divisors if b >= 8]
+    return wide[0] if wide else s_union
 
 
 def union_depths(weights: torch.Tensor, n_fine: int, near: float, far: float) -> torch.Tensor:

@@ -11,10 +11,11 @@ O(sample_block), not O(S), so the fine pass of a large union (the
 `--n-fine 448` recipe: hidden 128, S = 512) runs in one launch.
 
 The kernel is the second C entry point of csrc/fused_nerf.cu: it shares
-K3's chunked MLP and encodings, and K3's route (render_uses_tensor_cores:
+K3's chunked MLP and encodings, and K3's routes (render_uses_tensor_cores:
 bf16 at the tensor-core widths runs its products on the tensor cores
 from pack_mma_forward's fragments, counted by .mma_launches; f32 and
-other widths on the CUDA cores), and adds the carried block walk. The
+other widths on the CUDA cores; nerf_shape's one-round or general kernel),
+and adds the carried block walk. Any block that divides S is taken. The
 deltas are precomputed here, as the JAX wrapper does (:488-496).
 
 fused_nerf_render_rays_streamed_plain is the same block walk in torch
@@ -50,19 +51,21 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     check_launch,
     composite_one_m,
     deltas,
+    general_blocks,
     pack_mma_forward,
     pack_nerf_weights,
     pad_rays,
     padded_widths,
     raise_on_error,
     render_uses_tensor_cores,
+    spill_buffer,
     unpad_grads,
 )
 from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     check_train_launch,
+    count_launch,
     launch_pass,
     pass_grads_plain,
-    uses_tensor_cores,
 )
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
 
@@ -134,12 +137,14 @@ def fused_nerf_render_rays_streamed(
     white_bkgd: bool = True,
     cfg: Optional[NeRFConfig] = None,
     sample_block: int = DEFAULT_SAMPLE_BLOCK,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """Streamed forward render over a given sorted depth union ->
     comp_rgb (R, 3). Raises when S is not a multiple of sample_block.
 
     CUDA tensors launch the kernel (or raise), on the tensor cores or the
-    CUDA cores by K3's route (render_uses_tensor_cores); CPU tensors take
+    CUDA cores by K3's route (render_uses_tensor_cores) and in K3's shape
+    (nerf_shape; `route` forces one); CPU tensors take
     fused_nerf_render_rays_streamed_plain. `cfg` defaults to mlp.cfg."""
     cfg = cfg or mlp.cfg
     R, S = z_vals.shape
@@ -148,7 +153,8 @@ def fused_nerf_render_rays_streamed(
         return fused_nerf_render_rays_streamed_plain(
             mlp, rays_o, rays_d, z_vals, white_bkgd=white_bkgd, cfg=cfg, sample_block=sb)
     mlp, cfg = padded_widths(mlp, cfg)
-    tile = check_launch(mlp, cfg, rays_o, rays_d, z_vals, sb)
+    shape = check_launch(mlp, cfg, rays_o, rays_d, z_vals, sb, route)
+    tile = shape.tile_rays
 
     pad = -R % tile
     dev = rays_o.device
@@ -159,16 +165,22 @@ def fused_nerf_render_rays_streamed(
     mma = render_uses_tensor_cores(cfg)
     w_mma = pack_mma_forward(mlp, cfg) if mma else None
     out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
+    n_blocks = general_blocks(shape, (R + pad) // tile, dev)
+    spill = spill_buffer(cfg, shape, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tinynerf_fused_nerf_streamed(
         o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), wts.data_ptr(),
-        None if w_mma is None else w_mma.data_ptr(), out.data_ptr(), R + pad, tile, S, sb, cfg.num_freqs, cfg.num_freqs_dir,
-        int(cfg.use_viewdirs), cfg.hidden, cfg.depth, cfg.skip_at, cfg.rgb_hidden,
-        int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
+        None if w_mma is None else w_mma.data_ptr(), out.data_ptr(), R + pad, tile, S, sb,
+        cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden, cfg.depth,
+        cfg.skip_at, cfg.rgb_hidden, int(cfg.compute_dtype == torch.bfloat16),
+        int(shape.general), None if spill is None else spill.data_ptr(), n_blocks, dev.index,
+        stream,
     )
     raise_on_error(err, "fused_nerf_streamed")
     fused_nerf_render_rays_streamed.launches += 1
     fused_nerf_render_rays_streamed.mma_launches += int(mma)
+    fused_nerf_render_rays_streamed.general_launches += int(shape.general)
+    fused_nerf_render_rays_streamed.spill_launches += int(shape.spill)
     comp = out[:R, :3]
     if white_bkgd:
         comp = comp + (1.0 - out[:R, 3:4])
@@ -178,6 +190,9 @@ def fused_nerf_render_rays_streamed(
 fused_nerf_render_rays_streamed.launches = 0  # kernel launches since the last reset
 # ... of which took the tensor cores (K3's route)
 fused_nerf_render_rays_streamed.mma_launches = 0
+# ... of which ran the general kernel, and of those held X in device memory
+fused_nerf_render_rays_streamed.general_launches = 0
+fused_nerf_render_rays_streamed.spill_launches = 0
 
 
 def fused_nerf_pass_grads_streamed_plain(
@@ -213,6 +228,7 @@ def fused_nerf_pass_grads_streamed(
     white_bkgd: bool = True,
     cfg: Optional[NeRFConfig] = None,
     sample_block: int = DEFAULT_SAMPLE_BLOCK,
+    route: Optional[str] = None,
 ):
     """One streamed fused fwd+bwd NeRF-MLP pass over a given sorted depth
     union z_vals (R, S) -> (loss, grads aligned to mlp.parameters()).
@@ -220,7 +236,8 @@ def fused_nerf_pass_grads_streamed(
     same buffer, so the rematerialised forward equals the first. Raises
     when S is not a multiple of sample_block.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
+    CUDA tensors launch the kernel (or raise), in the shape of nerf_shape
+    (`route` forces one); CPU tensors take
     fused_nerf_pass_grads_streamed_plain. `cfg` defaults to mlp.cfg."""
     cfg = cfg or mlp.cfg
     R, S = z_vals.shape
@@ -230,12 +247,11 @@ def fused_nerf_pass_grads_streamed(
         return fused_nerf_pass_grads_streamed_plain(mlp, rays_o, rays_d, target, z_vals, cfg=cfg,
                                                     sample_block=sb, **kw)
     mlp_k, cfg_k = padded_widths(mlp, cfg)
-    tile = check_train_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
-    mma = uses_tensor_cores(cfg_k)
-    loss, grads = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, tile, S, streamed=True,
+    shape = check_train_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, sb,
+                               route)
+    loss, grads = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, shape, S, streamed=True,
                               seg=sb, z=z_vals, **kw)
-    fused_nerf_pass_grads_streamed.launches += 1
-    fused_nerf_pass_grads_streamed.mma_launches += int(mma)
+    count_launch(fused_nerf_pass_grads_streamed, cfg_k, shape)
     return loss, unpad_grads(grads, cfg, cfg_k)
 
 
@@ -244,6 +260,9 @@ fused_nerf_pass_grads_streamed.launches = 0  # kernel launches since the last re
 fused_nerf_pass_grads_streamed.mma_launches = 0
 # ... of which trained a stack of scenes in one launch
 fused_nerf_pass_grads_streamed.scene_launches = 0
+# ... of which ran the general walk (nerf_shape), and of those held X in device memory
+fused_nerf_pass_grads_streamed.general_launches = 0
+fused_nerf_pass_grads_streamed.spill_launches = 0
 
 
 def fused_nerf_pass_grads_streamed_scenes_plain(mlp: NeRFMLP, rays_o, rays_d, target, z_vals, *,
@@ -286,11 +305,8 @@ def fused_nerf_pass_grads_streamed_scenes(
         return fused_nerf_pass_grads_streamed_scenes_plain(mlp, rays_o, rays_d, target, z_vals,
                                                            cfg=cfg, sample_block=sb, **kw)
     mlp_k, cfg_k = padded_widths(mlp, cfg)
-    tile = check_scenes_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
-    mma = uses_tensor_cores(cfg_k)
-    loss, grads = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, tile, S, streamed=True, seg=sb,
-                              z=z_vals, **kw)
-    fused_nerf_pass_grads_streamed.launches += 1
-    fused_nerf_pass_grads_streamed.mma_launches += int(mma)
-    fused_nerf_pass_grads_streamed.scene_launches += 1
+    shape = check_scenes_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
+    loss, grads = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, shape, S, streamed=True,
+                              seg=sb, z=z_vals, **kw)
+    count_launch(fused_nerf_pass_grads_streamed, cfg_k, shape, scenes=True)
     return loss, unpad_grads(grads, cfg, cfg_k)

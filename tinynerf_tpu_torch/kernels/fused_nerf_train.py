@@ -24,7 +24,10 @@ mma_operands and pack_mma_b, which the render kernels share); f32, the
 exactness reference, and bf16 at other widths (hidden 48; hidden 256
 with rgb_hidden 32) run the CUDA-core walk from pack_backward_weights,
 bf16 rounding at run time. .mma_launches counts the tensor-core
-launches.
+launches. The shape route (kernels/fused_nerf.py::nerf_shape) picks the
+one-round walk, or the general walk (products in rounds past 512 threads,
+tiles that end in a partial 128-point chunk, X in device memory past 227
+KB), counted by .general_launches and .spill_launches.
 
 The kernel writes its gradients in pack_nerf_weights' layout; a second
 small kernel sums the per-block partials in a fixed order and scatters
@@ -44,23 +47,25 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Optional
 
 import torch
 
 from tinynerf_tpu_torch.kernels.fused_nerf import (
-    MAX_SMEM_BYTES,
-    block_threads,
+    NerfShape,
     check_inputs,
     composite_one_m,
     deltas,
+    launch_shape,
     mma_operands,
     mma_shapes_ok,
+    nerf_shape,
     pack_mma_b,
     pack_nerf_weights,
     pad_rays,
+    padded_cfg,
     padded_widths,
+    spill_buffer,
     unpad_grads,
 )
 from tinynerf_tpu_torch.kernels.fused_train import (
@@ -233,17 +238,19 @@ def _lib() -> ctypes.CDLL:
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     ll = ctypes.c_longlong
     lib.tinynerf_fused_nerf_train.argtypes = ([p] * 16 + [i] * 11 + [f] * 3 + [i] * 6
-                                              + [ll] * 3 + [i, p])
+                                              + [ll] * 3 + [i, p, i, p])
     lib.tinynerf_fused_nerf_train.restype = i
     lib.tinynerf_fused_nerf_train_streamed.argtypes = ([p] * 13 + [i] * 12 + [f] + [i] * 5
-                                                       + [ll] * 3 + [i, p])
+                                                       + [ll] * 3 + [i, p, i, p])
     lib.tinynerf_fused_nerf_train_streamed.restype = i
-    lib.tinynerf_fused_nerf_train_smem_bytes.argtypes = [i] * 8
+    lib.tinynerf_fused_nerf_train_smem_bytes.argtypes = [i] * 10
     lib.tinynerf_fused_nerf_train_smem_bytes.restype = i
-    lib.tinynerf_fused_nerf_train_workspace_floats.argtypes = [i] * 6
-    lib.tinynerf_fused_nerf_train_workspace_floats.restype = ctypes.c_longlong
-    lib.tinynerf_fused_nerf_train_max_threads.argtypes = []
-    lib.tinynerf_fused_nerf_train_max_threads.restype = i
+    lib.tinynerf_fused_nerf_train_workspace_floats.argtypes = [i] * 7
+    lib.tinynerf_fused_nerf_train_workspace_floats.restype = ll
+    lib.tinynerf_fused_nerf_train_spill_floats.argtypes = [i] * 5
+    lib.tinynerf_fused_nerf_train_spill_floats.restype = ll
+    lib.tinynerf_fused_nerf_train_threads.argtypes = [i] * 3
+    lib.tinynerf_fused_nerf_train_threads.restype = i
     lib.tinynerf_cuda_error_string.argtypes = [i]
     lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -255,11 +262,32 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+def walk_route(cfg: NeRFConfig, S: int, seg: int) -> str:
+    """The walk's shape route in words (nerf_shape at cfg's launched widths)."""
+    shape = nerf_shape(padded_cfg(cfg), S, seg)
+    if not shape.general:
+        return f"one-round walk, {shape.tile_rays} rays a tile"
+    rounds = f"{shape.rounds} round{'s' if shape.rounds != 1 else ''}"
+    return (f"general walk, {rounds}, {shape.tile_rays} rays a tile"
+            + (", X in device memory" if shape.spill else ""))
+
+
+def count_launch(fn, cfg: NeRFConfig, shape: NerfShape, scenes: bool = False) -> None:
+    """Count one launch of a K4, K6 or K7 wrapper `fn` by route: the
+    tensor cores (.mma_launches), the general walk (.general_launches), its
+    spill route (.spill_launches), a stack of scenes (.scene_launches)."""
+    fn.launches += 1
+    fn.mma_launches += int(uses_tensor_cores(cfg))
+    fn.general_launches += int(shape.general)
+    fn.spill_launches += int(shape.spill)
+    if scenes:
+        fn.scene_launches += 1
+
+
 def check_train_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z, sigma_noise,
-                       S: int, seg: int) -> int:
+                       S: int, seg: int, route: Optional[str] = None) -> NerfShape:
     """Validate what the train kernel takes for a pass of S samples in
-    segments of `seg`; returns the rays per tile: the fewest that fill
-    whole 128-point chunks."""
+    segments of `seg`; returns its shape (nerf_shape)."""
     check_inputs(mlp, cfg, rays_o, rays_d, z)
     R = rays_o.shape[0]
     if target.device != rays_o.device or target.dtype != torch.float32 or tuple(target.shape) != (R, 3):
@@ -268,30 +296,17 @@ def check_train_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z,
                                     or sigma_noise.dtype != torch.float32
                                     or tuple(sigma_noise.shape) != (R, S)):
         raise ValueError(f"sigma_noise must be float32 ({R}, {S}) on {rays_o.device}")
-    lib = _lib()
-    if block_threads(cfg) > lib.tinynerf_fused_nerf_train_max_threads():
-        raise ValueError(f"hidden {cfg.hidden}, rgb_hidden {cfg.rgb_hidden} need "
-                         f"{block_threads(cfg)} threads: too many")
-    tile = 128 // math.gcd(128, seg)
-    smem = lib.tinynerf_fused_nerf_train_smem_bytes(
-        tile, seg, S, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
-        cfg.rgb_hidden)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"segments of {seg} samples ({tile} rays a tile) at hidden {cfg.hidden} need "
-            f"{smem} B of shared memory: too large"
-        )
-    return tile
+    return launch_shape(cfg, S, seg, walk=True, route=route)
 
 
-def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int, S: int, *,
+def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, shape: NerfShape, S: int, *,
                 streamed: bool, seg: int, z=None, sigma_noise=None, seed=None,
                 near: float = 2.0, far: float = 6.0, randomized: bool = False,
                 white_bkgd: bool = True, emit_sampling: bool = False):
     """Pad the rays to whole tiles and launch K4 (seg == S: depths given
     or drawn in the kernel) or the streamed K6 (z given, segments of
-    `seg` samples) -> (loss, grads aligned to mlp.parameters()[, weights,
-    z]).
+    `seg` samples) in `shape` (check_train_launch's) -> (loss, grads
+    aligned to mlp.parameters()[, weights, z]).
 
     One scene: rays (R, 3), z and sigma_noise (R, S), `seed` an int or a
     one-element device tensor. K stacked scenes (rays (K, R, 3), an `mlp`
@@ -304,6 +319,7 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
         z = None if z is None else z[None]
         sigma_noise = None if sigma_noise is None else sigma_noise[None]
     K, R = rays_o.shape[:2]
+    tile = shape.tile_rays
     pad = -R % tile
     dev = rays_o.device
     o, d = pad_rays(rays_o, rays_d, pad)
@@ -333,8 +349,9 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
     n_blocks = min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _lib()
     ws_floats = lib.tinynerf_fused_nerf_train_workspace_floats(
-        tile, seg, cfg.num_freqs, cfg.hidden, cfg.depth, cfg.rgb_hidden)
+        tile, seg, cfg.num_freqs, cfg.hidden, cfg.depth, cfg.rgb_hidden, int(shape.general))
     ws = torch.empty(K, n_blocks, ws_floats, dtype=torch.float32, device=dev)
+    spill = spill_buffer(cfg, shape, K * n_blocks, dev)
     partials = torch.empty(K, n_blocks, n_grad + 1, dtype=torch.float32, device=dev)
     n_params = n_grad - 3  # the layout's 3 padding floats after sigma's bias
     out = torch.empty(K, n_params + 1, dtype=torch.float32, device=dev)
@@ -354,8 +371,8 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
             o.data_ptr(), d.data_ptr(), tgt.data_ptr(), z.data_ptr(), delta.data_ptr(),
             ptr(noise), w_fwd.data_ptr(), ptr(w_bwd), ptr(w_mma), ws.data_ptr(),
             partials.data_ptr(), dst.data_ptr(), out.data_ptr(), R + pad, R, tile, S, seg, *geom,
-            1.0 / (R * 3),
-            int(white_bkgd), bf16, n_blocks, n_grad, K, *strides, dev.index, stream,
+            1.0 / (R * 3), int(white_bkgd), bf16, n_blocks, n_grad, K, *strides,
+            int(shape.general), ptr(spill), dev.index, stream,
         )
     else:
         if scenes:
@@ -371,7 +388,8 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
             partials.data_ptr(),
             dst.data_ptr(), out.data_ptr(), ptr(w_out), ptr(z_out), R + pad, R, tile, S, *geom,
             float(near), (far - near) / (S - 1), 1.0 / (R * 3), int(randomized),
-            int(white_bkgd), bf16, n_blocks, n_grad, K, *strides, dev.index, stream,
+            int(white_bkgd), bf16, n_blocks, n_grad, K, *strides, int(shape.general), ptr(spill),
+            dev.index, stream,
         )
     _raise_on(err, "fused_nerf_train_streamed kernel" if streamed else "fused_nerf_train kernel")
     grads = _split_grads(out if scenes else out[0], mlp.parameters())
@@ -384,11 +402,11 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, tile: int
 
 
 def check_scenes_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z, sigma_noise,
-                        S: int, seg: int) -> int:
+                        S: int, seg: int) -> NerfShape:
     """check_train_launch for K stacked scenes: (K, R, 3) rays and target,
     (K, R, S) z and sigma_noise, every parameter stacking K scenes, at
     the launched widths (padded_widths'); scene 0's slabs go through
-    check_train_launch. Returns the rays per tile."""
+    check_train_launch. Returns the shape."""
     if rays_o.dim() != 3:
         raise ValueError(f"rays_o must be (K, R, 3), got {tuple(rays_o.shape)}")
     K, R = rays_o.shape[:2]
@@ -419,6 +437,7 @@ def fused_nerf_pass_grads(
     white_bkgd: bool = True,
     emit_sampling: bool = False,
     cfg: Optional[NeRFConfig] = None,
+    route: Optional[str] = None,
 ):
     """One fused fwd+bwd NeRF-MLP pass -> (loss, grads aligned to
     mlp.parameters()), plus (weights (R, S), z (R, S)) with emit_sampling.
@@ -427,7 +446,8 @@ def fused_nerf_pass_grads(
     kernel: the grid near + s*h, jittered in its bins when randomized
     (Philox keyed by the int32 `seed`, an int or a one-element tensor on
     the rays' device). CUDA tensors launch the kernel (or raise) on the
-    route of uses_tensor_cores; CPU tensors take
+    route of uses_tensor_cores, in the shape of nerf_shape (`route` forces
+    one of ROUTES, to compare them); CPU tensors take
     fused_nerf_pass_grads_plain. `cfg` defaults to mlp.cfg."""
     cfg = cfg or mlp.cfg
     S = z_vals.shape[1] if z_vals is not None else n_samples
@@ -440,13 +460,12 @@ def fused_nerf_pass_grads(
                                            n_samples=n_samples, randomized=randomized, cfg=cfg,
                                            **kw)
     mlp_k, cfg_k = padded_widths(mlp, cfg)
-    tile = check_train_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
-    mma = uses_tensor_cores(cfg_k)
-    res = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, tile, S, streamed=False, seg=S,
+    shape = check_train_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, S,
+                               route)
+    res = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, shape, S, streamed=False, seg=S,
                       z=z_vals, seed=seed,
                       randomized=randomized and z_vals is None, **kw)
-    fused_nerf_pass_grads.launches += 1
-    fused_nerf_pass_grads.mma_launches += int(mma)
+    count_launch(fused_nerf_pass_grads, cfg_k, shape)
     return (res[0], unpad_grads(res[1], cfg, cfg_k), *res[2:])
 
 
@@ -455,6 +474,9 @@ fused_nerf_pass_grads.launches = 0  # kernel launches since the last reset
 fused_nerf_pass_grads.mma_launches = 0
 # ... of which trained a stack of scenes in one launch (fused_nerf_pass_grads_scenes)
 fused_nerf_pass_grads.scene_launches = 0
+# ... of which ran the general walk (nerf_shape), and of those held X in device memory
+fused_nerf_pass_grads.general_launches = 0
+fused_nerf_pass_grads.spill_launches = 0
 
 
 def fused_nerf_pass_grads_scenes_plain(mlp: NeRFMLP, rays_o, rays_d, target, seeds,
@@ -509,13 +531,10 @@ def fused_nerf_pass_grads_scenes(
                                                   n_samples=n_samples, randomized=randomized,
                                                   cfg=cfg, **kw)
     mlp_k, cfg_k = padded_widths(mlp, cfg)
-    tile = check_scenes_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
-    mma = uses_tensor_cores(cfg_k)
-    res = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, tile, S, streamed=False, seg=S,
+    shape = check_scenes_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
+    res = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, shape, S, streamed=False, seg=S,
                       z=z_vals, seed=seeds, randomized=randomized and z_vals is None, **kw)
-    fused_nerf_pass_grads.launches += 1
-    fused_nerf_pass_grads.mma_launches += int(mma)
-    fused_nerf_pass_grads.scene_launches += 1
+    count_launch(fused_nerf_pass_grads, cfg_k, shape, scenes=True)
     return (res[0], unpad_grads(res[1], cfg, cfg_k), *res[2:])
 
 
@@ -527,7 +546,8 @@ def fine_pass_route(s, cfg: NeRFConfig, n_fine: int, tile_r: int = DEFAULT_TILE_
     sample_block always streams; else the pass streams when depth x
     hidden x min(tile_r, n_rand) x S_union in the compute dtype passes
     STREAM_ACT_BYTES, in the largest block <= 64 that divides the union
-    and is a multiple of 8."""
+    and is a multiple of 8, or where no such block exists in
+    default_sample_block's (the port's rule is total)."""
     from tinynerf_tpu_torch.kernels.fused_nerf import default_sample_block
     from tinynerf_tpu_torch.kernels.fused_nerf_stream import DEFAULT_SAMPLE_BLOCK
 

@@ -25,9 +25,11 @@ fused_nerf_train.uses_tensor_cores (by configuration) both run their MLP
 products on the tensor cores in bf16 at the widths they take, from the
 fragments of pack_mma_weights packed once by the forward and kept for
 the backward (.mma_launches counts those launches); f32, and bf16 at
-other widths, run on the CUDA cores. The wrapper pads the rays to whole tiles as K4/K6's
-launch_pass does, so any ray count is taken; the sample block must divide
-the shard's sample count.
+other widths, run on the CUDA cores; the shape route is K4's and K6's
+(nerf_shape: the one-round or the general walk, counted by
+.general_launches and .spill_launches). The wrapper pads the rays to whole
+tiles as K4/K6's launch_pass does, so any ray count is taken; the sample
+block must divide the shard's sample count, at any width.
 
 block_partials_plain (the forward in torch ops, composited in blocks with
 the entry transmittance carried) and block_partials_grads_plain
@@ -40,22 +42,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Dict, List, Optional
 
 import torch
 
 from tinynerf_tpu_torch.kernels.fused_nerf import (
-    MAX_SMEM_BYTES,
-    block_threads,
+    NerfShape,
     check_inputs,
     composite_one_m,
+    launch_shape,
     pack_nerf_weights,
     pad_rays,
     padded_widths,
+    spill_buffer,
     unpad_grads,
 )
 from tinynerf_tpu_torch.kernels.fused_nerf_train import (
+    count_launch,
     pack_backward_weights,
     pack_mma_weights,
     scatter_index,
@@ -139,16 +142,12 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fused_partials")
     i, p = ctypes.c_int, ctypes.c_void_p
-    lib.tinynerf_partials_fwd.argtypes = [p] * 10 + [i] * 14 + [p]
+    lib.tinynerf_partials_fwd.argtypes = [p] * 10 + [i] * 14 + [p, i, p]
     lib.tinynerf_partials_fwd.restype = i
-    lib.tinynerf_partials_bwd.argtypes = [p] * 15 + [i] * 15 + [p]
+    lib.tinynerf_partials_bwd.argtypes = [p] * 15 + [i] * 15 + [p, i, p]
     lib.tinynerf_partials_bwd.restype = i
-    lib.tinynerf_partials_smem_bytes.argtypes = [i] * 8
-    lib.tinynerf_partials_smem_bytes.restype = i
-    lib.tinynerf_partials_workspace_floats.argtypes = [i] * 6
+    lib.tinynerf_partials_workspace_floats.argtypes = [i] * 7
     lib.tinynerf_partials_workspace_floats.restype = ctypes.c_longlong
-    lib.tinynerf_partials_max_threads.argtypes = []
-    lib.tinynerf_partials_max_threads.restype = i
     lib.tinynerf_cuda_error_string.argtypes = [i]
     lib.tinynerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -161,26 +160,26 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _check_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, z, deltas, sigma_noise,
-                  sb: int) -> int:
-    """Validate what K7 takes; returns the rays per tile: the fewest that
-    fill whole 128-point chunks with blocks of sb samples."""
+                  sb: int) -> NerfShape:
+    """Validate what K7 takes; returns its shape (nerf_shape) for blocks
+    of sb samples."""
     check_inputs(mlp, cfg, rays_o, rays_d, z)
     for name, x in (("deltas", deltas), ("sigma_noise", sigma_noise)):
         if x is not None and (x.device != rays_o.device or x.dtype != torch.float32
                               or x.shape != z.shape):
             raise ValueError(f"{name} must be float32 {tuple(z.shape)} on {rays_o.device}")
-    lib = _lib()
-    if block_threads(cfg) > lib.tinynerf_partials_max_threads():
-        raise ValueError(f"hidden {cfg.hidden}, rgb_hidden {cfg.rgb_hidden} need "
-                         f"{block_threads(cfg)} threads: too many")
-    tile = 128 // math.gcd(128, sb)
-    smem = lib.tinynerf_partials_smem_bytes(tile, sb, z.shape[1], cfg.num_freqs,
-                                            cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
-                                            cfg.rgb_hidden)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"blocks of {sb} samples ({tile} rays a tile) at hidden {cfg.hidden} "
-                         f"need {smem} B of shared memory: too large")
-    return tile
+    return launch_shape(cfg, z.shape[1], sb, walk=True, route=None)
+
+
+def _as_shape(cfg: NeRFConfig, S: int, sb: int, tile) -> NerfShape:
+    """A launch's shape: a NerfShape as given, or rays a tile (an int),
+    which must be the configured shape's (nerf_shape)."""
+    if isinstance(tile, NerfShape):
+        return tile
+    shape = launch_shape(cfg, S, sb, walk=True, route=None)
+    if shape.tile_rays != tile:
+        raise ValueError(f"{tile} rays a tile: the configured shape takes {shape.tile_rays}")
+    return shape
 
 
 def _geom(cfg: NeRFConfig):
@@ -197,52 +196,64 @@ def _n_blocks(n_tiles: int, dev) -> int:
 
 
 def fused_block_partials_fwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, noise, sb: int,
-                             tile: int, emit_weights: bool):
+                             tile, emit_weights: bool):
     """Launch the K7 forward on padded, contiguous inputs (R a multiple of
-    tile) -> (out (R, 6): C(3), A, T, D; tin (R, S / sb); weights (R, S)
-    or None; the packed forward weights; the tensor-core fragments in
-    bf16, else None)."""
+    the tile's rays) in `tile`, its NerfShape or its rays a tile (the
+    configured shape's) -> (out (R, 6): C(3), A, T, D; tin (R, S / sb);
+    weights (R, S) or None; the packed forward weights; the tensor-core
+    fragments in bf16, else None)."""
     R, S = z.shape
     dev = o.device
+    shape = _as_shape(cfg, S, sb, tile)
+    tile = shape.tile_rays
     mma = uses_tensor_cores(cfg)
     w_fwd = pack_nerf_weights(mlp, cfg)
     w_mma = pack_mma_weights(mlp, cfg) if mma else None
     out = torch.empty(R, 6, dtype=torch.float32, device=dev)
     tin = torch.empty(R, S // sb, dtype=torch.float32, device=dev)
     w_out = torch.empty(R, S, dtype=torch.float32, device=dev) if emit_weights else None
+    n_blocks = _n_blocks(R // tile, dev)
+    spill = spill_buffer(cfg, shape, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tinynerf_partials_fwd(
         o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), _ptr(noise),
         w_fwd.data_ptr(), _ptr(w_mma), out.data_ptr(), tin.data_ptr(), _ptr(w_out), R, tile, S,
-        sb, *_geom(cfg), _n_blocks(R // tile, dev), dev.index, stream,
+        sb, *_geom(cfg), n_blocks, int(shape.general), _ptr(spill), dev.index, stream,
     )
     _raise_on(err, "fused_partials forward kernel")
-    fused_block_partials_fwd.launches += 1
-    fused_block_partials_fwd.mma_launches += int(mma)
+    count_launch(fused_block_partials_fwd, cfg, shape)
     return out, tin, w_out, w_fwd, w_mma
 
 
 fused_block_partials_fwd.launches = 0  # kernel launches since the last reset
 # ... of which took the tensor-core walk (bf16 at the tensor-core widths)
 fused_block_partials_fwd.mma_launches = 0
+# ... of which ran the general walk (nerf_shape), and of those held X in device memory
+fused_block_partials_fwd.general_launches = 0
+fused_block_partials_fwd.spill_launches = 0
 
 
 def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, noise, tin, g_ray,
-                             g_w, w_fwd, w_mma, sb: int, tile: int) -> List[torch.Tensor]:
+                             g_w, w_fwd, w_mma, sb: int, tile) -> List[torch.Tensor]:
     """Launch the K7 backward on the forward's padded inputs, its tin and
     packed weights (w_mma: its tensor-core fragments on that route, else None),
-    and the padded cotangents g_ray (R, 6) and g_w (R, S) or None ->
-    gradients aligned to mlp.parameters()."""
+    and the padded cotangents g_ray (R, 6) and g_w (R, S) or None, in the
+    forward's shape (`tile` as fused_block_partials_fwd's) -> gradients
+    aligned to mlp.parameters()."""
     R, S = z.shape
     dev = o.device
+    shape = _as_shape(cfg, S, sb, tile)
+    tile = shape.tile_rays
     mma = uses_tensor_cores(cfg)
     w_bwd = None if mma else pack_backward_weights(mlp, cfg)
     n_grad = w_fwd.numel()
     n_blocks = _n_blocks(R // tile, dev)
     lib = _lib()
     ws_floats = lib.tinynerf_partials_workspace_floats(tile, sb, cfg.num_freqs, cfg.hidden,
-                                                       cfg.depth, cfg.rgb_hidden)
+                                                       cfg.depth, cfg.rgb_hidden,
+                                                       int(shape.general))
     ws = torch.empty(n_blocks, ws_floats, dtype=torch.float32, device=dev)
+    spill = spill_buffer(cfg, shape, n_blocks, dev)
     partials = torch.empty(n_blocks, n_grad + 1, dtype=torch.float32, device=dev)
     params = list(mlp.parameters())
     out = torch.empty(sum(p.numel() for p in params) + 1, dtype=torch.float32, device=dev)
@@ -252,11 +263,10 @@ def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
         o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), _ptr(noise), tin.data_ptr(),
         g_ray.data_ptr(), _ptr(g_w), w_fwd.data_ptr(), _ptr(w_bwd), _ptr(w_mma), ws.data_ptr(),
         partials.data_ptr(), dst.data_ptr(), out.data_ptr(), R, tile, S, sb, *_geom(cfg),
-        n_blocks, n_grad, dev.index, stream,
+        n_blocks, n_grad, int(shape.general), _ptr(spill), dev.index, stream,
     )
     _raise_on(err, "fused_partials backward kernel")
-    fused_block_partials_bwd.launches += 1
-    fused_block_partials_bwd.mma_launches += int(mma)
+    count_launch(fused_block_partials_bwd, cfg, shape)
     grads, off = [], 0
     for p in params:
         grads.append(out[off:off + p.numel()].view(p.shape))
@@ -267,6 +277,9 @@ def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
 fused_block_partials_bwd.launches = 0  # kernel launches since the last reset
 # ... of which took the tensor-core walk (bf16 at the tensor-core widths)
 fused_block_partials_bwd.mma_launches = 0
+# ... of which ran the general walk, and of those held X in device memory
+fused_block_partials_bwd.general_launches = 0
+fused_block_partials_bwd.spill_launches = 0
 
 
 class _BlockPartials(torch.autograd.Function):
@@ -289,7 +302,8 @@ class _BlockPartials(torch.autograd.Function):
             return outs + ((w,) if emit_weights else ())
         mlp, cfg = padded_widths(mlp, cfg)  # the kernels' widths (the same objects mostly)
         ctx.kernel_mlp = (mlp, cfg)
-        tile = _check_launch(mlp, cfg, rays_o, rays_d, z, deltas, noise, sb)
+        shape = _check_launch(mlp, cfg, rays_o, rays_d, z, deltas, noise, sb)
+        tile = shape.tile_rays
         pad = -R % tile
         S = z.shape[1]
         o, d = pad_rays(rays_o, rays_d, pad)
@@ -298,8 +312,8 @@ class _BlockPartials(torch.autograd.Function):
         delta_p = torch.cat([deltas, deltas.new_ones(pad, S)]).contiguous()
         noise_p = None if noise is None else torch.cat([noise, noise.new_zeros(pad, S)]).contiguous()
         out, tin, w_out, w_fwd, w_mma = fused_block_partials_fwd(mlp, cfg, o, d, z_p, delta_p,
-                                                                 noise_p, sb, tile, emit_weights)
-        ctx.tile, ctx.R = tile, R
+                                                                 noise_p, sb, shape, emit_weights)
+        ctx.shape, ctx.R = shape, R
         ctx.save_for_backward(o, d, z_p, delta_p, noise_p, tin, w_fwd, w_mma)
         outs = (out[:R, 0:3].contiguous(), out[:R, 3].contiguous(), out[:R, 4].contiguous(),
                 out[:R, 5].contiguous())
@@ -325,7 +339,7 @@ class _BlockPartials(torch.autograd.Function):
                 g_w_p = torch.cat([g_w.float(), g_w.new_zeros(pad, z_p.shape[1])]).contiguous()
             grads = unpad_grads(
                 fused_block_partials_bwd(mlp_k, cfg_k, o, d, z_p, delta_p, noise_p, tin, g_ray,
-                                         g_w_p, w_fwd, w_mma, sb, ctx.tile), cfg, cfg_k)
+                                         g_w_p, w_fwd, w_mma, sb, ctx.shape), cfg, cfg_k)
         return (None, None, None, None, None, None, *grads)
 
 
@@ -339,10 +353,9 @@ def make_fused_block_partials_fn(cfg: NeRFConfig = NeRFConfig(), *, emit_weights
     deltas must be the caller's global_deltas slice; sigma_noise (R, S)
     is the pre-ReLU density noise, or None. Raises when sample_block does
     not divide the shard's sample count. tile_r is the JAX signature's ray
-    tile: the CUDA kernel picks its own tile (the fewest rays that fill
-    whole 128-point chunks) and pads the rays to it, so any ray count
-    works. CUDA tensors launch the kernels (or raise); CPU tensors take
-    the plain versions."""
+    tile: the CUDA kernel picks its own shape (nerf_shape) and pads the
+    rays to its tile, so any ray count works. CUDA tensors launch the
+    kernels (or raise); CPU tensors take the plain versions."""
     del tile_r
 
     def f(mlp: NeRFMLP, rays_o, rays_d, z_vals, deltas, sigma_noise=None):

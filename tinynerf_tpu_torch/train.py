@@ -101,16 +101,17 @@ from tinynerf_tpu_torch.utils.profiling import trace
 def _kernel_launches() -> dict:
     """The launch count of every kernel wrapper this process imported (a
     function of kernels/ with a `launches` counter), by name, and as
-    `<name>.mma_launches` the count of its tensor-core launches where it
-    keeps one."""
+    `<name>.<route>_launches` the counts of its routes where it keeps them
+    (the tensor cores, the general kernel, the spill route)."""
     counts = {}
     for name, mod in list(sys.modules.items()):
         if name.startswith("tinynerf_tpu_torch.kernels."):
             for attr, fn in vars(mod).items():
                 if getattr(fn, "__module__", None) == name and hasattr(fn, "launches"):
                     counts[attr] = fn.launches
-                    if hasattr(fn, "mma_launches"):
-                        counts[f"{attr}.mma_launches"] = fn.mma_launches
+                    for route in ("mma_launches", "general_launches", "spill_launches"):
+                        if hasattr(fn, route):
+                            counts[f"{attr}.{route}"] = getattr(fn, route)
     return counts
 
 
@@ -340,14 +341,20 @@ def main(cfg: Config = Config()) -> dict:
                 fine_pass_route,
                 make_fused_nerf_grad_fn,
                 uses_tensor_cores,
+                walk_route,
             )
 
             grad_fn = make_fused_nerf_grad_fn(settings, ncfg, n_fine=cfg.n_fine)
             block = fine_pass_route(settings, ncfg, cfg.n_fine)
+            s_union = cfg.n_samples + cfg.n_fine
             fine = "K4" if block is None else f"streamed K6, sample block {block}"
+            coarse = "K4"
+            if on_card:
+                coarse += f" ({walk_route(ncfg, cfg.n_samples, cfg.n_samples)})"
+                fine += f" ({walk_route(ncfg, s_union, block or s_union)})"
             walk = f" (the {'tensor' if uses_tensor_cores(ncfg) else 'CUDA'}-core walk)"
             route = (f"{'CUDA kernels' if on_card else 'their plain versions on the CPU'}: "
-                     f"coarse pass K4, fine pass {fine}{walk if on_card else ''}")
+                     f"coarse pass {coarse}, fine pass {fine}{walk if on_card else ''}")
         else:
             from tinynerf_tpu_torch.kernels.fused_train import k2_route, make_fused_grad_fn
 

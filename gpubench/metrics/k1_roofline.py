@@ -1,0 +1,8 @@
+"""k1_roofline: K1's bound (its launches' work, counted from the shapes)
+over its measured device time in the traced window, in percent."""
+
+from gpubench.core.readers import roofline
+
+
+def read(ctx):
+    return roofline(ctx, "K1")

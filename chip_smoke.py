@@ -211,8 +211,8 @@ Phases, each printed with its result and time:
                 --holdout-views --save-depth` and `make_gif --depth`; 2-rank
                 `--data-parallel` (bit-identical), `--ndc` 20 steps (the NDC
                 cube as the box), the regularized levers with the prior 50
-                steps; none of K1-K7 launched; the step, a 100x100 image and
-                the step's device share (torch.profiler) timed.
+                steps; none of K1-K7 launched; the step and a 100x100 image
+                timed.
  35. scenes   - `python -m tinynerf_tpu_torch.synthetic --scene lattice` on
                 the card, timed, three of its poses rendered again on the
                 CPU within 1e-4, its white share; seeds 1 and 2 distinct and
@@ -3191,8 +3191,7 @@ def run_grid() -> None:
     print(f"[grid] (b) ok in {time.time() - t0:.2f}s", flush=True)
 
     # 34. (c) timing: a step (2048 rays x 64 samples), a 100x100 image; the
-    #     step's device time and launches by torch.profiler; the tables'
-    #     gradient twice from one state, bit-identical.
+    #     tables' gradient twice from one state, bit-identical.
     t0 = time.time()
     s = gcfg.train_settings()
     box = aabb_from_rays(*get_rays_for_poses(H, W, focal, poses), 2.0, 6.0)
@@ -3226,44 +3225,7 @@ def run_grid() -> None:
           f"runs {json.dumps(times)}); the tables' gradient bit-identical across two backward "
           f"passes from one state: {same}", flush=True)
     check(same, "the tables' gradient is bit-identical across two backward passes on the card")
-    prof = profile_steps(lambda: step_fn(timed, opt, 0, next(counter), rays_o_all, rays_d_all,
-                                         pixels))
-    print(f"[timing] the grid step under torch.profiler: {json.dumps(prof)}", flush=True)
     print(f"[grid] (c) ok in {time.time() - t0:.2f}s", flush=True)
-
-
-def profile_steps(fn, n: int = 10) -> dict:
-    """n calls of fn under torch.profiler (CPU and CUDA activities): the
-    wall ms a call (profiling on), the device ms a call (the device events'
-    time), their ratio (the device's busy share; the rest is idle), the
-    kernel launches a call and the five kernels of most device time. The
-    device fields read "not measured" when the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.time() - t0) * 1e3 / n
-    avgs = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    # The device's own events (kernels, copies, fills): an operator's row
-    # repeats the time of the kernels it launched.
-    on_device = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
-    device = sum(dev_us(e) for e in on_device) / 1e3 / n
-    launches = sum(e.count for e in avgs if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                     "cudaLaunchKernelExC")) / n
-    top = sorted(on_device, key=dev_us, reverse=True)[:5]
-    if device <= 0:
-        return {"wall_ms": wall, "device_ms": "not measured", "launches": launches}
-    return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
-            "launches": launches, "top": {e.key[:60]: dev_us(e) / 1e3 / n for e in top}}
 
 
 def draw_batch(s, step, rays_o_all, rays_d_all, pixels):

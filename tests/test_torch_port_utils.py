@@ -1,10 +1,8 @@
-"""Port parity for the last utilities: utils/profiling.py (Timer,
-StepTimer, trace; train --profile-dir) and utils/torch_import.py (the
-reference .pth import), against tinynerf_tpu/utils/profiling.py and
-tinynerf_tpu/utils/torch_import.py, on the CPU.
+"""Port parity for the last utilities: utils/profiling.py's trace (and
+train --profile-dir) and utils/torch_import.py (the reference .pth
+import), against tinynerf_tpu/utils/torch_import.py, on the CPU (the
+spans and counters of utils/profiling.py: tests/test_torch_port_spans.py).
 
-- Timer and StepTimer: the same samples (a fake clock for Timer) give the
-  JAX module's statistics exactly;
 - trace and `train --profile-dir` write a Chrome trace on the CPU;
 - a .pth in the reference's schema, written here from the JAX package's
   params_to_torch_state_dict, imports into a port TinyNeRF whose f32
@@ -28,7 +26,6 @@ from tinynerf_tpu.models.tinynerf import TinyNeRFConfig as JaxConfig
 from tinynerf_tpu.render import render_rays as jax_render_rays
 from tinynerf_tpu.training import TrainSettings as JaxSettings
 from tinynerf_tpu.training import init_train_state as jax_init_train_state
-from tinynerf_tpu.utils import profiling as jprof
 from tinynerf_tpu.utils import torch_import as jimport
 from tinynerf_tpu_torch import synthetic, train
 from tinynerf_tpu_torch.config import Config
@@ -49,53 +46,6 @@ def _grad_enabled():
     left (tests/test_torch_parity.py turns it off globally)."""
     with torch.enable_grad():
         yield
-
-
-class _Clock:
-    """perf_counter stand-in: the given times in turn."""
-
-    def __init__(self, times):
-        self.times = iter(times)
-
-    def __call__(self):
-        return next(self.times)
-
-
-TICKS = [0.0, 0.0125, 1.0, 1.5, 2.0, 2.003, 3.0, 3.25]
-
-
-def _run_timer(mod, monkeypatch, sync_on):
-    monkeypatch.setattr(mod.time, "perf_counter", _Clock(TICKS))
-    timer = mod.Timer()
-    for name in ("render", "train", "render", "eval"):
-        with timer.section(name, sync_on):
-            pass
-    return timer.summary()
-
-
-def test_timer_statistics_equal_the_jax_modules(monkeypatch):
-    want = _run_timer(jprof, monkeypatch, np.zeros(3))
-    got = _run_timer(profiling, monkeypatch, torch.zeros(3))
-    assert got == want
-    assert got["render"]["count"] == 2 and got["render"]["mean_ms"] == pytest.approx(7.75)
-
-
-@pytest.mark.parametrize("window", [3, 200])
-def test_step_timer_statistics_equal_the_jax_modules(window):
-    samples = np.random.RandomState(0).exponential(0.01, 17).tolist()
-    a, b = jprof.StepTimer(window), profiling.StepTimer(window)
-    assert a.stats() == b.stats() == {}
-    for x in samples:
-        a.record(x)
-        b.record(x)
-    assert b.samples == a.samples and b.stats() == a.stats()
-    assert len(b.samples) == min(window, len(samples))
-
-
-def test_sync_takes_tensors_and_containers_on_the_cpu():
-    profiling.sync(torch.ones(2))
-    profiling.sync({"a": torch.ones(2), "b": [torch.zeros(1), 3.0]})
-    profiling.sync(None)
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):

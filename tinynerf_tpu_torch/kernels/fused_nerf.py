@@ -64,6 +64,7 @@ from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP, nerf_layer
 from tinynerf_tpu_torch.models.stacked import with_params
 from tinynerf_tpu_torch.ops.sampling import sample_pdf
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
+from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
 
 MAX_SMEM_BYTES = 232448  # H100: 227 KB of dynamic shared memory per block
 # The NeRF kernels' block limits (csrc/nerf_mlp.cuh): 128-point forward
@@ -549,6 +550,7 @@ def pad_rays(rays_o, rays_d, pad: int):
             torch.cat([rays_d, unit_z.expand(*lead, pad, 3)], dim=-2).contiguous())
 
 
+@spanned
 def fused_nerf_render_rays(
     mlp: NeRFMLP,
     rays_o: torch.Tensor,
@@ -579,6 +581,7 @@ def fused_nerf_render_rays(
     S = z_vals.shape[1] if z_vals is not None else n_samples
     if S < 2:
         raise ValueError(f"the kernel needs at least 2 samples per ray, got {S}")
+    given = mlp
     mlp, cfg = padded_widths(mlp, cfg)
     shape = check_launch(mlp, cfg, rays_o, rays_d, z_vals, S, route)
     tile = shape.tile_rays
@@ -590,23 +593,25 @@ def fused_nerf_render_rays(
     z = None
     if z_vals is not None:
         z = torch.cat([z_vals, z_vals.new_zeros(pad, S)]).contiguous()
-    wts = pack_nerf_weights(mlp, cfg)
     mma = render_uses_tensor_cores(cfg)
-    w_mma = pack_mma_forward(mlp, cfg) if mma else None
+    with pack_span("fused_nerf_render_rays.pack", given):
+        wts = pack_nerf_weights(mlp, cfg)
+        w_mma = pack_mma_forward(mlp, cfg) if mma else None
     out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
     w_out = torch.empty(R + pad, S, dtype=torch.float32, device=dev) if return_weights else None
     n_blocks = general_blocks(shape, (R + pad) // tile, dev)
     spill = spill_buffer(cfg, shape, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().tinynerf_fused_nerf(
-        o.data_ptr(), d.data_ptr(), None if z is None else z.data_ptr(), wts.data_ptr(),
-        None if w_mma is None else w_mma.data_ptr(), out.data_ptr(),
-        None if w_out is None else w_out.data_ptr(),
-        R + pad, tile, S, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
-        cfg.depth, cfg.skip_at, cfg.rgb_hidden, float(near), float(far),
-        int(cfg.compute_dtype == torch.bfloat16), int(shape.general),
-        None if spill is None else spill.data_ptr(), n_blocks, dev.index, stream,
-    )
+    with span("fused_nerf_render_rays.launch"):
+        err = _lib().tinynerf_fused_nerf(
+            o.data_ptr(), d.data_ptr(), None if z is None else z.data_ptr(), wts.data_ptr(),
+            None if w_mma is None else w_mma.data_ptr(), out.data_ptr(),
+            None if w_out is None else w_out.data_ptr(),
+            R + pad, tile, S, cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden,
+            cfg.depth, cfg.skip_at, cfg.rgb_hidden, float(near), float(far),
+            int(cfg.compute_dtype == torch.bfloat16), int(shape.general),
+            None if spill is None else spill.data_ptr(), n_blocks, dev.index, stream,
+        )
     raise_on_error(err, "fused_nerf")
     fused_nerf_render_rays.launches += 1
     fused_nerf_render_rays.mma_launches += int(mma)

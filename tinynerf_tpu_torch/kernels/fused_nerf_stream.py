@@ -68,6 +68,7 @@ from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     pass_grads_plain,
 )
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
+from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
 
 DEFAULT_SAMPLE_BLOCK = 64
 
@@ -128,6 +129,7 @@ def fused_nerf_render_rays_streamed_plain(
     return C + (1.0 - A[:, None]) if white_bkgd else C
 
 
+@spanned
 def fused_nerf_render_rays_streamed(
     mlp: NeRFMLP,
     rays_o: torch.Tensor,
@@ -152,6 +154,7 @@ def fused_nerf_render_rays_streamed(
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_nerf_render_rays_streamed_plain(
             mlp, rays_o, rays_d, z_vals, white_bkgd=white_bkgd, cfg=cfg, sample_block=sb)
+    given = mlp
     mlp, cfg = padded_widths(mlp, cfg)
     shape = check_launch(mlp, cfg, rays_o, rays_d, z_vals, sb, route)
     tile = shape.tile_rays
@@ -161,21 +164,23 @@ def fused_nerf_render_rays_streamed(
     o, d = pad_rays(rays_o, rays_d, pad)
     z = torch.cat([z_vals, z_vals.new_ones(pad, S)]).contiguous()
     delta = deltas(z, d).contiguous()
-    wts = pack_nerf_weights(mlp, cfg)
     mma = render_uses_tensor_cores(cfg)
-    w_mma = pack_mma_forward(mlp, cfg) if mma else None
+    with pack_span("fused_nerf_render_rays_streamed.pack", given):
+        wts = pack_nerf_weights(mlp, cfg)
+        w_mma = pack_mma_forward(mlp, cfg) if mma else None
     out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
     n_blocks = general_blocks(shape, (R + pad) // tile, dev)
     spill = spill_buffer(cfg, shape, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().tinynerf_fused_nerf_streamed(
-        o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), wts.data_ptr(),
-        None if w_mma is None else w_mma.data_ptr(), out.data_ptr(), R + pad, tile, S, sb,
-        cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden, cfg.depth,
-        cfg.skip_at, cfg.rgb_hidden, int(cfg.compute_dtype == torch.bfloat16),
-        int(shape.general), None if spill is None else spill.data_ptr(), n_blocks, dev.index,
-        stream,
-    )
+    with span("fused_nerf_render_rays_streamed.launch"):
+        err = _lib().tinynerf_fused_nerf_streamed(
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), wts.data_ptr(),
+            None if w_mma is None else w_mma.data_ptr(), out.data_ptr(), R + pad, tile, S, sb,
+            cfg.num_freqs, cfg.num_freqs_dir, int(cfg.use_viewdirs), cfg.hidden, cfg.depth,
+            cfg.skip_at, cfg.rgb_hidden, int(cfg.compute_dtype == torch.bfloat16),
+            int(shape.general), None if spill is None else spill.data_ptr(), n_blocks,
+            dev.index, stream,
+        )
     raise_on_error(err, "fused_nerf_streamed")
     fused_nerf_render_rays_streamed.launches += 1
     fused_nerf_render_rays_streamed.mma_launches += int(mma)
@@ -217,6 +222,7 @@ def fused_nerf_pass_grads_streamed_plain(
     return loss, grads
 
 
+@spanned
 def fused_nerf_pass_grads_streamed(
     mlp: NeRFMLP,
     rays_o: torch.Tensor,
@@ -250,7 +256,8 @@ def fused_nerf_pass_grads_streamed(
     shape = check_train_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, sb,
                                route)
     loss, grads = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, shape, S, streamed=True,
-                              seg=sb, z=z_vals, **kw)
+                              seg=sb, name="fused_nerf_pass_grads_streamed", given=mlp, z=z_vals,
+                              **kw)
     count_launch(fused_nerf_pass_grads_streamed, cfg_k, shape)
     return loss, unpad_grads(grads, cfg, cfg_k)
 
@@ -275,6 +282,7 @@ def fused_nerf_pass_grads_streamed_scenes_plain(mlp: NeRFMLP, rays_o, rays_d, ta
                      dict(sigma_noise=sigma_noise), **kw)
 
 
+@spanned
 def fused_nerf_pass_grads_streamed_scenes(
     mlp: NeRFMLP,
     rays_o: torch.Tensor,
@@ -307,6 +315,7 @@ def fused_nerf_pass_grads_streamed_scenes(
     mlp_k, cfg_k = padded_widths(mlp, cfg)
     shape = check_scenes_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, sb)
     loss, grads = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, shape, S, streamed=True,
-                              seg=sb, z=z_vals, **kw)
+                              seg=sb, name="fused_nerf_pass_grads_streamed_scenes", given=mlp,
+                              z=z_vals, **kw)
     count_launch(fused_nerf_pass_grads_streamed, cfg_k, shape, scenes=True)
     return loss, unpad_grads(grads, cfg, cfg_k)

@@ -80,6 +80,7 @@ from tinynerf_tpu_torch.kernels.fused_train import (
 from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP, nerf_layer_in_dims, run_mlp, view_encoding
 from tinynerf_tpu_torch.ops.sampling import sample_pdf
 from tinynerf_tpu_torch.utils.metrics import mse2psnr
+from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
 
 # The routing rule's ray tile (tinynerf_tpu/kernels/fused_nerf_train.py:57).
 DEFAULT_TILE_R = 128
@@ -300,13 +301,15 @@ def check_train_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z,
 
 
 def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, shape: NerfShape, S: int, *,
-                streamed: bool, seg: int, z=None, sigma_noise=None, seed=None,
-                near: float = 2.0, far: float = 6.0, randomized: bool = False,
+                streamed: bool, seg: int, name: str, given: NeRFMLP, z=None, sigma_noise=None,
+                seed=None, near: float = 2.0, far: float = 6.0, randomized: bool = False,
                 white_bkgd: bool = True, emit_sampling: bool = False):
     """Pad the rays to whole tiles and launch K4 (seg == S: depths given
     or drawn in the kernel) or the streamed K6 (z given, segments of
     `seg` samples) in `shape` (check_train_launch's) -> (loss, grads
-    aligned to mlp.parameters()[, weights, z]).
+    aligned to mlp.parameters()[, weights, z]). The packing and the launch
+    are the spans `<name>.pack` (repacks keyed on `given`, the wrapper's
+    module before padded_widths) and `<name>.launch`.
 
     One scene: rays (R, 3), z and sigma_noise (R, S), `seed` an int or a
     one-element device tensor. K stacked scenes (rays (K, R, 3), an `mlp`
@@ -338,11 +341,12 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, shape: Ne
     # the CUDA-core walk reads the upstream weights rounded to the dtype.
     # Each buffer is packed once for every scene: (K, n).
     mma = uses_tensor_cores(cfg)
-    w_fwd = pack_nerf_weights(mlp, cfg)
-    n_grad = w_fwd.shape[-1]
-    w_fwd = scene_slabs(w_fwd, K)
-    w_mma = scene_slabs(pack_mma_weights(mlp, cfg), K) if mma else None
-    w_bwd = None if mma else scene_slabs(pack_backward_weights(mlp, cfg), K)
+    with pack_span(name + ".pack", given):
+        w_fwd = pack_nerf_weights(mlp, cfg)
+        n_grad = w_fwd.shape[-1]
+        w_fwd = scene_slabs(w_fwd, K)
+        w_mma = scene_slabs(pack_mma_weights(mlp, cfg), K) if mma else None
+        w_bwd = None if mma else scene_slabs(pack_backward_weights(mlp, cfg), K)
     n_tiles = (R + pad) // tile
     # Blocks per scene, independent of K: a scene's reduction order, and so
     # its loss and gradients, do not depend on the scenes beside it.
@@ -367,13 +371,14 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, shape: Ne
 
     w_out = z_out = None
     if streamed:
-        err = lib.tinynerf_fused_nerf_train_streamed(
-            o.data_ptr(), d.data_ptr(), tgt.data_ptr(), z.data_ptr(), delta.data_ptr(),
-            ptr(noise), w_fwd.data_ptr(), ptr(w_bwd), ptr(w_mma), ws.data_ptr(),
-            partials.data_ptr(), dst.data_ptr(), out.data_ptr(), R + pad, R, tile, S, seg, *geom,
-            1.0 / (R * 3), int(white_bkgd), bf16, n_blocks, n_grad, K, *strides,
-            int(shape.general), ptr(spill), dev.index, stream,
-        )
+        with span(name + ".launch"):
+            err = lib.tinynerf_fused_nerf_train_streamed(
+                o.data_ptr(), d.data_ptr(), tgt.data_ptr(), z.data_ptr(), delta.data_ptr(),
+                ptr(noise), w_fwd.data_ptr(), ptr(w_bwd), ptr(w_mma), ws.data_ptr(),
+                partials.data_ptr(), dst.data_ptr(), out.data_ptr(), R + pad, R, tile, S, seg,
+                *geom, 1.0 / (R * 3), int(white_bkgd), bf16, n_blocks, n_grad, K, *strides,
+                int(shape.general), ptr(spill), dev.index, stream,
+            )
     else:
         if scenes:
             seed_t = _seeds_tensor(seed, K, dev)
@@ -382,15 +387,16 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, shape: Ne
         if emit_sampling:
             w_out = torch.empty(K, R + pad, S, dtype=torch.float32, device=dev)
             z_out = torch.empty(K, R + pad, S, dtype=torch.float32, device=dev)
-        err = lib.tinynerf_fused_nerf_train(
-            o.data_ptr(), d.data_ptr(), tgt.data_ptr(), ptr(z), ptr(delta), ptr(noise),
-            seed_t.data_ptr(), w_fwd.data_ptr(), ptr(w_bwd), ptr(w_mma), ws.data_ptr(),
-            partials.data_ptr(),
-            dst.data_ptr(), out.data_ptr(), ptr(w_out), ptr(z_out), R + pad, R, tile, S, *geom,
-            float(near), (far - near) / (S - 1), 1.0 / (R * 3), int(randomized),
-            int(white_bkgd), bf16, n_blocks, n_grad, K, *strides, int(shape.general), ptr(spill),
-            dev.index, stream,
-        )
+        with span(name + ".launch"):
+            err = lib.tinynerf_fused_nerf_train(
+                o.data_ptr(), d.data_ptr(), tgt.data_ptr(), ptr(z), ptr(delta), ptr(noise),
+                seed_t.data_ptr(), w_fwd.data_ptr(), ptr(w_bwd), ptr(w_mma), ws.data_ptr(),
+                partials.data_ptr(),
+                dst.data_ptr(), out.data_ptr(), ptr(w_out), ptr(z_out), R + pad, R, tile, S,
+                *geom, float(near), (far - near) / (S - 1), 1.0 / (R * 3), int(randomized),
+                int(white_bkgd), bf16, n_blocks, n_grad, K, *strides, int(shape.general),
+                ptr(spill), dev.index, stream,
+            )
     _raise_on(err, "fused_nerf_train_streamed kernel" if streamed else "fused_nerf_train kernel")
     grads = _split_grads(out if scenes else out[0], mlp.parameters())
     loss = out[:, n_params] if scenes else out[0, n_params]
@@ -421,6 +427,7 @@ def check_scenes_launch(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, z
                               None if sigma_noise is None else sigma_noise[0], S, seg)
 
 
+@spanned
 def fused_nerf_pass_grads(
     mlp: NeRFMLP,
     rays_o: torch.Tensor,
@@ -463,7 +470,7 @@ def fused_nerf_pass_grads(
     shape = check_train_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, S,
                                route)
     res = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, shape, S, streamed=False, seg=S,
-                      z=z_vals, seed=seed,
+                      name="fused_nerf_pass_grads", given=mlp, z=z_vals, seed=seed,
                       randomized=randomized and z_vals is None, **kw)
     count_launch(fused_nerf_pass_grads, cfg_k, shape)
     return (res[0], unpad_grads(res[1], cfg, cfg_k), *res[2:])
@@ -491,6 +498,7 @@ def fused_nerf_pass_grads_scenes_plain(mlp: NeRFMLP, rays_o, rays_d, target, see
                      dict(sigma_noise=sigma_noise), **kw)
 
 
+@spanned
 def fused_nerf_pass_grads_scenes(
     mlp: NeRFMLP,
     rays_o: torch.Tensor,
@@ -533,7 +541,8 @@ def fused_nerf_pass_grads_scenes(
     mlp_k, cfg_k = padded_widths(mlp, cfg)
     shape = check_scenes_launch(mlp_k, cfg_k, rays_o, rays_d, target, z_vals, sigma_noise, S, S)
     res = launch_pass(mlp_k, cfg_k, rays_o, rays_d, target, shape, S, streamed=False, seg=S,
-                      z=z_vals, seed=seeds, randomized=randomized and z_vals is None, **kw)
+                      name="fused_nerf_pass_grads_scenes", given=mlp, z=z_vals, seed=seeds,
+                      randomized=randomized and z_vals is None, **kw)
     count_launch(fused_nerf_pass_grads, cfg_k, shape, scenes=True)
     return (res[0], unpad_grads(res[1], cfg, cfg_k), *res[2:])
 

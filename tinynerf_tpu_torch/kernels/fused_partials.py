@@ -65,6 +65,7 @@ from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     uses_tensor_cores,
 )
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
+from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
 
 # The JAX signature's defaults (tinynerf_tpu/kernels/fused_partials.py:64-65).
 DEFAULT_TILE_R = 128
@@ -195,6 +196,7 @@ def _n_blocks(n_tiles: int, dev) -> int:
     return min(n_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
+@spanned
 def fused_block_partials_fwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, noise, sb: int,
                              tile, emit_weights: bool):
     """Launch the K7 forward on padded, contiguous inputs (R a multiple of
@@ -207,19 +209,21 @@ def fused_block_partials_fwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
     shape = _as_shape(cfg, S, sb, tile)
     tile = shape.tile_rays
     mma = uses_tensor_cores(cfg)
-    w_fwd = pack_nerf_weights(mlp, cfg)
-    w_mma = pack_mma_weights(mlp, cfg) if mma else None
+    with pack_span("fused_block_partials_fwd.pack", mlp):
+        w_fwd = pack_nerf_weights(mlp, cfg)
+        w_mma = pack_mma_weights(mlp, cfg) if mma else None
     out = torch.empty(R, 6, dtype=torch.float32, device=dev)
     tin = torch.empty(R, S // sb, dtype=torch.float32, device=dev)
     w_out = torch.empty(R, S, dtype=torch.float32, device=dev) if emit_weights else None
     n_blocks = _n_blocks(R // tile, dev)
     spill = spill_buffer(cfg, shape, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().tinynerf_partials_fwd(
-        o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), _ptr(noise),
-        w_fwd.data_ptr(), _ptr(w_mma), out.data_ptr(), tin.data_ptr(), _ptr(w_out), R, tile, S,
-        sb, *_geom(cfg), n_blocks, int(shape.general), _ptr(spill), dev.index, stream,
-    )
+    with span("fused_block_partials_fwd.launch"):
+        err = _lib().tinynerf_partials_fwd(
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), _ptr(noise),
+            w_fwd.data_ptr(), _ptr(w_mma), out.data_ptr(), tin.data_ptr(), _ptr(w_out), R, tile,
+            S, sb, *_geom(cfg), n_blocks, int(shape.general), _ptr(spill), dev.index, stream,
+        )
     _raise_on(err, "fused_partials forward kernel")
     count_launch(fused_block_partials_fwd, cfg, shape)
     return out, tin, w_out, w_fwd, w_mma
@@ -233,6 +237,7 @@ fused_block_partials_fwd.general_launches = 0
 fused_block_partials_fwd.spill_launches = 0
 
 
+@spanned
 def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, noise, tin, g_ray,
                              g_w, w_fwd, w_mma, sb: int, tile) -> List[torch.Tensor]:
     """Launch the K7 backward on the forward's padded inputs, its tin and
@@ -245,7 +250,10 @@ def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
     shape = _as_shape(cfg, S, sb, tile)
     tile = shape.tile_rays
     mma = uses_tensor_cores(cfg)
-    w_bwd = None if mma else pack_backward_weights(mlp, cfg)
+    w_bwd = None
+    if not mma:  # the tensor cores read the forward's fragments
+        with pack_span("fused_block_partials_bwd.pack", mlp):
+            w_bwd = pack_backward_weights(mlp, cfg)
     n_grad = w_fwd.numel()
     n_blocks = _n_blocks(R // tile, dev)
     lib = _lib()
@@ -259,12 +267,14 @@ def fused_block_partials_bwd(mlp: NeRFMLP, cfg: NeRFConfig, o, d, z, delta, nois
     out = torch.empty(sum(p.numel() for p in params) + 1, dtype=torch.float32, device=dev)
     dst = scatter_index(tuple(n for n, _ in mlp.named_parameters()), cfg, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.tinynerf_partials_bwd(
-        o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), _ptr(noise), tin.data_ptr(),
-        g_ray.data_ptr(), _ptr(g_w), w_fwd.data_ptr(), _ptr(w_bwd), _ptr(w_mma), ws.data_ptr(),
-        partials.data_ptr(), dst.data_ptr(), out.data_ptr(), R, tile, S, sb, *_geom(cfg),
-        n_blocks, n_grad, int(shape.general), _ptr(spill), dev.index, stream,
-    )
+    with span("fused_block_partials_bwd.launch"):
+        err = lib.tinynerf_partials_bwd(
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), delta.data_ptr(), _ptr(noise),
+            tin.data_ptr(), g_ray.data_ptr(), _ptr(g_w), w_fwd.data_ptr(), _ptr(w_bwd),
+            _ptr(w_mma), ws.data_ptr(), partials.data_ptr(), dst.data_ptr(), out.data_ptr(), R,
+            tile, S, sb, *_geom(cfg), n_blocks, n_grad, int(shape.general), _ptr(spill),
+            dev.index, stream,
+        )
     _raise_on(err, "fused_partials backward kernel")
     count_launch(fused_block_partials_bwd, cfg, shape)
     grads, off = [], 0

@@ -51,6 +51,7 @@ from tinynerf_tpu_torch.kernels.fused_nerf import pack_mma_b, pad8, pad_linears,
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_in_dims
 from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
+from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
 
 # Points per block: TR = TILE_POINTS // S rays of S samples each.
 TILE_POINTS = 128
@@ -309,6 +310,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@spanned
 def fused_render_rays(
     params: TinyNeRF,
     rays_o: torch.Tensor,
@@ -334,6 +336,7 @@ def fused_render_rays(
     if rays_o.device.type == "cpu" and rays_d.device.type == "cpu":
         return fused_render_rays_plain(params, rays_o, rays_d, **kw)
     _check_launch(params, rays_o, rays_d, n_samples, num_freqs, cfg)
+    given = params
     params, cfg = padded_tiny_widths(params, cfg)
     mma, general, tile, seg = k1_shape(cfg, n_samples)
 
@@ -343,15 +346,17 @@ def fused_render_rays(
     o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)]).contiguous()
     d = torch.cat([rays_d, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(pad, 3)])
     d = d.contiguous()
-    wts, w_mma = pack_tiny_weights(params, cfg, mma=mma)
+    with pack_span("fused_render_rays.pack", given):
+        wts, w_mma = pack_tiny_weights(params, cfg, mma=mma)
     out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().tinynerf_fused_render(
-        o.data_ptr(), d.data_ptr(), wts.data_ptr(), None if w_mma is None else w_mma.data_ptr(),
-        out.data_ptr(), R + pad, tile, n_samples, seg, int(general), num_freqs, cfg.hidden,
-        cfg.depth, cfg.skip_at, float(near), float(far),
-        int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
-    )
+    with span("fused_render_rays.launch"):
+        err = _lib().tinynerf_fused_render(
+            o.data_ptr(), d.data_ptr(), wts.data_ptr(),
+            None if w_mma is None else w_mma.data_ptr(), out.data_ptr(), R + pad, tile, n_samples,
+            seg, int(general), num_freqs, cfg.hidden, cfg.depth, cfg.skip_at, float(near),
+            float(far), int(cfg.compute_dtype == torch.bfloat16), dev.index, stream,
+        )
     if err != 0:
         msg = _lib().tinynerf_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_render kernel launch failed: CUDA error {err} ({msg})")

@@ -71,6 +71,7 @@ from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_i
 from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
 from tinynerf_tpu_torch.utils.metrics import mse2psnr
+from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
 
 # Points per tile: TR = TILE_POINTS // S rays of S samples (one ray at S=64).
 TILE_POINTS = 64
@@ -334,6 +335,7 @@ def _check_launch(model, tensors, n_samples, num_freqs, cfg) -> None:
         raise ValueError(f"kernel needs hidden >= 1 and 0 <= skip_at < depth, got {cfg}")
 
 
+@spanned
 def fused_loss_grads(
     model: TinyNeRF,
     rays_o: torch.Tensor,
@@ -437,7 +439,9 @@ def _launch(model, rays_o, rays_d, target, seeds, sigma_noise, n_samples, near, 
     ones -> (loss (K,), grads aligned to model.parameters(): one scene's,
     or each (K, *shape)). The model is padded to a multiple of 8 units
     (padded_tiny_widths) and each scene's rays to whole tiles
-    (pad_ray_batch); the loss divides by the real rays."""
+    (pad_ray_batch); the loss divides by the real rays. Spans: the
+    wrapper's .pack and .launch."""
+    name = "fused_loss_grads_scenes" if scenes else "fused_loss_grads"
     tensors = {"rays_o": rays_o, "rays_d": rays_d, "target": target}
     if sigma_noise is not None:
         tensors["sigma_noise"] = sigma_noise
@@ -462,10 +466,11 @@ def _launch(model, rays_o, rays_d, target, seeds, sigma_noise, n_samples, near, 
                          f"memory on the {'spill' if spill else 'shared-memory'} route: too large")
     # The tensor cores read the upstream products' weights as fragments only;
     # each buffer is packed once for every scene, (K, n).
-    w_fwd, w_mma = pack_tiny_weights(model_k, cfg_k, mma=mma, upstream=True)
-    w_bwd = None if mma else pack_backward_weights(model_k, cfg_k)
-    n_grad = w_fwd.shape[-1]
-    w_fwd, w_mma, w_bwd = (scene_slabs(w, K) for w in (w_fwd, w_mma, w_bwd))
+    with pack_span(name + ".pack", model):
+        w_fwd, w_mma = pack_tiny_weights(model_k, cfg_k, mma=mma, upstream=True)
+        w_bwd = None if mma else pack_backward_weights(model_k, cfg_k)
+        n_grad = w_fwd.shape[-1]
+        w_fwd, w_mma, w_bwd = (scene_slabs(w, K) for w in (w_fwd, w_mma, w_bwd))
     # Blocks per scene, independent of K: a scene's reduction order, and so
     # its loss and gradients, do not depend on the scenes beside it.
     n_blocks = min((R + pad) // tr, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -480,18 +485,19 @@ def _launch(model, rays_o, rays_d, target, seeds, sigma_noise, n_samples, near, 
     names = tuple(n for n, _ in model_k.named_parameters())
     dst = _scatter_index(names, cfg_k, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.tinynerf_fused_train(
-        rays_o.data_ptr(), rays_d.data_ptr(), target.data_ptr(),
-        None if sigma_noise is None else sigma_noise.data_ptr(), seeds.data_ptr(),
-        w_fwd.data_ptr(), None if w_bwd is None else w_bwd.data_ptr(),
-        None if w_mma is None else w_mma.data_ptr(), partials.data_ptr(), dst.data_ptr(),
-        out.data_ptr(), R + pad, tr, n_samples, num_freqs, cfg_k.hidden, cfg_k.depth,
-        cfg_k.skip_at, float(near), (far - near) / (n_samples - 1), 1.0 / (R * 3),
-        int(randomized), int(white_bkgd), int(cfg_k.compute_dtype == torch.bfloat16),
-        n_blocks, n_grad, row, K, w_fwd.shape[1], 0 if w_bwd is None else w_bwd.shape[1],
-        0 if w_mma is None else w_mma.shape[1], int(spill),
-        None if ws is None else ws.data_ptr(), dev.index, stream,
-    )
+    with span(name + ".launch"):
+        err = lib.tinynerf_fused_train(
+            rays_o.data_ptr(), rays_d.data_ptr(), target.data_ptr(),
+            None if sigma_noise is None else sigma_noise.data_ptr(), seeds.data_ptr(),
+            w_fwd.data_ptr(), None if w_bwd is None else w_bwd.data_ptr(),
+            None if w_mma is None else w_mma.data_ptr(), partials.data_ptr(), dst.data_ptr(),
+            out.data_ptr(), R + pad, tr, n_samples, num_freqs, cfg_k.hidden, cfg_k.depth,
+            cfg_k.skip_at, float(near), (far - near) / (n_samples - 1), 1.0 / (R * 3),
+            int(randomized), int(white_bkgd), int(cfg_k.compute_dtype == torch.bfloat16),
+            n_blocks, n_grad, row, K, w_fwd.shape[1], 0 if w_bwd is None else w_bwd.shape[1],
+            0 if w_mma is None else w_mma.shape[1], int(spill),
+            None if ws is None else ws.data_ptr(), dev.index, stream,
+        )
     _raise_on(err, "fused_train kernel")
     fused_loss_grads.launches += 1
     fused_loss_grads.mma_launches += int(mma)
@@ -512,6 +518,7 @@ def fused_loss_grads_scenes_plain(model, rays_o, rays_d, target, seeds, *,
                      dict(sigma_noise=sigma_noise), **kw)
 
 
+@spanned
 def fused_loss_grads_scenes(
     model: TinyNeRF,
     rays_o: torch.Tensor,

@@ -51,6 +51,7 @@ from tinynerf_tpu_torch.training import (
     settings_optimizer,
     step_generator,
 )
+from tinynerf_tpu_torch.utils.profiling import span
 
 
 def scene_seed(seed: int, k: int) -> int:
@@ -141,17 +142,22 @@ def make_multiscene_train_block(s: TrainSettings, block_size: int, n_scenes: int
             raise ValueError(f"{rays_o.shape[0]} scenes of rays for this rank's "
                              f"{len(scene_ids)} scenes")
         dev = rays_o.device
-        gens = [step_generator(scene_seed(seed, g), step, dev) for g in scene_ids]
-        batch = [draw_ray_batch(s, gen, step, rays_o[k], rays_d[k], pixels[k])
-                 for k, gen in enumerate(gens)]
-        ro, rd, target = (torch.stack(t) for t in zip(*batch))
-        scale = noise_scale(s, step)
-        optimizer.zero_grad(set_to_none=True)
-        if grad_fn is not None:
-            _, metrics = grad_fn(model, ro, rd, target, gens, noise_scale=scale)
-        else:
-            metrics = eager_scene_grads(model, loss, ro, rd, target, gens, s, noise_scale=scale)
-        optimizer.step()
+        with span("step"):
+            with span("step.draw"):
+                gens = [step_generator(scene_seed(seed, g), step, dev) for g in scene_ids]
+                batch = [draw_ray_batch(s, gen, step, rays_o[k], rays_d[k], pixels[k])
+                         for k, gen in enumerate(gens)]
+                ro, rd, target = (torch.stack(t) for t in zip(*batch))
+            scale = noise_scale(s, step)
+            optimizer.zero_grad(set_to_none=True)
+            with span("step.grad"):
+                if grad_fn is not None:
+                    _, metrics = grad_fn(model, ro, rd, target, gens, noise_scale=scale)
+                else:
+                    metrics = eager_scene_grads(model, loss, ro, rd, target, gens, s,
+                                                noise_scale=scale)
+            with span("step.optimizer"):
+                optimizer.step()
         return metrics
 
     def block(model, optimizer, seed, step0, rays_o, rays_d, pixels):

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from tinynerf_tpu_torch.utils.profiling import spanned
+
 
 def stratified_samples(
     near,
@@ -54,6 +56,7 @@ def stratified_samples(
     return z_vals, pts
 
 
+@spanned
 def sample_pdf(
     bins: torch.Tensor,
     weights: torch.Tensor,

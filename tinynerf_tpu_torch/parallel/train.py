@@ -74,6 +74,7 @@ from tinynerf_tpu_torch.training import (
     noise_scale,
 )
 from tinynerf_tpu_torch.utils.metrics import mse2psnr
+from tinynerf_tpu_torch.utils.profiling import span
 
 def rank_generator(seed: int, step: int, data_idx: int, device) -> torch.Generator:
     """The generator of one step on one data index (see the module
@@ -276,29 +277,34 @@ def make_sharded_train_block(
     local = dataclasses.replace(s, n_rand=s.n_rand // n_data)
 
     def step_body(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels):
-        gen = rank_generator(seed, step, mesh.data_idx, rays_o_all.device)
-        ro, rd, target = draw_ray_batch(local, gen, step, rays_o_all, rays_d_all, pixels)
-        scale = noise_scale(s, step)
-        optimizer.zero_grad(set_to_none=True)
-        if grad_fn is not None:
-            _, metrics = grad_fn(model, ro, rd, target, gen, noise_scale=scale)
-        else:
-            key = (seed, step, mesh.data_idx)
-            with torch.enable_grad():  # whatever the caller's grad mode
-                if loss is not None:
-                    value, metrics = loss(model, ro, rd, target, gen, s, noise_scale=scale)
-                elif nerf_cfg is not None:
-                    value, metrics = _sharded_nerf_loss(model, ro, rd, target, gen, s, mesh,
-                                                        nerf_cfg, n_fine, key, scale,
-                                                        fused_kernels=fused_kernels)
+        with span("step"):
+            with span("step.draw"):
+                gen = rank_generator(seed, step, mesh.data_idx, rays_o_all.device)
+                ro, rd, target = draw_ray_batch(local, gen, step, rays_o_all, rays_d_all, pixels)
+            scale = noise_scale(s, step)
+            optimizer.zero_grad(set_to_none=True)
+            with span("step.grad"):
+                if grad_fn is not None:
+                    _, metrics = grad_fn(model, ro, rd, target, gen, noise_scale=scale)
                 else:
-                    value, metrics = _sharded_loss(model, ro, rd, target, gen, s, mesh, key,
-                                                   scale)
-                value.backward()
-        mean_grads(model, mesh, (SAMPLE_AXIS, DATA_AXIS))
-        if extra_grad_fn is not None:
-            add_extra_grads(model, seed, step, rays_o_all.device, extra_grad_fn)
-        optimizer.step()
+                    key = (seed, step, mesh.data_idx)
+                    with torch.enable_grad():  # whatever the caller's grad mode
+                        if loss is not None:
+                            value, metrics = loss(model, ro, rd, target, gen, s,
+                                                  noise_scale=scale)
+                        elif nerf_cfg is not None:
+                            value, metrics = _sharded_nerf_loss(model, ro, rd, target, gen, s,
+                                                                mesh, nerf_cfg, n_fine, key, scale,
+                                                                fused_kernels=fused_kernels)
+                        else:
+                            value, metrics = _sharded_loss(model, ro, rd, target, gen, s, mesh,
+                                                           key, scale)
+                        value.backward()
+                mean_grads(model, mesh, (SAMPLE_AXIS, DATA_AXIS))
+                if extra_grad_fn is not None:
+                    add_extra_grads(model, seed, step, rays_o_all.device, extra_grad_fn)
+            with span("step.optimizer"):
+                optimizer.step()
         return metrics
 
     def block(model, optimizer, seed, step0, rays_o_all, rays_d_all, pixels):

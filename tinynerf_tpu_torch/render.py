@@ -30,6 +30,7 @@ from tinynerf_tpu_torch.ops.encoding import positional_encoding
 from tinynerf_tpu_torch.ops.rays import get_rays, ndc_rays
 from tinynerf_tpu_torch.ops.sampling import stratified_samples
 from tinynerf_tpu_torch.ops.volume import volume_render
+from tinynerf_tpu_torch.utils.profiling import span
 
 
 def render_rays(
@@ -89,27 +90,30 @@ def chunked_over_rays(ray_fn, H: int, W: int, focal, pose: torch.Tensor, chunk: 
                       ndc: bool = False):
     """Pad H*W rays to a chunk multiple, run `ray_fn(ro, rd) -> (chunk, 3)`
     over the chunks, un-pad and reshape to an (H, W, 3) image in [0, 1].
-    ndc=True reprojects the rays to NDC space first (near plane 1.0)."""
-    rays_o, rays_d = get_rays(H, W, focal, pose)
-    if ndc:
-        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
-    hw = H * W
-    # Shrink the chunk to the 128-aligned cover of H*W when the image is
-    # smaller than the requested chunk budget.
-    chunk = min(chunk, -(-hw // 128) * 128)
-    n_chunks = -(-hw // chunk)
-    pad = n_chunks * chunk - hw
-    rays_o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)])
-    # Pad directions with unit z so norms stay finite for padded rays.
-    unit_z = torch.tensor([[0.0, 0.0, 1.0]], device=rays_d.device)
-    rays_d = torch.cat([rays_d, unit_z.expand(pad, 3)])
-    out = torch.cat(
-        [
-            ray_fn(rays_o[c * chunk:(c + 1) * chunk], rays_d[c * chunk:(c + 1) * chunk])
-            for c in range(n_chunks)
-        ]
-    )
-    return torch.clamp(out[:hw].reshape(H, W, 3), 0.0, 1.0)
+    ndc=True reprojects the rays to NDC space first (near plane 1.0).
+    Spans: view, and in it view.rays and one view.chunk a chunk
+    (utils/profiling.py)."""
+    with span("view"):
+        with span("view.rays"):
+            rays_o, rays_d = get_rays(H, W, focal, pose)
+            if ndc:
+                rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+            hw = H * W
+            # Shrink the chunk to the 128-aligned cover of H*W when the image is
+            # smaller than the requested chunk budget.
+            chunk = min(chunk, -(-hw // 128) * 128)
+            n_chunks = -(-hw // chunk)
+            pad = n_chunks * chunk - hw
+            rays_o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)])
+            # Pad directions with unit z so norms stay finite for padded rays.
+            unit_z = torch.tensor([[0.0, 0.0, 1.0]], device=rays_d.device)
+            rays_d = torch.cat([rays_d, unit_z.expand(pad, 3)])
+        outs = []
+        for c in range(n_chunks):
+            with span("view.chunk"):
+                outs.append(ray_fn(rays_o[c * chunk:(c + 1) * chunk],
+                                   rays_d[c * chunk:(c + 1) * chunk]))
+        return torch.clamp(torch.cat(outs)[:hw].reshape(H, W, 3), 0.0, 1.0)
 
 
 @torch.no_grad()

@@ -45,6 +45,7 @@ from tinynerf_tpu_torch.ops.encoding import positional_encoding
 from tinynerf_tpu_torch.ops.sampling import stratified_samples
 from tinynerf_tpu_torch.ops.volume import volume_render
 from tinynerf_tpu_torch.utils.metrics import mse2psnr
+from tinynerf_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -353,20 +354,25 @@ def _step_body(model, optimizer, seed, step, rays_o_all, rays_d_all, pixels, s, 
     """One step: draw, gradient (grad_fn writes .grad; else autograd of
     `loss`), the extra gradient added, the optimizer's update. Returns
     the step's metrics (device tensors). Autograd is on for the step
-    whatever the caller's grad mode."""
-    gen = step_generator(seed, step, rays_o_all.device)
-    ro, rd, target = draw_ray_batch(s, gen, step, rays_o_all, rays_d_all, pixels)
-    scale = noise_scale(s, step)
-    optimizer.zero_grad(set_to_none=True)
-    if grad_fn is not None:
-        _, metrics = grad_fn(model, ro, rd, target, gen, noise_scale=scale)
-    else:
-        with torch.enable_grad():
-            value, metrics = loss(model, ro, rd, target, gen, s, noise_scale=scale)
-            value.backward()
-    if extra_grad_fn is not None:
-        add_extra_grads(model, seed, step, rays_o_all.device, extra_grad_fn)
-    optimizer.step()
+    whatever the caller's grad mode. Spans: step, and in it step.draw,
+    step.grad and step.optimizer (utils/profiling.py)."""
+    with span("step"):
+        with span("step.draw"):
+            gen = step_generator(seed, step, rays_o_all.device)
+            ro, rd, target = draw_ray_batch(s, gen, step, rays_o_all, rays_d_all, pixels)
+        scale = noise_scale(s, step)
+        optimizer.zero_grad(set_to_none=True)
+        with span("step.grad"):
+            if grad_fn is not None:
+                _, metrics = grad_fn(model, ro, rd, target, gen, noise_scale=scale)
+            else:
+                with torch.enable_grad():
+                    value, metrics = loss(model, ro, rd, target, gen, s, noise_scale=scale)
+                    value.backward()
+            if extra_grad_fn is not None:
+                add_extra_grads(model, seed, step, rays_o_all.device, extra_grad_fn)
+        with span("step.optimizer"):
+            optimizer.step()
     return metrics
 
 

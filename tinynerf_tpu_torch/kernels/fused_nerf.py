@@ -62,6 +62,7 @@ import torch
 
 from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP, nerf_layer_in_dims, run_mlp, view_encoding
 from tinynerf_tpu_torch.models.stacked import with_params
+from tinynerf_tpu_torch.ops.rays import pad_rays, pad_rows
 from tinynerf_tpu_torch.ops.sampling import sample_pdf
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
 from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
@@ -541,15 +542,6 @@ def spill_buffer(cfg: NeRFConfig, shape: NerfShape, n_slabs: int, device):
     return torch.empty(n_slabs, spill_floats(cfg), dtype=torch.float32, device=device)
 
 
-def pad_rays(rays_o, rays_d, pad: int):
-    """Pad (..., R, 3) rays with `pad` rays of origin 0 and unit-z
-    direction (finite norms) along R, contiguous."""
-    lead = rays_o.shape[:-2]
-    unit_z = torch.tensor([0.0, 0.0, 1.0], device=rays_d.device)
-    return (torch.cat([rays_o, rays_o.new_zeros(*lead, pad, 3)], dim=-2).contiguous(),
-            torch.cat([rays_d, unit_z.expand(*lead, pad, 3)], dim=-2).contiguous())
-
-
 @spanned
 def fused_nerf_render_rays(
     mlp: NeRFMLP,
@@ -592,7 +584,7 @@ def fused_nerf_render_rays(
     o, d = pad_rays(rays_o, rays_d, pad)
     z = None
     if z_vals is not None:
-        z = torch.cat([z_vals, z_vals.new_zeros(pad, S)]).contiguous()
+        z = pad_rows(z_vals, pad)
     mma = render_uses_tensor_cores(cfg)
     with pack_span("fused_nerf_render_rays.pack", given):
         wts = pack_nerf_weights(mlp, cfg)

@@ -54,7 +54,6 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     general_blocks,
     pack_mma_forward,
     pack_nerf_weights,
-    pad_rays,
     padded_widths,
     raise_on_error,
     render_uses_tensor_cores,
@@ -68,6 +67,7 @@ from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     pass_grads_plain,
 )
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
+from tinynerf_tpu_torch.ops.rays import pad_rays, pad_rows
 from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
 
 DEFAULT_SAMPLE_BLOCK = 64
@@ -162,7 +162,7 @@ def fused_nerf_render_rays_streamed(
     pad = -R % tile
     dev = rays_o.device
     o, d = pad_rays(rays_o, rays_d, pad)
-    z = torch.cat([z_vals, z_vals.new_ones(pad, S)]).contiguous()
+    z = pad_rows(z_vals, pad, 1.0)
     delta = deltas(z, d).contiguous()
     mma = render_uses_tensor_cores(cfg)
     with pack_span("fused_nerf_render_rays_streamed.pack", given):

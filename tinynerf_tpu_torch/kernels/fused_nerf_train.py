@@ -62,7 +62,6 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     nerf_shape,
     pack_mma_b,
     pack_nerf_weights,
-    pad_rays,
     padded_cfg,
     padded_widths,
     spill_buffer,
@@ -78,6 +77,7 @@ from tinynerf_tpu_torch.kernels.fused_train import (
     stratified_depths,
 )
 from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig, NeRFMLP, nerf_layer_in_dims, run_mlp, view_encoding
+from tinynerf_tpu_torch.ops.rays import pad_rays, pad_rows
 from tinynerf_tpu_torch.ops.sampling import sample_pdf
 from tinynerf_tpu_torch.utils.metrics import mse2psnr
 from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
@@ -326,16 +326,16 @@ def launch_pass(mlp: NeRFMLP, cfg: NeRFConfig, rays_o, rays_d, target, shape: Ne
     pad = -R % tile
     dev = rays_o.device
     o, d = pad_rays(rays_o, rays_d, pad)
-    tgt = torch.cat([target, target.new_zeros(K, pad, 3)], dim=1).contiguous()
+    tgt = pad_rows(target, pad)
     delta = None
     if z is not None:
         # Given depths (padded with ones, as K5 pads) come with their
         # deltas from torch, the plain versions' deltas, for K4 and K6 alike.
-        z = torch.cat([z, z.new_ones(K, pad, S)], dim=1).contiguous()
+        z = pad_rows(z, pad, 1.0)
         delta = deltas(z.reshape(-1, S), d.reshape(-1, 3)).reshape(K, -1, S).contiguous()
     noise = None
     if sigma_noise is not None:
-        noise = torch.cat([sigma_noise, sigma_noise.new_zeros(K, pad, S)], dim=1).contiguous()
+        noise = pad_rows(sigma_noise, pad)
     bf16 = int(cfg.compute_dtype == torch.bfloat16)
     # The tensor-core route reads its products' weights as fragments only;
     # the CUDA-core walk reads the upstream weights rounded to the dtype.

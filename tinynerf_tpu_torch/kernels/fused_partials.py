@@ -52,7 +52,6 @@ from tinynerf_tpu_torch.kernels.fused_nerf import (
     composite_one_m,
     launch_shape,
     pack_nerf_weights,
-    pad_rays,
     padded_widths,
     spill_buffer,
     unpad_grads,
@@ -65,6 +64,7 @@ from tinynerf_tpu_torch.kernels.fused_nerf_train import (
     uses_tensor_cores,
 )
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, NeRFMLP, run_mlp, view_encoding
+from tinynerf_tpu_torch.ops.rays import pad_rays, pad_rows
 from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
 
 # The JAX signature's defaults (tinynerf_tpu/kernels/fused_partials.py:64-65).
@@ -315,12 +315,10 @@ class _BlockPartials(torch.autograd.Function):
         shape = _check_launch(mlp, cfg, rays_o, rays_d, z, deltas, noise, sb)
         tile = shape.tile_rays
         pad = -R % tile
-        S = z.shape[1]
         o, d = pad_rays(rays_o, rays_d, pad)
         # Padding rays: depths and deltas of one (finite), no noise.
-        z_p = torch.cat([z, z.new_ones(pad, S)]).contiguous()
-        delta_p = torch.cat([deltas, deltas.new_ones(pad, S)]).contiguous()
-        noise_p = None if noise is None else torch.cat([noise, noise.new_zeros(pad, S)]).contiguous()
+        z_p, delta_p = pad_rows(z, pad, 1.0), pad_rows(deltas, pad, 1.0)
+        noise_p = None if noise is None else pad_rows(noise, pad)
         out, tin, w_out, w_fwd, w_mma = fused_block_partials_fwd(mlp, cfg, o, d, z_p, delta_p,
                                                                  noise_p, sb, shape, emit_weights)
         ctx.shape, ctx.R = shape, R
@@ -343,10 +341,8 @@ class _BlockPartials(torch.autograd.Function):
             mlp_k, cfg_k = ctx.kernel_mlp
             pad = o.shape[0] - ctx.R
             g_ray = torch.cat([g_c, g_a[:, None], g_t[:, None], g_d[:, None]], dim=1).float()
-            g_ray = torch.cat([g_ray, g_ray.new_zeros(pad, 6)]).contiguous()
-            g_w_p = None
-            if g_w is not None:
-                g_w_p = torch.cat([g_w.float(), g_w.new_zeros(pad, z_p.shape[1])]).contiguous()
+            g_ray = pad_rows(g_ray, pad)
+            g_w_p = None if g_w is None else pad_rows(g_w.float(), pad)
             grads = unpad_grads(
                 fused_block_partials_bwd(mlp_k, cfg_k, o, d, z_p, delta_p, noise_p, tin, g_ray,
                                          g_w_p, w_fwd, w_mma, sb, ctx.shape), cfg, cfg_k)

@@ -50,6 +50,7 @@ import torch
 from tinynerf_tpu_torch.kernels.fused_nerf import pack_mma_b, pad8, pad_linears, unpad_linears
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_in_dims
 from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
+from tinynerf_tpu_torch.ops.rays import pad_rays
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
 from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
 
@@ -343,9 +344,7 @@ def fused_render_rays(
     R = rays_o.shape[0]
     pad = -R % tile
     dev = rays_o.device
-    o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)]).contiguous()
-    d = torch.cat([rays_d, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(pad, 3)])
-    d = d.contiguous()
+    o, d = pad_rays(rays_o, rays_d, pad)
     with pack_span("fused_render_rays.pack", given):
         wts, w_mma = pack_tiny_weights(params, cfg, mma=mma)
     out = torch.empty(R + pad, 4, dtype=torch.float32, device=dev)

@@ -69,6 +69,7 @@ from tinynerf_tpu_torch.kernels.fused_render import (
 )
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig, layer_in_dims
 from tinynerf_tpu_torch.ops.encoding import encoding_dim, positional_encoding
+from tinynerf_tpu_torch.ops.rays import pad_rows
 from tinynerf_tpu_torch.ops.volume import DELTA_INF, TRANS_EPS
 from tinynerf_tpu_torch.utils.metrics import mse2psnr
 from tinynerf_tpu_torch.utils.profiling import pack_span, span, spanned
@@ -289,17 +290,18 @@ def _raise_on(err: int, what: str) -> None:
 
 def _seed_tensor(seed, device: torch.device) -> torch.Tensor:
     """The int32 seed as one device int (a device tensor stays on the
-    device: no host sync)."""
+    device; an int is filled in on the device: no host sync either way)."""
     if isinstance(seed, torch.Tensor):
         if seed.device != device or seed.numel() != 1:
             raise ValueError(f"seed tensor must hold one value on {device}")
         return seed.reshape(1).to(torch.int32).contiguous()
-    return torch.tensor([int(seed)], dtype=torch.int32, device=device)
+    return torch.full((1,), int(seed), dtype=torch.int32, device=device)
 
 
 def _seeds_tensor(seeds, n_scenes: int, device: torch.device) -> torch.Tensor:
     """The scenes' int32 seeds as a (K,) device tensor (a device tensor
-    stays on the device: no host sync)."""
+    stays on the device; ints are filled in on the device: no host sync
+    either way)."""
     if isinstance(seeds, torch.Tensor):
         if seeds.device != device or seeds.numel() != n_scenes:
             raise ValueError(f"seeds must hold {n_scenes} values on {device}")
@@ -307,7 +309,7 @@ def _seeds_tensor(seeds, n_scenes: int, device: torch.device) -> torch.Tensor:
     seeds = [int(x) for x in seeds]
     if len(seeds) != n_scenes:
         raise ValueError(f"{len(seeds)} seeds for {n_scenes} scenes")
-    return torch.tensor(seeds, dtype=torch.int32, device=device)
+    return torch.cat([_seed_tensor(x, device) for x in seeds])
 
 
 def _check_launch(model, tensors, n_samples, num_freqs, cfg) -> None:
@@ -419,16 +421,9 @@ def pad_ray_batch(rays_o, rays_d, target, sigma_noise, pad: int, white_bkgd: boo
     the residual and every gradient term of such a ray are zeros. Real
     rays keep their indices, so the jitter's (seed, ray, sample) draws do
     not change."""
-    if not pad:
-        return rays_o, rays_d, target, sigma_noise
-    K = rays_o.shape[0]
-
-    def cat(x, fill, width):
-        return torch.cat([x, x.new_full((K, pad, width), fill)], dim=1).contiguous()
-
-    noise = None if sigma_noise is None else cat(sigma_noise, 0.0, sigma_noise.shape[-1])
-    return (cat(rays_o, 0.0, 3), cat(rays_d, 0.0, 3),
-            cat(target, 1.0 if white_bkgd else 0.0, 3), noise)
+    noise = None if sigma_noise is None else pad_rows(sigma_noise, pad)
+    return (pad_rows(rays_o, pad), pad_rows(rays_d, pad),
+            pad_rows(target, pad, 1.0 if white_bkgd else 0.0), noise)
 
 
 def _launch(model, rays_o, rays_d, target, seeds, sigma_noise, n_samples, near, far, randomized,

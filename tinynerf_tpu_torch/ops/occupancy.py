@@ -64,9 +64,10 @@ _GRID_SALT = 0x0CC00000
 
 
 def default_aabb(half_extent: float = DEFAULT_HALF_EXTENT, device=None) -> torch.Tensor:
-    """(2, 3) float32 box [-h, h]^3."""
-    return torch.tensor([[-half_extent] * 3, [half_extent] * 3], dtype=torch.float32,
-                        device=device)
+    """(2, 3) float32 box [-h, h]^3, filled on `device` (no host copy)."""
+    box = torch.full((2, 3), half_extent, dtype=torch.float32, device=device)
+    box[0].neg_()
+    return box
 
 
 def aabb_from_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float, far: float,
@@ -88,8 +89,8 @@ def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
     otherwise)."""
     div = num - 1
     step = torch.arange(div, dtype=torch.float32, device=device) / div
-    start_t = torch.tensor(start, dtype=torch.float32, device=device)
-    stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
+    start_t = torch.full((), start, dtype=torch.float32, device=device)
+    stop_t = torch.full((), stop, dtype=torch.float32, device=device)
     return torch.cat([start_t * (1 - step) + stop_t * step, stop_t[None]])
 
 
@@ -102,7 +103,9 @@ def grid_generator(seed: int, step0: int, device) -> torch.Generator:
 
 
 def _box(aabb, device) -> torch.Tensor:
-    return (default_aabb() if aabb is None else torch.as_tensor(aabb, dtype=torch.float32)).to(device)
+    if aabb is None:
+        return default_aabb(device=device)
+    return torch.as_tensor(aabb, dtype=torch.float32).to(device)
 
 
 @torch.no_grad()
@@ -125,7 +128,8 @@ def density_grid(mlp, cfg, *, resolution: int = DEFAULT_RESOLUTION, aabb=None,
     x_enc = positional_encoding(pts, num_freqs=cfg.num_freqs)
     d_enc = None
     if cfg.use_viewdirs:
-        plus_z = torch.tensor([[0.0, 0.0, 1.0]], device=dev)
+        plus_z = torch.zeros(1, 3, device=dev)
+        plus_z[:, 2].fill_(1.0)
         d_enc = positional_encoding(plus_z, num_freqs=cfg.num_freqs_dir).expand(pts.shape[0], -1)
     _, sigma = mlp(x_enc, d_enc, cfg)
     return sigma.reshape(g, g, g)

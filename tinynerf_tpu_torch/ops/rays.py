@@ -68,6 +68,28 @@ def ndc_rays(H: int, W: int, focal, near, rays_o: torch.Tensor, rays_d: torch.Te
     return torch.stack([o0, o1, o2], dim=-1), torch.stack([d0, d1, d2], dim=-1)
 
 
+def pad_rows(x: torch.Tensor, pad: int, fill: float = 0.0) -> torch.Tensor:
+    """(..., R, n) x with `pad` rows of `fill` appended along R,
+    contiguous, filled on x's device. pad == 0 returns x itself (made
+    contiguous where it is not): the kernels only read what they are
+    given, so nothing is copied."""
+    if pad == 0:
+        return x.contiguous()
+    return torch.cat([x, x.new_full((*x.shape[:-2], pad, x.shape[-1]), fill)], dim=-2).contiguous()
+
+
+def pad_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, pad: int):
+    """(..., R, 3) rays padded along R with `pad` rays of origin 0 and
+    unit-z direction (finite norms), as pad_rows pads: filled on the
+    device, so no value is copied from the host and nothing waits for the
+    device; pad == 0 returns the rays themselves."""
+    if pad == 0:
+        return rays_o.contiguous(), rays_d.contiguous()
+    unit_z = rays_d.new_zeros(*rays_d.shape[:-2], pad, 3)
+    unit_z[..., 2].fill_(1.0)
+    return pad_rows(rays_o, pad), torch.cat([rays_d, unit_z], dim=-2).contiguous()
+
+
 def get_rays_for_poses(H: int, W: int, focal, c2ws: torch.Tensor):
     """(N, H*W, 3) origins and directions for a stack of (N, 4, 4) poses."""
     rays = [get_rays(H, W, focal, c2w) for c2w in torch.as_tensor(c2ws)]

@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRFConfig
-from tinynerf_tpu_torch.ops.rays import get_rays
+from tinynerf_tpu_torch.ops.rays import get_rays, pad_rays
 from tinynerf_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, gather, make_mesh, mesh_axes
 from tinynerf_tpu_torch.render import render_rays
 
@@ -49,10 +49,7 @@ def make_sharded_image_renderer(
         device = next(params.parameters()).device
         pose = torch.as_tensor(pose, dtype=torch.float32).to(device)
         rays_o, rays_d = get_rays(H, W, focal, pose)
-        pad = n_data * hw_local_pad - hw
-        unit_z = torch.tensor([[0.0, 0.0, 1.0]], device=device)  # finite norms for padding
-        rays_o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)])
-        rays_d = torch.cat([rays_d, unit_z.expand(pad, 3)])
+        rays_o, rays_d = pad_rays(rays_o, rays_d, n_data * hw_local_pad - hw)
         lo = mesh.data_idx * hw_local_pad
         ro, rd = rays_o[lo:lo + hw_local_pad], rays_d[lo:lo + hw_local_pad]
         out = torch.cat([

@@ -27,7 +27,7 @@ import torch
 from tinynerf_tpu_torch.models.nerf import NeRFConfig, render_rays_hierarchical
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import positional_encoding
-from tinynerf_tpu_torch.ops.rays import get_rays, ndc_rays
+from tinynerf_tpu_torch.ops.rays import get_rays, ndc_rays, pad_rays
 from tinynerf_tpu_torch.ops.sampling import stratified_samples
 from tinynerf_tpu_torch.ops.volume import volume_render
 from tinynerf_tpu_torch.utils.profiling import span
@@ -103,11 +103,7 @@ def chunked_over_rays(ray_fn, H: int, W: int, focal, pose: torch.Tensor, chunk: 
             # smaller than the requested chunk budget.
             chunk = min(chunk, -(-hw // 128) * 128)
             n_chunks = -(-hw // chunk)
-            pad = n_chunks * chunk - hw
-            rays_o = torch.cat([rays_o, rays_o.new_zeros(pad, 3)])
-            # Pad directions with unit z so norms stay finite for padded rays.
-            unit_z = torch.tensor([[0.0, 0.0, 1.0]], device=rays_d.device)
-            rays_d = torch.cat([rays_d, unit_z.expand(pad, 3)])
+            rays_o, rays_d = pad_rays(rays_o, rays_d, n_chunks * chunk - hw)
         outs = []
         for c in range(n_chunks):
             with span("view.chunk"):

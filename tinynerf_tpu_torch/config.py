@@ -23,7 +23,11 @@ reprojects a forward-facing capture's rays to NDC space and samples t in
 [0, 1] (train_settings() swaps near/far, tinynerf_tpu/config.py:133,
 219-220). The grid family's fields (grid_*, model="grid") and grid_cfg()
 follow tinynerf_tpu/config.py:65-75, 186-210; the family runs in eager
-torch whatever fused and fused_train say (it has no kernel).
+torch whatever fused and fused_train say (it has no kernel). Instant-NGP's
+published form adds grid_dir_encoding, grid_density_activation and
+grid_rgb_reads_density (models/grid_nerf.py) and the optimizer's
+adam_b2, adam_eps, l2_reg and sparse_adam (training.MaskedAdam), every
+one off by default.
 profile_dir (tinynerf_tpu/config.py:150) names the directory of the
 training loop's torch.profiler trace (utils/profiling.trace; the JAX
 package's jax.profiler trace). data_parallel, sample_parallel and distributed
@@ -82,6 +86,9 @@ class Config:
     grid_table_size: int = 1 << 17  # entries per level cap (finer levels hash)
     grid_hidden: int = 64  # grid-MLP width (both branches)
     grid_encode_impl: str = "loop"  # the JAX package's gather strategy (the port has one)
+    grid_dir_encoding: str = "fourier"  # "fourier" | "sh": Instant-NGP's 16 SH components
+    grid_density_activation: str = "relu"  # "relu" | "exp": Instant-NGP's log-space density
+    grid_rgb_reads_density: bool = False  # colour MLP reads all 16 density outputs (Instant-NGP)
     ray_sampling: str = "image"  # "image": one image a step | "pool": every train pixel
     precrop_iters: int = 0  # >0: the first N steps draw from the central window
     precrop_frac: float = 0.5  # side fraction of that window
@@ -93,6 +100,10 @@ class Config:
     sigma_noise_decay_steps: int = 0  # >0: decay the noise linearly over N steps
     sigma_noise_floor: float = 0.0  # with decay: decay to this std instead of 0
     weight_decay: float = 0.0  # AdamW decay on the weight matrices (0: Adam)
+    adam_b2: float = 0.999  # Adam's second-moment decay (Instant-NGP: 0.99)
+    adam_eps: float = 1e-8  # Adam's epsilon (Instant-NGP: 1e-15)
+    l2_reg: float = 0.0  # coupled L2 on the weight matrices (Instant-NGP: 1e-6)
+    sparse_adam: bool = False  # --model grid: skip table entries with exactly zero gradient
     lr_floor: float = 0.0  # with lr_decay_steps: the schedule's lower bound
     sigma_sparsity: float = 0.0  # >0: free-space density prior lam (e.g. 1e-3)
     sigma_sparsity_points: int = 8192  # the prior's points per step
@@ -154,6 +165,9 @@ class Config:
             num_freqs_dir=self.num_freqs_dir,
             compute_dtype=torch.bfloat16 if self.bf16 else torch.float32,
             encode_impl=self.grid_encode_impl,
+            dir_encoding=self.grid_dir_encoding,
+            density_activation=self.grid_density_activation,
+            rgb_reads_density=self.grid_rgb_reads_density,
             **kw,
         )
 
@@ -172,6 +186,10 @@ class Config:
             sigma_noise_decay_steps=self.sigma_noise_decay_steps,
             sigma_noise_floor=self.sigma_noise_floor,
             weight_decay=self.weight_decay,
+            adam_b2=self.adam_b2,
+            adam_eps=self.adam_eps,
+            l2_reg=self.l2_reg,
+            sparse_adam=self.sparse_adam,
             lr_floor=self.lr_floor,
             ema_decay=self.ema_decay,
             num_freqs=self.num_freqs,

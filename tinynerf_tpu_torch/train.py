@@ -36,7 +36,13 @@ and --fused-train say, by configuration: the family has no kernel (the
 JAX package's XLA path); its scene box is the capture's (the NDC cube
 under --ndc), persisted in the meta's `grid` entry; it takes
 --data-parallel, and refuses --sample-parallel and --proposal occupancy
-as the JAX package does. Metrics stay on the device inside a block; the
+as the JAX package does. Instant-NGP at its published sizes (arXiv:2201.05989;
+gpubench/configs/instant-ngp.json) is the grid family with
+    --model grid --grid-levels 16 --grid-max-res 2048 --grid-table-size 524288
+    --grid-dir-encoding sh --grid-density-activation exp --grid-rgb-reads-density
+    --lr 0.01 --adam-b2 0.99 --adam-eps 1e-15 --l2-reg 1e-6 --sparse-adam --n-rand 4096
+(MaskedAdam: the tables' zero-gradient entries skipped, L2 on the MLP
+matrices). Metrics stay on the device inside a block; the
 host reads them only at a log point. --profile-dir writes a
 torch.profiler Chrome trace of the training loop there
 (utils/profiling.trace).
@@ -78,7 +84,7 @@ from tinynerf_tpu_torch.evaluation import evaluate_views
 from tinynerf_tpu_torch.main import _sync
 from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays, default_aabb
 from tinynerf_tpu_torch.ops.rays import get_rays_for_poses, ndc_rays
-from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, make_grid_loss
+from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, grid_form_meta, make_grid_loss
 from tinynerf_tpu_torch.models.nerf import NeRF, make_hierarchical_loss
 from tinynerf_tpu_torch.render import (
     make_grid_image_renderer,
@@ -308,7 +314,9 @@ def main(cfg: Config = Config()) -> dict:
         box = scene_aabb.cpu().numpy()
         print(f"[model] grid: levels={gcfg.level_resolutions()} "
               f"dense={sum(gcfg.level_is_dense())}/{gcfg.n_levels} "
-              f"aabb=[{box[0].round(2)}, {box[1].round(2)}]")
+              f"aabb=[{box[0].round(2)}, {box[1].round(2)}] "
+              f"directions={gcfg.dir_encoding} sigma={gcfg.density_activation} "
+              f"params={sum(p.numel() for p in model.parameters())}")
         print("[train] grid family: eager torch, no kernel: the JAX package's XLA path (--fused "
               "and --fused-train do not apply)")
     extra_grad_fn = None
@@ -399,7 +407,7 @@ def main(cfg: Config = Config()) -> dict:
             **({"grid": {"levels": cfg.grid_levels, "features": cfg.grid_features,
                          "base_res": cfg.grid_base_res, "max_res": cfg.grid_max_res,
                          "table_size": cfg.grid_table_size, "hidden": cfg.grid_hidden,
-                         "aabb": list(gcfg.aabb)}} if grid else {}),
+                         "aabb": list(gcfg.aabb), **grid_form_meta(gcfg)}} if grid else {}),
         }
     else:
         mcfg = {"hidden": cfg.hidden, "depth": cfg.depth, "skip_at": cfg.skip_at,

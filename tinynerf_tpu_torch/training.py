@@ -9,7 +9,9 @@ samples, encode -> MLP -> composite; the full NeRF plugs in
 models/nerf.make_hierarchical_loss) or a fused grad_fn, adds an optional
 extra gradient (the sparsity prior, ops/regularizers.py), and updates
 with the optimizer of make_optimizer: Adam (b1 0.9, b2 0.999, eps 1e-8),
-or AdamW, with an optional exponential lr schedule and EMA of the
+or AdamW, or Instant-NGP's MaskedAdam (its b2 and eps, coupled L2 on the
+weight matrices, the tables' zero-gradient entries skipped), with an
+optional exponential lr schedule and EMA of the
 parameters (optax's chain in the JAX package). The sigma-noise std
 decays by noise_scale; SigmaDeathDetector and background_psnr are the
 trainer's watchdog.
@@ -72,6 +74,14 @@ class TrainSettings:
     sigma_noise_floor: float = 0.0
     # AdamW's decoupled decay on the weight matrices (ndim >= 2); 0 = Adam.
     weight_decay: float = 0.0
+    # Adam's second-moment decay and epsilon (Instant-NGP: 0.99, 1e-15).
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    # > 0: coupled L2 on the weight matrices, g + l2_reg * w (MaskedAdam).
+    l2_reg: float = 0.0
+    # True: MaskedAdam skips the entries of the model's sparse parameters
+    # (the grid's tables) whose gradient is exactly 0.
+    sparse_adam: bool = False
     # With lr_decay_steps: the schedule's lower bound (optax end_value).
     lr_floor: float = 0.0
     # > 0: the optimizer keeps ema = d * ema + (1 - d) * params.
@@ -100,11 +110,99 @@ def exponential_lr(lr: float, count: int, decay_steps: int = 0, decay_factor: fl
     return value
 
 
+class MaskedAdam(torch.optim.Optimizer):
+    """Instant-NGP's Adam (tiny-cuda-nn's): torch.optim.Adam's update, lr *
+    m_hat / (sqrt(v_hat) + eps), with two options a parameter group
+    carries:
+
+    - `l2`: coupled L2, l2 * p added to the gradient of each parameter of
+      ndim - batch_dims >= 2 (the weight matrices, not the biases) before
+      the moments;
+    - `skip_zero`: an entry whose gradient is exactly 0 keeps its value,
+      exp_avg and exp_avg_sq, and each entry's bias correction counts its
+      own applied updates (state "entry_step"), as tiny-cuda-nn's Adam
+      keeps one count a parameter.
+
+    The state keys are torch.optim.Adam's ("step", the optimizer's count
+    as a float32 scalar; "exp_avg"; "exp_avg_sq"), plus "entry_step" under
+    skip_zero, so checkpoints write it as Adam's. A state restored without
+    "entry_step" counts `step` updates for every entry with a nonzero
+    exp_avg_sq and none for the others. A group's update is a fixed
+    number of foreach ops over all its parameters (the sixteen tables of
+    Instant-NGP in one launch each), whatever their count."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 l2: float = 0.0, skip_zero: bool = False, batch_dims: int = 0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, l2=l2, skip_zero=skip_zero,
+                                      batch_dims=batch_dims))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            for p in ps:
+                st = self.state[p]
+                if not st:
+                    st.update(step=torch.tensor(0.0), exp_avg=torch.zeros_like(p),
+                              exp_avg_sq=torch.zeros_like(p))
+                if group["skip_zero"] and "entry_step" not in st:
+                    st["entry_step"] = torch.where(st["exp_avg_sq"] > 0, float(st["step"]), 0.0)
+                st["step"] += 1
+            gs = [p.grad.add(p, alpha=group["l2"])
+                  if group["l2"] > 0 and p.ndim - group["batch_dims"] >= 2 else p.grad
+                  for p in ps]
+            ms = [self.state[p]["exp_avg"] for p in ps]
+            vs = [self.state[p]["exp_avg_sq"] for p in ps]
+            if group["skip_zero"]:
+                _masked_adam(ps, gs, ms, vs, [self.state[p]["entry_step"] for p in ps], group)
+            else:
+                _adam(ps, gs, ms, vs, float(self.state[ps[0]]["step"]), group)
+
+
+def _adam(ps, gs, ms, vs, t: float, group) -> None:
+    """Adam's update at count t over a list of parameters (foreach ops)."""
+    lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
+    torch._foreach_lerp_(ms, gs, 1.0 - b1)
+    torch._foreach_mul_(vs, b2)
+    torch._foreach_addcmul_(vs, gs, gs, value=1.0 - b2)
+    denom = torch._foreach_sqrt(vs)
+    torch._foreach_div_(denom, math.sqrt(1.0 - b2 ** t))
+    torch._foreach_add_(denom, eps)
+    torch._foreach_addcdiv_(ps, ms, denom, value=-lr / (1.0 - b1 ** t))
+
+
+def _masked_adam(ps, gs, ms, vs, ns, group) -> None:
+    """Adam's update of the entries whose gradient is not 0, each bias
+    corrected by its own count ns (foreach ops over the list)."""
+    lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
+    masks = torch._foreach_sign(torch._foreach_abs(gs))  # 1 where the gradient is not 0
+    torch._foreach_add_(ns, masks)
+    torch._foreach_lerp_(ms, gs, torch._foreach_mul(masks, 1.0 - b1))
+    torch._foreach_lerp_(vs, torch._foreach_mul(gs, gs), torch._foreach_mul(masks, 1.0 - b2))
+    nc = torch._foreach_clamp_min(ns, 1.0)
+    bc1, bc2 = torch._foreach_pow(b1, nc), torch._foreach_pow(b2, nc)
+    for bc in (bc1, bc2):
+        torch._foreach_neg_(bc)
+        torch._foreach_add_(bc, 1.0)
+    denom = torch._foreach_div(vs, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(ms, bc1)
+    torch._foreach_div_(upd, denom)
+    torch._foreach_mul_(upd, torch._foreach_mul(masks, lr))
+    torch._foreach_sub_(ps, upd)
+
+
 class TrainOptimizer:
     """The JAX package's make_optimizer (tinynerf_tpu/training.py:149-181)
     in PyTorch's idiom: torch.optim.Adam, or with weight_decay
     torch.optim.AdamW over two parameter groups (the decay on the
-    parameters of ndim >= 2 only, as optax's mask), with two additions:
+    parameters of ndim >= 2 only, as optax's mask), or with l2 or
+    `sparse` parameters MaskedAdam over two groups (`sparse` with the
+    zero-gradient skip and no L2; the rest with the L2), with two
+    additions:
 
     - before every step each group's lr is set from the schedule at the
       optimizer's own count, taken before it is incremented (optax's
@@ -124,12 +222,22 @@ class TrainOptimizer:
 
     def __init__(self, params, lr: float, decay_steps: int = 0, decay_factor: float = 0.1,
                  weight_decay: float = 0.0, lr_floor: float = 0.0, ema_decay: float = 0.0,
-                 batch_dims: int = 0):
+                 batch_dims: int = 0, b2: float = 0.999, eps: float = 1e-8, l2: float = 0.0,
+                 sparse=()):
         self.params = list(params)
         self.lr, self.decay_steps, self.decay_factor = lr, decay_steps, decay_factor
         self.weight_decay, self.lr_floor, self.ema_decay = weight_decay, lr_floor, ema_decay
-        kw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8)
-        if weight_decay > 0:
+        kw = dict(lr=lr, betas=(0.9, b2), eps=eps)
+        sparse_ids = {id(p) for p in sparse}
+        if l2 > 0 or sparse_ids:
+            if weight_decay > 0:
+                raise ValueError("weight_decay (AdamW) does not compose with l2_reg or the "
+                                 "sparse Adam (MaskedAdam)")
+            groups = [{"params": [p for p in self.params if id(p) in sparse_ids],
+                       "skip_zero": True},
+                      {"params": [p for p in self.params if id(p) not in sparse_ids], "l2": l2}]
+            self.base = MaskedAdam([g for g in groups if g["params"]], batch_dims=batch_dims, **kw)
+        elif weight_decay > 0:
             groups = [{"params": [p for p in self.params if p.ndim - batch_dims >= 2],
                        "weight_decay": weight_decay},
                       {"params": [p for p in self.params if p.ndim - batch_dims < 2],
@@ -171,18 +279,24 @@ class TrainOptimizer:
 
 def make_optimizer(params, lr: float, decay_steps: int = 0, decay_factor: float = 0.1,
                    weight_decay: float = 0.0, lr_floor: float = 0.0,
-                   ema_decay: float = 0.0, batch_dims: int = 0) -> TrainOptimizer:
+                   ema_decay: float = 0.0, batch_dims: int = 0, b2: float = 0.999,
+                   eps: float = 1e-8, l2: float = 0.0, sparse=()) -> TrainOptimizer:
     """Adam as optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8) (both step by
     lr * m_hat / (sqrt(v_hat) + eps)), with the levers of the JAX
-    package's make_optimizer (TrainOptimizer)."""
+    package's make_optimizer (TrainOptimizer), and Instant-NGP's b2, eps,
+    L2 and sparse tables (MaskedAdam)."""
     return TrainOptimizer(params, lr, decay_steps, decay_factor, weight_decay, lr_floor,
-                          ema_decay, batch_dims)
+                          ema_decay, batch_dims, b2, eps, l2, sparse)
 
 
-def settings_optimizer(params, s: TrainSettings, batch_dims: int = 0) -> TrainOptimizer:
+def settings_optimizer(params, s: TrainSettings, batch_dims: int = 0,
+                       sparse=()) -> TrainOptimizer:
+    """make_optimizer from the settings; `sparse` (the model's
+    sparse_parameters()) takes the zero-gradient skip when s.sparse_adam."""
     return make_optimizer(params, s.lr, s.lr_decay_steps, s.lr_decay_factor,
                           weight_decay=s.weight_decay, lr_floor=s.lr_floor,
-                          ema_decay=s.ema_decay, batch_dims=batch_dims)
+                          ema_decay=s.ema_decay, batch_dims=batch_dims, b2=s.adam_b2,
+                          eps=s.adam_eps, l2=s.l2_reg, sparse=sparse if s.sparse_adam else ())
 
 
 class SigmaDeathDetector:
@@ -416,9 +530,16 @@ def init_train_state(generator: torch.Generator, s: TrainSettings, device=None, 
     """(model, optimizer) freshly initialized; the weights are drawn on
     the CPU from `generator`, then moved to `device`. init_fn(generator,
     device) -> model overrides the TinyNeRF (e.g. a models/nerf.NeRF).
-    The optimizer is settings_optimizer's."""
+    The optimizer is settings_optimizer's, with s.sparse_adam over the
+    model's sparse_parameters() (the grid's tables)."""
     if init_fn is None:
         model = TinyNeRF(s.model_cfg, generator=generator, device=device)
     else:
         model = init_fn(generator, device)
-    return model, settings_optimizer(model.parameters(), s)
+    sparse = ()
+    if s.sparse_adam:
+        if not hasattr(model, "sparse_parameters"):
+            raise ValueError(f"sparse_adam: {type(model).__name__} has no sparse parameters "
+                             "(the grid family's tables take the skip)")
+        sparse = model.sparse_parameters()
+    return model, settings_optimizer(model.parameters(), s, sparse=sparse)

@@ -7,7 +7,8 @@ its parameters and build a matching image renderer. An NDC checkpoint
 renders with reprojected rays over t in [0, 1]; an occupancy checkpoint
 holds the fine MLP alone and rebuilds its sampler over the stored
 occ_aabb; a grid checkpoint rebuilds its GridNeRFConfig from the meta's
-`grid` entry, over the box its tables were trained in, with the bf16
+`grid` entry (Instant-NGP's form fields where it names them), over the
+box its tables were trained in, with the bf16
 compute dtype (as the JAX loader), and renders in eager torch (`fused`
 does not apply: the family has no kernel).
 """
@@ -18,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, GridNeRFConfig
+from tinynerf_tpu_torch.models.grid_nerf import FORM_FIELDS, GridNeRF, GridNeRFConfig
 from tinynerf_tpu_torch.models.nerf import NeRF, NeRFConfig
 from tinynerf_tpu_torch.models.tinynerf import TinyNeRF, TinyNeRFConfig
 from tinynerf_tpu_torch.ops.encoding import encoding_dim
@@ -109,6 +110,7 @@ def load_model_and_renderer(
             table_size=g.get("table_size", 1 << 17),
             hidden=g.get("hidden", 64),
             num_freqs_dir=mcfg.get("num_freqs_dir", 4),
+            **{f: g[f] for f in FORM_FIELDS if f in g},
             # The box the tables were trained in: another box moves every
             # lookup into another cell.
             **({"aabb": tuple(float(v) for v in g["aabb"])} if g.get("aabb") is not None else {}),

@@ -201,11 +201,13 @@ Phases, each printed with its result and time:
                 --data-parallel --sample-parallel 2`, 5 steps (K7 on the
                 tensor cores); then a short `--proposal occupancy --ndc` run
                 (the NDC cube as the box).
- 34. grid     - the grid family (models/grid_nerf.py, eager torch, no
-                kernel) at the JAX package's default width (8 levels 16-128,
-                4 dense, tables of 2^17, hidden 64; 1,273,971 parameters),
-                bf16, the README recipe (pool, lr 0.01, noise decay 1000):
-                1000 steps, train PSNR up >= 3 dB (the JAX package's 25.30
+ 34. grid     - the grid family (models/grid_nerf.py: the encoding on
+                kernel G, kernels/grid_encode.py; the rest eager torch) at
+                the JAX package's default width (8 levels 16-128, 4 dense,
+                tables of 2^17, hidden 64; 1,273,971 parameters), bf16, the
+                README recipe (pool, lr 0.01, noise decay 1000): 1000 steps
+                (G's forward at least once a step, its backward exactly
+                once), train PSNR up >= 3 dB (the JAX package's 25.30
                 dB at step 1000 printed beside it), a resume to 1200
                 bit-identical to an uninterrupted 1200, `eval
                 --holdout-views --save-depth` and `make_gif --depth`; 2-rank
@@ -285,6 +287,18 @@ Phases, each printed with its result and time:
                 side, 3 steps; (c)
                 timing: each kernel at its new shape against its plain
                 version, with its bound.
+ 39. grid kernel - G, the hash-grid encoding (csrc/grid_encode.cu,
+                kernels/grid_encode.py; it replaces no TPU kernel: the JAX
+                package runs the encoding in XLA) on 4096 rays x 64
+                stratified samples of a hemisphere pose: at Instant-NGP's
+                published sizes (16 levels 16-2048, F = 2, T = 2^19) and at
+                the JAX defaults, both wrappers against the plain versions
+                (encode_levels_plain, encode_levels_bwd_plain) bit for bit,
+                two backward passes identical, 1 forward and 5 backward
+                launches; each pass timed against its plain version and its
+                bound (bytes: the points, the tables and the features once),
+                and, as a reading, each stage's device time. Alone:
+                python3 -c "import chip_smoke as s; s.run_grid_kernel()".
 
 Weights are random from a seed throughout. The line before the kernels
 line gives the seconds of all phases.
@@ -3045,8 +3059,8 @@ def _all_kernels():
 
 
 def run_grid() -> None:
-    """Phase 34: the grid family (no kernel, eager torch) at the JAX
-    package's default width."""
+    """Phase 34: the grid family (the encoding on kernel G, the rest eager
+    torch) at the JAX package's default width."""
     import dataclasses
 
     import numpy as np
@@ -3056,6 +3070,7 @@ def run_grid() -> None:
     from tinynerf_tpu_torch import train as train_mod
     from tinynerf_tpu_torch.config import Config
     from tinynerf_tpu_torch.data import ensure_data
+    from tinynerf_tpu_torch.kernels import grid_encode as G
     from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, make_grid_loss
     from tinynerf_tpu_torch.models.tinynerf import count_params
     from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays
@@ -3064,6 +3079,7 @@ def run_grid() -> None:
     from tinynerf_tpu_torch.training import make_train_step, settings_optimizer, step_generator
     from tinynerf_tpu_torch.utils.checkpoint import read_meta, restore_params
 
+    os.makedirs(OUT_DIR, exist_ok=True)  # also when the phase runs alone
     dev = torch.device("cuda", 0)
     card = card_line()
     kernels = _all_kernels()
@@ -3083,9 +3099,10 @@ def run_grid() -> None:
     focal = float(d["focal"])
     n_images, H, W, _ = images.shape
 
-    # 34. (a) the recipe, 1000 steps, a resume to 1200 and an uninterrupted
-    #     1200 (bit-identical); eval and the depth GIF
-    #     from the checkpoint; no kernel launched anywhere in the phase.
+    # 34. (a) the recipe, 1000 steps (G once forward and once backward a
+    #     step), a resume to 1200 and an uninterrupted 1200 (bit-identical);
+    #     eval and the depth GIF from the checkpoint; none of K1-K7 launched
+    #     anywhere in the phase.
     t0 = time.time()
     reset()
 
@@ -3101,8 +3118,10 @@ def run_grid() -> None:
 
     gcfg = grid_cfg("grid")
     out = io.StringIO()
+    G.grid_encode_fwd.launches = G.grid_encode_bwd.launches = 0
     with contextlib.redirect_stdout(out):
         res = train_mod.main(gcfg)
+    g_launches = (G.grid_encode_fwd.launches, G.grid_encode_bwd.launches)
     text = out.getvalue()
     print("\n".join(line for line in text.splitlines()
                     if line.startswith(("[model]", "[train] grid", "[eval]", "[done]"))), flush=True)
@@ -3112,11 +3131,15 @@ def run_grid() -> None:
           f"x {gcfg.n_samples} samples, bf16, {count_params(model):,} parameters, levels "
           f"{model.cfg.level_resolutions()}: train PSNR {psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB (the JAX "
           f"package's r4 leg read {JAX_GRID_PSNR_1000} dB at step {GRID_ITERS}, a TPU run), held-out "
-          f"{res['eval']['psnr_mean']:.2f} dB, {res['rays_per_sec']:,.0f} rays/s", flush=True)
+          f"{res['eval']['psnr_mean']:.2f} dB, {res['rays_per_sec']:,.0f} rays/s; G's launches "
+          f"(forward, backward) {g_launches}", flush=True)
     check(isinstance(model, GridNeRF) and count_params(model) == 1273971
-          and sum(model.cfg.level_is_dense()) == 4 and "eager torch, no kernel" in text,
+          and sum(model.cfg.level_is_dense()) == 4 and "kernels/grid_encode.py" in text,
           "the grid family at the JAX package's default width (1,273,971 parameters, 4 dense "
-          "levels), on the eager route")
+          "levels), the encoding on kernel G")
+    per_bwd = G.launches(model.cfg.n_levels, model.cfg.features, True)
+    check(g_launches[0] >= GRID_ITERS and g_launches[1] == GRID_ITERS * per_bwd,
+          "G's forward at least once a step and its backward exactly once a step")
     check(psnrs[-1] - psnrs[0] >= 3.0, "grid train PSNR rises >= 3 dB")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -3134,8 +3157,8 @@ def run_grid() -> None:
     print(f"[grid] resumed 1000 -> 1200 against an uninterrupted 1200: max |difference| per leaf "
           f"{json.dumps(diffs)}", flush=True)
     check(all(v == 0 for v in diffs.values()),
-          "the resumed grid run is bit-identical to an uninterrupted one (the tables' gradient "
-          "sums in a fixed order: index_put_ sorts the ids)")
+          "the resumed grid run is bit-identical to an uninterrupted one (G's backward sums "
+          "each entry's terms in a fixed order)")
     ev_dir = os.path.join(OUT_DIR, "grid_eval")
     ev = eval_mod.main(eval_mod.EvalConfig(ckpt_path=gcfg.ckpt_path, data_path=data_path, views=2,
                                            holdout_views=True, save_depth=True, out_dir=ev_dir))
@@ -3160,11 +3183,16 @@ def run_grid() -> None:
     dp = torchrun_train("grid_dp", *[a for k, v in GRID_RECIPE.items() for a in
                                       (f"--{k.replace('_', '-')}", str(v))],
                         "--iters", str(GRID_DP_ITERS), "--no-resume")
-    dp_launches = [sum(v for k, v in r.items()) for r in dp["launches"]]
-    print(f"[grid] --data-parallel on 2 ranks, {GRID_DP_ITERS} steps: kernel launches per rank "
-          f"{dp_launches}, {dp['rays_per_sec']:,.0f} rays/s (two processes on one card)", flush=True)
-    check(dp_launches == [0, 0] and "[model] grid" in dp["out"],
-          "grid data-parallel: no kernel on either rank (replicas bit-identical: torchrun_train)")
+    dp_launches = [sum(v for k, v in r.items() if not k.startswith("grid_encode"))
+                   for r in dp["launches"]]
+    dp_bwd = [r.get("grid_encode_bwd", 0) for r in dp["launches"]]
+    print(f"[grid] --data-parallel on 2 ranks, {GRID_DP_ITERS} steps: K1-K7 launches per rank "
+          f"{dp_launches}, G's backward launches per rank {dp_bwd}, {dp['rays_per_sec']:,.0f} "
+          f"rays/s (two processes on one card)", flush=True)
+    check(dp_launches == [0, 0] and all(n == GRID_DP_ITERS * per_bwd for n in dp_bwd)
+          and "[model] grid" in dp["out"],
+          "grid data-parallel: G's backward once a step and none of K1-K7 on either rank "
+          "(replicas bit-identical: torchrun_train)")
     ff_path = forward_facing_data(dev)
     reset()
     ndc = grid_cfg("grid_ndc", ndc=True, data_path=ff_path, iters=GRID_NDC_ITERS, log_every=10)
@@ -3175,7 +3203,7 @@ def run_grid() -> None:
     print(f"[grid] --ndc, {GRID_NDC_ITERS} steps on the forward-facing scene: losses {losses}, box "
           f"{box}, held-out {res['eval']['psnr_mean']:.2f} dB", flush=True)
     check(all(math.isfinite(x) for x in losses) and box == [-1.0] * 3 + [1.0] * 3
-          and counts() == none, "grid --ndc: finite, the NDC cube as the box, no kernel")
+          and counts() == none, "grid --ndc: finite, the NDC cube as the box, none of K1-K7")
     reg = grid_cfg("grid_reg", iters=GRID_REG_ITERS, log_every=10, weight_decay=1e-4,
                    ema_decay=0.999, sigma_sparsity=1e-3, sigma_noise_floor=0.1,
                    sigma_noise_decay_steps=8000)
@@ -3187,7 +3215,7 @@ def run_grid() -> None:
           f"held-out {res['eval']['psnr_mean']:.2f} dB, EMA {res['eval_ema']['psnr_mean']:.2f} dB",
           flush=True)
     check(all(math.isfinite(x) for x in losses) and os.path.exists(reg.ckpt_path + ".ema.npz")
-          and counts() == none, "grid levers: finite, the EMA twin written, no kernel")
+          and counts() == none, "grid levers: finite, the EMA twin written, none of K1-K7")
     print(f"[grid] (b) ok in {time.time() - t0:.2f}s", flush=True)
 
     # 34. (c) timing: a step (2048 rays x 64 samples), a 100x100 image; the
@@ -3219,7 +3247,7 @@ def run_grid() -> None:
             value.backward()
         grads.append([p.grad.clone() for p in timed.tables.values()])
     same = all(torch.equal(x, y) for x, y in zip(*grads))
-    print(f"[timing] {card}: the grid family, bf16, eager torch: a step ({s.n_rand} rays x "
+    print(f"[timing] {card}: the grid family, bf16, the encoding on G: a step ({s.n_rand} rays x "
           f"{s.n_samples} samples) {ms['step']:.4f} ms = {1e3 / ms['step']:.2f} steps/s = "
           f"{s.n_rand * 1e3 / ms['step']:,.0f} rays/s; a 100x100 image {ms['image']:.4f} ms (all "
           f"runs {json.dumps(times)}); the tables' gradient bit-identical across two backward "
@@ -4486,6 +4514,104 @@ def run_nerf_domain() -> list:
 
 
 
+GRID_PUBLISHED = dict(n_levels=16, features=2, base_res=16, max_res=2048, table_size=1 << 19)
+
+
+def run_grid_kernel() -> list:
+    """Phase 39: G, the hash-grid encoding, against its plain versions."""
+    from tinynerf_tpu_torch.models.grid_nerf import GridNeRFConfig
+    from tinynerf_tpu_torch.ops.occupancy import aabb_from_rays
+    from tinynerf_tpu_torch.ops.rays import get_rays
+    from tinynerf_tpu_torch.ops.sampling import stratified_samples
+    from tinynerf_tpu_torch.synthetic import hemisphere_poses
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    t0 = time.time()
+    lib, secs = timed_build("grid_encode")
+    print(f"[build] grid_encode.cu -> {lib.name} in {secs:.2f}s; ptxas: " + "; ".join(
+        line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
+        if "registers" in line), flush=True)
+    # 4096 rays of a 400 x 400 view (the benchmark's size) x 64 samples in [2, 6].
+    gen = torch.Generator(device=dev).manual_seed(39)
+    ro, rd = get_rays(400, 400, 555.5555, torch.from_numpy(hemisphere_poses()[7]).to(dev))
+    pick = torch.randperm(ro.shape[0], generator=gen, device=dev)[:4096]
+    ro, rd = ro[pick], rd[pick]
+    pts = stratified_samples(2.0, 6.0, 64, ro, rd, generator=gen)[1].reshape(-1, 3)
+    box = tuple(float(v) for v in aabb_from_rays(ro, rd, 2.0, 6.0).reshape(6).tolist())
+    kernels = []
+    for case, kw in (("published sizes", GRID_PUBLISHED), ("JAX defaults", {})):
+        kernels += grid_kernel_case(case, GridNeRFConfig(aabb=box, **kw), pts, gen, dev, card)
+    print(f"[grid kernel] ok in {time.time() - t0:.2f}s", flush=True)
+    return kernels
+
+
+@torch.no_grad()
+def grid_kernel_case(case: str, cfg, pts, gen, dev, card) -> list:
+    """Phase 39 at one configuration: G against the plain versions, timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinynerf_tpu_torch.kernels import grid_encode as G
+    from tinynerf_tpu_torch.models import grid_nerf
+    from tinynerf_tpu_torch.models.grid_nerf import GridNeRF
+
+    m = GridNeRF(cfg, generator=torch.Generator().manual_seed(5), device=dev)
+    for t in m.tables.values():
+        t.uniform_(-1.0, 1.0, generator=gen)
+    lo, hi = grid_nerf._box(cfg.aabb, dev)
+    u = torch.clamp((pts - lo) / (hi - lo), 0.0, 1.0)
+    tables = [m.tables[f"l{l}"] for l in range(cfg.n_levels)]
+    sizes = [t.shape[0] for t in tables]
+    up = torch.randn(u.shape[0], cfg.n_levels * cfg.features, generator=gen, device=dev)
+    before = (G.grid_encode_fwd.launches, G.grid_encode_bwd.launches)
+    feats = G.grid_encode_fwd(tables, u, cfg)
+    grads = [G.grid_encode_bwd(up, u, cfg, sizes) for _ in range(2)]
+    launches = (G.grid_encode_fwd.launches - before[0], G.grid_encode_bwd.launches - before[1])
+    want = grid_nerf.encode_levels_bwd_plain(up, u, cfg, sizes)
+    same = (torch.equal(feats, grid_nerf.encode_levels_plain(tables, u, cfg)),
+            all(torch.equal(a, b) for a, b in zip(grads[0], want)),
+            all(torch.equal(a, b) for a, b in zip(*grads)))
+    per_call = (1, G.launches(cfg.n_levels, cfg.features, True))
+    print(f"[grid kernel] {case}, {u.shape[0]} points: features, every table's gradient and a "
+          f"second backward bit-identical {same}; launches (a forward, two backward) {launches}",
+          flush=True)
+    check(all(same) and launches == (1, 2 * per_call[1]) and per_call == (1, 5),
+          f"G at the {case}: bit-identical to the plain versions, repeatable, 1 + 5 launches")
+    passes = {"fwd": (lambda: G.grid_encode_fwd(tables, u, cfg),
+                      lambda: grid_nerf.encode_levels_plain(tables, u, cfg)),
+              "bwd": (lambda: G.grid_encode_bwd(up, u, cfg, sizes),
+                      lambda: grid_nerf.encode_levels_bwd_plain(up, u, cfg, sizes))}
+    n, width = u.shape[0], cfg.n_levels * cfg.features
+    # A pass: the blend's multiply-adds; the points, every table entry and
+    # the features in f32, each once (gpubench/systems/grid.py's count).
+    flops, nbytes = 2 * 8 * width * n, 4 * (3 * n + sum(sizes) * cfg.features + width * n)
+    kernels = []
+    for name, (kernel, plain) in passes.items():
+        times = {}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            times.setdefault(which, []).append(
+                cuda_ms(kernel if which == "kernel" else plain, iters=20))
+        d = {k: min(v) for k, v in times.items()}
+        entry = kernel_entry(f"G {name}, {case}", "tinynerf_tpu_torch/csrc/grid_encode.cu",
+                             "none (XLA by design)", per_call[name == "bwd"], 0.0, d["kernel"],
+                             d["plain"], flops, nbytes)
+        kernels.append(entry)
+        print(f"[timing] {card}: G {name}, {case}: kernel {d['kernel']:.4f} ms, plain "
+              f"{d['plain']:.4f} ms; bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+              f"{nbytes / 1e6:.2f} MB) (all runs {json.dumps(times)})", flush=True)
+    if case == "published sizes":
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                passes["fwd"][0]()
+                passes["bwd"][0]()
+            torch.cuda.synchronize()
+        stages = {e.key[:60]: round(e.device_time_total / 10 / 1e3, 4)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total}
+        print(f"[grid kernel] device ms a call of each stage: "
+              f"{json.dumps(dict(sorted(stages.items(), key=lambda kv: -kv[1])))}", flush=True)
+    return kernels
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4504,7 +4630,8 @@ def main() -> int:
         run_multiscene()
         kernels += run_tiny_domain(builds["fused_render"], builds["fused_train"])
         kernels += run_nerf_domain()
-    print(f"[phases] 1-38 in {time.time() - t_start:.2f}s", flush=True)
+        kernels += run_grid_kernel()
+    print(f"[phases] 1-39 in {time.time() - t_start:.2f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1178,12 +1178,13 @@ def test_streamed_kernels_on_grid_proposed_depths_on_card(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grid_family_on_card_matches_the_cpu(cuda_device, dtype):
-    """The grid family (models/grid_nerf.py, eager torch, no kernel) on the
-    card against the CPU at the same weights, 4096 points over the box and
-    beyond it, two dense levels and one hashed: f32 rgb and sigma within
-    1e-5 and every leaf's gradient within 1e-4 of its max; bf16 rgb under
-    the render gates. The tables' gradient (the gather's backward) is
-    bit-identical across two backward passes on the card."""
+    """The grid family (models/grid_nerf.py: on the card the encoding on
+    kernel G, the rest eager torch) on the card against the CPU at the same
+    weights, 4096 points over the box and beyond it, two dense levels and
+    one hashed: f32 rgb and sigma within 1e-5 and every leaf's gradient
+    within 1e-4 of its max; bf16 rgb under the render gates. The tables'
+    gradient (G's backward) is bit-identical across two backward passes on
+    the card."""
     from tinynerf_tpu_torch.models.grid_nerf import GridNeRF, GridNeRFConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -427,7 +427,8 @@ def test_train_grid_trains_resumes_evals_and_gifs(scenes, tmp_path, capsys):
     res = train.main(full)
     out = capsys.readouterr().out
     assert "[model] grid: levels=(4, 8, 16) dense=2/3 aabb=" in out
-    assert "eager torch, no kernel" in out and "fused fwd+bwd" not in out
+    assert "grid family: the encoding on kernels/grid_encode.py" in out
+    assert "none of K1-K7" in out and "fused fwd+bwd" not in out
     assert isinstance(res["model"], GridNeRF) and np.isfinite(res["final_psnr"])
     assert np.isfinite(res["eval"]["psnr_mean"]) and np.isfinite(res["eval_ema"]["psnr_mean"])
     meta = checkpoint.read_meta(full.ckpt_path)["meta"]

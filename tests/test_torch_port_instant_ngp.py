@@ -6,7 +6,12 @@ size (L = 4, T = 2^10, N_max 64), against the benchmark's plain reference
 - the field (hash encoding, SH, exp density, the colour MLP on all 16
   density outputs) in float32 and bfloat16, and a rendered chunk;
 - the encode Function's tables' gradients bit-identical to autograd's of
-  the gather on the default configuration;
+  the gather on the default configuration; on the card (cases marked
+  cuda) the encoding's kernels (kernels/grid_encode.py) bit-identical to
+  the plain versions at the JAX defaults, the published sizes, the box's
+  faces, N = 1 and 40 levels, repeatable, with their launches counted; on
+  the CPU the plain route, the kernel entries' refusal of CPU tensors, and
+  the benchmark's positional wrappers of the two entry points;
 - MaskedAdam: zero-gradient table entries keep value and moments, the
   rest and the MLP as the reference's Adam, L2 on the matrices only;
 - three steps of training.make_train_block against train_steps;
@@ -185,6 +190,173 @@ def check_encode_function(cfg, device, n):
         got.append((feats.detach(), [t.grad for t in m.tables.values()]))
     assert torch.equal(got[0][0], got[1][0])
     assert all(torch.equal(a, b) for a, b in zip(got[0][1], got[1][1]))
+
+
+# Instant-NGP's published encoding (16 levels 16-2048, F = 2, T = 2^19) and
+# the kernels' cases: (configuration, points, with points on the box's faces).
+PUBLISHED = GridNeRFConfig(n_levels=16, features=2, base_res=16, max_res=2048,
+                           table_size=1 << 19, hidden=64, geo_features=15, dir_encoding="sh",
+                           density_activation="exp", rgb_reads_density=True)
+KERNEL_CASES = {
+    "defaults": (GridNeRFConfig(), 100_003, False),
+    "published": (PUBLISHED, 1 << 18, False),
+    "published_faces": (PUBLISHED, 4099, True),
+    "one_point": (PUBLISHED, 1, False),
+    "levels40": (GridNeRFConfig(n_levels=40, base_res=4, max_res=96, table_size=3000), 10_007,
+                 True),
+    "features4": (GridNeRFConfig(n_levels=4, features=4, base_res=8, max_res=64,
+                                 table_size=1 << 12), 30_001, True),
+    "features3": (GridNeRFConfig(n_levels=3, features=3, base_res=8, max_res=32,
+                                 table_size=1 << 12), 30_001, True),
+}
+
+
+def kernel_case_points(n: int, faces: bool, generator) -> torch.Tensor:
+    """n points over the default box (-4, 4)^3 and beyond it; with faces, a
+    third exactly on a face or a corner of the box (u = 0 or 1)."""
+    pts = torch.rand(n, 3, generator=generator) * 12.0 - 6.0
+    if faces:
+        k = n // 3
+        on = torch.where(torch.rand(k, 3, generator=generator) < 0.5, 4.0, -4.0)
+        pts[:k] = torch.where(torch.rand(k, 3, generator=generator) < 0.5, on, pts[:k].clamp(-4, 4))
+    return pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_encode_kernels_are_the_plain_versions_bit_for_bit_on_card(cuda_device, case):
+    """The kernels (kernels/grid_encode.py) through grid_encode and its
+    Function against the plain versions on the same card tensors, at the
+    JAX defaults, at the published sizes (2^18 points, the instant-ngp.train
+    step's), on points beyond the box and exactly on its faces (u = 1 reads
+    the last cell), at N off the block sizes and N = 1, at 40 levels (two
+    launches a pass) over tables of 3000 entries (a mask off a power of two),
+    and at four and three features a level (the any-width path, the sums a
+    feature at a time): the features and every table's gradient
+    bit-identical, two backward passes bit-identical, and each encode one
+    forward launch (a launch per 32 levels) and the backward's launches, on
+    the wrappers' counters and on grid_kernel_launches. (At one feature a
+    level PyTorch's reduction and index_put_ take other orders.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinynerf_tpu_torch.kernels import grid_encode as kernels
+
+    cfg, n, faces = KERNEL_CASES[case]
+    m = GridNeRF(cfg, generator=torch.Generator().manual_seed(30), device=cuda_device)
+    g = torch.Generator().manual_seed(31)
+    with torch.no_grad():
+        for t in m.tables.values():
+            t.copy_(torch.rand(t.shape, generator=g) * 2 - 1)
+    pts = kernel_case_points(n, faces, g).to(cuda_device)
+    up = torch.randn(n, cfg.n_levels * cfg.features, generator=g).to(cuda_device)
+    lo, hi = grid_nerf._box(tuple(float(v) for v in cfg.aabb), cuda_device)
+    u = torch.clamp((pts - lo) / (hi - lo), 0.0, 1.0)
+    if faces:
+        assert bool((u == 1.0).any()) and bool((u == 0.0).any())
+    tables = [m.tables[f"l{l}"] for l in range(cfg.n_levels)]
+    sizes = [t.shape[0] for t in tables]
+    want = (grid_nerf.encode_levels_plain(tables, u, cfg),
+            grid_nerf.encode_levels_bwd_plain(up, u, cfg, sizes))
+    before = (kernels.grid_encode_fwd.launches, kernels.grid_encode_bwd.launches)
+    runs = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            m.zero_grad(set_to_none=True)
+            feats = grid_nerf.grid_encode(m.tables, pts, cfg)
+            feats.backward(up)
+            runs.append((feats.detach(), [t.grad for t in tables]))
+    torch.cuda.synchronize()
+    for got in runs:
+        assert torch.equal(got[0], want[0])
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    fwd, bwd = kernels.launches(cfg.n_levels, cfg.features, False), \
+        kernels.launches(cfg.n_levels, cfg.features, True)
+    groups = -(-cfg.n_levels // 32)
+    sums = 2 * (1 if cfg.features == 2 else cfg.features)
+    assert (fwd, bwd) == (groups, groups + 2 + sums)  # keys, sort, bounds, short and long sums
+    assert (fwd, bwd) == (1, 5) or case in ("levels40", "features4", "features3")
+    assert (kernels.grid_encode_fwd.launches - before[0],
+            kernels.grid_encode_bwd.launches - before[1]) == (2 * fwd, 2 * bwd)
+    got = profiling.spans()
+    assert got[("grid_kernel_launches", "grid.encode")]["count"] == 2 * fwd
+    assert got[("grid_kernel_launches", "grid.encode.bwd")]["count"] == 2 * bwd
+
+
+def test_encode_takes_the_plain_versions_for_cpu_tensors():
+    """On the CPU grid_encode runs the plain versions: neither wrapper's
+    counter moves and grid_kernel_launches is not counted, under a
+    profiler too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinynerf_tpu_torch.kernels import grid_encode as kernels
+
+    before = (kernels.grid_encode_fwd.launches, kernels.grid_encode_bwd.launches)
+    cfg = model_cfg()
+    m = GridNeRF(cfg, generator=torch.Generator().manual_seed(32))
+    pts = kernel_case_points(300, True, torch.Generator().manual_seed(33))
+    with profile(activities=[ProfilerActivity.CPU]):
+        feats = grid_nerf.grid_encode(m.tables, pts, cfg)
+        feats.sum().backward()
+    lo, hi = grid_nerf._box(tuple(float(v) for v in cfg.aabb), pts.device)
+    u = torch.clamp((pts - lo) / (hi - lo), 0.0, 1.0)
+    assert torch.equal(feats.detach(), grid_nerf.encode_levels_plain(list(m.tables.values()), u,
+                                                                     cfg))
+    assert (kernels.grid_encode_fwd.launches, kernels.grid_encode_bwd.launches) == before
+    assert not [k for k in profiling.spans() if k[0] == "grid_kernel_launches"]
+    assert profiling.spans()[("grid_points", "grid.encode")]["count"] == 300
+
+
+def test_the_kernel_entries_raise_on_what_they_do_not_take():
+    """The CUDA entries take no CPU tensor: they raise, with no fallback to
+    the plain versions (and build nothing); nor tables of 2^31 entries or
+    more laid end to end (the keys are 32-bit)."""
+    from tinynerf_tpu_torch.kernels import grid_encode as kernels
+
+    cfg = model_cfg()
+    m = GridNeRF(cfg, generator=torch.Generator().manual_seed(34))
+    tables = list(m.tables.values())
+    u = torch.rand(16, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.grid_encode_fwd(tables, u, cfg)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.grid_encode_bwd(torch.zeros(16, cfg.n_levels * cfg.features), u, cfg,
+                                [t.shape[0] for t in tables])
+    wide = GridNeRFConfig(n_levels=4, base_res=1024, max_res=2048, table_size=1 << 30)
+    assert sum(wide.level_table_sizes()) == 1 << 32
+    with pytest.raises(ValueError, match="fewer than 2\\^31"):
+        kernels.ladder(wide)
+    assert kernels.ladder(dataclasses.replace(wide, n_levels=1))[3:] == (1 << 30, 30)
+
+
+def test_the_benchmark_wrappers_catch_both_passes(monkeypatch):
+    """gpubench/systems/grid.py::wrap_encode rebinds encode_levels and
+    encode_levels_bwd by name with positional wrappers: under a CPU
+    profiler one encode's forward and backward record gpubench.grid_encode
+    and gpubench.grid_encode_bwd, with the same results (the module's
+    functions restored afterwards)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpubench.systems import grid as system
+
+    for name in system.ENCODE_SPANS:
+        monkeypatch.setattr(grid_nerf, name, getattr(grid_nerf, name))
+    cfg = model_cfg()
+    m = GridNeRF(cfg, generator=torch.Generator().manual_seed(35))
+    pts = kernel_case_points(200, False, torch.Generator().manual_seed(36))
+    feats = grid_nerf.grid_encode(m.tables, pts, cfg)
+    feats.sum().backward()
+    want = (feats.detach(), [t.grad.clone() for t in m.tables.values()])
+    system.wrap_encode()
+    assert all(getattr(grid_nerf, name)._gpubench_span == span
+               for name, span in system.ENCODE_SPANS.items())
+    m.zero_grad(set_to_none=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        feats = grid_nerf.grid_encode(m.tables, pts, cfg)
+        feats.sum().backward()
+    names = [e.name for e in prof.events()]
+    assert names.count("gpubench.grid_encode") == 1 and names.count("gpubench.grid_encode_bwd") == 1
+    assert torch.equal(feats.detach(), want[0])
+    assert all(torch.equal(t.grad, w) for t, w in zip(m.tables.values(), want[1]))
 
 
 def test_masked_adam_skips_zero_gradient_entries_and_decays_matrices_only():

@@ -22,8 +22,9 @@ the single-MLP occupancy-grid proposal (ops/occupancy.py); ndc
 reprojects a forward-facing capture's rays to NDC space and samples t in
 [0, 1] (train_settings() swaps near/far, tinynerf_tpu/config.py:133,
 219-220). The grid family's fields (grid_*, model="grid") and grid_cfg()
-follow tinynerf_tpu/config.py:65-75, 186-210; the family runs in eager
-torch whatever fused and fused_train say (it has no kernel). Instant-NGP's
+follow tinynerf_tpu/config.py:65-75, 186-210; the family runs its
+encoding on kernels of its own (kernels/grid_encode.py) and the rest in
+eager torch whatever fused and fused_train say. Instant-NGP's
 published form adds grid_dir_encoding, grid_density_activation and
 grid_rgb_reads_density (models/grid_nerf.py) and the optimizer's
 adam_b2, adam_eps, l2_reg and sparse_adam (training.MaskedAdam), every

@@ -13,21 +13,12 @@ encoding) -> hidden -> hidden -> 3). One stratified pass is composited
 by ops/volume.py.
 
 The JAX package runs the family in XLA by design, with no Pallas
-kernel; the port runs it in eager torch on whatever device holds the
-model, with no kernel of its own. The JAX package's three gather
+kernel; the port runs the encoding on the card in kernels of its own
+(csrc/grid_encode.cu, kernels/grid_encode.py) and the rest in eager
+torch, on whatever device holds the model. The JAX package's three gather
 strategies (encode_impl loop | cat | cat_pib) are numerically identical;
-the port has one: every level's ids at once and one gather from the
-tables laid end to end (a step's launches, not its memory, set the pace
-at Instant-NGP's sizes). encode_impl is accepted and ignored, so the JAX
+the port has one. encode_impl is accepted and ignored, so the JAX
 package's configurations parse.
-
-The gather is advanced indexing, table[ids]: its backward is
-index_put_(accumulate=True), which sums the corners' gradients into the
-tables in a fixed order on the card (CUDA sorts the ids first) and on one
-CPU thread (several threads add in the order they reach an entry), so
-two runs from one seed are bit-identical on the card too. F.embedding's
-CUDA backward is not: on an H100, tests/test_torch_port_cuda.py's grid
-case saw two backward passes differ.
 
 Parameter names: GridNeRF holds `tables` (an nn.ParameterDict of l0 ...
 l{n-1}, each (T_l, features)) and `mlp` (geo0, geo1, rgb0, rgb1, rgb2,
@@ -50,18 +41,28 @@ colour MLP reads all 1 + geo_features density outputs, the raw density
 among them). Its flags: config.py, train.py.
 
 The encoding is an autograd Function (_GridEncode) over two entry
-points: encode_levels, the gather and trilinear blend of every level
-over the tables laid end to end, and encode_levels_bwd, the
-index_put_(accumulate=True) of the corner-weighted gradient into them
-(one call on the card, a call a level on the CPU), the sums autograd's
-IndexBackward of a level's gather makes, so the
-tables' gradients are bit-identical to autograd's of the per-level
-gather (tests/test_torch_port_instant_ngp.py: on the CPU, and on the
-card in its card-marked case). The
-points take no gradient. Spans (utils/profiling.py): grid.encode around
-the forward, with the counter grid_points (points encoded, from the
-shape), and grid.encode.bwd around the backward, which runs on
-autograd's device thread on the card while the caller waits in
+points: encode_levels, the gather and trilinear blend of every level,
+and encode_levels_bwd, every table's gradient. The forward keeps only
+the normalized points; the backward recomputes each corner's id and
+weight from them. On a CUDA device both are the kernels of
+kernels/grid_encode.py (one launch forward; keys, a stable radix sort and
+a sum of each entry's run in the sorted order backward, no float
+atomics); on the CPU their plain versions, encode_levels_plain (every
+level's ids at once, one gather from the tables laid end to end, one
+blend) and encode_levels_bwd_plain (index_put_(accumulate=True), which
+sums each entry's corners in a fixed order: on the card it sorts the ids
+first, on the CPU a call a level on one thread's order). Both routes give
+the sums autograd's IndexBackward of a level's gather makes, so the
+tables' gradients are bit-identical to autograd's of the per-level gather
+at two or more features a level, on the CPU and on the card
+(tests/test_torch_port_instant_ngp.py), and two runs from one seed are
+bit-identical. F.embedding's CUDA backward is not: on an H100,
+tests/test_torch_port_cuda.py's grid case saw two backward passes
+differ. The points take no gradient. Spans (utils/profiling.py):
+grid.encode around the forward, with the counters grid_points (points
+encoded, from the shape) and, on the card, grid_kernel_launches, and
+grid.encode.bwd around the backward (grid_kernel_launches again), which
+runs on autograd's device thread on the card while the caller waits in
 backward(), so it nests under the caller's open span.
 """
 
@@ -77,6 +78,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tinynerf_tpu_torch.kernels.grid_encode import grid_encode_bwd, grid_encode_fwd
 from tinynerf_tpu_torch.ops.encoding import SH_DIM, encoding_dim, positional_encoding, sh_encoding
 from tinynerf_tpu_torch.ops.sampling import stratified_samples
 from tinynerf_tpu_torch.ops.volume import volume_render
@@ -291,13 +293,11 @@ def _level_offsets(sizes: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(starts, dtype=torch.int64).reshape(-1, 1, 1).to(device)
 
 
-def encode_levels(tables, u: torch.Tensor, cfg: GridNeRFConfig):
-    """The encoding's forward: normalized points u (N, 3) and the level
-    tables (a sequence, level order) -> (features (N, n_levels *
-    features), every corner's id in the tables laid end to end (n_levels,
-    N, 8), the weights (n_levels, N, 8)). The ladder rises, so its dense
-    levels come first: the ids and weights of the dense levels, then of
-    the hashed ones, each in one set of ops; one gather; one blend."""
+def corner_ids(u: torch.Tensor, cfg: GridNeRFConfig, sizes):
+    """Every level's corner ids in the tables laid end to end (n_levels,
+    N, 8) and their weights (n_levels, N, 8). The ladder rises, so its
+    dense levels come first: the ids and weights of the dense levels, then
+    of the hashed ones, each in one set of ops."""
     res, n_dense = cfg.level_resolutions(), sum(cfg.level_is_dense())
     lins, ws = [], []
     for group, dense in ((res[:n_dense], True), (res[n_dense:], False)):
@@ -307,22 +307,33 @@ def encode_levels(tables, u: torch.Tensor, cfg: GridNeRFConfig):
             ws.append(w)
     ids = torch.cat(lins) if len(lins) > 1 else lins[0]  # (L, N, 8)
     w = torch.cat(ws) if len(ws) > 1 else ws[0]
-    ids = ids + _level_offsets(tuple(t.shape[0] for t in tables), u.device)
+    return ids + _level_offsets(tuple(sizes), u.device), w
+
+
+def encode_levels_plain(tables, u: torch.Tensor, cfg: GridNeRFConfig) -> torch.Tensor:
+    """The encoding's forward in torch ops: normalized points u (N, 3) and
+    the level tables (a sequence, level order) -> features (N, n_levels *
+    features): corner_ids, one gather from the tables laid end to end, one
+    blend."""
+    ids, w = corner_ids(u, cfg, [t.shape[0] for t in tables])
     corners = torch.cat(list(tables))[ids]  # (L, N, 8, F)
     feats = torch.sum(w[..., None] * corners, dim=2)  # (L, N, F)
-    return feats.permute(1, 0, 2).reshape(u.shape[0], -1), ids, w
+    return feats.permute(1, 0, 2).reshape(u.shape[0], -1)
 
 
-def encode_levels_bwd(grad: torch.Tensor, ids: torch.Tensor, w: torch.Tensor, sizes) -> list:
-    """The encoding's backward: the features' gradient (N, n_levels *
-    features) -> each table's gradient: the corner-weighted gradient of
-    every level summed into the tables laid end to end by
+def encode_levels_bwd_plain(grad: torch.Tensor, u: torch.Tensor, cfg: GridNeRFConfig,
+                            sizes) -> list:
+    """The encoding's backward in torch ops: the features' gradient (N,
+    n_levels * features) -> each table's gradient, the ids and weights
+    recomputed from u (corner_ids): the corner-weighted gradient of every
+    level summed into the tables laid end to end by
     index_put_(accumulate=True), as autograd's IndexBackward of a level's
     gather does, split into the tables. On the card one call does every
     level: it sorts the ids and sums each entry's run of duplicates in the
     stable sort's order, which a level's own call gives too. The CPU adds
     an input past its grain size in parallel, in the order its threads
     reach an entry, so there a call a level keeps autograd's order."""
+    ids, w = corner_ids(u, cfg, sizes)
     n, n_levels = grad.shape[0], len(sizes)
     g = grad.reshape(n, n_levels, -1).permute(1, 0, 2)[:, :, None, :] * w[..., None]
     flat = grad.new_zeros((sum(sizes), g.shape[-1]))
@@ -334,22 +345,45 @@ def encode_levels_bwd(grad: torch.Tensor, ids: torch.Tensor, w: torch.Tensor, si
     return list(flat.split(list(sizes)))
 
 
+def encode_levels(tables, u: torch.Tensor, cfg: GridNeRFConfig) -> torch.Tensor:
+    """The encoding's forward: the gather and blend of every level ->
+    features (N, n_levels * features). CPU tensors take the plain version,
+    any other the kernel (kernels/grid_encode.py), which raises on what it
+    does not take: no fallback."""
+    if u.device.type == "cpu":
+        return encode_levels_plain(tables, u, cfg)
+    return grid_encode_fwd(tables, u, cfg)
+
+
+def encode_levels_bwd(grad: torch.Tensor, u: torch.Tensor, cfg: GridNeRFConfig, sizes) -> list:
+    """The encoding's backward, the whole of it (the zeroing, the keys, the
+    sort, the sums and the split): the features' gradient and the forward's
+    points -> each table's gradient. CPU tensors take the plain version,
+    any other the kernels (kernels/grid_encode.py), which raise on what
+    they do not take."""
+    if u.device.type == "cpu":
+        return encode_levels_bwd_plain(grad, u, cfg, sizes)
+    return grid_encode_bwd(grad, u, cfg, sizes)
+
+
 class _GridEncode(torch.autograd.Function):
-    """encode_levels with encode_levels_bwd as its backward; the points
+    """encode_levels with encode_levels_bwd as its backward, both called
+    through the module's globals with positional arguments (the benchmark
+    wraps them by name); the forward keeps only the points, and the points
     take no gradient."""
 
     @staticmethod
     def forward(ctx, u, cfg, *tables):
-        feats, ids, w = encode_levels(tables, u, cfg)
+        ctx.cfg = cfg
         ctx.sizes = [t.shape[0] for t in tables]
-        ctx.save_for_backward(ids, w)
-        return feats
+        ctx.save_for_backward(u)
+        return encode_levels(tables, u, cfg)
 
     @staticmethod
     def backward(ctx, grad):
-        ids, w = ctx.saved_tensors
+        (u,) = ctx.saved_tensors
         with span("grid.encode.bwd"):
-            grads = encode_levels_bwd(grad, ids, w, ctx.sizes)
+            grads = encode_levels_bwd(grad, u, ctx.cfg, ctx.sizes)
         return (None, None, *grads)
 
 

@@ -318,9 +318,10 @@ def make_grid_image_renderer(
     """`(params, pose) -> (H, W, 3)` renderer for the grid family (params: a
     models/grid_nerf.GridNeRF), port of tinynerf_tpu/render.py:356-386:
     one deterministic stratified pass a chunk (models/grid_nerf.
-    render_rays_grid, eager torch: the family has no kernel); aux=True
-    renders the packed (depth, acc) channels; frames=True returns the
-    batched `(params, poses (F, 4, 4)) -> (F, H, W, 3)` variant."""
+    render_rays_grid: the encoding's forward kernel, the rest eager
+    torch); aux=True renders the packed (depth, acc) channels; frames=True
+    returns the batched `(params, poses (F, 4, 4)) -> (F, H, W, 3)`
+    variant."""
     from tinynerf_tpu_torch.models.grid_nerf import render_rays_grid
 
     @torch.no_grad()

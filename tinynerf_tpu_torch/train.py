@@ -31,9 +31,10 @@ density grid over the capture's box (ops/occupancy.py; the grid rebuilt
 once per block), its gradients through the streamed K6 (or autograd with
 --no-fused-train), and renders through the occupancy renderer (K5 with
 --fused); it takes --data-parallel, not --sample-parallel. --model grid
-(models/grid_nerf.py) trains and renders in eager torch whatever --fused
-and --fused-train say, by configuration: the family has no kernel (the
-JAX package's XLA path); its scene box is the capture's (the NDC cube
+(models/grid_nerf.py) trains and renders whatever --fused and
+--fused-train say with its encoding on kernels of its own on a CUDA
+device (kernels/grid_encode.py; plain torch on the CPU) and the rest in
+eager torch, none of K1-K7; its scene box is the capture's (the NDC cube
 under --ndc), persisted in the meta's `grid` entry; it takes
 --data-parallel, and refuses --sample-parallel and --proposal occupancy
 as the JAX package does. Instant-NGP at its published sizes (arXiv:2201.05989;
@@ -317,8 +318,9 @@ def main(cfg: Config = Config()) -> dict:
               f"aabb=[{box[0].round(2)}, {box[1].round(2)}] "
               f"directions={gcfg.dir_encoding} sigma={gcfg.density_activation} "
               f"params={sum(p.numel() for p in model.parameters())}")
-        print("[train] grid family: eager torch, no kernel: the JAX package's XLA path (--fused "
-              "and --fused-train do not apply)")
+        print("[train] grid family: the encoding on kernels/grid_encode.py on a CUDA device "
+              "(plain torch on the CPU), the rest eager torch, none of K1-K7 (--fused and "
+              "--fused-train do not apply)")
     extra_grad_fn = None
     if cfg.sigma_sparsity > 0:
         from tinynerf_tpu_torch.ops.regularizers import make_sparsity_grad_fn

@@ -9,8 +9,8 @@ holds the fine MLP alone and rebuilds its sampler over the stored
 occ_aabb; a grid checkpoint rebuilds its GridNeRFConfig from the meta's
 `grid` entry (Instant-NGP's form fields where it names them), over the
 box its tables were trained in, with the bf16
-compute dtype (as the JAX loader), and renders in eager torch (`fused`
-does not apply: the family has no kernel).
+compute dtype (as the JAX loader), and renders with its encoding on its
+own kernel and the rest in eager torch (`fused` does not apply).
 """
 
 from __future__ import annotations
